@@ -1,45 +1,70 @@
 #!/usr/bin/env python3
-"""Smoke test of the PyTorch/CUDA port (``theanompi_tpu_torch``) on one card.
+"""Smoke test of the PyTorch/CUDA port (``theanompi_tpu_torch``) on the card.
 
     python3 chip_smoke.py
 
 Phases (any failure ends the run with a non-zero exit and no result line):
 
-1. build   — compile every kernel of the path (``csrc/*.cu``) with nvcc
-             for sm_90a; print the build's wall time.
-2. kernels — each kernel's wrapper against its plain PyTorch version at
-             AlexNet's 16 parameter-leaf shapes: momentum, Nesterov and
-             sgd; fp32 params with fp32 grads, bf16 params with bf16 and
-             with fp32 grads; conv leaves in the default layout and in
-             channels_last (the main path's); clip off / norm under /
-             norm over the limit. Tolerance: fp32 params and every fp32
-             velocity bit-identical; bf16 params within 1 bf16 ulp.
-             Launch counters must move by one per leaf.
-3. main    — the training path a user runs, through
-             ``theanompi_tpu_torch.cli.main``: full-width AlexNet (batch
-             128, 227x227x3, 1000 classes, bf16 compute, fp32 params,
-             random weights from a seed) for 10 steps with
-             ``--fused-update`` (momentum recipe), then 3 steps of the
-             same model under an sgd recipe. Counters are zeroed just
-             before each run and read just after: the momentum run must
-             launch the momentum kernel 16 x steps times, the sgd run the
-             sgd kernel 16 x steps times. Every loss must be finite.
-4. parity  — the same small AlexNet (67x67, fp32, dropout off) trained 2
-             steps on the card and on the CPU (where the wrappers run
-             their plain versions) from the same weights and batches.
-             Losses agree within rtol 1e-3. Each leaf's velocity agrees
-             within rtol 1e-3 plus 2e-3 of its largest value: cuDNN's
-             fp32 weight gradient of conv2 at this geometry is off by
-             about 8e-4 of its largest value against float64
-             (``tools/conv_precision.py --size 67``), the CPU's by 1e-6.
-             So does its parameter change (after - before), plus 2 fp32
-             ulps of the parameter: a change far smaller than the
-             parameter is rounded at each of the 2 writes. Every leaf
-             changed on the card.
-5. times   — per kernel: time per launch and per optimizer step (all 16
-             leaves, CUDA events), its bound (bytes / memory rate vs
-             operations / fp32 peak, the larger), the plain version's time,
-             and a PyTorch yardstick: ``torch.optim.SGD(fused=True)``.
+1. build      — compile every kernel of the path (``csrc/*.cu``) with nvcc
+                for sm_90a, one nvcc per source, all started together;
+                print the build's wall time.
+2. kernels    — each fused-update kernel's wrapper against its plain
+                PyTorch version at AlexNet's 16 parameter-leaf shapes:
+                momentum, Nesterov and sgd; fp32 params with fp32 grads,
+                bf16 params with bf16 and with fp32 grads; conv leaves in
+                the default layout and in channels_last (the main path's);
+                clip off / norm under / norm over the limit. Tolerance:
+                fp32 params and every fp32 velocity bit-identical; bf16
+                params within 1 bf16 ulp. Launch counters must move by one
+                per leaf.
+   quant      — the int8 quantizer kernels (#3–6) against their plain
+                versions on the card, bit-identical (int8 values, f32
+                scales with NaN where the plain version has NaN, decoded
+                values): AlexNet's 16 leaf lengths padded to (rows, 128),
+                lengths 1, 127 and 129, and rows that are zero, hold a NaN,
+                an inf, denormal magnitudes, or values on exact half steps
+                of a power-of-two scale; the ring's fused decode-and-add;
+                ``wire_encode``'s message byte-identical to the plain
+                version's (a NaN scale's payload aside) and its decode.
+3. main       — the training path a user runs, through
+                ``theanompi_tpu_torch.cli.main``: full-width AlexNet (batch
+                128, 227x227x3, 1000 classes, bf16 compute, fp32 params,
+                random weights from a seed) for 10 steps with
+                ``--fused-update`` (momentum recipe), then 3 steps of the
+                same model under an sgd recipe with ``--wire-codec
+                int8:ef``, which one card must ignore (no collective and
+                no codec, as the reference's one-device path). Counters are
+                zeroed just before each run and read just after: 16
+                launches of the run's update kernel per step, none of any
+                other kernel.
+4. bsp-ranks  — multi-rank BSP of the same model through the CLI: global
+                batch 128 split over the ranks, 6 steps, ``--fused-update
+                --strategy psum --wire-codec int8:ef``. With one card: 2
+                ranks on cuda:0 over gloo (NCCL refuses two ranks on one
+                card); with 2 or more: NCCL over 4 cards (2 when fewer than
+                4), and ``--strategy ring_int8`` too. Each rank counts its
+                own launches from 0: per step, under the codec 16
+                quant_block and 16 dequant_block; under ring_int8 at n
+                ranks n and 2n-1. Losses finite; params and velocities
+                bit-identical across ranks (digests); each rank's
+                error-feedback residual nonzero and its own.
+5. parity     — the same small AlexNet (67x67, fp32, dropout off) trained 2
+                steps on the card and on the CPU (where the wrappers run
+                their plain versions) from the same weights and batches.
+                Losses agree within rtol 1e-3. Each leaf's velocity agrees
+                within rtol 1e-3 plus 2e-3 of its largest value: cuDNN's
+                fp32 weight gradient of conv2 at this geometry is off by
+                about 8e-4 of its largest value against float64
+                (``tools/conv_precision.py --size 67``), the CPU's by 1e-6.
+                So does its parameter change (after - before), plus 2 fp32
+                ulps of the parameter: a change far smaller than the
+                parameter is rounded at each of the 2 writes. Every leaf
+                changed on the card.
+6. times      — per kernel, over AlexNet's 16 leaves (one optimizer step,
+                one codec round): time (CUDA events), its bound (bytes /
+                memory rate vs operations / fp32 peak, the larger), the
+                plain version's time, and a PyTorch yardstick where one
+                call computes the same function.
 
 Then one JSON line ``{"kernels": [...]}``, the card's name and power
 limit as nvidia-smi prints them, and last ``{"ok": true, "device": ...}``.
@@ -66,6 +91,7 @@ CARD_RATES = {"NVIDIA H100 80GB HBM3": (3.35e12, 67e12)}
 
 MAIN_STEPS = 10
 SGD_STEPS = 3
+RANK_STEPS = 6
 FULL_WIDTH = ["--dataset-arg", "image_shape=[227,227,3]", "--dataset-arg", "n_classes=1000"]
 
 
@@ -212,41 +238,203 @@ def phase_kernels(shapes, dev):
     return worst, worst_ulp
 
 
+def bits_equal(a, b) -> bool:
+    """Bit for bit, except that any NaN matches any NaN (its payload is
+    the hardware's choice)."""
+    import torch
+
+    if not a.is_floating_point():
+        return torch.equal(a, b)
+    na, nb = torch.isnan(a), torch.isnan(b)
+    return torch.equal(na, nb) and torch.equal(torch.where(na, 0.0, a).view(torch.int32),
+                                               torch.where(nb, 0.0, b).view(torch.int32))
+
+
+def special_rows(dev):
+    """Rows that are zero, hold a NaN or an inf, have denormal magnitudes,
+    sit at the clamp, or hold values on exact half steps of a scale that
+    is a power of two (round half to even decides them)."""
+    import numpy as np
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(5)
+    x = torch.randn(9, 128, generator=g, device=dev)
+    x[0] = 0.0
+    x[1, :] = float("nan")
+    x[2, 3] = float("inf")
+    x[3, 7] = -float("inf")
+    x[4] = torch.randn(128, generator=g, device=dev) * 1e-40
+    x[5] = 127.0 * torch.sign(torch.randn(128, generator=g, device=dev))
+    k = next(k for k in range(-8, 8)
+             if np.float32(127.0 * 2.0 ** k) * np.float32(1 / 127) == np.float32(2.0 ** k))
+    halves = (torch.arange(-127, 0, device=dev, dtype=torch.float32) + 0.5) * 2.0 ** k
+    x[6, :127], x[6, 127] = halves, 127.0 * 2.0 ** k
+    x[7] = -x[6]
+    x[8, 1] = float("nan")
+    return x
+
+
+def quant_buffers(shapes, dev):
+    """(label, (rows, 128) f32 buffer, length) at the main path's shapes:
+    each AlexNet leaf zero-padded to whole rows, with row magnitudes
+    spread over e^±9, then lengths 1, 127, 129 and the special rows."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(4)
+    out = []
+    for s in shapes:
+        n = math.prod(s)
+        rows = -(-n // 128)
+        x = torch.randn(rows, 128, generator=g, device=dev) * 1e-2
+        x = x * torch.exp(3 * torch.randn(rows, 1, generator=g, device=dev))
+        x.view(-1)[n:] = 0.0
+        out.append((f"leaf {s}", x, n))
+    for n in (1, 127, 129):
+        x = torch.zeros(-(-n // 128), 128, device=dev)
+        x.view(-1)[:n] = torch.randn(n, generator=g, device=dev)
+        out.append((f"length {n}", x, n))
+    out.append(("special rows", special_rows(dev), 9 * 128))
+    return out
+
+
+def phase_quant(shapes, dev):
+    """Kernels #3-6 and the packed wire against their plain versions."""
+    import torch
+    from theanompi_tpu_torch.ops import quant as tq
+    from theanompi_tpu_torch.ops.kernels import reset_launch_counts
+
+    worst = {"quant_block": 0.0, "dequant_block": 0.0, "quant": 0.0, "dequant": 0.0}
+    cases = quant_buffers(shapes, dev)
+    g = torch.Generator(device=dev).manual_seed(6)
+    reset_launch_counts()
+    for label, x, n in cases:
+        rows = x.shape[0]
+        v, s = tq.quantize_int8_block(x)
+        pv, ps = tq.quantize_int8_block_plain(x)
+        check(bits_equal(v, pv) and bits_equal(s, ps), f"#3 block quantize differs ({label})")
+        d, pd = tq.dequantize_int8_block(v, s), tq.dequantize_int8_block_plain(v, s)
+        check(bits_equal(d, pd), f"#4 block dequantize differs ({label})")
+        v5, s5 = tq.quantize_int8(x)
+        pv5, ps5 = tq.quantize_int8_plain(x)
+        check(bits_equal(v5, pv5) and bits_equal(s5, ps5), f"#5 quantize differs ({label})")
+        d5, pd5 = tq.dequantize_int8(v5, s5), tq.dequantize_int8_plain(v5, s5)
+        check(bits_equal(d5, pd5), f"#6 dequantize differs ({label})")
+        # the packed wire: the card's message against the plain version's
+        # (built on the CPU), and both decodes; then the ring's decode-and-add
+        flat = x.view(-1)[:n]
+        pk, pk_plain = tq.wire_encode(flat), tq.wire_encode(flat.cpu())
+        check(torch.equal(pk[:rows].cpu(), pk_plain[:rows])
+              and bits_equal(tq.wire_scales(pk, rows).cpu(), tq.wire_scales(pk_plain, rows))
+              and torch.equal(pk.view(-1)[rows * 132:].cpu(), pk_plain.view(-1)[rows * 132:]),
+              f"wire_encode message differs from the plain version's ({label})")
+        check(bits_equal(tq.wire_decode(pk, length=n).cpu(), tq.wire_decode(pk_plain, length=n)),
+              f"wire_decode differs ({label})")
+        acc = torch.randn(rows * 128, generator=g, device=dev)
+        want = tq.dequantize_add_int8_block_plain(v, s, acc.view(rows, 128))
+        check(bits_equal(tq.wire_decode_add(pk, acc.clone()).view(rows, 128), want),
+              f"#4 fused decode-and-add differs ({label})")
+        for name, a, b in (("quant_block", d, pd), ("dequant_block", d, pd),
+                           ("quant", d5, pd5), ("dequant", d5, pd5)):
+            fin = torch.isfinite(a) & torch.isfinite(b)
+            worst[name] = max(worst[name], (a[fin] - b[fin]).abs().max().item() if fin.any() else 0.0)
+        print(f"  {label:30s} rows {rows:7d}: #3-6, wire and decode-and-add bit-identical", flush=True)
+    torch.cuda.synchronize()
+    k = len(cases)
+    want = {"quant_block": 2 * k, "dequant_block": 3 * k, "quant": k, "dequant": k}
+    got = {c.name: c.launches for c in (tq.QUANT_BLOCK, tq.DEQUANT_BLOCK, tq.QUANT, tq.DEQUANT)}
+    check(got == want, f"quant counters moved {got}, expected {want}")
+    return worst, k
+
+
 def phase_main():
     """The user's training path through the CLI, counters zeroed just
     before each run and read just after."""
-    from theanompi_tpu_torch.ops import fused_update as fu
+    from theanompi_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
 
     runs = {}
-    for name, counter, other, steps, extra in (
-        ("fused_momentum", fu.MOMENTUM, fu.SGD, MAIN_STEPS,
+    for name, steps, extra in (
+        ("fused_momentum", MAIN_STEPS,
          ["--dataset-arg", f"n_train={128 * MAIN_STEPS}", "--dataset-arg", "n_val=128"]),
-        ("fused_sgd", fu.SGD, fu.MOMENTUM, SGD_STEPS,
+        ("fused_sgd", SGD_STEPS,
          ["--dataset-arg", f"n_train={128 * SGD_STEPS}", "--dataset-arg", "n_val=128",
           "--recipe-arg", "optimizer=sgd",
-          "--recipe-arg", 'opt_kwargs={"weight_decay": 0.0005}']),
+          "--recipe-arg", 'opt_kwargs={"weight_decay": 0.0005}',
+          "--wire-codec", "int8:ef"]),
     ):
         argv = ["BSP", "1", "alexnet", "AlexNet", "--synthetic", "--fused-update",
                 "--max-steps", str(steps), "--print-freq", "1", "--seed", "0",
                 *FULL_WIDTH, *extra]
         print(f"[main] python -m theanompi_tpu_torch.cli {' '.join(argv)}", flush=True)
-        fu.MOMENTUM.reset()
-        fu.SGD.reset()
+        reset_launch_counts()
         summary = run_cli(argv)
-        launches, stray = counter.launches, other.launches
+        counts = launch_counts()
+        launches = counts[name]
         check(summary["steps"] == steps, f"{name} run took {summary['steps']} steps, expected {steps}")
         losses = summary["losses"]
         check(len(losses) == steps and all(math.isfinite(x) for x in losses)
               and summary["nonfinite_steps"] == 0, f"{name} run: non-finite loss in {losses}")
         check(launches == 16 * steps, f"{name} launched {launches} times, expected {16 * steps}")
-        check(stray == 0, f"{other.name} launched {stray} times in the {name} run")
+        stray = {k: v for k, v in counts.items() if k != name and v}
+        check(not stray, f"the one-card {name} run launched other kernels: {stray} "
+                         "(one card runs no codec and no collective)")
         check("val" in summary and all(math.isfinite(v) for v in summary["val"].values()),
               f"{name} run: bad val metrics {summary.get('val')}")
         print(f"[main] {name}: per-step loss {losses}", flush=True)
         print(f"[main] {name}: steady-state step {summary['step_ms']:.3f} ms over "
               f"{summary['steady_steps']} steps (CUDA events, 2 warm-up steps excluded), "
-              f"{summary['images_per_sec']:.1f} img/s, launches {launches}", flush=True)
+              f"{summary['images_per_sec']:.1f} img/s, launches {counts}", flush=True)
         runs[name] = {"launches": launches, "summary": summary}
+    return runs
+
+
+def phase_bsp_ranks(n_cards):
+    """Multi-rank BSP through the CLI; every rank's counts come back in
+    the summary (each rank is its own process and counts from 0)."""
+    import torch
+
+    torch.cuda.empty_cache()
+    if n_cards >= 2:
+        n = 4 if n_cards >= 4 else 2
+        placement = []
+        cases = [("psum", "int8:ef"), ("ring_int8", "none")]
+    else:
+        n, placement = 2, ["--device", "cuda:0", "--backend", "gloo"]
+        cases = [("psum", "int8:ef")]
+        print("[bsp-ranks] one card: 2 ranks on cuda:0 over gloo; the NCCL runs "
+              "(psum + int8:ef and ring_int8 over cards) were not run", flush=True)
+    runs = {}
+    for strategy, codec in cases:
+        argv = ["BSP", str(n), "alexnet", "AlexNet", "--synthetic", "--fused-update",
+                "--strategy", strategy, "--wire-codec", codec, "--max-steps", str(RANK_STEPS),
+                "--print-freq", "1", "--seed", "0", *FULL_WIDTH, *placement,
+                "--dataset-arg", f"n_train={128 * RANK_STEPS}", "--dataset-arg", "n_val=128"]
+        print(f"[bsp-ranks] python -m theanompi_tpu_torch.cli {' '.join(argv)}", flush=True)
+        summary = run_cli(argv)
+        label = f"{strategy}+{codec}" if codec != "none" else strategy
+        losses = summary["losses"]
+        check(summary["steps"] == RANK_STEPS and len(losses) == RANK_STEPS
+              and all(math.isfinite(x) for x in losses), f"{label}: losses {losses}")
+        per_step = ({"quant_block": 16, "dequant_block": 16} if codec != "none"
+                    else {"quant_block": n, "dequant_block": 2 * n - 1})
+        per_step["fused_momentum"] = 16
+        for r, counts in enumerate(summary["kernel_launches_per_rank"]):
+            for k, v in per_step.items():
+                check(counts[k] == v * RANK_STEPS,
+                      f"{label}: rank {r} launched {k} {counts[k]} times, expected "
+                      f"{v} x {RANK_STEPS} steps")
+        digests = summary["replica_digest_per_rank"]
+        check(len(set(digests)) == 1, f"{label}: params/velocities differ across ranks {digests}")
+        if codec.endswith(":ef"):
+            norms, efd = summary["ef_norm_per_rank"], summary["ef_digest_per_rank"]
+            check(all(x > 0 for x in norms) and len(set(efd)) == n,
+                  f"{label}: error-feedback residuals not per rank: norms {norms}, digests {efd}")
+        print(f"[bsp-ranks] {label} over {n} ranks ({summary['device']}): losses {losses}; "
+              f"step_ms per rank {summary['step_ms_per_rank']}; {summary['images_per_sec']:.1f} "
+              f"img/s; launches per rank {summary['kernel_launches_per_rank']}; replica digest "
+              f"{digests[0]} on every rank", flush=True)
+        runs[label] = {"n": n, "summary": summary,
+                       "launches": {k: sum(c[k] for c in summary["kernel_launches_per_rank"])
+                                    for k in ("quant_block", "dequant_block")}}
     return runs
 
 
@@ -357,6 +545,69 @@ def phase_times(shapes, dev, mem_rate, fp32_peak):
     return results
 
 
+def phase_quant_times(shapes, dev, mem_rate, fp32_peak):
+    """#3-6 over AlexNet's 16 leaves (one codec round: a launch per leaf)
+    against the bytes bound, the plain version and, where one PyTorch
+    call computes the same function, that call."""
+    import torch
+    from theanompi_tpu_torch.ops import quant as tq
+
+    g = torch.Generator(device=dev).manual_seed(7)
+    xs = []
+    for s in shapes:
+        x = torch.randn(-(-math.prod(s) // 128), 128, generator=g, device=dev) * 1e-2
+        xs.append(x * torch.exp(3 * torch.randn(x.shape[0], 1, generator=g, device=dev)))
+    vs = [tq.quantize_int8_block(x) for x in xs]
+    v5 = [tq.quantize_int8(x) for x in xs]
+    elems = sum(x.numel() for x in xs)
+    rows = sum(x.shape[0] for x in xs)
+    block_bytes = elems * 5 + rows * 4  # f32 in, int8 + one f32 scale per row out (or back)
+    whole_bytes = elems * 5 + len(xs) * 4
+    ops = elems * 4  # |x|, max, divide, round (and clamp) per element
+    specs = {
+        "quant_block": (lambda: [tq.quantize_int8_block(x) for x in xs],
+                        lambda: [tq.quantize_int8_block_plain(x) for x in xs], None,
+                        block_bytes, ops),
+        "dequant_block": (lambda: [tq.dequantize_int8_block(v, s) for v, s in vs],
+                          lambda: [tq.dequantize_int8_block_plain(v, s) for v, s in vs],
+                          lambda: [torch.mul(v, s) for v, s in vs], block_bytes, elems),
+        "quant": (lambda: [tq.quantize_int8(x) for x in xs],
+                  lambda: [tq.quantize_int8_plain(x) for x in xs], None, whole_bytes, ops),
+        "dequant": (lambda: [tq.dequantize_int8(v, s) for v, s in v5],
+                    lambda: [tq.dequantize_int8_plain(v, s) for v, s in v5],
+                    lambda: [torch.mul(v, s) for v, s in v5], whole_bytes, elems),
+    }
+    results = {}
+    for name, (kern, plain, lib, byts, n_ops) in specs.items():
+        step_ms = cuda_ms(kern, reps=20)
+        plain_ms = cuda_ms(plain, reps=5)
+        lib_ms = cuda_ms(lib, reps=20) if lib else None
+        bytes_ms, ops_ms = byts / mem_rate * 1e3, n_ops / fp32_peak * 1e3
+        bound_ms = max(bytes_ms, ops_ms)
+        results[name] = dict(step_ms=step_ms, plain_ms=plain_ms, library_ms=lib_ms,
+                             bound_ms=bound_ms, bytes=byts,
+                             bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+        print(f"[times] {name}: {step_ms:.4f} ms per round (16 launches, {elems} elements) | "
+              f"bound {bound_ms:.4f} ms ({byts / 1e6:.1f} MB; {results[name]['bound_by']}) | "
+              f"{bound_ms / step_ms * 100:.1f}% of bound | plain {plain_ms:.4f} ms | library "
+              + (f"torch.mul(vals, scales) {lib_ms:.4f} ms" if lib else "none"), flush=True)
+    torch.cuda.synchronize()
+    return results
+
+
+def build_all():
+    """Build every kernel library at once (one nvcc per source, started
+    together); returns {source: nvcc seconds}."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from theanompi_tpu_torch.ops import fused_update as fu
+    from theanompi_tpu_torch.ops import quant as tq
+
+    with ThreadPoolExecutor(max_workers=2) as pool:
+        futs = {"fused_update.cu": pool.submit(fu.build), "quant.cu": pool.submit(tq.build)}
+        return {src: f.result() for src, f in futs.items()}
+
+
 def main() -> int:
     t_start = time.perf_counter()
     try:
@@ -384,13 +635,13 @@ def main() -> int:
         dev = torch.device("cuda", 0)
         torch.cuda.set_device(dev)
 
-        from theanompi_tpu_torch.ops import fused_update as fu
         from theanompi_tpu_torch.ops.kernels import library_path
 
         t0 = time.perf_counter()
-        build_s = fu.build()
-        print(f"[build] csrc/fused_update.cu -> {library_path('fused_update.cu').name}: "
-              f"nvcc {build_s:.2f} s (phase wall {time.perf_counter() - t0:.2f} s)", flush=True)
+        builds = build_all()
+        for src, secs in builds.items():
+            print(f"[build] csrc/{src} -> {library_path(src).name}: nvcc {secs:.2f} s", flush=True)
+        print(f"[build] phase wall {time.perf_counter() - t0:.2f} s", flush=True)
 
         shapes = alexnet_leaf_shapes()
         check(len(shapes) == 16 and sum(math.prod(s) for s in shapes) == 60_965_224,
@@ -400,8 +651,17 @@ def main() -> int:
         print(f"[kernels] all cases match ({time.perf_counter() - t0:.1f} s)", flush=True)
 
         t0 = time.perf_counter()
+        worst_q, n_quant_cases = phase_quant(shapes, dev)
+        print(f"[quant] {n_quant_cases} cases bit-identical ({time.perf_counter() - t0:.1f} s)",
+              flush=True)
+
+        t0 = time.perf_counter()
         runs = phase_main()
         print(f"[main] done ({time.perf_counter() - t0:.1f} s)", flush=True)
+
+        t0 = time.perf_counter()
+        rank_runs = phase_bsp_ranks(torch.cuda.device_count())
+        print(f"[bsp-ranks] done ({time.perf_counter() - t0:.1f} s)", flush=True)
 
         t0 = time.perf_counter()
         phase_parity(dev)
@@ -409,22 +669,22 @@ def main() -> int:
 
         t0 = time.perf_counter()
         times = phase_times(shapes, dev, mem_rate, fp32_peak)
+        times.update(phase_quant_times(shapes, dev, mem_rate, fp32_peak))
         print(f"[times] done ({time.perf_counter() - t0:.1f} s)", flush=True)
         torch.cuda.synchronize()
     except Failed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
 
-    src = "theanompi_tpu_torch/csrc/fused_update.cu"
-    replaces = {
-        "fused_momentum": "theanompi_tpu/ops/pallas_update.py:78",
-        "fused_sgd": "theanompi_tpu/ops/pallas_update.py:90",
-    }
+    codec_run = rank_runs["psum+int8:ef"]
+    src_fu = "theanompi_tpu_torch/csrc/fused_update.cu"
+    src_q = "theanompi_tpu_torch/csrc/quant.cu"
     kernels = []
-    for name in ("fused_momentum", "fused_sgd"):
+    for name, replaces in (("fused_momentum", "theanompi_tpu/ops/pallas_update.py:78"),
+                           ("fused_sgd", "theanompi_tpu/ops/pallas_update.py:90")):
         t = times[name]
         kernels.append({
-            "name": name, "route": "cuda", "source": src, "replaces": replaces[name],
+            "name": name, "route": "cuda", "source": src_fu, "replaces": replaces,
             "launches": runs[name]["launches"], "max_abs_err": worst[name],
             "ms": t["step_ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
@@ -441,6 +701,30 @@ def main() -> int:
             ),
             "main_path_step_ms": runs[name]["summary"]["step_ms"],
             "main_path_images_per_sec": runs[name]["summary"]["images_per_sec"],
+        })
+    no_library = ("no single PyTorch call computes an absmax-scaled int8 quantize: "
+                  "torch.quantize_per_tensor takes the scale as an input and multiplies by "
+                  "its reciprocal")
+    for name, replaces, launches in (
+        ("quant_block", "theanompi_tpu/ops/pallas_quant.py:114", codec_run["launches"]["quant_block"]),
+        ("dequant_block", "theanompi_tpu/ops/pallas_quant.py:125",
+         codec_run["launches"]["dequant_block"]),
+        ("quant", "theanompi_tpu/ops/pallas_quant.py:46", 0),
+        ("dequant", "theanompi_tpu/ops/pallas_quant.py:55", 0),
+    ):
+        t = times[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": src_q, "replaces": replaces,
+            "launches": launches, "max_abs_err": worst_q[name],
+            "ms": t["step_ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+            "matched": True, "tolerance": "bit-identical (a NaN matches any NaN)",
+            "work": "one codec round over AlexNet's 16 leaves, each padded to (rows, 128)",
+            "library_note": (no_library if t["library_ms"] is None
+                             else "torch.mul(int8 vals, f32 scales): the same function"),
+            "launches_in": (f"the {codec_run['n']}-rank psum + int8:ef run, all ranks, "
+                            f"{RANK_STEPS} steps" if launches else
+                            "not on the main path (whole-buffer scale; tests only)"),
         })
     print(f"chip_smoke: wall {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))

@@ -55,6 +55,10 @@ def test_importing_the_port_loads_no_jax():
         "import theanompi_tpu_torch, theanompi_tpu_torch.cli, theanompi_tpu_torch.launch.worker\n"
         "import theanompi_tpu_torch.models.alex_net, theanompi_tpu_torch.ops.fused_update\n"
         "import theanompi_tpu_torch.bridge, theanompi_tpu_torch.train\n"
+        "import theanompi_tpu_torch.ops.quant, theanompi_tpu_torch.parallel.codec\n"
+        "import theanompi_tpu_torch.parallel.strategies, theanompi_tpu_torch.parallel.bsp\n"
+        "import theanompi_tpu_torch.parallel.distributed, theanompi_tpu_torch.parallel.mesh\n"
+        "import theanompi_tpu_torch.launch.session\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'theanompi_tpu'))\n"
         "print(bad)\n"
     )
@@ -81,6 +85,8 @@ def test_entry_points_raise_without_a_card_unless_cpu_is_asked_for(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         BSPEngine(AlexNet())
     with pytest.raises(RuntimeError, match="no CUDA device"):
+        BSPEngine(AlexNet(), n_devices=2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
         init_train_state(AlexNet(), torch.Generator().manual_seed(0))
     assert BSPEngine(AlexNet(), device="cpu").device == torch.device("cpu")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
@@ -92,8 +98,29 @@ def test_entry_points_raise_without_a_card_unless_cpu_is_asked_for(monkeypatch):
 
 
 def test_multi_device_bsp_is_refused_until_ported():
+    """Multi-rank BSP runs one process per rank; an engine for n > 1 in a
+    process that is no rank of an n-rank process group refuses to build
+    (it would otherwise train alone and call that BSP)."""
     from theanompi_tpu_torch.models.alex_net import AlexNet
     from theanompi_tpu_torch.parallel.bsp import BSPEngine
 
-    with pytest.raises(NotImplementedError, match="multi-rank"):
+    with pytest.raises(RuntimeError, match="process group of 2 ranks"):
         BSPEngine(AlexNet(), n_devices=2, device="cpu")
+
+
+def test_rank_launcher_needs_the_cards_unless_cpu_is_asked_for(monkeypatch):
+    """``BSP n`` puts rank r on card r: without CUDA, or with fewer than
+    n cards, the launcher raises before spawning anything; NCCL refuses
+    ranks that would share a card."""
+    from theanompi_tpu_torch.launch.session import launch_training, rank_devices, spawn_ranks
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        launch_training("bsp", 2, "alexnet", "AlexNet")
+    assert rank_devices(3, "cpu") == [torch.device("cpu")] * 3
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(RuntimeError, match="needs 2 cards; 1 visible"):
+        rank_devices(2)
+    with pytest.raises(ValueError, match="NCCL needs one card per rank"):
+        spawn_ranks(print, 2, device="cuda:0", backend="nccl")

@@ -22,7 +22,7 @@ from typing import Any
 import numpy as np
 import torch
 
-from theanompi_tpu_torch.nn.layers import conv_weight_layout
+from theanompi_tpu_torch.nn.layers import from_reference_layout, to_reference_layout
 from theanompi_tpu_torch.tree import tree_map
 
 Tree = Any
@@ -34,11 +34,7 @@ def _leaf_from_jax(a, device, requires_grad: bool) -> torch.Tensor:
         t = torch.from_numpy(arr.astype(np.float32)).to(torch.bfloat16)
     else:
         t = torch.from_numpy(np.array(arr, copy=True))
-    if t.dim() == 4:
-        t = conv_weight_layout(t.permute(3, 2, 0, 1))  # HWIO -> OIHW
-    else:
-        t = t.contiguous()
-    t = t.to(device)
+    t = from_reference_layout(t).to(device)  # HWIO -> OIHW
     if requires_grad and t.is_floating_point():
         t.requires_grad_(True)
     return t
@@ -48,9 +44,7 @@ def _leaf_to_jax(t: torch.Tensor) -> np.ndarray:
     t = t.detach().cpu()
     if t.dtype == torch.bfloat16:
         t = t.float()
-    if t.dim() == 4:
-        t = t.permute(2, 3, 1, 0)  # OIHW -> HWIO
-    return np.ascontiguousarray(t.numpy())
+    return np.ascontiguousarray(to_reference_layout(t).numpy())  # OIHW -> HWIO
 
 
 def tree_from_jax(tree: Tree, device="cpu", requires_grad: bool = False) -> Tree:

@@ -7,9 +7,18 @@ Port of ``theanompi_tpu/cli.py``'s training path::
         --dataset-arg 'image_shape=[227,227,3]' --dataset-arg n_classes=1000 \\
         --dataset-arg n_train=1280 --dataset-arg n_val=128
 
-Runs on the CUDA card; ``--device cpu`` runs on the CPU instead (without
-a card and without that flag it fails). The last line of stdout is the
-run summary as one JSON object.
+Several ranks, one process per card over NCCL (the global batch split
+across them)::
+
+    python -m theanompi_tpu_torch.cli BSP 4 alexnet AlexNet --synthetic \
+        --fused-update --strategy ring_int8 ...
+    python -m theanompi_tpu_torch.cli BSP 4 alexnet AlexNet --synthetic \
+        --fused-update --strategy psum --wire-codec int8:ef ...
+
+Runs on the CUDA card(s); ``--device cpu`` runs on the CPU instead
+(ranks over gloo), ``--device cuda:0 --backend gloo`` puts every rank on
+one card. Without a card and without ``--device cpu`` it fails. The
+last line of stdout is rank 0's run summary as one JSON object.
 """
 
 from __future__ import annotations
@@ -27,7 +36,8 @@ def build_parser() -> argparse.ArgumentParser:
         allow_abbrev=False,
     )
     p.add_argument("rule", choices=["BSP", "bsp"])
-    p.add_argument("n_devices", type=int, help="number of cards (this slice: 1)")
+    p.add_argument("n_devices", type=int,
+                   help="number of ranks: one process per card, the global batch split across them")
     p.add_argument("modelfile", help="zoo short name, module path or .py file")
     p.add_argument("modelclass", help="model class name (e.g. AlexNet)")
     p.add_argument("--fused-update", action="store_true",
@@ -35,6 +45,15 @@ def build_parser() -> argparse.ArgumentParser:
                         "momentum/Nesterov + param write) into one CUDA kernel "
                         "launch per leaf (ops/fused_update.py); SGD-family "
                         "recipes only (momentum/nesterov/sgd)")
+    p.add_argument("--strategy", default="psum",
+                   help="gradient exchange: psum, psum_bf16, ring, ring_bf16, ring_int8 "
+                        "(aliases ar, nccl32, nccl16, asa32, asa16, ...)")
+    p.add_argument("--wire-codec", default="none",
+                   help="compress the exchange: none, bf16, int8, with ':ef' for error "
+                        "feedback (psum only), e.g. int8:ef")
+    p.add_argument("--backend", default=None, choices=["nccl", "gloo"],
+                   help="process-group backend of several ranks (default: nccl on the "
+                        "cards, gloo on the CPU)")
     p.add_argument("--epochs", type=int, default=None, help="override recipe n_epochs")
     p.add_argument("--max-steps", type=int, default=None)
     p.add_argument("--batch-size", type=int, default=None, help="override recipe batch")
@@ -48,7 +67,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--print-freq", type=int, default=40)
     p.add_argument("--device", default=None,
-                   help="'cpu' to run on the CPU; default: the CUDA card")
+                   help="'cpu' to run on the CPU, 'cuda:K' to put every rank on card K; "
+                        "default: card r for rank r")
     return p
 
 
@@ -71,10 +91,8 @@ def _parse_kv(pairs, flag) -> dict:
 def main(argv=None) -> int:
     args = build_parser().parse_args(list(argv) if argv is not None else sys.argv[1:])
 
-    from theanompi_tpu_torch.launch.session import resolve_model
-    from theanompi_tpu_torch.launch.worker import run_training
+    from theanompi_tpu_torch.launch.session import launch_training
 
-    model_cls = resolve_model(args.modelfile, args.modelclass)
     overrides = {}
     if args.batch_size:
         overrides["batch_size"] = args.batch_size
@@ -84,12 +102,16 @@ def main(argv=None) -> int:
     if "image_shape" in dataset_kwargs:
         dataset_kwargs["image_shape"] = tuple(dataset_kwargs["image_shape"])
 
-    summary = run_training(
-        rule=args.rule.lower(),
-        model_cls=model_cls,
-        devices=args.n_devices,
+    summary = launch_training(
+        args.rule.lower(),
+        args.n_devices,
+        args.modelfile,
+        args.modelclass,
+        backend=args.backend,
         device=args.device,
         fused_update=args.fused_update,
+        strategy=args.strategy,
+        wire_codec=args.wire_codec,
         n_epochs=args.epochs,
         max_steps=args.max_steps,
         dataset="synthetic" if args.synthetic else None,

@@ -41,19 +41,21 @@ class Dataset:
     def n_val_batches(self, batch_size: int) -> int:
         return self.n_val // batch_size
 
-    def train_epoch(self, epoch: int, batch_size: int, seed: int = 0) -> Iterator[tuple]:
+    def train_epoch(self, epoch: int, batch_size: int, seed: int = 0,
+                    rows: slice = slice(None)) -> Iterator[tuple]:
         """Deterministically shuffled epoch (seed + epoch -> permutation),
-        the reference's order exactly."""
+        the reference's order exactly. ``rows``: only these rows of each
+        batch (a rank's shard), gathered alone."""
         rng = np.random.RandomState(seed * 100003 + epoch)
         perm = rng.permutation(self.n_train)
         for i in range(self.n_train_batches(batch_size)):
-            idx = perm[i * batch_size:(i + 1) * batch_size]
+            idx = perm[i * batch_size:(i + 1) * batch_size][rows]
             yield self.x_train[idx], self.y_train[idx]
 
-    def val_epoch(self, batch_size: int) -> Iterator[tuple]:
+    def val_epoch(self, batch_size: int, rows: slice = slice(None)) -> Iterator[tuple]:
         for i in range(self.n_val_batches(batch_size)):
-            sl = slice(i * batch_size, (i + 1) * batch_size)
-            yield self.x_val[sl], self.y_val[sl]
+            idx = np.arange(i * batch_size, (i + 1) * batch_size)[rows]
+            yield self.x_val[idx], self.y_val[idx]
 
 
 class Synthetic_data(Dataset):

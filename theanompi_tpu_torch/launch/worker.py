@@ -1,12 +1,22 @@
 """The training loop: epochs, validation, summary.
 
 Port of ``theanompi_tpu/launch/worker.py::run_training`` for rule
-``bsp`` on one device, with the reference's dataset/recipe checks, the
-epoch loop with ``max_steps``, a validation pass per epoch,
-``print_freq`` logging, and a summary dict whose keys match the
-reference's where they exist (``steps``, ``epochs``, ``val``,
-``images_per_sec``, ``train_loop_s``). Observability, checkpointing,
-the supervisor and elastic resume come in later slices.
+``bsp``, with the reference's dataset/recipe checks, the epoch loop with
+``max_steps``, a validation pass per epoch, ``print_freq`` logging, and
+a summary dict whose keys match the reference's where they exist
+(``steps``, ``epochs``, ``val``, ``images_per_sec``, ``train_loop_s``).
+Observability, checkpointing, the supervisor and elastic resume come in
+later slices.
+
+Ranks. With ``devices=n > 1`` this function runs in each of n rank
+processes of one process group (``launch/session.py`` spawns them). As
+in the reference, ``recipe.batch_size`` is the GLOBAL batch: every rank
+walks the same shuffled global batches and gathers only its rows
+``[r·B/n, (r+1)·B/n)``; its dropout stream is seeded from ``(seed,
+rank)``. Rank 0 prints; every rank returns the summary, which carries
+each rank's step time and kernel launch counts and, with several ranks,
+a digest of each rank's params and optimizer state (equal on every rank
+when the replicas agree) and of its error-feedback residuals.
 
 Hot loop. A background thread (``tmpi-prefetch``) gathers each host
 batch and pins it; the loop copies it to the card with
@@ -20,6 +30,7 @@ figures.
 
 from __future__ import annotations
 
+import hashlib
 import math
 import queue
 import threading
@@ -29,11 +40,16 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from theanompi_tpu_torch.data import get_dataset
 from theanompi_tpu_torch.device import resolve_device
 from theanompi_tpu_torch.models.contract import Model
+from theanompi_tpu_torch.ops.kernels import launch_counts
 from theanompi_tpu_torch.parallel.bsp import BSPEngine
+from theanompi_tpu_torch.parallel.codec import get_codec
+from theanompi_tpu_torch.parallel.mesh import host_local_batch_slice, rank_generator
+from theanompi_tpu_torch.tree import tree_leaves
 
 # summary["losses"] keeps the most recent per-step losses
 LOSS_HISTORY = 1000
@@ -105,6 +121,14 @@ class _Prefetcher:
         return False
 
 
+def _digest(tensors) -> str:
+    """SHA-256 (hex, 16 digits) of the tensors' bytes, in order."""
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().contiguous().view(-1).view(torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
 class _StepClock:
     """Marks after each step: CUDA events on the card, host time on the CPU."""
 
@@ -135,6 +159,8 @@ def run_training(
     *,
     device=None,
     fused_update: bool = False,
+    strategy: str = "psum",
+    wire_codec: str = "none",
     n_epochs: Optional[int] = None,
     max_steps: Optional[int] = None,
     dataset: Optional[str] = None,
@@ -147,8 +173,10 @@ def run_training(
 
     ``device``: ``None`` runs on the current CUDA device and raises when
     there is none; ``"cpu"`` runs on the CPU because it was asked for.
-    ``devices``: how many cards the rule spans; this slice runs 1 and
-    refuses any other count (``BSPEngine``)."""
+    ``devices``: how many ranks (cards) the rule spans; more than one
+    needs this process to be a rank of a process group of that size.
+    ``strategy`` / ``wire_codec``: the gradient exchange
+    (``parallel/strategies.py``, ``parallel/codec.py``)."""
     device = resolve_device(device)
     if model_cls is None:
         raise ValueError("model_cls is required")
@@ -199,20 +227,26 @@ def run_training(
         )
 
     engine = BSPEngine(model, devices, device, steps_per_epoch=steps_per_epoch,
-                       fused_update=fused_update)
+                       fused_update=fused_update, strategy=strategy, wire_codec=wire_codec)
+    rank = dist.get_rank() if devices > 1 else 0
+    shard = host_local_batch_slice(batch, rank, devices)
+    vshard = host_local_batch_slice(vbatch, rank, devices)
     state = engine.init_state(torch.Generator().manual_seed(seed))
-    # dropout masks: an explicit generator on the card (the global RNG
-    # is never touched)
-    step_gen = torch.Generator(device=device).manual_seed(seed + 1)
+    # dropout masks: an explicit generator per rank on its card (the
+    # global RNG is never touched)
+    step_gen = (rank_generator(seed + 1, rank, device) if devices > 1
+                else torch.Generator(device=device).manual_seed(seed + 1))
     pin = device.type == "cuda"
     clock = _StepClock(device)
+    verbose = print_freq and rank == 0
 
     def to_device(t):
         return t.to(device, non_blocking=True)
 
     summary: dict = {"epochs": [], "rule": rule, "model": model.name,
                      "device": str(device), "fused_update": bool(fused_update),
-                     "batch_size": batch}
+                     "batch_size": batch, "devices": devices, "strategy": strategy,
+                     "wire_codec": get_codec(wire_codec).spec}
     losses: deque = deque(maxlen=LOSS_HISTORY)
     nonfinite = 0
     intervals: list = []  # steady-state step ms, all epochs
@@ -228,14 +262,15 @@ def run_training(
         pending.clear()
         nonfinite += sum(1 for v in vals if not math.isfinite(v))
         losses.extend(vals)
-        if print_freq:
+        if verbose:
             print(f"[bsp] epoch {epoch} step {step_count} loss {vals[-1]:.6f}", flush=True)
 
     for epoch in range(n_epochs):
         t_loop0 = time.perf_counter()
         marks = [clock.mark()]
         pending: list = []
-        with _Prefetcher(data.train_epoch(epoch, batch, seed=seed), PREFETCH_DEPTH, pin) as batches:
+        source = data.train_epoch(epoch, batch, seed=seed, rows=shard)
+        with _Prefetcher(source, PREFETCH_DEPTH, pin) as batches:
             for x, y in batches:
                 state, metrics = engine.train_step(state, to_device(x), to_device(y), step_gen)
                 step_count += 1
@@ -253,14 +288,15 @@ def run_training(
         train_loop_s += time.perf_counter() - t_loop0
 
         val_sum, n_val = None, 0
-        for vx, vy in data.val_epoch(vbatch):
+        for vx, vy in data.val_epoch(vbatch, rows=vshard):
             vm = engine.eval_step(state, to_device(torch.from_numpy(vx)),
                                   to_device(torch.from_numpy(vy)))
             val_sum = vm if val_sum is None else {k: val_sum[k] + vm[k] for k in vm}
             n_val += 1
         if n_val:
             summary["val"] = {k: float(v) / n_val for k, v in val_sum.items()}
-            print(f"[bsp] epoch {epoch} val {summary['val']}", flush=True)
+            if verbose:
+                print(f"[bsp] epoch {epoch} val {summary['val']}", flush=True)
         summary["epochs"].append(epoch)
         if max_steps and step_count >= max_steps:
             break
@@ -272,7 +308,21 @@ def run_training(
     step_ms = sum(recent) / len(recent) if recent else None
     summary["step_ms"] = step_ms
     summary["steady_steps"] = len(intervals)
-    summary["images_per_sec"] = batch / (step_ms / 1e3) if step_ms else 0.0
+    own = {"step_ms": step_ms, "kernel_launches": launch_counts()}
+    per_rank = [own]
+    if devices > 1:
+        # what each rank holds at the end: the replicas must agree bit
+        # for bit; the error-feedback residuals are each rank's own
+        own["replica_digest"] = _digest(tree_leaves((state.params, state.opt_state)))
+        own["ef_digest"] = _digest(tree_leaves(state.ef))
+        own["ef_norm"] = float(sum(torch.sum(e.double() ** 2) for e in tree_leaves(state.ef))) ** 0.5
+        per_rank = [None] * devices
+        dist.all_gather_object(per_rank, own)
+    for key in per_rank[0]:
+        summary[f"{key}_per_rank"] = [r[key] for r in per_rank]
+    # a BSP step ends when its slowest rank's does
+    slowest = max((t for t in summary["step_ms_per_rank"] if t), default=None)
+    summary["images_per_sec"] = batch / (slowest / 1e3) if slowest else 0.0
     summary["losses"] = list(losses)
     summary["nonfinite_steps"] = nonfinite
     return summary

@@ -80,6 +80,24 @@ def conv_weight_layout(w: torch.Tensor) -> torch.Tensor:
     return w.contiguous(memory_format=torch.channels_last)
 
 
+def to_reference_layout(t: torch.Tensor) -> torch.Tensor:
+    """A parameter-shaped tensor as the reference lays it out: every 4-D
+    leaf is a conv kernel (or its velocity, gradient or residual), OIHW
+    here and HWIO there; other leaves are the same in both. A view (no
+    copy); ``.reshape(-1)`` of it is the reference's flat element order,
+    which the gradient exchange and the int8 codec's 128-element blocks
+    follow (``parallel/strategies.py``, ``parallel/codec.py``)."""
+    return t.permute(2, 3, 1, 0) if t.dim() == 4 else t
+
+
+def from_reference_layout(t: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`to_reference_layout`: HWIO back to OIHW in the
+    conv weights' own memory layout; other leaves made contiguous."""
+    if t.dim() == 4:
+        return conv_weight_layout(t.permute(3, 2, 0, 1))
+    return t.contiguous()
+
+
 def _nchw(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 3, 1, 2)
 

@@ -53,14 +53,32 @@ BLOCKS_PER_SM = 8
 class LaunchCounter:
     """A plain count of kernel launches, bumped by a wrapper exactly
     where it launches its kernel (never on the plain CPU path), so a run
-    can show that its main path went through the kernel."""
+    can show that its main path went through the kernel. Every counter
+    registers itself by name (``launch_counts``)."""
 
     def __init__(self, name: str):
+        if name in _COUNTERS:
+            raise ValueError(f"a launch counter named {name!r} already exists")
         self.name = name
         self.launches = 0
+        _COUNTERS[name] = self
 
     def reset(self) -> None:
         self.launches = 0
+
+
+_COUNTERS: dict = {}
+
+
+def launch_counts() -> dict:
+    """``{counter name: launches}`` of every kernel wrapper imported in
+    this process."""
+    return {name: c.launches for name, c in sorted(_COUNTERS.items())}
+
+
+def reset_launch_counts() -> None:
+    for c in _COUNTERS.values():
+        c.reset()
 
 
 def nvcc_path() -> str:

@@ -24,12 +24,17 @@ Tree = Any
 
 class TrainState(NamedTuple):
     """Params + model state (BN stats) + optimizer state + the
-    device-resident int32 step counter that drives the LR schedule."""
+    device-resident int32 step counter that drives the LR schedule.
+
+    ``ef``: this rank's wire-codec error-feedback residuals
+    (``parallel/codec.py``), one f32 tensor per param leaf; ``()`` (the
+    default) whenever the codec carries no state."""
 
     params: Tree
     model_state: Tree
     opt_state: Tree
     step: torch.Tensor
+    ef: Tree = ()
 
 
 def init_train_state(model: Model, gen: torch.Generator, device=None,
@@ -85,6 +90,7 @@ def make_train_step(
     steps_per_epoch: int = 1,
     accum_steps: int = 1,
     fused_update: bool = False,
+    grad_sync=None,
 ):
     """Build the step ``(state, images, labels, gen) -> (state, metrics)``.
 
@@ -96,6 +102,11 @@ def make_train_step(
 
     ``accum_steps > 1``: the batch is split into that many microbatches
     whose fp32-accumulated gradients average before the single update.
+
+    ``grad_sync``: the exchanger hook (``parallel/strategies.py``), run on
+    the (accumulated) gradients before the update; ``None`` means a
+    single replica. A ``stateful`` sync runs as ``grads, ef =
+    sync(grads, state.ef)``, threading the codec's residuals.
     """
     optimizer = _optimizer_for(model, fused_update)
     schedule_lr = make_schedule_fn(model, steps_per_epoch)
@@ -131,6 +142,14 @@ def make_train_step(
                 grads = tree_map(lambda g, p: (g / accum_steps).to(p.dtype), gsum, state.params)
                 metrics = {k: torch.stack([m[k] for m in ms]).mean() for k in ms[0]}
 
+        new_ef = state.ef
+        if grad_sync is not None:
+            with torch.no_grad():
+                if getattr(grad_sync, "stateful", False):
+                    grads, new_ef = grad_sync(grads, state.ef)
+                else:
+                    grads = grad_sync(grads)
+
         lr = schedule_lr(state.step)
         if optimizer.apply is not None:
             # fused one-pass epilogue: params and velocity rewritten in place
@@ -141,7 +160,8 @@ def make_train_step(
                                                           state.params, lr)
             apply_updates(state.params, updates)
         metrics = {**metrics, "lr": lr}
-        new_state = TrainState(state.params, new_model_state, new_opt_state, state.step + 1)
+        new_state = TrainState(state.params, new_model_state, new_opt_state, state.step + 1,
+                               new_ef)
         return new_state, metrics
 
     return train_step
