@@ -5,7 +5,8 @@
 
 Phases (any failure ends the run with a non-zero exit and no result line):
 
-1. build      — compile every kernel of the path (``csrc/*.cu``) with nvcc
+1. build      — compile every kernel of the paths (``csrc/*.cu``: the
+                fused update, the quantizer, flash attention) with nvcc
                 for sm_90a, one nvcc per source, all started together;
                 print the build's wall time.
 2. kernels    — each fused-update kernel's wrapper against its plain
@@ -26,6 +27,19 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                 of a power-of-two scale; the ring's fused decode-and-add;
                 ``wire_encode``'s message byte-identical to the plain
                 version's (a NaN scale's payload aside) and its decode.
+   flash      — each flash attention kernel (#7-11: flash_fwd, flash_dq,
+                flash_dkv) against its plain version on the card: the 136M
+                LM's shape (BH 96, T 1024, D 64) in bf16 and fp32, ragged T
+                and D, Tq != Tk, causal and not, nonzero offsets with rows
+                that see no key (o = 0, lse ~ -1e30), and T = 8192 (BH 2,
+                bf16). Tolerances: fp32 o rtol 1e-5 + 1e-6 max|o|, dq/dk/dv
+                rtol 1e-4 + 1e-5 of the largest value; bf16 o within 1 bf16
+                ulp plus 2^-7 of sum_i p_i |v_i| / l (the tensor cores sum
+                q.k in another order, so a p near a bf16 rounding boundary
+                can round to its neighbour on one side: see
+                ``bf16_o_excess``), dq/dk/dv rtol 1e-4 + 2^-8 of the largest
+                value (likewise one ds); lse atol 1e-5. Each counter moves
+                by one per call.
 3. main       — the training path a user runs, through
                 ``theanompi_tpu_torch.cli.main``: full-width AlexNet (batch
                 128, 227x227x3, 1000 classes, bf16 compute, fp32 params,
@@ -48,6 +62,12 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                 ranks n and 2n-1. Losses finite; params and velocities
                 bit-identical across ranks (digests); each rank's
                 error-feedback residual nonzero and its own.
+   lm-main    — full-width TransformerLM_136M (12 layers, d 768, 12 heads
+                of 64, T 1024, vocab 32768, batch 8, bf16 compute, Adam,
+                random weights from a seed) through the CLI for 6 steps
+                and one validation batch: exactly 12 x 7 flash_fwd and
+                12 x 6 flash_dq and flash_dkv launches, no other kernel;
+                losses finite; step ms and tokens/s.
 5. parity     — the same small AlexNet (67x67, fp32, dropout off) trained 2
                 steps on the card and on the CPU (where the wrappers run
                 their plain versions) from the same weights and batches.
@@ -60,11 +80,20 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                 ulps of the parameter: a change far smaller than the
                 parameter is rounded at each of the 2 writes. Every leaf
                 changed on the card.
+   lm-parity  — a small fp32 LM (2 layers, d 128, 2 heads of 64, T 256,
+                vocab 512, batch 4, Adam, attn flash) trained 2 steps on the
+                card and on the CPU from the same weights and batches:
+                losses within rtol 1e-4, params within atol 1e-6 + rtol
+                1e-4, every leaf changed, 4 launches of each flash kernel.
 6. times      — per kernel, over AlexNet's 16 leaves (one optimizer step,
                 one codec round): time (CUDA events), its bound (bytes /
                 memory rate vs operations / fp32 peak, the larger), the
                 plain version's time, and a PyTorch yardstick where one
-                call computes the same function.
+                call computes the same function. Each flash kernel per
+                launch at the 136M shape (bf16, causal): bound from bytes
+                and from operations (bf16 products at the bf16 tensor-core
+                peak, flash_dkv's fp32 dv product at the fp32 peak), and
+                SDPA's causal forward / backward as the yardstick.
 
 Then one JSON line ``{"kernels": [...]}``, the card's name and power
 limit as nvidia-smi prints them, and last ``{"ok": true, "device": ...}``.
@@ -84,14 +113,20 @@ import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 
-# card name -> (memory rate B/s, fp32 peak outside the tensor cores FLOP/s),
-# from NVIDIA's data sheet: the H100 SXM5 80 GB. Another card has other
-# rates, so the script refuses it rather than compute its bounds wrongly.
-CARD_RATES = {"NVIDIA H100 80GB HBM3": (3.35e12, 67e12)}
+# card name -> (memory rate B/s, fp32 peak outside the tensor cores FLOP/s,
+# bf16 dense tensor-core peak FLOP/s), from NVIDIA's data sheet: the H100
+# SXM5 80 GB. Another card has other rates, so the script refuses it
+# rather than compute its bounds wrongly.
+CARD_RATES = {"NVIDIA H100 80GB HBM3": (3.35e12, 67e12, 989e12)}
 
 MAIN_STEPS = 10
 SGD_STEPS = 3
 RANK_STEPS = 6
+LM_STEPS = 6
+LM_VAL = 8  # one validation batch of 8 windows
+LM_LAYERS = 12
+# the 136M LM's attention shape: batch 8, T 1024, 12 heads of 64
+LM_SHAPE = dict(B=8, T=1024, H=12, D=64)
 FULL_WIDTH = ["--dataset-arg", "image_shape=[227,227,3]", "--dataset-arg", "n_classes=1000"]
 
 
@@ -595,16 +630,317 @@ def phase_quant_times(shapes, dev, mem_rate, fp32_peak):
     return results
 
 
+def flash_cases():
+    """(label, BH, Tq, Tk, D, causal, q_off, k_off, dtype): the 136M LM's
+    shape in bf16 and fp32, ragged T and D, Tq != Tk, causal and not,
+    nonzero offsets with rows that see no key, and T = 8192 (where the
+    reference's backward switches to its 2-D kernels #10 and #11)."""
+    import torch
+
+    bh = LM_SHAPE["B"] * LM_SHAPE["H"]
+    T, D = LM_SHAPE["T"], LM_SHAPE["D"]
+    out = []
+    for dt in (torch.bfloat16, torch.float32):
+        out.append((f"136M shape {str(dt)[6:]}", bh, T, T, D, True, 0, 0, dt))
+        for causal in (True, False):
+            out.append((f"ragged T 200 D 40 {str(dt)[6:]}", 6, 200, 200, 40, causal, 0, 0, dt))
+            out.append((f"Tq 130 Tk 250 D 48 {str(dt)[6:]}", 4, 130, 250, 48, causal, 0, 0, dt))
+        out.append((f"offsets q 0 k 100, rows 0-99 blind {str(dt)[6:]}", 4, 192, 192, 64, True,
+                    0, 100, dt))
+        out.append((f"offsets q 160 k 0 {str(dt)[6:]}", 4, 96, 200, 64, True, 160, 0, dt))
+    out.append(("T 8192 bfloat16", 2, 8192, 8192, 64, True, 0, 0, torch.bfloat16))
+    return out
+
+
+def _rel_excess(got, want, rtol, atol):
+    """max(|got - want| - rtol |want|) / atol: <= 1 passes."""
+    return ((got.float() - want.float()).abs() - rtol * want.float().abs()).max().item() / atol
+
+
+def bf16_o_excess(o, po, weight) -> float:
+    """The bf16 forward's error as a share of its tolerance (<= 1 passes):
+    1 bf16 ulp of the plain value, plus 2^-9 of ``weight`` = sum_i p_i
+    |v_i| / l per element. The kernel sums q.k on the tensor cores in
+    another order than the plain version, so the fp32 logits differ in
+    their last bits and a probability near a bf16 rounding boundary can
+    round to its neighbour (2^-8 to 2^-7 of itself) on one side only;
+    each such p moves o by that share of p_i |v_i| / l. Few p flip at
+    once: the worst reading on the H100 was 0.0785 of the 2^-7 limit, so
+    2^-9 keeps about 3x headroom."""
+    import torch
+
+    w = po.float().abs()
+    ulp = torch.exp2(torch.floor(torch.log2(torch.clamp_min(w, 1e-30))) - 7)
+    excess = (o.float() - po.float()).abs() - ulp
+    return (excess / torch.clamp_min(2.0 ** -9 * weight, 1e-30)).max().item()
+
+
+def bf16_dv_control(q, k, v, do, lse, dsum, kw):
+    """dv as a kernel that rounds p to bf16 before the dv product would
+    compute it: bf16(p)^T . dO with fp32 sums. The reference keeps that
+    product fp32 x fp32 with p unrounded (pallas_attention.py:227-230), so
+    this is the wrong function, and phase flash's dv check must refuse it."""
+    from theanompi_tpu_torch.ops import flash_attention as fa
+
+    p, _ = fa._probs_and_ds(q, k, v, do, lse, dsum, kw["causal"], kw["scale"], kw["q_off"],
+                            kw["k_off"])
+    return fa._dot(p.to(v.dtype).transpose(1, 2), do)
+
+
+def phase_flash(dev):
+    """Each flash kernel against its plain version on the card; every case
+    runs and prints, then any failure ends the phase.
+
+    bf16 limits: o 1 ulp + 2^-9 sum p|v|/l (``bf16_o_excess``); dq and dk
+    rtol 1e-4 + 2^-9 of the largest value, since a p that differs in its
+    last fp32 bit can round ds to the neighbouring bf16 value (a term off
+    by 2^-8 of itself; the worst reading on the H100 under 2^-8 was
+    0.169); dv, an fp32 x fp32 product of the unrounded p, the fp32 limit
+    rtol 1e-4 + 1e-5 of the largest value. At the 136M shape a control,
+    dv with p rounded to bf16 (``bf16_dv_control``), must fail that dv
+    check."""
+    import torch
+    from theanompi_tpu_torch.ops import flash_attention as fa
+
+    g = torch.Generator(device=dev).manual_seed(8)
+    worst = {"flash_fwd": 0.0, "flash_dq": 0.0, "flash_dkv": 0.0}
+    # the bf16 cases' worst share of each tolerance, and the control's
+    readings = {"o": 0.0, "dq": 0.0, "dk": 0.0, "dv": 0.0, "dv_control": None}
+    failures = []
+    for label, BH, Tq, Tk, D, causal, q_off, k_off, dt in flash_cases():
+        q = torch.randn(BH, Tq, D, generator=g, device=dev).to(dt)
+        k = torch.randn(BH, Tk, D, generator=g, device=dev).to(dt)
+        v = torch.randn(BH, Tk, D, generator=g, device=dev).to(dt)
+        do = torch.randn(BH, Tq, D, generator=g, device=dev).to(dt)
+        kw = dict(causal=causal, scale=1.0 / math.sqrt(D), q_off=q_off, k_off=k_off)
+        before = (fa.FLASH_FWD.launches, fa.FLASH_DQ.launches, fa.FLASH_DKV.launches)
+        o, lse = fa.flash_fwd(q, k, v, **kw)
+        po, plse = fa.flash_fwd_plain(q, k, v, **kw)
+        dsum = torch.sum(do.float() * po.float(), dim=-1)
+        dq = fa.flash_dq(q, k, v, do, plse, dsum, **kw)
+        dk, dv = fa.flash_dkv(q, k, v, do, plse, dsum, **kw)
+        pdq = fa.flash_dq_plain(q, k, v, do, plse, dsum, **kw)
+        pdk, pdv = fa.flash_dkv_plain(q, k, v, do, plse, dsum, **kw)
+        torch.cuda.synchronize()
+        after = (fa.FLASH_FWD.launches, fa.FLASH_DQ.launches, fa.FLASH_DKV.launches)
+        bad = []
+        if tuple(b - a for a, b in zip(before, after)) != (1, 1, 1):
+            bad.append(f"counters moved {before} -> {after}")
+        for name, t in (("o", o), ("lse", lse), ("dq", dq), ("dk", dk), ("dv", dv)):
+            if not bool(torch.isfinite(t).all()):
+                bad.append(f"non-finite {name}")
+        lse_err = (lse - plse).abs().max().item()
+        if lse_err > 1e-5:
+            bad.append(f"lse off by {lse_err:.3g} > 1e-5")
+        if k_off > q_off:  # the blind rows: o = 0 and the sentinel lse
+            blind = k_off - q_off
+            if o[:, :blind].float().any() or not bool((lse[:, :blind] <= -1e29).all()):
+                bad.append("rows that see no key are not o = 0, lse ~ -1e30")
+        grads = ((dq, pdq), (dk, pdk), (dv, pdv))
+        if dt == torch.float32:
+            o_x = _rel_excess(o, po, 1e-5, 1e-6 * po.abs().max().item())
+            grad_x = max(_rel_excess(a, b, 1e-4, 1e-5 * b.abs().max().item()) for a, b in grads)
+            if o_x > 1:
+                bad.append(f"o beyond rtol 1e-5 + 1e-6 max|o| (x{o_x:.3g})")
+            if grad_x > 1:
+                bad.append(f"dq/dk/dv beyond rtol 1e-4 + 1e-5 max (x{grad_x:.3g})")
+            tol = f"fp32 o at {o_x:.3g}"
+        else:
+            # sum_i p_i |v_i| / l: the fp32 forward of |v|
+            weight, _ = fa.flash_fwd_plain(q.float(), k.float(), v.float().abs(), **kw)
+            o_x = bf16_o_excess(o, po, weight)
+            del weight
+            x = {"o": o_x,
+                 "dq": _rel_excess(dq, pdq, 1e-4, 2.0 ** -9 * pdq.abs().max().item()),
+                 "dk": _rel_excess(dk, pdk, 1e-4, 2.0 ** -9 * pdk.abs().max().item()),
+                 "dv": _rel_excess(dv, pdv, 1e-4, 1e-5 * pdv.abs().max().item())}
+            for n_, r in x.items():
+                readings[n_] = max(readings[n_], r)
+            grad_x = max(x["dq"], x["dk"], x["dv"])
+            if o_x > 1:
+                bad.append(f"o beyond 1 bf16 ulp + 2^-9 sum p|v|/l (x{o_x:.3g})")
+            if max(x["dq"], x["dk"]) > 1:
+                bad.append(f"dq/dk beyond rtol 1e-4 + 2^-9 max (x{max(x['dq'], x['dk']):.3g})")
+            if x["dv"] > 1:
+                bad.append(f"dv beyond rtol 1e-4 + 1e-5 max (x{x['dv']:.3g})")
+            tol = f"bf16 o at {o_x:.3g}, dq {x['dq']:.3g}, dk {x['dk']:.3g}, dv {x['dv']:.3g}"
+            if label.startswith("136M shape"):
+                ctrl = bf16_dv_control(q, k, v, do, plse, dsum, kw)
+                readings["dv_control"] = _rel_excess(ctrl, pdv, 1e-4, 1e-5 * pdv.abs().max().item())
+                del ctrl
+                tol += f"; control bf16(p) dv at {readings['dv_control']:.3g}"
+                if readings["dv_control"] <= 1:
+                    bad.append("the bf16(p) dv control passes the dv check: it sees no cast point")
+        errs = {"flash_fwd": (o.float() - po.float()).abs().max().item(),
+                "flash_dq": (dq - pdq).abs().max().item(),
+                "flash_dkv": max((dk - pdk).abs().max().item(), (dv - pdv).abs().max().item())}
+        for n_, e in errs.items():
+            worst[n_] = max(worst[n_], e)
+        print(f"  {label:42s} BH {BH:3d} Tq {Tq:5d} Tk {Tk:5d} D {D:3d} causal {causal!s:5s}: "
+              f"max abs err o {errs['flash_fwd']:.3g} (max|o| {po.float().abs().max().item():.3g}) "
+              f"lse {lse_err:.3g} dq {errs['flash_dq']:.3g} dk/dv {errs['flash_dkv']:.3g} "
+              f"({tol}; grads at {grad_x:.3g} of the tolerance)"
+              + (f" FAILED: {'; '.join(bad)}" if bad else ""), flush=True)
+        failures += [f"{label}: {b}" for b in bad]
+        del q, k, v, do, o, po, dq, dk, dv, pdq, pdk, pdv
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    check(readings["dv_control"] is not None, "no 136M-shape bf16 case ran the dv control")
+    check(not failures, "flash kernels differ from their plain versions: " + " | ".join(failures))
+    return worst, readings
+
+
+def phase_lm_main():
+    """Full-width TransformerLM_136M through the CLI, counters zeroed just
+    before the run and read just after."""
+    from theanompi_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+
+    argv = ["BSP", "1", "transformer_lm", "TransformerLM_136M", "--synthetic",
+            "--max-steps", str(LM_STEPS), "--print-freq", "1", "--seed", "0",
+            "--dataset-arg", "n_train=64", "--dataset-arg", f"n_val={LM_VAL}"]
+    print(f"[lm-main] python -m theanompi_tpu_torch.cli {' '.join(argv)}", flush=True)
+    reset_launch_counts()
+    summary = run_cli(argv)
+    counts = launch_counts()
+    losses = summary["losses"]
+    check(summary["steps"] == LM_STEPS and len(losses) == LM_STEPS
+          and all(math.isfinite(x) for x in losses) and summary["nonfinite_steps"] == 0,
+          f"lm run: steps {summary['steps']}, losses {losses}")
+    check("val" in summary and all(math.isfinite(v) for v in summary["val"].values()),
+          f"lm run: bad val metrics {summary.get('val')}")
+    val_batches = 1
+    want = {"flash_fwd": LM_LAYERS * (LM_STEPS + val_batches), "flash_dq": LM_LAYERS * LM_STEPS,
+            "flash_dkv": LM_LAYERS * LM_STEPS}
+    got = {k: counts[k] for k in want}
+    check(got == want, f"lm run launched {got}, expected {want}")
+    stray = {k: v for k, v in counts.items() if k not in want and v}
+    check(not stray, f"the lm run launched other kernels: {stray}")
+    tokens_per_sec = summary["images_per_sec"] * LM_SHAPE["T"]
+    print(f"[lm-main] per-step loss {losses}; val {summary['val']}", flush=True)
+    print(f"[lm-main] steady-state step {summary['step_ms']:.3f} ms over {summary['steady_steps']} "
+          f"steps (CUDA events, 2 warm-up steps excluded), {summary['images_per_sec']:.2f} seq/s = "
+          f"{tokens_per_sec:.0f} tokens/s, launches {counts}", flush=True)
+    return {"launches": got, "summary": summary, "tokens_per_sec": tokens_per_sec}
+
+
+def phase_lm_parity(dev):
+    """A small fp32 LM trained 2 steps on the card (the flash kernels) and
+    on the CPU (their plain versions) from the same weights and batches."""
+    import torch
+    from theanompi_tpu_torch.models.lm import TransformerLMModel
+    from theanompi_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from theanompi_tpu_torch.train import init_train_state, make_train_step
+    from theanompi_tpu_torch.tree import tree_leaves
+
+    recipe = TransformerLMModel.default_recipe().replace(
+        input_shape=(256,), num_classes=512, d_model=128, n_heads=2, n_layers=2, d_ff=512,
+        batch_size=4, attn="flash", compute_dtype=torch.float32)
+    model = TransformerLMModel(recipe)
+    rng = torch.Generator().manual_seed(9)
+    batches = [torch.randint(0, 512, (4, 256), generator=rng, dtype=torch.int32) for _ in range(2)]
+    out = {}
+    for d in ("cpu", dev):
+        state = init_train_state(model, torch.Generator().manual_seed(10), d)
+        before = [p.detach().cpu().clone() for p in tree_leaves(state.params)]
+        step = make_train_step(model)
+        reset_launch_counts()
+        losses = []
+        for x in batches:
+            state, m = step(state, x.to(d), x.to(d), None)
+            losses.append(float(m["loss"]))
+        out[str(d)] = (losses, before, [p.detach().cpu() for p in tree_leaves(state.params)],
+                       launch_counts())
+    (lc, bc, pc, kc), (lg, bg, pg, kg) = out["cpu"], out[str(dev)]
+    check(not any(kc.values()), f"the CPU run launched kernels: {kc}")
+    check((kg["flash_fwd"], kg["flash_dq"], kg["flash_dkv"]) == (4, 4, 4),
+          f"the card run launched {kg}, expected 4 of each flash kernel")
+    check(all(math.isclose(a, b, rel_tol=1e-4) for a, b in zip(lc, lg)),
+          f"card losses {lg} vs CPU {lc}")
+    worst = 0.0
+    for i, (b0, a, b) in enumerate(zip(bc, pc, pg)):
+        check(bool((b != b0).any()), f"leaf {i} did not change on the card")
+        x = ((a - b).abs() - 1e-4 * a.abs()).max().item() / 1e-6
+        worst = max(worst, x)
+        check(x <= 1, f"leaf {i}: card params differ from CPU beyond atol 1e-6 + rtol 1e-4 "
+                      f"(x{x:.3g})")
+    print(f"[lm-parity] losses card {lg} vs CPU {lc}; params within atol 1e-6 + rtol 1e-4 "
+          f"(worst at {worst:.3g} of the tolerance); every leaf changed", flush=True)
+
+
+def phase_flash_times(dev, mem_rate, fp32_peak, bf16_peak):
+    """Each flash kernel at the 136M LM's attention shape (bf16, causal):
+    per-launch time, its bound, the plain version, and the SDPA yardstick."""
+    import torch
+    import torch.nn.functional as F
+    from theanompi_tpu_torch.ops import flash_attention as fa
+
+    B, T, H, D = LM_SHAPE["B"], LM_SHAPE["T"], LM_SHAPE["H"], LM_SHAPE["D"]
+    BH = B * H
+    g = torch.Generator(device=dev).manual_seed(11)
+    q, k, v, do = (torch.randn(BH, T, D, generator=g, device=dev).to(torch.bfloat16)
+                   for _ in range(4))
+    kw = dict(causal=True, scale=1.0 / math.sqrt(D))
+    o, lse = fa.flash_fwd(q, k, v, **kw)
+    dsum = torch.sum(do.float() * o.float(), dim=-1)
+    pairs = BH * T * (T + 1) // 2  # the (query, key) pairs the causal mask keeps
+    tile = 2 * BH * T * D  # bytes of one bf16 [BH, T, D] tensor
+    rows = 4 * BH * T  # bytes of one f32 [BH, T] vector
+    specs = {
+        # name: (kernel, plain, bytes, bf16 FLOPs, fp32 FLOPs)
+        "flash_fwd": (lambda: fa.flash_fwd(q, k, v, **kw),
+                      lambda: fa.flash_fwd_plain(q, k, v, **kw),
+                      4 * tile + rows, 4 * D * pairs, 0),
+        "flash_dq": (lambda: fa.flash_dq(q, k, v, do, lse, dsum, **kw),
+                     lambda: fa.flash_dq_plain(q, k, v, do, lse, dsum, **kw),
+                     4 * tile + 2 * rows + 2 * tile, 6 * D * pairs, 0),
+        "flash_dkv": (lambda: fa.flash_dkv(q, k, v, do, lse, dsum, **kw),
+                      lambda: fa.flash_dkv_plain(q, k, v, do, lse, dsum, **kw),
+                      4 * tile + 2 * rows + 4 * tile, 6 * D * pairs, 2 * D * pairs),
+    }
+    # the yardstick: SDPA's causal forward, and its whole backward
+    q4, k4, v4 = (t.view(B, H, T, D).detach().clone().requires_grad_(True) for t in (q, k, v))
+    out4 = F.scaled_dot_product_attention(q4, k4, v4, is_causal=True)
+    do4 = do.view(B, H, T, D)
+    with torch.no_grad():
+        sdpa_fwd = cuda_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4, is_causal=True),
+                           reps=20)
+    sdpa_bwd = cuda_ms(lambda: torch.autograd.grad(out4, (q4, k4, v4), do4, retain_graph=True),
+                       reps=20)
+    results = {}
+    for name, (kern, plain, byts, bf16_ops, fp32_ops) in specs.items():
+        ms = cuda_ms(kern, reps=10)
+        plain_ms = cuda_ms(plain, reps=3, warmup=1)
+        bytes_ms = byts / mem_rate * 1e3
+        ops_ms = (bf16_ops / bf16_peak + fp32_ops / fp32_peak) * 1e3
+        bound_ms = max(bytes_ms, ops_ms)
+        lib = sdpa_fwd if name == "flash_fwd" else sdpa_bwd
+        results[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bytes=byts,
+                             bf16_flop=bf16_ops, fp32_flop=fp32_ops, library_ms=lib,
+                             bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+        print(f"[times] {name}: {ms:.4f} ms/launch | bound {bound_ms:.4f} ms ({byts / 1e6:.1f} MB "
+              f"-> {bytes_ms * 1e3:.1f} us; {bf16_ops / 1e9:.2f} GFLOP bf16 + {fp32_ops / 1e9:.2f} "
+              f"GFLOP fp32 -> {ops_ms * 1e3:.1f} us; {results[name]['bound_by']}) | "
+              f"{bound_ms / ms * 100:.1f}% of bound | plain {plain_ms:.4f} ms | SDPA "
+              f"{'forward' if name == 'flash_fwd' else 'backward (dq, dk, dv)'} {lib:.4f} ms",
+              flush=True)
+    del q4, k4, v4, out4
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return results
+
+
 def build_all():
     """Build every kernel library at once (one nvcc per source, started
     together); returns {source: nvcc seconds}."""
     from concurrent.futures import ThreadPoolExecutor
 
+    from theanompi_tpu_torch.ops import flash_attention as fa
     from theanompi_tpu_torch.ops import fused_update as fu
     from theanompi_tpu_torch.ops import quant as tq
 
-    with ThreadPoolExecutor(max_workers=2) as pool:
-        futs = {"fused_update.cu": pool.submit(fu.build), "quant.cu": pool.submit(tq.build)}
+    with ThreadPoolExecutor(max_workers=3) as pool:
+        futs = {"fused_update.cu": pool.submit(fu.build), "quant.cu": pool.submit(tq.build),
+                "flash_attention.cu": pool.submit(fa.build)}
         return {src: f.result() for src, f in futs.items()}
 
 
@@ -630,7 +966,7 @@ def main() -> int:
         kind = torch.cuda.get_device_name(0)
         check(kind in CARD_RATES, f"no data-sheet rates for {kind!r} (known: {sorted(CARD_RATES)}); "
                                   "add the card's memory rate and fp32 peak to CARD_RATES")
-        mem_rate, fp32_peak = CARD_RATES[kind]
+        mem_rate, fp32_peak, bf16_peak = CARD_RATES[kind]
         print(f"card: {smi} | {kind} | memory rate for bounds {mem_rate / 1e12:.2f} TB/s", flush=True)
         dev = torch.device("cuda", 0)
         torch.cuda.set_device(dev)
@@ -656,8 +992,17 @@ def main() -> int:
               flush=True)
 
         t0 = time.perf_counter()
+        worst_f, flash_readings = phase_flash(dev)
+        print(f"[flash] {len(flash_cases())} cases within tolerance ({time.perf_counter() - t0:.1f} s)",
+              flush=True)
+
+        t0 = time.perf_counter()
         runs = phase_main()
         print(f"[main] done ({time.perf_counter() - t0:.1f} s)", flush=True)
+
+        t0 = time.perf_counter()
+        lm_run = phase_lm_main()
+        print(f"[lm-main] done ({time.perf_counter() - t0:.1f} s)", flush=True)
 
         t0 = time.perf_counter()
         rank_runs = phase_bsp_ranks(torch.cuda.device_count())
@@ -668,8 +1013,13 @@ def main() -> int:
         print(f"[parity] done ({time.perf_counter() - t0:.1f} s)", flush=True)
 
         t0 = time.perf_counter()
+        phase_lm_parity(dev)
+        print(f"[lm-parity] done ({time.perf_counter() - t0:.1f} s)", flush=True)
+
+        t0 = time.perf_counter()
         times = phase_times(shapes, dev, mem_rate, fp32_peak)
         times.update(phase_quant_times(shapes, dev, mem_rate, fp32_peak))
+        times.update(phase_flash_times(dev, mem_rate, fp32_peak, bf16_peak))
         print(f"[times] done ({time.perf_counter() - t0:.1f} s)", flush=True)
         torch.cuda.synchronize()
     except Failed as e:
@@ -725,6 +1075,42 @@ def main() -> int:
             "launches_in": (f"the {codec_run['n']}-rank psum + int8:ef run, all ranks, "
                             f"{RANK_STEPS} steps" if launches else
                             "not on the main path (whole-buffer scale; tests only)"),
+        })
+    src_fa = "theanompi_tpu_torch/csrc/flash_attention.cu"
+    lm = lm_run["summary"]
+    for name, replaces in (
+        ("flash_fwd", "theanompi_tpu/ops/pallas_attention.py:131"),
+        ("flash_dq", "theanompi_tpu/ops/pallas_attention.py:174 + :264"),
+        ("flash_dkv", "theanompi_tpu/ops/pallas_attention.py:207 + :302"),
+    ):
+        t = times[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": src_fa, "replaces": replaces,
+            "launches": lm_run["launches"][name], "max_abs_err": worst_f[name],
+            "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+            "matched": True,
+            "tolerance": ("fp32: o rtol 1e-5 + 1e-6 max|o|, dq/dk/dv rtol 1e-4 + 1e-5 max; bf16: "
+                          "o <= 1 bf16 ulp + 2^-9 sum_i p_i |v_i| / l (a p rounded to its "
+                          "bf16 neighbour on one side), dq/dk rtol 1e-4 + 2^-9 max (a flipped "
+                          "bf16 rounding of ds), dv (fp32 product, p unrounded) rtol 1e-4 + "
+                          "1e-5 max; lse atol 1e-5"),
+            "bf16_worst_share_of_tolerance": {k_: v_ for k_, v_ in flash_readings.items()
+                                              if k_ != "dv_control"},
+            "bf16_dv_control_share": flash_readings["dv_control"],
+            "work": ("one launch at the 136M LM's attention shape: BH 96, T 1024, D 64, bf16, "
+                     "causal"),
+            "library_note": (
+                "torch.nn.functional.scaled_dot_product_attention(is_causal=True) " +
+                ("forward" if name == "flash_fwd" else
+                 "backward, dq, dk and dv in one call (the same number for flash_dq and "
+                 "flash_dkv)") +
+                ": not the same function (its dv product is bf16, its blocks its own); a "
+                "yardstick only, the port never calls it"),
+            "launches_in": (f"the {LM_STEPS}-step TransformerLM_136M run through the CLI "
+                            f"({LM_LAYERS} layers; flash_fwd also in 1 validation batch)"),
+            "main_path_step_ms": lm["step_ms"],
+            "main_path_tokens_per_sec": lm_run["tokens_per_sec"],
         })
     print(f"chip_smoke: wall {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))

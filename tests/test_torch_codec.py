@@ -16,6 +16,7 @@ import torch
 
 from theanompi_tpu.parallel import codec as jc
 from theanompi_tpu_torch import bridge
+from theanompi_tpu_torch.nn.layers import PLAIN
 from theanompi_tpu_torch.parallel import codec as tc
 
 
@@ -86,7 +87,8 @@ def test_compress_bit_identical_over_rounds(spec):
     for rnd in range(3):
         tree = _tree(10 + rnd)
         jwire, jef = jcodec.compress(_to_jax(tree), jef)
-        twire, tef = tcodec.compress(bridge.tree_from_jax(tree), tef)
+        twire, tef = tcodec.compress(bridge.tree_from_jax(tree), tef,
+                                     bridge.default_layouts(tree))
         _assert_tree_equal(twire, jwire)
         if tcodec.error_feedback:
             _assert_tree_equal(tef, jef)
@@ -103,7 +105,8 @@ def test_compress_stacked_residual_is_the_ranks_own():
     ef = jax.tree_util.tree_map(lambda a: (a * 0.01).astype(np.float32), _tree(3))
     jwire, jef = jcodec.compress_stacked(_to_jax(tree), jax.tree_util.tree_map(
         lambda a: jnp.asarray(a)[None], ef))
-    twire, tef = tcodec.compress(bridge.tree_from_jax(tree), bridge.tree_from_jax(ef))
+    twire, tef = tcodec.compress(bridge.tree_from_jax(tree), bridge.tree_from_jax(ef),
+                                 bridge.default_layouts(tree))
     _assert_tree_equal(twire, jwire)
     _assert_tree_equal(tef, jax.tree_util.tree_map(lambda a: a[0], jef))
 
@@ -117,10 +120,10 @@ def test_error_feedback_telescopes():
     ef = torch.from_numpy(r.randn(300).astype(np.float32) * 0.01)
     q, ef2 = codec.compress_leaf(v, ef)
     assert torch.equal(q + ef2, v + ef)
-    tree, ef_out = tc.get_codec("int8").compress({"w": v}, ())
+    tree, ef_out = tc.get_codec("int8").compress({"w": v}, (), {"w": PLAIN})
     assert ef_out == ()
     with pytest.raises(ValueError, match="init_ef"):
-        codec.compress({"w": v, "b": v}, {"w": ef})
+        codec.compress({"w": v, "b": v}, {"w": ef}, {"w": PLAIN, "b": PLAIN})
 
 
 @pytest.mark.parametrize("spec", ["none", "bf16", "int8"])
@@ -140,3 +143,44 @@ def test_gossip_messages_bit_identical(spec, length):
     tv, ts = tc.gossip_decode(tc.get_codec(spec), tmsg, length)
     np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
     assert ts.item() == float(js) == share  # the share rides exact
+
+
+def _lm_tree(seed):
+    """An LM-shaped gradient tree: ``qkv [d, 3, H, hd]`` is 4-D but no conv
+    kernel, 768 elements (six int8 blocks) with magnitudes that vary
+    along every axis, so another flat order changes the blocks' scales."""
+    r = np.random.RandomState(seed)
+
+    def leaf(*shape):
+        x = r.randn(*shape)
+        for ax in range(x.ndim):
+            x = x * np.exp(r.randn(*[s if i == ax else 1 for i, s in enumerate(shape)]))
+        return x.astype(np.float32)
+
+    return {"blocks": [{"qkv": leaf(16, 3, 2, 8), "proj": leaf(2, 8, 16), "ln1": leaf(16)}],
+            "head": leaf(16, 20)}
+
+
+@pytest.mark.parametrize("spec", ["int8", "int8:ef"])
+def test_lm_tree_compress_follows_the_models_layouts(spec):
+    """The LM's leaves (held in the reference's shapes, the 4-D ``qkv``
+    included) through ``compress`` with the model's layout tags, as the
+    exchange passes them: bit-identical to the reference over rounds."""
+    from theanompi_tpu_torch.models.lm import TransformerLMModel
+
+    jcodec, tcodec = jc.get_codec(spec), tc.get_codec(spec)
+
+    def to_torch(tree):
+        return jax.tree_util.tree_map(lambda a: torch.from_numpy(a.copy()), tree)
+
+    layouts = TransformerLMModel().param_layouts(_lm_tree(0))
+    jef = jcodec.init_ef(_to_jax(_lm_tree(0)))
+    tef = tcodec.init_ef(to_torch(_lm_tree(0)))
+    for rnd in range(3):
+        tree = _lm_tree(20 + rnd)
+        jwire, jef = jcodec.compress(_to_jax(tree), jef)
+        twire, tef = tcodec.compress(to_torch(tree), tef, layouts)
+        for got, want in ((twire, jwire), (tef, jef)):
+            for a, b in zip(jax.tree_util.tree_leaves(got), jax.tree_util.tree_leaves(want)):
+                assert tuple(a.shape) == np.shape(b)
+                np.testing.assert_array_equal(a.numpy(), np.asarray(b))

@@ -1,0 +1,221 @@
+"""The port's flash attention (``theanompi_tpu_torch/ops/flash_attention.py``)
+against the JAX package's Pallas kernels (``ops/pallas_attention.py``),
+which run here in Pallas interpret mode, as the reference's own tests
+run them.
+
+On the CPU the wrappers run their plain PyTorch versions, so these tests
+hold the plain versions (the card's reference for the CUDA kernels) to
+the TPU kernels' function: the forward (o and lse) with ragged T and D,
+T below one block, Tq != Tk, and nonzero global offsets (a fully future
+K/V shard included); dq and dk/dv at offsets through the 1-D and the
+2-D kernels; and the gradients of the autograd.Function against
+``jax.grad`` of the reference entry point, with the 1-D dispatch and
+with ``_BWD_2D_MIN_T`` monkeypatched to 1.
+
+Tolerances. fp32: o atol 3e-6 rtol 1e-5, lse atol 1e-5, dq/dk/dv atol
+2e-5 rtol 1e-4 (the reference's own tests'): the sums run in another
+order. bf16 (inputs, p and ds rounded at the same points on both sides,
+the same K tiles): o within 1 bf16 ulp (rtol 2^-7) plus 1e-6, lse atol
+1e-5; the gradients come back in bf16 through ds rounded to bf16, where
+an fp32 difference in p can flip one rounding: rtol 2^-6 plus 2^-7 of
+the largest value.
+"""
+
+import math
+
+import numpy as np
+import pytest
+
+import jax
+import jax.numpy as jnp
+import torch
+
+import theanompi_tpu.ops.pallas_attention as pa
+from theanompi_tpu.ops.ring_attention import full_attention_reference as j_full
+from theanompi_tpu_torch.ops import flash_attention as tfa
+from theanompi_tpu_torch.ops.ring_attention import full_attention_reference as t_full
+
+
+def _qkv(B, Tq, Tk, H, D, seed):
+    r = np.random.RandomState(seed)
+    return (r.randn(B, Tq, H, D).astype(np.float32), r.randn(B, Tk, H, D).astype(np.float32),
+            r.randn(B, Tk, H, D).astype(np.float32))
+
+
+def _heads_major(x):
+    B, T, H, D = x.shape
+    return np.ascontiguousarray(x.transpose(0, 2, 1, 3).reshape(B * H, T, D))
+
+
+def _t(a, dtype=torch.float32):
+    return torch.from_numpy(np.array(a, np.float32)).to(dtype)
+
+
+def _reference_fwd(q, k, v, causal, bq, bk, q_off, k_off, dtype=jnp.float32):
+    """The Pallas forward (o, lse) at the given offsets, unpadded."""
+    cfg, q3, k3, v3, _ = pa._prepare(*(jnp.asarray(x, dtype) for x in (q, k, v)),
+                                     causal, None, None, bq, bk)
+    o, lse = pa._fwd(cfg, q3, k3, v3, pa._as_off(q_off), pa._as_off(k_off))
+    Tq = q.shape[1]
+    return np.asarray(o[:, :Tq], np.float32), np.asarray(lse[:, :Tq, 0])
+
+
+FWD_CASES = [
+    # (B, Tq, Tk, H, D, bq, bk): the reference test's shapes, and Tq != Tk
+    (2, 64, 64, 3, 32, 32, 32),   # exact multiples, several blocks
+    (2, 80, 80, 3, 24, 32, 16),   # ragged T (query and key padding), ragged D
+    (2, 16, 16, 3, 8, 128, 128),  # T smaller than one block
+    (2, 40, 72, 2, 16, 32, 32),   # cross attention, Tq != Tk, both ragged
+]
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("B,Tq,Tk,H,D,bq,bk", FWD_CASES)
+def test_forward_and_lse_match_the_pallas_kernel(causal, B, Tq, Tk, H, D, bq, bk):
+    q, k, v = _qkv(B, Tq, Tk, H, D, seed=Tq + D)
+    want_o, want_lse = _reference_fwd(q, k, v, causal, bq, bk, 0, 0)
+    got_o, got_lse = tfa.flash_fwd(*(_t(_heads_major(x)) for x in (q, k, v)), causal=causal,
+                                   scale=1.0 / math.sqrt(D), block_k=bk)
+    np.testing.assert_allclose(got_o.numpy(), want_o, atol=3e-6, rtol=1e-5)
+    np.testing.assert_allclose(got_lse.numpy(), want_lse, atol=1e-5, rtol=0)
+
+
+# (q_off, k_off): K/V shard behind, ahead (fully in the causal future: no
+# row sees any key), partly overlapping
+OFFSETS = [(64, 0), (0, 64), (32, 48)]
+
+
+@pytest.mark.parametrize("q_off,k_off", OFFSETS)
+def test_forward_at_global_offsets(q_off, k_off):
+    B, T, H, D = 2, 48, 2, 16
+    q, k, v = _qkv(B, T, T, H, D, seed=q_off + 3 * k_off)
+    want_o, want_lse = _reference_fwd(q, k, v, True, 16, 16, q_off, k_off)
+    got_o, got_lse = tfa.flash_fwd(*(_t(_heads_major(x)) for x in (q, k, v)), causal=True,
+                                   scale=0.25, q_off=q_off, k_off=k_off, block_k=16)
+    np.testing.assert_allclose(got_o.numpy(), want_o, atol=3e-6, rtol=1e-5)
+    np.testing.assert_allclose(got_lse.numpy(), want_lse, atol=1e-5, rtol=0)
+    if k_off >= q_off + T:  # every row blind: o = 0, lse the sentinel
+        assert not got_o.any() and bool((got_lse <= -1e29).all())
+
+
+@pytest.mark.parametrize("two_d", [False, True])
+@pytest.mark.parametrize("q_off,k_off", [(0, 0)] + OFFSETS)
+def test_dq_dkv_match_the_pallas_kernels(two_d, q_off, k_off):
+    """dq and dk/dv given the same (q, k, v, dO, lse, dsum), at offsets,
+    against the 1-D kernels (#8, #9) or the 2-D ones (#10, #11)."""
+    B, Tq, Tk, H, D = 2, 40, 56, 2, 24
+    q, k, v = _qkv(B, Tq, Tk, H, D, seed=11 + q_off)
+    g = np.random.RandomState(5).randn(B * H, Tq, D).astype(np.float32)
+    cfg, q3, k3, v3, _ = pa._prepare(*(jnp.asarray(x) for x in (q, k, v)), True, None, None,
+                                     16, 16)
+    g3 = jnp.pad(jnp.asarray(g), ((0, 0), (0, q3.shape[1] - Tq), (0, 0)))
+    qo, ko = pa._as_off(q_off), pa._as_off(k_off)
+    o, lse = pa._fwd(cfg, q3, k3, v3, qo, ko)
+    dsum = pa._dsum_of(g3, o)
+    dq_call, dkv_call = (pa._dq_call_2d, pa._dkv_call_2d) if two_d else (pa._dq_call, pa._dkv_call)
+    want_dq = np.asarray(dq_call(cfg, q3, k3, v3, g3, lse, dsum, qo, ko))[:, :Tq]
+    want_dk, want_dv = (np.asarray(a)[:, :Tk] for a in dkv_call(cfg, q3, g3, lse, dsum, k3, v3,
+                                                                 qo, ko))
+    args = [_t(_heads_major(x)) for x in (q, k, v)] + [
+        _t(g), _t(np.asarray(lse)[:, :Tq, 0]), _t(np.asarray(dsum)[:, :Tq, 0])]
+    kw = dict(causal=True, scale=cfg.scale, q_off=q_off, k_off=k_off)
+    got_dq = tfa.flash_dq(*args, **kw)
+    got_dk, got_dv = tfa.flash_dkv(*args, **kw)
+    for name, a, b in (("dq", got_dq, want_dq), ("dk", got_dk, want_dk), ("dv", got_dv, want_dv)):
+        np.testing.assert_allclose(a.numpy(), b, atol=2e-5, rtol=1e-4, err_msg=name)
+
+
+def _loss_weights(D):
+    return 1.0 + np.arange(D, dtype=np.float32)
+
+
+@pytest.mark.parametrize("two_d", [False, True])
+@pytest.mark.parametrize("causal", [False, True])
+def test_gradients_match_jax_grad_of_the_reference(causal, two_d, monkeypatch):
+    """The autograd.Function's gradients against ``jax.grad`` through the
+    reference's custom VJP, with its 1-D or its 2-D backward dispatch."""
+    if two_d:
+        monkeypatch.setattr(pa, "_BWD_2D_MIN_T", 1)
+    B, T, H, D = 2, 48, 2, 24
+    q, k, v = _qkv(B, T, T, H, D, seed=7)
+    w = _loss_weights(D)
+
+    def jloss(q, k, v):
+        return jnp.sum(jnp.sin(pa.flash_attention(q, k, v, causal=causal, block_q=16,
+                                                  block_k=16)) * w)
+
+    want = jax.grad(jloss, argnums=(0, 1, 2))(*(jnp.asarray(x) for x in (q, k, v)))
+    tq, tk, tv = (_t(x).requires_grad_(True) for x in (q, k, v))
+    out = tfa.flash_attention(tq, tk, tv, causal=causal, block_q=16, block_k=16)
+    torch.sum(torch.sin(out) * torch.from_numpy(w)).backward()
+    for name, a, b in (("dq", tq.grad, want[0]), ("dk", tk.grad, want[1]),
+                       ("dv", tv.grad, want[2])):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=2e-5, rtol=1e-4,
+                                   err_msg=f"{name} causal={causal} 2d={two_d}")
+
+
+def test_bf16_forward_and_gradients():
+    """bf16 in, bf16 out: the same cast points as the reference kernels
+    (the K tile 16 on both sides, so p rounds against the same maxima)."""
+    B, T, H, D = 2, 64, 2, 32
+    q, k, v = (np.asarray(jnp.asarray(x, jnp.bfloat16), np.float32)
+               for x in _qkv(B, T, T, H, D, seed=3))
+    want_o, want_lse = _reference_fwd(q, k, v, True, 16, 16, 0, 0, dtype=jnp.bfloat16)
+    got_o, got_lse = tfa.flash_fwd(*(_t(_heads_major(x), torch.bfloat16) for x in (q, k, v)),
+                                   causal=True, scale=1.0 / math.sqrt(D), block_k=16)
+    assert got_o.dtype == torch.bfloat16
+    np.testing.assert_allclose(got_o.float().numpy(), want_o, rtol=2.0 ** -7, atol=1e-6)
+    np.testing.assert_allclose(got_lse.numpy(), want_lse, atol=1e-5, rtol=0)
+
+    w = _loss_weights(D)
+
+    def jloss(q, k, v):
+        out = pa.flash_attention(q, k, v, causal=True, block_q=16, block_k=16)
+        return jnp.sum(jnp.sin(out.astype(jnp.float32)) * w)
+
+    want = jax.grad(jloss, argnums=(0, 1, 2))(*(jnp.asarray(x, jnp.bfloat16) for x in (q, k, v)))
+    tq, tk, tv = (_t(x, torch.bfloat16).requires_grad_(True) for x in (q, k, v))
+    out = tfa.flash_attention(tq, tk, tv, causal=True, block_q=16, block_k=16)
+    assert out.dtype == torch.bfloat16
+    torch.sum(torch.sin(out.float()) * torch.from_numpy(w)).backward()
+    for name, a, b in (("dq", tq.grad, want[0]), ("dk", tk.grad, want[1]),
+                       ("dv", tv.grad, want[2])):
+        assert a.dtype == torch.bfloat16
+        b = np.asarray(b, np.float32)
+        np.testing.assert_allclose(a.float().numpy(), b, rtol=2.0 ** -6,
+                                   atol=2.0 ** -7 * np.abs(b).max(), err_msg=name)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_highest_precision_and_the_oracle(causal):
+    """``precision="highest"`` upcasts bf16 inputs to fp32 and returns
+    bf16; the plain oracle (``full_attention_reference``) matches the
+    reference's with Tq != Tk."""
+    q, k, v = _qkv(2, 40, 72, 2, 16, seed=0)
+    for fn_t, fn_j, kw in ((tfa.flash_attention, pa.flash_attention,
+                            dict(precision="highest", block_q=32, block_k=32)),
+                           (t_full, j_full, {})):
+        want = fn_j(*(jnp.asarray(x, jnp.bfloat16) for x in (q, k, v)), causal=causal, **kw)
+        got = fn_t(*(_t(x, torch.bfloat16) for x in (q, k, v)), causal=causal, **kw)
+        assert got.dtype == torch.bfloat16 and tuple(got.shape) == (2, 40, 2, 16)
+        np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32),
+                                   rtol=2.0 ** -7, atol=1e-6)
+        want = fn_j(*(jnp.asarray(x) for x in (q, k, v)), causal=causal, **kw)
+        got = fn_t(*(_t(x) for x in (q, k, v)), causal=causal, **kw)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=3e-6, rtol=1e-5)
+
+
+def test_cpu_path_counts_no_launch_and_other_devices_need_cuda():
+    for c in (tfa.FLASH_FWD, tfa.FLASH_DQ, tfa.FLASH_DKV):
+        c.reset()
+    q = torch.randn(2, 16, 2, 8, requires_grad=True)
+    tfa.flash_attention(q, q, q, causal=True).sum().backward()
+    assert (tfa.FLASH_FWD.launches, tfa.FLASH_DQ.launches, tfa.FLASH_DKV.launches) == (0, 0, 0)
+    meta = torch.empty(4, 16, 8, device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        tfa.flash_fwd(meta, meta, meta, causal=True, scale=1.0)
+    wide = torch.empty(4, 16, 72, device="meta")
+    with pytest.raises(ValueError, match="head dim 72"):
+        tfa.flash_fwd(wide, wide, wide, causal=True, scale=1.0)
+    with pytest.raises(ValueError, match="tile K by 64"):
+        tfa.flash_fwd(meta, meta, meta, causal=True, scale=1.0, block_k=32)

@@ -59,6 +59,9 @@ def test_importing_the_port_loads_no_jax():
         "import theanompi_tpu_torch.parallel.strategies, theanompi_tpu_torch.parallel.bsp\n"
         "import theanompi_tpu_torch.parallel.distributed, theanompi_tpu_torch.parallel.mesh\n"
         "import theanompi_tpu_torch.launch.session\n"
+        "import theanompi_tpu_torch.models.lm, theanompi_tpu_torch.models.transformer\n"
+        "import theanompi_tpu_torch.data.lm, theanompi_tpu_torch.ops.flash_attention\n"
+        "import theanompi_tpu_torch.ops.ring_attention\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'theanompi_tpu'))\n"
         "print(bad)\n"
     )
@@ -124,3 +127,30 @@ def test_rank_launcher_needs_the_cards_unless_cpu_is_asked_for(monkeypatch):
         rank_devices(2)
     with pytest.raises(ValueError, match="NCCL needs one card per rank"):
         spawn_ranks(print, 2, device="cuda:0", backend="nccl")
+
+
+def test_lm_entry_points_raise_without_a_card_unless_cpu_is_asked_for(monkeypatch):
+    """The LM slice's entry points take the same road: without CUDA the
+    CLI's run, the engine and the train state raise before any work; the
+    flash wrappers take their plain versions only for CPU tensors."""
+    from theanompi_tpu_torch import cli
+    from theanompi_tpu_torch.launch.worker import run_training
+    from theanompi_tpu_torch.models.lm import TransformerLM_136M, TransformerLMModel
+    from theanompi_tpu_torch.ops import flash_attention as tfa
+    from theanompi_tpu_torch.parallel.bsp import BSPEngine
+    from theanompi_tpu_torch.train import init_train_state
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main(["BSP", "1", "transformer_lm", "TransformerLM_136M", "--synthetic",
+                  "--max-steps", "1"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run_training(model_cls=TransformerLM_136M, max_steps=1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        BSPEngine(TransformerLMModel())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_train_state(TransformerLMModel(), torch.Generator().manual_seed(0))
+    assert BSPEngine(TransformerLMModel(), device="cpu").device == torch.device("cpu")
+    meta = torch.empty(2, 8, 4, device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        tfa.flash_dq(meta, meta, meta, meta, meta, meta, causal=True, scale=1.0)

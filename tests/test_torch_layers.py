@@ -118,6 +118,18 @@ def test_activation_matches_reference(fn):
     _check_layer(jnn.Activation(fn), tnn.Activation(fn), (2, 3, 3, 4))
 
 
+def test_gelu_in_bf16_is_the_references_bit_for_bit():
+    """``jax.nn.gelu`` rounds after every op in bf16 (the LM's compute
+    dtype); the port's ``gelu`` does the same, so it is the reference's to
+    the bit over a wide range. (fp32 differs in the last bits, as XLA's
+    tanh does: ``test_activation_matches_reference`` holds it.)"""
+    r = np.random.RandomState(0)
+    x = np.concatenate([r.randn(50000) * s for s in (0.3, 1.0, 3.0, 10.0)]).astype(np.float32)
+    want = np.asarray(jax.nn.gelu(jnp.asarray(x, jnp.bfloat16)).astype(jnp.float32))
+    got = tnn.layers.gelu(torch.from_numpy(x).to(torch.bfloat16)).float().numpy()
+    np.testing.assert_array_equal(got, want)
+
+
 def test_global_avg_pool_and_batchnorm_match_reference():
     _check_layer(jnn.GlobalAvgPool(), tnn.GlobalAvgPool(), (2, 3, 3, 4))
     jbn, tbn = jnn.BatchNorm(), tnn.BatchNorm()

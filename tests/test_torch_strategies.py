@@ -34,11 +34,12 @@ from jax.sharding import Mesh
 from jax.sharding import PartitionSpec as P
 
 from theanompi_tpu.parallel import strategies as jst
+from theanompi_tpu_torch.bridge import default_layouts
 from theanompi_tpu_torch.launch.session import spawn_ranks
 from theanompi_tpu_torch.parallel import strategies as tst
 
 import torch_rank_fns
-from torch_rank_fns import STRATEGY_CASES
+from torch_rank_fns import LM_STRATEGY_CASES, STRATEGY_CASES
 
 RING_FAMILY = ("ring", "ring_bf16", "ring_int8", "ring+int8")
 
@@ -62,15 +63,17 @@ def _unstack(tree, n):
     return [jax.tree_util.tree_map(lambda a: a[i], tree) for i in range(n)]
 
 
-def _reference(n, case):
+def _reference(n, case, grads=None, residuals=None):
     """The reference strategy on the n-device CPU mesh -> (stacked
-    synced grads, stacked residuals or ())."""
+    synced grads, stacked residuals or ()); ``grads`` / ``residuals``
+    default to ``_grads(n)`` / ``_residuals(n)``."""
     name, codec = STRATEGY_CASES[case]
     strat = jst.get_strategy(name, "data", n, codec=codec)
     mesh = Mesh(np.array(jax.devices()[:n]), ("data",))
-    grads = jax.tree_util.tree_map(jnp.asarray, _grads(n))
+    grads = jax.tree_util.tree_map(jnp.asarray, _grads(n) if grads is None else grads)
     if getattr(strat, "stateful", False):
-        ef = (jax.tree_util.tree_map(jnp.asarray, _residuals(n))
+        residuals = _residuals(n) if residuals is None else residuals
+        ef = (jax.tree_util.tree_map(jnp.asarray, residuals)
               if codec.endswith(":ef") else ())
 
         def f(g, e):
@@ -155,10 +158,10 @@ def test_aliases_and_refusals_match_the_reference(name, codec):
         ref = jst.get_strategy(name, "data", 4, codec=codec)
     except ValueError as e:
         with pytest.raises(ValueError) as got:
-            tst.get_strategy(name, 4, codec=codec)
+            tst.get_strategy(name, 4, codec=codec, layouts=default_layouts)
         assert str(got.value).split(";")[0].split(" —")[0] == str(e).split(";")[0].split(" —")[0]
         return
-    port = tst.get_strategy(name, 4, codec=codec)
+    port = tst.get_strategy(name, 4, codec=codec, layouts=default_layouts)
     assert getattr(port, "stateful", False) == getattr(ref, "stateful", False)
 
 
@@ -167,7 +170,7 @@ def test_unknown_strategy_with_a_codec_is_refused():
     an active codec (``theanompi_tpu/parallel/strategies.py:820-828``
     assume every such pair is 'ring'); the port refuses the name."""
     with pytest.raises(ValueError, match="unknown exchange strategy 'fancy'"):
-        tst.get_strategy("fancy", 4, codec="int8")
+        tst.get_strategy("fancy", 4, codec="int8", layouts=default_layouts)
 
 
 @pytest.mark.parametrize("n", [2, 3, 4])
@@ -204,4 +207,69 @@ def test_initialize_distributed_from_the_reference_env_names(tmp_path, monkeypat
 
 def test_hier_is_refused_until_ported():
     with pytest.raises(ValueError, match="not ported yet"):
-        tst.get_strategy("hier", 4)
+        tst.get_strategy("hier", 4, layouts=default_layouts)
+
+
+def _lm_grads(n, seed=2):
+    """Per-rank LM gradient trees (the reference's layout, stacked [n, ...]):
+    a 4-D ``qkv`` of 768 elements (six int8 blocks) with magnitudes that
+    vary along every axis, so any other flat order changes the blocks'
+    scales and the ring's segments."""
+    r = np.random.RandomState(seed)
+
+    def leaf(*shape):
+        x = r.randn(n, *shape)
+        for ax in range(1, x.ndim):
+            x = x * np.exp(r.randn(*[s if i == ax else 1 for i, s in enumerate(x.shape)]))
+        return x.astype(np.float32)
+
+    return {
+        "blocks": [{"qkv": leaf(16, 3, 2, 8), "proj": leaf(2, 8, 16), "mlp_in": leaf(16, 24),
+                    "mlp_out": leaf(24, 16), "ln1": leaf(16), "ln2": leaf(16)}],
+        "head": leaf(16, 20), "pos_emb": leaf(12, 16), "tok_emb": leaf(20, 16),
+    }
+
+
+_LM_PORT: dict = {}
+
+
+@pytest.fixture
+def lm_port_results(monkeypatch):
+    """Every LM case on 2 gloo ranks, run once for the module."""
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    if not _LM_PORT:
+        n = 2
+        grads = _lm_grads(n)
+        res = jax.tree_util.tree_map(lambda a: a * 0.01, _lm_grads(n, seed=3))
+        ranks = spawn_ranks(torch_rank_fns.lm_strategies_rank, n,
+                            (_unstack(grads, n), _unstack(res, n)), device="cpu", timeout=240)
+        _LM_PORT["run"] = (n, grads, res, ranks)
+    return _LM_PORT["run"]
+
+
+@pytest.mark.parametrize("case", list(LM_STRATEGY_CASES))
+def test_lm_gradients_keep_their_layout_through_the_exchange(lm_port_results, case):
+    """LM gradients, whose ``qkv`` is 4-D but no conv kernel, through the
+    exchange as BSPEngine builds it (the model's layout tags) on 2 gloo
+    ranks: the port keeps every leaf in the reference's shape, and the
+    result matches the reference strategy on the 2-device mesh (ring_int8
+    bit for bit; psum + int8:ef as ``test_strategy_matches_reference``)."""
+    n, grads, res, ranks = lm_port_results
+    ref_out, ref_ef = _reference(n, case, grads, res)
+    ref_shapes = [a.shape[1:] for a in jax.tree_util.tree_leaves(grads)]
+    for rank, got in enumerate(ranks):
+        assert [tuple(s) for s in jax.tree_util.tree_leaves(
+            got["_shapes"], is_leaf=lambda x: isinstance(x, tuple))] == ref_shapes
+        out, ef = got[case]
+        for a, b in zip(jax.tree_util.tree_leaves(out), jax.tree_util.tree_leaves(ref_out)):
+            if case == "ring_int8":
+                np.testing.assert_array_equal(a, b[rank], err_msg=f"{case} rank {rank}")
+            else:
+                np.testing.assert_allclose(a, b[rank], rtol=1e-6, atol=1e-7,
+                                           err_msg=f"{case} rank {rank}")
+        if case.endswith(":ef"):
+            xs = jax.tree_util.tree_leaves(jax.tree_util.tree_map(
+                lambda g, r: g[rank] + r[rank], grads, res))
+            for a, b, x in zip(jax.tree_util.tree_leaves(ef),
+                               jax.tree_util.tree_leaves(ref_ef), xs):
+                np.testing.assert_allclose(a, b[rank], rtol=0, atol=2.0 ** -23 * np.abs(x).max())

@@ -11,6 +11,7 @@ from theanompi_tpu_torch import nn as tnn
 from theanompi_tpu_torch.models.alex_net import AlexNet
 from theanompi_tpu_torch.models.contract import Model, Recipe
 from theanompi_tpu_torch.nn import init as initializers
+from theanompi_tpu_torch.tree import tree_map
 
 # every strategy/codec pairing the strategy parity tests hold against
 # the reference: name -> (strategy, wire codec)
@@ -86,13 +87,51 @@ def strategies_rank(rank, n, device, grads_np, ef_np):
     out = {"_distributed": {"multiprocess": is_multiprocess(), "caught_difference": caught}}
     for case, (name, codec) in STRATEGY_CASES.items():
         grads = bridge.tree_from_jax(grads_np[rank])
-        strat = get_strategy(name, n, codec=codec)
+        strat = get_strategy(name, n, codec=codec, layouts=bridge.default_layouts)
         if getattr(strat, "stateful", False):
             ef = bridge.tree_from_jax(ef_np[rank]) if codec.endswith(":ef") else ()
             synced, ef = strat(grads, ef)
             out[case] = (_tree_np(synced), _tree_np(ef) if ef != () else ())
         else:
             out[case] = (_tree_np(strat(grads)), ())
+    return out
+
+
+# the LM cases of the layout parity: trees with a 4-D leaf (qkv) that is
+# no conv kernel, exchanged with the LM's own layout tags
+LM_STRATEGY_CASES = {
+    "ring_int8": ("ring_int8", None),
+    "psum+int8:ef": ("psum", "int8:ef"),
+}
+
+
+def lm_strategies_rank(rank, n, device, grads_np, ef_np):
+    """The LM_STRATEGY_CASES exchanges of this rank's LM-shaped grads,
+    built as ``BSPEngine`` builds them (``layouts=model.param_layouts``)
+    -> ``{case: (synced grads, ef' or ())}`` as numpy, plus each synced
+    leaf's shape. The LM holds every leaf in the reference's shape, so
+    the trees cross as they are (no bridge)."""
+    from theanompi_tpu_torch.models.lm import TransformerLMModel
+    from theanompi_tpu_torch.parallel.strategies import get_strategy
+
+    def to_torch(tree):
+        return tree_map(lambda a: torch.from_numpy(a.copy()), tree)
+
+    def to_np(tree):
+        return tree_map(lambda t: t.numpy(), tree)
+
+    torch.set_num_threads(1)
+    layouts = TransformerLMModel().param_layouts
+    out = {}
+    for case, (name, codec) in LM_STRATEGY_CASES.items():
+        strat = get_strategy(name, n, codec=codec, layouts=layouts)
+        if getattr(strat, "stateful", False):
+            synced, ef = strat(to_torch(grads_np[rank]), to_torch(ef_np[rank]))
+            out[case] = (to_np(synced), to_np(ef))
+        else:
+            synced = strat(to_torch(grads_np[rank]))
+            out[case] = (to_np(synced), ())
+        out["_shapes"] = tree_map(lambda t: tuple(t.shape), synced)
     return out
 
 

@@ -2,7 +2,8 @@
 
 The JAX package (``theanompi_tpu``) is the reference; this package
 re-implements its main path in PyTorch for one NVIDIA Hopper card:
-BSP data-parallel training of the CNN zoo (AlexNet first), with every
+BSP data-parallel training of the CNN zoo (AlexNet first) and of the
+transformer LM (``TransformerLM_136M``), with every
 TPU kernel on that path rewritten by hand as a CUDA kernel for
 ``sm_90a`` (``csrc/``, built with ``nvcc`` at first use and bound with
 ``ctypes`` — see ``ops/kernels.py``).
@@ -13,7 +14,8 @@ with like:
 - images are NHWC float32 at every public function;
 - parameters are nested dicts under the reference's names
   (``{"00_conv1": {"w", "b"}, ...}``); conv kernels are stored OIHW
-  internally (``bridge.py`` converts to and from the reference's HWIO);
+  internally (``bridge.py`` converts to and from the reference's HWIO,
+  leaf by leaf as the model's ``param_layouts`` say);
 - randomness comes from explicit ``torch.Generator``s, never the global
   RNG.
 

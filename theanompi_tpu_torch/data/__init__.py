@@ -1,3 +1,4 @@
 """Datasets of the port."""
 
 from theanompi_tpu_torch.data.datasets import Dataset, Synthetic_data, get_dataset  # noqa: F401
+from theanompi_tpu_torch.data import lm  # noqa: F401,E402  (registers lm_synthetic, lm_text)

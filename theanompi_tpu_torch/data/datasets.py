@@ -1,7 +1,8 @@
 """Host-side datasets (port of ``theanompi_tpu/data/datasets.py``).
 
 ``Synthetic_data`` draws with the same numpy seeding as the reference,
-so the two packages see identical batches for a seed. ``Cifar10_data``
+so the two packages see identical batches for a seed. The token
+datasets (``data/lm.py``) register themselves here. ``Cifar10_data``
 is ported once its files are available to test against.
 """
 
@@ -85,6 +86,10 @@ class Synthetic_data(Dataset):
 _REGISTRY = {
     "synthetic": Synthetic_data,
 }
+
+
+def register_dataset(name: str, cls: type) -> None:
+    _REGISTRY[name] = cls
 
 
 def get_dataset(name: str, **kwargs) -> Dataset:

@@ -5,6 +5,9 @@ Port of ``theanompi_tpu/launch/worker.py::run_training`` for rule
 ``max_steps``, a validation pass per epoch, ``print_freq`` logging, and
 a summary dict whose keys match the reference's where they exist
 (``steps``, ``epochs``, ``val``, ``images_per_sec``, ``train_loop_s``).
+For an LM (``model.is_lm``) ``--synthetic`` means the ``lm_synthetic``
+token dataset, a batch row is one token window, and ``images_per_sec``
+counts sequences.
 Observability, checkpointing, the supervisor and elastic resume come in
 later slices.
 
@@ -190,11 +193,19 @@ def run_training(
     model: Model = model_cls(recipe)
 
     dataset = dataset or recipe.dataset
+    if dataset == "synthetic" and getattr(model, "is_lm", False):
+        # `--synthetic` on an LM means synthetic TOKENS, not float images
+        dataset = "lm_synthetic"
     dataset_kwargs = dict(dataset_kwargs or {})
     if dataset == "synthetic":
         # synthetic stand-in defaults to the MODEL's shapes
         dataset_kwargs.setdefault("image_shape", tuple(recipe.input_shape))
         dataset_kwargs.setdefault("n_classes", recipe.num_classes)
+    elif dataset in ("lm_synthetic", "lm_text"):
+        # token datasets default to the MODEL's sequence length / vocab
+        dataset_kwargs.setdefault("seq_len", recipe.input_shape[0])
+        if dataset == "lm_synthetic":
+            dataset_kwargs.setdefault("vocab", recipe.num_classes)
     batch = recipe.batch_size
 
     data = get_dataset(dataset, **dataset_kwargs)

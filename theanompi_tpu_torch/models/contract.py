@@ -6,7 +6,10 @@ A model is a **Recipe** (the hyperparameters it owns) plus
   ``device``; params are leaves that require grad;
 - ``apply(params, state, images, train, gen) -> (logits, state)``:
   images NHWC, cast to ``recipe.compute_dtype`` first;
-- ``loss(logits, labels)`` and ``metrics(logits, labels)``, in fp32.
+- ``loss(logits, labels)`` and ``metrics(logits, labels)``, in fp32;
+- ``param_layouts(params)``: one layout tag per param leaf
+  (``nn.layers.PLAIN`` or ``CONV_KERNEL``), which the gradient exchange
+  and the wire codec follow to flatten a leaf in the reference's order.
 """
 
 from __future__ import annotations
@@ -107,6 +110,9 @@ class Model:
 
     def loss(self, logits, labels):
         return softmax_cross_entropy(logits, labels)
+
+    def param_layouts(self, params) -> Tree:
+        return self.net.param_layouts(params)
 
     def metrics(self, logits, labels) -> dict:
         return classification_metrics(logits, labels)

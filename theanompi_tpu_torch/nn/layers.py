@@ -16,10 +16,13 @@ does. Inside, a conv or pool views its input as NCHW with
 ``channels_last`` memory format, so cuDNN runs in channels_last with no
 copy, and the output permutes back to a contiguous NHWC view. Conv
 weights are stored OIHW (PyTorch's layout) in channels_last memory
-(``conv_weight_layout``); ``bridge.py`` maps them to and from the
-reference's HWIO. Dense weights keep the reference's
-``(in, out)`` layout, and ``Flatten`` flattens NHWC, so ``fc6``'s rows
-run in (h, w, c) order exactly as in the reference.
+(``conv_weight_layout``); the Conv layer tags them ``CONV_KERNEL``
+(``param_layouts``), and the bridge, the exchange and the codec map
+tagged leaves to and from the reference's HWIO. Every other leaf, of
+any rank, is ``PLAIN``: the reference's shape and strides. Dense
+weights keep the reference's ``(in, out)`` layout, and ``Flatten``
+flattens NHWC, so ``fc6``'s rows run in (h, w, c) order exactly as in
+the reference.
 
 Precision follows the reference: weights are cast to ``x.dtype`` where
 they are used (their grads come back in the param dtype), the bias is
@@ -80,20 +83,27 @@ def conv_weight_layout(w: torch.Tensor) -> torch.Tensor:
     return w.contiguous(memory_format=torch.channels_last)
 
 
-def to_reference_layout(t: torch.Tensor) -> torch.Tensor:
-    """A parameter-shaped tensor as the reference lays it out: every 4-D
-    leaf is a conv kernel (or its velocity, gradient or residual), OIHW
-    here and HWIO there; other leaves are the same in both. A view (no
-    copy); ``.reshape(-1)`` of it is the reference's flat element order,
-    which the gradient exchange and the int8 codec's 128-element blocks
-    follow (``parallel/strategies.py``, ``parallel/codec.py``)."""
-    return t.permute(2, 3, 1, 0) if t.dim() == 4 else t
+# Leaf layouts: how a parameter-shaped leaf (a weight, or its gradient,
+# velocity, moment or residual) is laid out here against the reference.
+# A model declares one tag per leaf (``Model.param_layouts``).
+PLAIN = "plain"  # the reference's shape, default contiguous strides
+CONV_KERNEL = "conv"  # OIHW in channels_last memory here, HWIO there
 
 
-def from_reference_layout(t: torch.Tensor) -> torch.Tensor:
+def to_reference_layout(t: torch.Tensor, layout: str = PLAIN) -> torch.Tensor:
+    """A leaf as the reference lays it out: a ``CONV_KERNEL`` leaf OIHW
+    here and HWIO there; a ``PLAIN`` leaf, of any rank, the same in
+    both. A view (no copy); ``.reshape(-1)`` of it is the reference's flat
+    element order, which the gradient exchange and the int8 codec's
+    128-element blocks follow (``parallel/strategies.py``,
+    ``parallel/codec.py``)."""
+    return t.permute(2, 3, 1, 0) if layout == CONV_KERNEL else t
+
+
+def from_reference_layout(t: torch.Tensor, layout: str = PLAIN) -> torch.Tensor:
     """Inverse of :func:`to_reference_layout`: HWIO back to OIHW in the
     conv weights' own memory layout; other leaves made contiguous."""
-    if t.dim() == 4:
+    if layout == CONV_KERNEL:
         return conv_weight_layout(t.permute(3, 2, 0, 1))
     return t.contiguous()
 
@@ -121,6 +131,10 @@ class Layer:
 
     def out_shape(self, in_shape: Shape) -> Shape:
         return in_shape
+
+    def param_layouts(self, params) -> dict:
+        """One layout tag per leaf of this layer's ``params``."""
+        return {k: PLAIN for k in params}
 
 
 class Conv(Layer):
@@ -188,6 +202,9 @@ class Conv(Layer):
         n, h, w, _ = in_shape
         oh, ow = _spatial_out(h, w, self.kernel, self.stride, self.padding)
         return (n, oh, ow, self.out_channels)
+
+    def param_layouts(self, params) -> dict:
+        return {k: CONV_KERNEL if k == "w" else PLAIN for k in params}
 
 
 class Pool(Layer):
@@ -362,11 +379,24 @@ class BatchNorm(Layer):
         return y.to(x.dtype), new_state
 
 
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu``'s default tanh form, op by op with its constants in
+    x's dtype. In bf16 the reference rounds after every op, where
+    ``F.gelu(approximate="tanh")`` computes in fp32 and rounds once: a
+    different bf16 result for about a third of the inputs. The constants
+    are 0-d CPU tensors, which a CUDA op takes as scalars."""
+
+    def c(v):
+        return torch.tensor(v, dtype=x.dtype)
+
+    cdf = c(0.5) * (c(1.0) + torch.tanh(c(math.sqrt(2 / math.pi)) * (x + c(0.044715) * x ** 3)))
+    return x * cdf
+
+
 class Activation(Layer):
     _FNS: dict = {
         "relu": F.relu,
-        # jax.nn.gelu's default is the tanh approximation
-        "gelu": lambda x: F.gelu(x, approximate="tanh"),
+        "gelu": gelu,
         "tanh": torch.tanh,
         "sigmoid": torch.sigmoid,
         "identity": lambda x: x,
@@ -443,3 +473,7 @@ class Sequential(Layer):
         for layer in self.layers:
             shape = layer.out_shape(shape)
         return shape
+
+    def param_layouts(self, params) -> dict:
+        return {lname: layer.param_layouts(params[lname])
+                for lname, layer in zip(self._keys, self.layers) if lname in params}

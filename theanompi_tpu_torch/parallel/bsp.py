@@ -67,7 +67,8 @@ class BSPEngine:
         if self.n < 1:
             raise ValueError(f"n_devices must be >= 1, got {n_devices}")
         if self.n == 1:
-            get_strategy(strategy, 1, codec=self.codec)  # validate the names only
+            get_strategy(strategy, 1, codec=self.codec,  # validate the names only
+                         layouts=model.param_layouts)
             grad_sync = None
         else:
             if not dist.is_initialized() or dist.get_world_size() != self.n:
@@ -77,7 +78,10 @@ class BSPEngine:
                     f"process group of {self.n} ranks ({have} here): launch it "
                     "through theanompi_tpu_torch.launch.session or the CLI"
                 )
-            grad_sync = get_strategy(strategy, self.n, codec=self.codec)
+            # the exchange and the codec flatten each leaf in the
+            # reference's order, which the model's layout tags decide
+            grad_sync = get_strategy(strategy, self.n, codec=self.codec,
+                                     layouts=model.param_layouts)
         self._step = make_train_step(model, steps_per_epoch, fused_update=fused_update,
                                      grad_sync=grad_sync)
         self._eval = make_eval_step(model)

@@ -20,9 +20,11 @@ by rank. ``compress`` on a rank's own residual is therefore the
 counterpart of both the reference's ``compress`` and its
 ``compress_stacked``.
 
-Element order: a leaf is quantized in the reference's flat order
-(``nn.layers.to_reference_layout``: conv kernels HWIO), so its
-128-element blocks, and with them the scales, are the reference's.
+Element order: a leaf is quantized in the reference's flat order, which
+its layout tag decides (``nn.layers.to_reference_layout``: a
+``CONV_KERNEL`` leaf HWIO, a ``PLAIN`` leaf of any rank as it is), so
+its 128-element blocks, and with them the scales, are the reference's.
+``compress`` takes the tags of the tree (``Model.param_layouts``).
 """
 
 from __future__ import annotations
@@ -32,7 +34,11 @@ from typing import Any, Optional, Union
 
 import torch
 
-from theanompi_tpu_torch.nn.layers import from_reference_layout, to_reference_layout
+from theanompi_tpu_torch.nn.layers import (
+    PLAIN,
+    from_reference_layout,
+    to_reference_layout,
+)
 from theanompi_tpu_torch.ops.quant import (
     LANES,
     dequantize_int8_block,
@@ -55,16 +61,16 @@ CODEC_WIRE_BYTES = {
 }
 
 
-def _qdq_int8_block(x: torch.Tensor) -> torch.Tensor:
+def _qdq_int8_block(x: torch.Tensor, layout: str) -> torch.Tensor:
     """Block quantize-dequantize of an f32 tensor of any shape: flattened
     in the reference's order, zero-padded to (rows, 128), one kernel
     launch each way, un-padded and laid out as ``x`` again."""
-    ref = to_reference_layout(x)
+    ref = to_reference_layout(x, layout)
     flat = ref.reshape(-1)
     n = flat.numel()
     vals, scales = quantize_int8_block(pad_rows(flat))
     back = dequantize_int8_block(vals, scales).reshape(-1)[:n]
-    return from_reference_layout(back.view(ref.shape))
+    return from_reference_layout(back.view(ref.shape), layout)
 
 
 @dataclass(frozen=True)
@@ -102,16 +108,17 @@ class WireCodec:
         """The CLI spelling that round-trips through :func:`get_codec`."""
         return self.name + (":ef" if self.error_feedback else "")
 
-    def qdq(self, x: torch.Tensor) -> torch.Tensor:
-        """Quantize-dequantize one f32 tensor (any shape): the value the
-        far side of the wire reconstructs."""
+    def qdq(self, x: torch.Tensor, layout: str = PLAIN) -> torch.Tensor:
+        """Quantize-dequantize one f32 tensor (any shape; ``layout`` its
+        tag): the value the far side of the wire reconstructs."""
         if self.name == "bf16":
             return x.to(torch.bfloat16).float()
         if self.name == "int8":
-            return _qdq_int8_block(x)
+            return _qdq_int8_block(x, layout)
         return x
 
-    def compress_leaf(self, v: torch.Tensor, ef: Optional[torch.Tensor]):
+    def compress_leaf(self, v: torch.Tensor, ef: Optional[torch.Tensor],
+                      layout: str = PLAIN):
         """One leaf through the codec -> ``(wire_value, residual')``: with
         error feedback the carried residual is added before quantizing
         and the new one is what the quantizer discarded; without it the
@@ -121,19 +128,21 @@ class WireCodec:
         x = v.float()
         if self.error_feedback:
             x = x + ef
-        q = self.qdq(x)
+        q = self.qdq(x, layout)
         if self.error_feedback:
             ef = x - q
         return q.to(v.dtype), ef
 
-    def compress(self, tree: Tree, ef: Tree):
+    def compress(self, tree: Tree, ef: Tree, layouts: Tree):
         """:meth:`compress_leaf` over the tree -> ``(wire_tree, ef')``.
         With error feedback ``ef`` is this rank's residual tree
-        (:meth:`init_ef`); otherwise it passes through untouched."""
+        (:meth:`init_ef`); otherwise it passes through untouched.
+        ``layouts``: the tree's layout tags (``Model.param_layouts``)."""
         if not self.active:
             return tree, ef
         if not self.error_feedback:
-            return tree_map(lambda v: self.compress_leaf(v, None)[0], tree), ef
+            return tree_map(lambda v, lay: self.compress_leaf(v, None, lay)[0], tree,
+                            layouts), ef
         leaves, ef_leaves = tree_leaves(tree), tree_leaves(ef)
         if len(ef_leaves) != len(leaves):
             raise ValueError(
@@ -141,7 +150,8 @@ class WireCodec:
                 f"{len(leaves)}-leaf wire tree — the engine state was not "
                 "initialized with init_ef"
             )
-        done = [self.compress_leaf(v, r) for v, r in zip(leaves, ef_leaves)]
+        done = [self.compress_leaf(v, r, lay)
+                for v, r, lay in zip(leaves, ef_leaves, tree_leaves(layouts))]
         wire_it, ef_it = iter([d[0] for d in done]), iter([d[1] for d in done])
         return tree_map(lambda _: next(wire_it), tree), tree_map(lambda _: next(ef_it), tree)
 

@@ -6,7 +6,9 @@ ranks of the default process group (``torch.distributed``: NCCL between
 cards, gloo on the CPU). As in the reference (and Theano-MPI's
 ``BSP_Exchanger``), the leaves are packed into one contiguous fp32
 buffer first, in the reference's flat order (``_packed``), so the ring's
-segments and the int8 scales fall where the reference puts them.
+segments and the int8 scales fall where the reference puts them. Each
+leaf is taken in the reference's layout by its layout tag: the model's
+``param_layouts``, which every strategy takes as ``layouts``.
 
 - ``psum``: one fp32 ``all_reduce`` of the buffer (≙ ``nccl32``).
 - ``psum_bf16``: the buffer in bf16, reduced in bf16 (≙ ``nccl16``).
@@ -41,6 +43,8 @@ from theanompi_tpu_torch.tree import tree_leaves, tree_map
 
 Tree = Any
 Strategy = Callable[[Tree], Tree]
+# ``grads -> tree of layout tags`` (``Model.param_layouts``)
+Layouts = Callable[[Tree], Tree]
 
 
 def _inv(n: int) -> float:
@@ -48,21 +52,21 @@ def _inv(n: int) -> float:
     return float(np.float32(1.0 / n))
 
 
-def _packed(fn: Callable[[torch.Tensor], torch.Tensor]) -> Strategy:
+def _packed(fn: Callable[[torch.Tensor], torch.Tensor], layouts: Layouts) -> Strategy:
     """Wrap a flat-buffer collective into a tree strategy: pack every
     leaf into one fp32 vector (the reference's ``ravel_pytree`` order:
     sorted keys, each leaf in its reference layout), run ``fn``, unpack
     into leaves of each input leaf's dtype and layout."""
 
     def strategy(grads: Tree) -> Tree:
-        leaves = tree_leaves(grads)
-        refs = [to_reference_layout(g) for g in leaves]
+        leaves, tags = tree_leaves(grads), tree_leaves(layouts(grads))
+        refs = [to_reference_layout(g, tag) for g, tag in zip(leaves, tags)]
         flat = torch.cat([r.reshape(-1).float() for r in refs])
         out = fn(flat)
         pieces, off = [], 0
-        for g, r in zip(leaves, refs):
+        for g, r, tag in zip(leaves, refs, tags):
             piece = out[off:off + g.numel()].view(r.shape).to(g.dtype)
-            pieces.append(from_reference_layout(piece))
+            pieces.append(from_reference_layout(piece, tag))
             off += g.numel()
         it = iter(pieces)
         return tree_map(lambda _: next(it), grads)
@@ -95,11 +99,11 @@ def mean_across_ranks(tensors: list, n: int) -> list:
 # --------------------------------------------------------------------------
 
 
-def psum_mean(n: int) -> Strategy:
-    return _packed(lambda flat: _all_reduce_mean(flat, n))
+def psum_mean(n: int, layouts: Layouts) -> Strategy:
+    return _packed(lambda flat: _all_reduce_mean(flat, n), layouts)
 
 
-def psum_bf16(n: int) -> Strategy:
+def psum_bf16(n: int, layouts: Layouts) -> Strategy:
     """bf16 operands reduced in bf16, as the reference's bf16 ``pmean``:
     half the wire of ``psum``, with bf16 accumulation (``ring_bf16`` is
     the bf16-wire / fp32-accumulate variant)."""
@@ -110,7 +114,7 @@ def psum_bf16(n: int) -> Strategy:
             dist.all_reduce(wire)
         return (wire * _inv(n)).float()
 
-    return _packed(fn)
+    return _packed(fn, layouts)
 
 
 # --------------------------------------------------------------------------
@@ -188,22 +192,22 @@ def _ring_allreduce_flat(flat: torch.Tensor, n: int, wire: Optional[str] = None)
     return buf.view(-1)[:L]
 
 
-def _ring(n: int, wire: Optional[str]) -> Strategy:
-    return _packed(lambda flat: _ring_allreduce_flat(flat, n, wire) * _inv(n))
+def _ring(n: int, wire: Optional[str], layouts: Layouts) -> Strategy:
+    return _packed(lambda flat: _ring_allreduce_flat(flat, n, wire) * _inv(n), layouts)
 
 
-def ring(n: int) -> Strategy:
-    return _ring(n, None)
+def ring(n: int, layouts: Layouts) -> Strategy:
+    return _ring(n, None, layouts)
 
 
-def ring_bf16(n: int) -> Strategy:
-    return _ring(n, "bf16")
+def ring_bf16(n: int, layouts: Layouts) -> Strategy:
+    return _ring(n, "bf16", layouts)
 
 
-def ring_int8(n: int) -> Strategy:
+def ring_int8(n: int, layouts: Layouts) -> Strategy:
     """int8-wire ring: each hop's segment block-quantized (one packed
     message: 1.03 B/elem against 4), dequantized and accumulated in fp32."""
-    return _ring(n, "int8")
+    return _ring(n, "int8", layouts)
 
 
 # --------------------------------------------------------------------------
@@ -212,13 +216,13 @@ def ring_int8(n: int) -> Strategy:
 # --------------------------------------------------------------------------
 
 
-def codec_psum_mean(n: int, codec) -> Strategy:
+def codec_psum_mean(n: int, codec, layouts: Layouts) -> Strategy:
     """Compressed allreduce ``(grads, ef) -> (mean grads, ef')``; marked
     ``stateful`` so ``train.make_train_step`` threads ``state.ef``."""
-    mean = psum_mean(n)
+    mean = psum_mean(n, layouts)
 
     def strategy(grads, ef):
-        wire, ef = codec.compress(grads, ef)
+        wire, ef = codec.compress(grads, ef, layouts(grads))
         return mean(wire), ef
 
     strategy.stateful = True
@@ -280,11 +284,12 @@ def _resolve_codec(name: str, codec):
     return codec
 
 
-def get_strategy(name: str, n: int, codec=None) -> Strategy:
+def get_strategy(name: str, n: int, codec=None, *, layouts: Layouts) -> Strategy:
     """The exchange over ``n`` ranks (the default process group's world).
     ``codec``: a wire codec spec or instance (``parallel/codec.py``). With
     ``psum`` it gives the stateful compressed strategy; with ``ring`` it
-    selects the ring's wire; strategies that already compress refuse it."""
+    selects the ring's wire; strategies that already compress refuse it.
+    ``layouts``: ``grads -> layout tags`` (``Model.param_layouts``)."""
     key = _ALIASES.get(name, name)
     if key in _NOT_PORTED:
         raise ValueError(
@@ -294,11 +299,11 @@ def get_strategy(name: str, n: int, codec=None) -> Strategy:
     codec = _resolve_codec(name, codec)
     if codec.active:
         if key == "psum":
-            return codec_psum_mean(n, codec)
+            return codec_psum_mean(n, codec, layouts)
         if key == "ring":  # every other pairing raised in _resolve_codec
-            return _ring(n, codec.name)
+            return _ring(n, codec.name, layouts)
     try:
-        return _CANONICAL[key](n)
+        return _CANONICAL[key](n, layouts)
     except KeyError:
         raise ValueError(
             f"unknown exchange strategy {name!r}; available: "

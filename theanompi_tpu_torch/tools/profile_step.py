@@ -1,10 +1,12 @@
-"""Where a full-width AlexNet training step's time goes on the card.
+"""Where a full-width training step's time goes on the card.
 
-    python -m theanompi_tpu_torch.tools.profile_step [--steps 10] [--out PATH]
+    python -m theanompi_tpu_torch.tools.profile_step [--model alexnet|lm] [--steps 10] [--out PATH]
 
-Builds the port's main path as the training loop does (AlexNet's
-recipe, ``BSPEngine`` with ``--fused-update``, batch 128, 227x227x3,
-1000 classes, bf16 compute) and measures, on the card:
+Builds a one-card training path as the training loop does: AlexNet's
+recipe (``BSPEngine`` with ``--fused-update``, batch 128, 227x227x3,
+1000 classes, bf16 compute), or with ``--model lm`` TransformerLM_136M's
+(batch 8 windows of 1024 tokens, 32k vocab, bf16 compute, Adam, the
+flash kernels), and measures, on the card:
 
 - ``device_step_ms``: one training step with the batch already on the
   card (CUDA events over ``--steps`` steps, after warm-up) — the step
@@ -16,11 +18,14 @@ recipe, ``BSPEngine`` with ``--fused-update``, batch 128, 227x227x3,
   the fused optimizer kernel's share;
 - ``h2d_ms``: the pinned, non-blocking copy of one input batch;
 - ``categories``: the same device time summed by kind of kernel
-  (convolution/GEMM, cuDNN layout transforms, dtype casts and copies,
-  elementwise, pooling, reductions, the fused optimizer update, other);
+  (flash attention, convolution/GEMM, cuDNN layout transforms, dtype
+  casts and copies, elementwise, pooling, reductions, the fused
+  optimizer update, other);
 - ``host_batch_ms``: the host-side gather + pin of one batch from the
   synthetic dataset in steady state (the first batch, which allocates,
-  left out) — the work the training loop's prefetch thread overlaps.
+  left out) — the work the training loop's prefetch thread overlaps
+  (for the LM, token windows of the model's shape from a 64-symbol
+  chain: the gather does not depend on the vocabulary).
 
 The last stdout line is the JSON summary (also written to ``--out``).
 Needs a card.
@@ -36,8 +41,10 @@ import numpy as np
 import torch
 
 from theanompi_tpu_torch.data import Synthetic_data
+from theanompi_tpu_torch.data.lm import LMSynthetic_data
 from theanompi_tpu_torch.device import resolve_device
 from theanompi_tpu_torch.models.alex_net import AlexNet
+from theanompi_tpu_torch.models.lm import TransformerLM_136M
 from theanompi_tpu_torch.parallel.bsp import BSPEngine
 
 
@@ -61,10 +68,11 @@ def _device_us(evt) -> float:
 
 # kernel name fragments -> category, first match wins
 CATEGORIES = (
+    ("flash_attention", ("flash_fwd_kernel", "flash_dq_kernel", "flash_dkv_kernel")),
     ("fused_update", ("momentum_kernel", "sgd_kernel")),
     ("layout_transform", ("tensorTransform", "nhwcSlice", "nchwToNhwc", "nhwcToNchw")),
     ("copy_cast", ("direct_copy",)),
-    ("conv_gemm", ("conv", "gemm", "xmma", "cutlass", "wgrad", "dgrad", "fprop")),
+    ("conv_gemm", ("conv", "gemm", "xmma", "cutlass", "wgrad", "dgrad", "fprop", "nvjet")),
     ("pooling", ("pool",)),
     ("reduction", ("reduce",)),
     ("elementwise", ("elementwise",)),
@@ -78,15 +86,24 @@ def _category(name: str) -> str:
     return "other"
 
 
-def profile(steps: int = 10, warmup: int = 3, top: int = 15, host_batches: int = 6) -> dict:
+def profile(steps: int = 10, warmup: int = 3, top: int = 15, host_batches: int = 6,
+            model_name: str = "alexnet") -> dict:
     device = resolve_device(None)
-    model = AlexNet()
-    batch = model.recipe.batch_size
-    engine = BSPEngine(model, 1, device, steps_per_epoch=10_000, fused_update=True)
+    lm = model_name == "lm"
+    model = TransformerLM_136M() if lm else AlexNet()
+    r = model.recipe
+    batch = r.batch_size
+    # Adam (the LM's rule) has no fused form
+    engine = BSPEngine(model, 1, device, steps_per_epoch=10_000, fused_update=not lm)
     state = engine.init_state(torch.Generator().manual_seed(0))
     gen = torch.Generator(device=device).manual_seed(1)
-    x = torch.randn(batch, *model.recipe.input_shape, generator=gen, device=device)
-    y = torch.randint(0, model.recipe.num_classes, (batch,), generator=gen, device=device)
+    if lm:
+        x = torch.randint(0, r.num_classes, (batch, *r.input_shape), generator=gen,
+                          device=device, dtype=torch.int32)
+        y = x
+    else:
+        x = torch.randn(batch, *r.input_shape, generator=gen, device=device)
+        y = torch.randint(0, r.num_classes, (batch,), generator=gen, device=device)
 
     box = {"state": state}
 
@@ -119,12 +136,15 @@ def profile(steps: int = 10, warmup: int = 3, top: int = 15, host_batches: int =
         cat = _category(name)
         categories[cat] = categories.get(cat, 0.0) + ms
 
-    host_x = torch.empty((batch, *model.recipe.input_shape)).pin_memory()
+    host_x = torch.empty(x.shape, dtype=x.dtype).pin_memory()
     h2d_ms = _events_ms(lambda: x.copy_(host_x, non_blocking=True), 10)
 
-    data = Synthetic_data(n_train=host_batches * batch, n_val=0,
-                          image_shape=model.recipe.input_shape,
-                          n_classes=model.recipe.num_classes)
+    if lm:
+        data = LMSynthetic_data(seq_len=r.input_shape[0], vocab=64,
+                                n_train=host_batches * batch, n_val=0)
+    else:
+        data = Synthetic_data(n_train=host_batches * batch, n_val=0,
+                              image_shape=r.input_shape, n_classes=r.num_classes)
     times = []
     it = data.train_epoch(0, batch)
     while True:
@@ -139,6 +159,7 @@ def profile(steps: int = 10, warmup: int = 3, top: int = 15, host_batches: int =
 
     return {
         "device": torch.cuda.get_device_name(device),
+        "model": model.name,
         "batch": batch,
         "steps": steps,
         "device_step_ms": device_step_ms,
@@ -148,6 +169,7 @@ def profile(steps: int = 10, warmup: int = 3, top: int = 15, host_batches: int =
         "idle_share": (1 - busy_ms / wall_ms) if kernels else None,
         "fused_update_ms_per_step": fused_ms if kernels else None,
         "fused_update_share": fused_ms / busy_ms if kernels and busy_ms else None,
+        "flash_ms_per_step": categories.get("flash_attention") if kernels else None,
         "categories": categories if kernels else None,
         "kernels": [{"name": n[:120], "ms_per_step": ms, "launches_per_step": c}
                     for n, ms, c in per_kernel[:top]],
@@ -159,10 +181,12 @@ def profile(steps: int = 10, warmup: int = 3, top: int = 15, host_batches: int =
 
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    p.add_argument("--model", choices=["alexnet", "lm"], default="alexnet",
+                   help="AlexNet (fused update) or TransformerLM_136M (Adam, flash kernels)")
     p.add_argument("--steps", type=int, default=10)
     p.add_argument("--out", default=None, help="also write the JSON summary here")
     args = p.parse_args(argv)
-    result = profile(steps=args.steps)
+    result = profile(steps=args.steps, model_name=args.model)
     for k in result["kernels"]:
         print(f"{k['ms_per_step']:9.4f} ms  x{k['launches_per_step']:<4d} {k['name']}")
     line = json.dumps(result)
