@@ -6,7 +6,7 @@
 Phases (any failure ends the run with a non-zero exit and no result line):
 
 1. build      — compile every kernel of the paths (``csrc/*.cu``: the
-                fused update, the quantizer, flash attention) with nvcc
+                fused update, the quantizer, flash attention, the pool) with nvcc
                 for sm_90a, one nvcc per source, all started together;
                 print the build's wall time.
 2. kernels    — each fused-update kernel's wrapper against its plain
@@ -40,6 +40,17 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                 ``bf16_o_excess``), dq/dk/dv rtol 1e-4 + 2^-8 of the largest
                 value (likewise one ds); lse atol 1e-5. Each counter moves
                 by one per call.
+   pool       — the 3x3/s1 max pool kernels (#12 maxpool3x3_fwd, #13
+                maxpool3x3_bwd) against their plain versions, bit for bit
+                (a NaN matches any NaN), in fp32 and bf16, at the distinct
+                inception pool inputs of GoogLeNet at batch 512 ([512, 28,
+                28, 192 / 256], [512, 14, 14, 480 / 512 / 528], [512, 7, 7,
+                832]) and the reference tests' (2, 8, 8, 16) and (3, 7, 5,
+                130): random, tie-heavy (ReLU zeros, a few levels) and
+                NaN/+-inf inputs. Control: select-and-scatter's gradient
+                (F.max_pool2d's backward, first maximum) on tie-heavy input
+                must fail the backward check. Each counter moves by one
+                per call.
 3. main       — the training path a user runs, through
                 ``theanompi_tpu_torch.cli.main``: full-width AlexNet (batch
                 128, 227x227x3, 1000 classes, bf16 compute, fp32 params,
@@ -68,6 +79,16 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                 and one validation batch: exactly 12 x 7 flash_fwd and
                 12 x 6 flash_dq and flash_dkv launches, no other kernel;
                 losses finite; step ms and tokens/s.
+   googlenet-main — full-width GoogLeNet (224x224x3, 1000 classes, both
+                aux heads, bf16 compute, fp32 params, momentum 0.9, wd
+                1e-4, poly, batch 512, random weights from a seed) through
+                the CLI with ``--pool-kernel --fused-update`` for 6 steps
+                and one validation batch: exactly 9 x 7 maxpool3x3_fwd,
+                9 x 6 maxpool3x3_bwd and 128 x 6 fused_momentum launches,
+                no other kernel; losses finite; peak memory. Then the same
+                command without ``--pool-kernel``: no pool kernel launch.
+                Both step times, and the device step of both with the
+                batch resident, in turns (on, off, on, off).
 5. parity     — the same small AlexNet (67x67, fp32, dropout off) trained 2
                 steps on the card and on the CPU (where the wrappers run
                 their plain versions) from the same weights and batches.
@@ -85,6 +106,19 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                 card and on the CPU from the same weights and batches:
                 losses within rtol 1e-4, params within atol 1e-6 + rtol
                 1e-4, every leaf changed, 4 launches of each flash kernel.
+   googlenet-parity — full-width GoogLeNet (224x224x3, 1000 classes, fp32,
+                dropout 0, pool kernel on, lr 0.001) trained 2 momentum
+                steps on the card and on the CPU from the same weights and
+                batches: the train-mode logits at the start within rtol
+                1e-4 + 1e-4 of their largest value, losses rtol 1e-4, each
+                leaf's velocity and parameter change within 1e-1 of its
+                norm, every leaf changed, 27 / 18 / 256 launches. Not
+                phase parity's elementwise 2e-3: the gradient of this
+                network is not continuous in its weights (a ReLU or a
+                pool's maximum flips under a rounding change), and on the
+                CPU 1e-6 relative noise on the weights alone moves the
+                velocities after 2 steps by 4.2e-2 of their norm and
+                6.3e-2 of a leaf's largest value.
 6. times      — per kernel, over AlexNet's 16 leaves (one optimizer step,
                 one codec round): time (CUDA events), its bound (bytes /
                 memory rate vs operations / fp32 peak, the larger), the
@@ -93,7 +127,12 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                 launch at the 136M shape (bf16, causal): bound from bytes
                 and from operations (bf16 products at the bf16 tensor-core
                 peak, flash_dkv's fp32 dv product at the fp32 peak), and
-                SDPA's causal forward / backward as the yardstick.
+                SDPA's causal forward / backward as the yardstick. The
+                pool kernels over the nine inception pools at batch 512
+                in bf16 (one step's launches): bound 2 (forward) or 4
+                (backward) bf16 tensor passes at the memory rate;
+                F.max_pool2d in channels_last as the yardstick (its
+                backward takes the first maximum).
 
 Then one JSON line ``{"kernels": [...]}``, the card's name and power
 limit as nvidia-smi prints them, and last ``{"ok": true, "device": ...}``.
@@ -127,6 +166,9 @@ LM_VAL = 8  # one validation batch of 8 windows
 LM_LAYERS = 12
 # the 136M LM's attention shape: batch 8, T 1024, 12 heads of 64
 LM_SHAPE = dict(B=8, T=1024, H=12, D=64)
+# full-width GoogLeNet: the repo's single-card batch, steps of its main run
+GNET_BATCH = 512
+GNET_STEPS = 6
 FULL_WIDTH = ["--dataset-arg", "image_shape=[227,227,3]", "--dataset-arg", "n_classes=1000"]
 
 
@@ -929,6 +971,314 @@ def phase_flash_times(dev, mem_rate, fp32_peak, bf16_peak):
     return results
 
 
+def inception_pool_shapes(batch: int = GNET_BATCH):
+    """The nine inception pool branches' NHWC inputs at 224x224x3, in
+    trunk order, from the model's own shape walk."""
+    from theanompi_tpu_torch.models.googlenet import GoogLeNet, Inception
+
+    model = GoogLeNet(GoogLeNet.default_recipe().replace(batch_size=batch), pool_kernel=True)
+    blocks, _ = model.block_inputs()
+    return [tuple(shape) for _, block, shape in blocks if isinstance(block, Inception)]
+
+
+def pool_inputs(kind: str, shape, dtype, gen, dev):
+    """``random``: normal values (rare ties in fp32, some in bf16);
+    ``tie-heavy``: ReLU zeros and a few levels, as an inception pool's
+    input has; ``nan-inf``: normal values with 2% NaN, 2% +inf, 2% -inf.
+    No -0.0: the sign of a zero maximum over +0 and -0 is not pinned."""
+    import torch
+
+    x = torch.randn(shape, generator=gen, device=dev)
+    if kind == "tie-heavy":
+        x = torch.clamp_min(torch.round(x * 2) / 2, 0.0) + 0.0
+    elif kind == "nan-inf":
+        u = torch.rand(shape, generator=gen, device=dev)
+        x = torch.where(u < 0.02, float("nan"), x)
+        x = torch.where((u >= 0.02) & (u < 0.04), float("inf"), x)
+        x = torch.where((u >= 0.04) & (u < 0.06), -float("inf"), x)
+    return x.to(dtype)
+
+
+def phase_pool(dev):
+    """Kernels #12-13 against their plain versions, bit for bit, at the
+    inception pools' shapes at batch 512 and the reference tests' odd
+    shapes, then the tie-rule control."""
+    import torch
+    import torch.nn.functional as F
+    from theanompi_tpu_torch.ops import pool as tp
+
+    g = torch.Generator(device=dev).manual_seed(12)
+    shapes = sorted(set(inception_pool_shapes()), key=lambda s: (-s[1], s[3]))
+    shapes += [(2, 8, 8, 16), (3, 7, 5, 130)]
+    worst = {"maxpool3x3_fwd": 0.0, "maxpool3x3_bwd": 0.0}
+    n = 0
+    tp.MAXPOOL_FWD.reset()
+    tp.MAXPOOL_BWD.reset()
+    for shape in shapes:
+        for dt in (torch.float32, torch.bfloat16):
+            for kind in ("random", "tie-heavy", "nan-inf"):
+                x = pool_inputs(kind, shape, dt, g, dev)
+                gy = torch.randn(shape, generator=g, device=dev).to(dt)
+                y, py = tp.maxpool3x3_fwd(x), tp.maxpool3x3_fwd_plain(x)
+                dx, pdx = tp.maxpool3x3_bwd(x, py, gy), tp.maxpool3x3_bwd_plain(x, py, gy)
+                torch.cuda.synchronize()
+                n += 1
+                check(bits_equal(y, py), f"#12 forward differs from its plain version "
+                                         f"({shape} {str(dt)[6:]} {kind})")
+                check(bits_equal(dx, pdx), f"#13 backward differs from its plain version "
+                                           f"({shape} {str(dt)[6:]} {kind})")
+                for name, a, b in (("maxpool3x3_fwd", y, py), ("maxpool3x3_bwd", dx, pdx)):
+                    fin = torch.isfinite(a.float()) & torch.isfinite(b.float())
+                    worst[name] = max(worst[name], (a.float()[fin] - b.float()[fin]).abs().max().item()
+                                      if fin.any() else 0.0)
+                del x, gy, y, py, dx, pdx
+        print(f"  {str(shape):20s} fp32 and bf16, random / tie-heavy / nan-inf: "
+              "forward and backward bit-identical", flush=True)
+    got = (tp.MAXPOOL_FWD.launches, tp.MAXPOOL_BWD.launches)
+    check(got == (n, n), f"pool counters moved {got}, expected ({n}, {n})")
+    # the control: select-and-scatter's gradient (F.max_pool2d's backward,
+    # first maximum) on tie-heavy input must fail the backward check
+    shape = inception_pool_shapes()[0]
+    readings = {}
+    for dt in (torch.float32, torch.bfloat16):
+        x = pool_inputs("tie-heavy", shape, dt, g, dev)
+        gy = torch.randn(shape, generator=g, device=dev).to(dt)
+        py = tp.maxpool3x3_fwd_plain(x)
+        pdx = tp.maxpool3x3_bwd_plain(x, py, gy)
+        xr = x.permute(0, 3, 1, 2).detach().requires_grad_(True)  # channels_last
+        yr = F.max_pool2d(xr, 3, 1, 1)
+        (sdx,) = torch.autograd.grad(yr, xr, gy.permute(0, 3, 1, 2))
+        sdx = sdx.permute(0, 2, 3, 1).contiguous()
+        check(bits_equal(yr.detach().permute(0, 2, 3, 1).contiguous(), py),
+              "F.max_pool2d's forward is not the plain forward")
+        differs = (sdx != pdx).float().mean().item()
+        readings[str(dt)[6:]] = differs
+        check(not bits_equal(sdx, pdx), "the select-and-scatter control passes the backward "
+                                        "check: it cannot tell the tie rules apart")
+        del x, gy, py, pdx, xr, yr, sdx
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    print(f"[pool] control: F.max_pool2d's backward on tie-heavy {shape} differs from the "
+          f"all-maxima backward in a share {readings} of the elements: refused", flush=True)
+    return worst, n, readings
+
+
+def _no_dropout(model):
+    from theanompi_tpu_torch import nn as tnn
+
+    for seq in (model.head, *model.aux.values()):
+        for layer in seq.layers:
+            if isinstance(layer, tnn.Dropout):
+                layer.rate = 0.0
+    return model
+
+
+def googlenet_device_step_ms(pool_kernel: bool, steps: int = 5, warmup: int = 2) -> float:
+    """One training step of full-width GoogLeNet at batch 512 with the
+    batch already on the card (BSPEngine, --fused-update): CUDA events
+    over ``steps`` steps after ``warmup``."""
+    import torch
+    from theanompi_tpu_torch.device import resolve_device
+    from theanompi_tpu_torch.models.googlenet import GoogLeNet
+    from theanompi_tpu_torch.parallel.bsp import BSPEngine
+
+    dev = resolve_device(None)
+    model = GoogLeNet(GoogLeNet.default_recipe().replace(batch_size=GNET_BATCH),
+                      pool_kernel=pool_kernel)
+    engine = BSPEngine(model, 1, dev, steps_per_epoch=10_000, fused_update=True)
+    box = {"state": engine.init_state(torch.Generator().manual_seed(0))}
+    gen = torch.Generator(device=dev).manual_seed(1)
+    x = torch.randn(GNET_BATCH, 224, 224, 3, generator=gen, device=dev)
+    y = torch.randint(0, 1000, (GNET_BATCH,), generator=gen, device=dev)
+
+    def step():
+        box["state"], _ = engine.train_step(box["state"], x, y, gen)
+
+    ms = cuda_ms(step, reps=steps, warmup=warmup)
+    del box, x, y, engine
+    torch.cuda.empty_cache()
+    return ms
+
+
+def phase_googlenet_main():
+    """Full-width GoogLeNet through the CLI with the pool kernel, then
+    without it; counters zeroed just before each run and read just after.
+    Then the device step of both, with the batch resident, in turns."""
+    import torch
+    from theanompi_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+
+    runs = {}
+    for label, flag in (("pool-kernel", ["--pool-kernel"]), ("library-pool", [])):
+        argv = ["BSP", "1", "googlenet", "GoogLeNet", "--synthetic", *flag, "--fused-update",
+                "--batch-size", str(GNET_BATCH), "--max-steps", str(GNET_STEPS),
+                "--print-freq", "1", "--seed", "0",
+                "--dataset-arg", f"n_train={GNET_BATCH * GNET_STEPS}",
+                "--dataset-arg", f"n_val={GNET_BATCH}"]
+        print(f"[googlenet-main] python -m theanompi_tpu_torch.cli {' '.join(argv)}", flush=True)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        summary = run_cli(argv)
+        counts = launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        losses = summary["losses"]
+        check(summary["steps"] == GNET_STEPS and len(losses) == GNET_STEPS
+              and all(math.isfinite(v) for v in losses) and summary["nonfinite_steps"] == 0,
+              f"googlenet {label} run: steps {summary['steps']}, losses {losses}")
+        check("val" in summary and all(math.isfinite(v) for v in summary["val"].values()),
+              f"googlenet {label} run: bad val metrics {summary.get('val')}")
+        on = bool(flag)
+        want = {"maxpool3x3_fwd": 9 * (GNET_STEPS + 1) if on else 0,
+                "maxpool3x3_bwd": 9 * GNET_STEPS if on else 0,
+                "fused_momentum": 128 * GNET_STEPS}
+        got = {k: counts[k] for k in want}
+        check(got == want, f"googlenet {label} run launched {got}, expected {want}")
+        stray = {k: v for k, v in counts.items() if k not in want and v}
+        check(not stray, f"the googlenet {label} run launched other kernels: {stray}")
+        print(f"[googlenet-main] {label}: per-step loss {losses}; val {summary['val']}", flush=True)
+        print(f"[googlenet-main] {label}: steady-state step {summary['step_ms']:.3f} ms over "
+              f"{summary['steady_steps']} steps (CUDA events, 2 warm-up steps excluded), "
+              f"{summary['images_per_sec']:.1f} img/s; peak memory {peak / 2**30:.2f} GiB; "
+              f"launches {counts}", flush=True)
+        runs[label] = {"launches": got, "summary": summary, "peak_bytes": peak}
+    resident = {"pool-kernel": [], "library-pool": []}
+    for _ in range(2):
+        for label, on in (("pool-kernel", True), ("library-pool", False)):
+            resident[label].append(googlenet_device_step_ms(on))
+    print(f"[googlenet-main] device step with the batch resident, ms, in turns (on, off, on, "
+          f"off): pool kernel {resident['pool-kernel']}, library pool {resident['library-pool']}",
+          flush=True)
+    runs["resident_step_ms"] = resident
+    return runs
+
+
+def phase_googlenet_parity(dev):
+    """Full-width GoogLeNet (224x224x3, 1000 classes, fp32, dropout 0,
+    pool kernel on) trained 2 momentum steps on the card and on the CPU
+    (the wrappers' plain versions) from the same weights and batches."""
+    import torch
+    from theanompi_tpu_torch.models.googlenet import GoogLeNet
+    from theanompi_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from theanompi_tpu_torch.train import init_train_state, make_train_step
+    from theanompi_tpu_torch.tree import tree_leaves
+
+    recipe = GoogLeNet.default_recipe().replace(
+        batch_size=2, compute_dtype=torch.float32,
+        sched_kwargs={"lr": 0.001, "total_steps": 60, "power": 0.5})
+    model = _no_dropout(GoogLeNet(recipe, pool_kernel=True))
+    rng = torch.Generator().manual_seed(3)
+    xs = [torch.randn(2, 224, 224, 3, generator=rng) for _ in range(2)]
+    ys = [torch.randint(0, 1000, (2,), generator=rng) for _ in range(2)]
+    out = {}
+    for d in ("cpu", dev):
+        state = init_train_state(model, torch.Generator().manual_seed(7), d)
+        before = [p.detach().cpu().clone() for p in tree_leaves(state.params)]
+        reset_launch_counts()
+        with torch.no_grad():
+            logits, _ = model.apply(state.params, {}, xs[0].to(d), train=True)
+        logits = [t.cpu() for t in logits]
+        step = make_train_step(model, fused_update=True)
+        losses = []
+        for x, y in zip(xs, ys):
+            state, m = step(state, x.to(d), y.to(d), None)
+            losses.append(float(m["loss"]))
+        after = [p.detach().cpu() for p in tree_leaves(state.params)]
+        vels = [v.detach().cpu() for v in tree_leaves(state.opt_state["vel"])]
+        out[str(d)] = (losses, logits, [a - b for a, b in zip(after, before)], vels,
+                       launch_counts())
+    (lc, oc, dc, vc, kc), (lg, og, dg, vg, kg) = out["cpu"], out[str(dev)]
+    check(not any(kc.values()), f"the CPU run launched kernels: {kc}")
+    want = {"maxpool3x3_fwd": 27, "maxpool3x3_bwd": 18, "fused_momentum": 256}
+    check({k: kg[k] for k in want} == want, f"the card run launched {kg}, expected {want}")
+    logit_x = max(_rel_excess(a, b, 1e-4, 1e-4 * b.abs().max().item()) for a, b in zip(og, oc))
+    check(logit_x <= 1, f"card logits differ from the CPU's beyond rtol 1e-4 + 1e-4 max "
+                        f"(x{logit_x:.3g})")
+    check(all(math.isclose(a, b, rel_tol=1e-4) for a, b in zip(lc, lg)),
+          f"card losses {lg} vs CPU {lc}")
+    worst = {"parameter change": 0.0, "velocity": 0.0}
+    elementwise = {"parameter change": 0.0, "velocity": 0.0}
+    for what, cpu, card in (("parameter change", dc, dg), ("velocity", vc, vg)):
+        for i, (a, b) in enumerate(zip(cpu, card)):
+            check(a.abs().max().item() > 0 and b.abs().max().item() > 0,
+                  f"leaf {i}: no {what} on the card or CPU")
+            rel = ((a - b).norm() / a.norm()).item()
+            worst[what] = max(worst[what], rel)
+            elementwise[what] = max(elementwise[what], (((a - b).abs() - 1e-3 * a.abs()).max()
+                                                        / a.abs().max()).item())
+            check(rel <= 1e-1, f"leaf {i}: card {what} differs from CPU by {rel:.3g} of its "
+                               "norm (limit 1e-1)")
+    print(f"[googlenet-parity] logits at init within rtol 1e-4 + 1e-4 max (x{logit_x:.3g}); "
+          f"losses card {lg} vs CPU {lc}; worst leaf ||card - CPU|| / ||CPU|| (limit 1e-1): "
+          f"{worst}; for the record, elementwise beyond rtol 1e-3 as a share of the leaf's "
+          f"largest value (phase parity's 2e-3 limit, not held here): {elementwise}",
+          flush=True)
+    return {"logit_excess": logit_x, "rel_norm": worst, "elementwise": elementwise}
+
+
+def phase_pool_times(dev, mem_rate, fp32_peak):
+    """#12 and #13 over the nine inception pools at batch 512 in bf16 (one
+    training step's launches): time, bound, plain version, and
+    F.max_pool2d in channels_last as the yardstick."""
+    import torch
+    import torch.nn.functional as F
+    from theanompi_tpu_torch.ops import pool as tp
+
+    g = torch.Generator(device=dev).manual_seed(13)
+    shapes = inception_pool_shapes()
+    xs = [torch.relu(torch.randn(s, generator=g, device=dev)).to(torch.bfloat16) for s in shapes]
+    gs = [torch.randn(s, generator=g, device=dev).to(torch.bfloat16) for s in shapes]
+    ys = [tp.maxpool3x3_fwd(x) for x in xs]
+    elems = sum(x.numel() for x in xs)
+    tensor_bytes = 2 * elems  # one bf16 pass over the nine inputs
+    xr = [x.permute(0, 3, 1, 2).detach().requires_grad_(True) for x in xs]
+    yr = [F.max_pool2d(a, 3, 1, 1) for a in xr]
+    gr = [gg.permute(0, 3, 1, 2) for gg in gs]
+    specs = {
+        # name: (kernel, plain, library, passes, ops per element)
+        "maxpool3x3_fwd": (lambda i: tp.maxpool3x3_fwd(xs[i]),
+                           lambda i: tp.maxpool3x3_fwd_plain(xs[i]),
+                           lambda i: F.max_pool2d(xr[i].detach(), 3, 1, 1), 2, 8),
+        "maxpool3x3_bwd": (lambda i: tp.maxpool3x3_bwd(xs[i], ys[i], gs[i]),
+                           lambda i: tp.maxpool3x3_bwd_plain(xs[i], ys[i], gs[i]),
+                           lambda i: torch.autograd.grad(yr[i], xr[i], gr[i], retain_graph=True),
+                           4, 18),
+    }
+    k = len(shapes)
+    results = {}
+    for name, (kern, plain, lib, passes, ope) in specs.items():
+        per = [cuda_ms(lambda i=i: kern(i), reps=20) for i in range(k)]
+        step_ms = cuda_ms(lambda: [kern(i) for i in range(k)], reps=20)
+        plain_ms = cuda_ms(lambda: [plain(i) for i in range(k)], reps=5)
+        lib_ms = cuda_ms(lambda: [lib(i) for i in range(k)], reps=20)
+        byts = passes * tensor_bytes
+        ops = ope * elems
+        bytes_ms, ops_ms = byts / mem_rate * 1e3, ops / fp32_peak * 1e3
+        bound_ms = max(bytes_ms, ops_ms)
+        results[name] = dict(step_ms=step_ms, per_launch_ms=per, plain_ms=plain_ms,
+                             library_ms=lib_ms, bound_ms=bound_ms, bytes=byts, ops=ops,
+                             bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+        print(f"[times] {name}: {step_ms:.4f} ms/step ({k} launches, {elems} elements) | bound "
+              f"{bound_ms:.4f} ms ({byts / 1e6:.1f} MB; {results[name]['bound_by']}) | "
+              f"{bound_ms / step_ms * 100:.1f}% of bound | plain {plain_ms:.4f} ms | "
+              f"F.max_pool2d channels_last {'forward' if name.endswith('fwd') else 'backward'} "
+              f"{lib_ms:.4f} ms", flush=True)
+        for s, t in zip(shapes, per):
+            print(f"[times]   {name} {str(s):22s} {t * 1e3:9.2f} us/launch (bound "
+                  f"{passes * 2 * math.prod(s) / mem_rate * 1e6:8.2f} us)", flush=True)
+    lib_fwd_bwd = cuda_ms(lambda: [torch.autograd.grad(F.max_pool2d(a, 3, 1, 1), a, b)
+                                   for a, b in zip(xr, gr)], reps=20)
+    results["maxpool3x3_bwd"]["library_fwd_bwd_ms"] = lib_fwd_bwd
+    results["maxpool3x3_fwd"]["library_fwd_bwd_ms"] = lib_fwd_bwd
+    print(f"[times] F.max_pool2d channels_last forward + backward over the nine: "
+          f"{lib_fwd_bwd:.4f} ms; kernels #12 + #13: "
+          f"{results['maxpool3x3_fwd']['step_ms'] + results['maxpool3x3_bwd']['step_ms']:.4f} ms",
+          flush=True)
+    del xs, gs, ys, xr, yr, gr
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return results
+
+
 def build_all():
     """Build every kernel library at once (one nvcc per source, started
     together); returns {source: nvcc seconds}."""
@@ -936,11 +1286,12 @@ def build_all():
 
     from theanompi_tpu_torch.ops import flash_attention as fa
     from theanompi_tpu_torch.ops import fused_update as fu
+    from theanompi_tpu_torch.ops import pool as tp
     from theanompi_tpu_torch.ops import quant as tq
 
-    with ThreadPoolExecutor(max_workers=3) as pool:
+    with ThreadPoolExecutor(max_workers=4) as pool:
         futs = {"fused_update.cu": pool.submit(fu.build), "quant.cu": pool.submit(tq.build),
-                "flash_attention.cu": pool.submit(fa.build)}
+                "flash_attention.cu": pool.submit(fa.build), "pool.cu": pool.submit(tp.build)}
         return {src: f.result() for src, f in futs.items()}
 
 
@@ -997,12 +1348,21 @@ def main() -> int:
               flush=True)
 
         t0 = time.perf_counter()
+        worst_p, n_pool_cases, pool_control = phase_pool(dev)
+        print(f"[pool] {n_pool_cases} cases bit-identical, control refused "
+              f"({time.perf_counter() - t0:.1f} s)", flush=True)
+
+        t0 = time.perf_counter()
         runs = phase_main()
         print(f"[main] done ({time.perf_counter() - t0:.1f} s)", flush=True)
 
         t0 = time.perf_counter()
         lm_run = phase_lm_main()
         print(f"[lm-main] done ({time.perf_counter() - t0:.1f} s)", flush=True)
+
+        t0 = time.perf_counter()
+        gnet_runs = phase_googlenet_main()
+        print(f"[googlenet-main] done ({time.perf_counter() - t0:.1f} s)", flush=True)
 
         t0 = time.perf_counter()
         rank_runs = phase_bsp_ranks(torch.cuda.device_count())
@@ -1017,9 +1377,14 @@ def main() -> int:
         print(f"[lm-parity] done ({time.perf_counter() - t0:.1f} s)", flush=True)
 
         t0 = time.perf_counter()
+        gnet_parity = phase_googlenet_parity(dev)
+        print(f"[googlenet-parity] done ({time.perf_counter() - t0:.1f} s)", flush=True)
+
+        t0 = time.perf_counter()
         times = phase_times(shapes, dev, mem_rate, fp32_peak)
         times.update(phase_quant_times(shapes, dev, mem_rate, fp32_peak))
         times.update(phase_flash_times(dev, mem_rate, fp32_peak, bf16_peak))
+        times.update(phase_pool_times(dev, mem_rate, fp32_peak))
         print(f"[times] done ({time.perf_counter() - t0:.1f} s)", flush=True)
         torch.cuda.synchronize()
     except Failed as e:
@@ -1111,6 +1476,42 @@ def main() -> int:
                             f"({LM_LAYERS} layers; flash_fwd also in 1 validation batch)"),
             "main_path_step_ms": lm["step_ms"],
             "main_path_tokens_per_sec": lm_run["tokens_per_sec"],
+        })
+    src_pool = "theanompi_tpu_torch/csrc/pool.cu"
+    gk = gnet_runs["pool-kernel"]
+    gl = gnet_runs["library-pool"]
+    for name, replaces in (("maxpool3x3_fwd", "theanompi_tpu/ops/pallas_pool.py:96"),
+                           ("maxpool3x3_bwd", "theanompi_tpu/ops/pallas_pool.py:102")):
+        t = times[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": src_pool, "replaces": replaces,
+            "launches": gk["launches"][name], "max_abs_err": worst_p[name],
+            "ms": t["step_ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+            "matched": True,
+            "tolerance": "bit-identical to the plain version in fp32 and bf16 (a NaN matches "
+                         "any NaN)",
+            "tie_control_differing_share": pool_control,
+            "work": (f"one training step's {len(t['per_launch_ms'])} launches over GoogLeNet's "
+                     f"inception pool inputs at batch {GNET_BATCH}, bf16"),
+            "ms_per_launch": t["per_launch_ms"],
+            "library_note": (
+                "F.max_pool2d(x, 3, 1, 1) on the channels_last view: " +
+                ("its forward, the same function" if name == "maxpool3x3_fwd" else
+                 "its backward alone (autograd over a kept graph), which sends each window's "
+                 "gradient to its first maximum: another function on ties") +
+                f"; its forward + backward {t['library_fwd_bwd_ms']:.4f} ms; the port never "
+                "calls it on the kernel's route"),
+            "launches_in": (f"the {GNET_STEPS}-step GoogLeNet run through the CLI with "
+                            "--pool-kernel (9 inception pools; the forward also in 1 "
+                            "validation batch)"),
+            "main_path_step_ms": gk["summary"]["step_ms"],
+            "main_path_images_per_sec": gk["summary"]["images_per_sec"],
+            "without_kernel_step_ms": gl["summary"]["step_ms"],
+            "without_kernel_images_per_sec": gl["summary"]["images_per_sec"],
+            "resident_step_ms": gnet_runs["resident_step_ms"],
+            "peak_memory_bytes": gk["peak_bytes"],
+            "parity": gnet_parity,
         })
     print(f"chip_smoke: wall {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))

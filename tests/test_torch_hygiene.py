@@ -62,6 +62,7 @@ def test_importing_the_port_loads_no_jax():
         "import theanompi_tpu_torch.models.lm, theanompi_tpu_torch.models.transformer\n"
         "import theanompi_tpu_torch.data.lm, theanompi_tpu_torch.ops.flash_attention\n"
         "import theanompi_tpu_torch.ops.ring_attention\n"
+        "import theanompi_tpu_torch.ops.pool, theanompi_tpu_torch.models.googlenet\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'theanompi_tpu'))\n"
         "print(bad)\n"
     )
@@ -154,3 +155,37 @@ def test_lm_entry_points_raise_without_a_card_unless_cpu_is_asked_for(monkeypatc
     meta = torch.empty(2, 8, 4, device="meta")
     with pytest.raises(ValueError, match="CUDA"):
         tfa.flash_dq(meta, meta, meta, meta, meta, meta, causal=True, scale=1.0)
+
+
+def test_googlenet_entry_points_raise_without_a_card_unless_cpu_is_asked_for(monkeypatch):
+    """The GoogLeNet slice takes the same road: without CUDA the CLI's run
+    (``--pool-kernel`` included), the engine and the train state raise
+    before any work; ``device='cpu'`` is honoured. The pool wrappers take
+    their plain versions only for CPU tensors: any other tensor launches
+    the kernel or raises."""
+    from theanompi_tpu_torch import cli
+    from theanompi_tpu_torch.launch.worker import run_training
+    from theanompi_tpu_torch.models.googlenet import GoogLeNet
+    from theanompi_tpu_torch.ops import pool as tpool
+    from theanompi_tpu_torch.parallel.bsp import BSPEngine
+    from theanompi_tpu_torch.train import init_train_state
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main(["BSP", "1", "googlenet", "GoogLeNet", "--synthetic", "--pool-kernel",
+                  "--fused-update", "--batch-size", "512", "--max-steps", "6"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run_training(model_cls=GoogLeNet, pool_kernel=True, max_steps=1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        BSPEngine(GoogLeNet(pool_kernel=True))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_train_state(GoogLeNet(), torch.Generator().manual_seed(0))
+    assert BSPEngine(GoogLeNet(pool_kernel=True), device="cpu").device == torch.device("cpu")
+    meta = torch.empty(2, 8, 8, 16, device="meta")
+    for fn, args in ((tpool.maxpool3x3_fwd, (meta,)), (tpool.maxpool3x3_bwd, (meta,) * 3),
+                     (tpool.maxpool3x3_s1, (meta,))):
+        with pytest.raises(ValueError, match="CUDA"):
+            fn(*args)
+    with pytest.raises(ValueError, match="NHWC"):
+        tpool.maxpool3x3_fwd(torch.empty(8, 8, 16, device="meta"))
+    assert tpool.MAXPOOL_FWD.launches == 0 and tpool.MAXPOOL_BWD.launches == 0

@@ -7,6 +7,13 @@ Port of ``theanompi_tpu/cli.py``'s training path::
         --dataset-arg 'image_shape=[227,227,3]' --dataset-arg n_classes=1000 \\
         --dataset-arg n_train=1280 --dataset-arg n_val=128
 
+GoogLeNet at full width, its inception pool branches on the pool
+kernels (the reference's ``TMPI_PALLAS_POOL=1``)::
+
+    python -m theanompi_tpu_torch.cli BSP 1 googlenet GoogLeNet --synthetic \
+        --pool-kernel --fused-update --batch-size 512 --max-steps 6 \
+        --dataset-arg n_train=3072 --dataset-arg n_val=512
+
 Several ranks, one process per card over NCCL (the global batch split
 across them)::
 
@@ -45,6 +52,11 @@ def build_parser() -> argparse.ArgumentParser:
                         "momentum/Nesterov + param write) into one CUDA kernel "
                         "launch per leaf (ops/fused_update.py); SGD-family "
                         "recipes only (momentum/nesterov/sgd)")
+    p.add_argument("--pool-kernel", action="store_true",
+                   help="run the model's 3x3/stride-1 max pools (GoogLeNet's inception "
+                        "pool branches) through the pool kernels with Theano's "
+                        "all-maxima backward (ops/pool.py); the reference's "
+                        "TMPI_PALLAS_POOL=1")
     p.add_argument("--strategy", default="psum",
                    help="gradient exchange: psum, psum_bf16, ring, ring_bf16, ring_int8 "
                         "(aliases ar, nccl32, nccl16, asa32, asa16, ...)")
@@ -110,6 +122,7 @@ def main(argv=None) -> int:
         backend=args.backend,
         device=args.device,
         fused_update=args.fused_update,
+        pool_kernel=args.pool_kernel,
         strategy=args.strategy,
         wire_codec=args.wire_codec,
         n_epochs=args.epochs,

@@ -162,6 +162,7 @@ def run_training(
     *,
     device=None,
     fused_update: bool = False,
+    pool_kernel: bool = False,
     strategy: str = "psum",
     wire_codec: str = "none",
     n_epochs: Optional[int] = None,
@@ -179,7 +180,9 @@ def run_training(
     ``devices``: how many ranks (cards) the rule spans; more than one
     needs this process to be a rank of a process group of that size.
     ``strategy`` / ``wire_codec``: the gradient exchange
-    (``parallel/strategies.py``, ``parallel/codec.py``)."""
+    (``parallel/strategies.py``, ``parallel/codec.py``). ``pool_kernel``:
+    the model routes its 3x3/stride-1 max pools to the pool kernels
+    (``ops/pool.py``; a model with no such pool refuses)."""
     device = resolve_device(device)
     if model_cls is None:
         raise ValueError("model_cls is required")
@@ -190,7 +193,7 @@ def run_training(
     recipe = model_cls.default_recipe()
     if recipe_overrides:
         recipe = recipe.replace(**recipe_overrides)
-    model: Model = model_cls(recipe)
+    model: Model = model_cls(recipe, pool_kernel=pool_kernel)
 
     dataset = dataset or recipe.dataset
     if dataset == "synthetic" and getattr(model, "is_lm", False):
@@ -256,6 +259,7 @@ def run_training(
 
     summary: dict = {"epochs": [], "rule": rule, "model": model.name,
                      "device": str(device), "fused_update": bool(fused_update),
+                     "pool_kernel": bool(pool_kernel),
                      "batch_size": batch, "devices": devices, "strategy": strategy,
                      "wire_codec": get_codec(wire_codec).spec}
     losses: deque = deque(maxlen=LOSS_HISTORY)

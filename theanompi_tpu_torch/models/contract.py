@@ -81,9 +81,17 @@ class Model:
     name = "model"
     recipe: Recipe
 
-    def __init__(self, recipe: Optional[Recipe] = None):
+    def __init__(self, recipe: Optional[Recipe] = None, pool_kernel: bool = False):
         self.recipe = recipe or self.default_recipe()
+        # route the model's 3x3/stride-1 max pools to the pool kernel
+        # (ops/pool.py); ``build`` reads it
+        self.pool_kernel = bool(pool_kernel)
         self.net = self.build()
+        if self.pool_kernel and not self.kernel_pools():
+            raise ValueError(
+                f"{type(self).__name__} has no 3x3/stride-1 max pool that the pool "
+                "kernel can take at this recipe's shapes; pool_kernel=True would do nothing"
+            )
 
     @classmethod
     def default_recipe(cls) -> Recipe:
@@ -96,10 +104,19 @@ class Model:
     def input_shape(self) -> tuple:
         return (self.recipe.batch_size, *self.recipe.input_shape)
 
+    def kernel_pools(self) -> list:
+        """Names of the pools that run the pool kernel at this recipe's
+        shapes (none unless the model routes some)."""
+        return []
+
+    def init_tree(self, gen: torch.Generator) -> tuple:
+        """``(params, state)`` drawn on the CPU from ``gen``."""
+        return self.net.init(gen, self.input_shape)
+
     def init(self, gen: torch.Generator, device="cpu") -> tuple:
         """Draw params on the CPU from ``gen``, then place them on
         ``device``; params come back as leaves that require grad."""
-        params, state = self.net.init(gen, self.input_shape)
+        params, state = self.init_tree(gen)
         params = tree_map(lambda t: t.to(device).requires_grad_(True), params)
         state = tree_map(lambda t: t.to(device), state)
         return params, state

@@ -53,7 +53,10 @@ class TransformerLMModel(Model):
     is_lm = True
     is_moe = False
 
-    def __init__(self, recipe: Optional[LMRecipe] = None):
+    def __init__(self, recipe: Optional[LMRecipe] = None, pool_kernel: bool = False):
+        if pool_kernel:
+            raise ValueError(f"{type(self).__name__} has no max pool; pool_kernel=True "
+                             "would do nothing")
         self.recipe = recipe or self.default_recipe()
         r = self.recipe
         self.arch = TransformerLM(

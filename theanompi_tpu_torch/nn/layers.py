@@ -39,6 +39,7 @@ import torch
 import torch.nn.functional as F
 
 from theanompi_tpu_torch.nn import init as initializers
+from theanompi_tpu_torch.ops import pool as pool_ops
 
 Shape = tuple  # includes leading batch dim
 
@@ -211,7 +212,15 @@ class Pool(Layer):
     """Max / average pooling. AlexNet's overlapping pool = 3x3 stride 2
     VALID. Max pads with -inf; avg pads with zeros and divides by the
     full window (explicit pads) or by the window's real coverage (SAME),
-    as the reference does."""
+    as the reference does.
+
+    ``kernel=True`` (max only): where ``ops.pool.routable`` holds (3x3,
+    stride 1, SAME-equivalent padding), the pool runs the hand-written
+    kernels with Theano's all-maxima backward (``ops.pool.maxpool3x3_s1``)
+    — the port's per-layer spelling of the reference's
+    ``TMPI_PALLAS_POOL=1``. Otherwise a max pool's backward is
+    ``F.max_pool2d``'s, which, like XLA's select-and-scatter, sends each
+    window's gradient to its first maximum."""
 
     def __init__(
         self,
@@ -220,16 +229,27 @@ class Pool(Layer):
         padding: Union[int, tuple, str] = "VALID",
         mode: str = "max",
         name: str = "pool",
+        kernel: bool = False,
     ):
         self.window = _pair(window)
         self.stride = _pair(stride) if stride is not None else self.window
         self.padding = padding
         if mode not in ("max", "avg"):
             raise ValueError(f"pool mode must be 'max' or 'avg', got {mode!r}")
+        if kernel and mode != "max":
+            raise ValueError("the pool kernel is a max pool; kernel=True needs mode='max'")
         self.mode = mode
         self.name = name
+        self.kernel = kernel
+
+    def routes_to_kernel(self, x) -> bool:
+        """Does ``apply`` on ``x`` (a tensor, or a meta tensor of its
+        shape) run the pool kernel?"""
+        return self.kernel and pool_ops.routable(self.window, self.stride, self.padding, x)
 
     def apply(self, params, state, x, *, train=False, gen=None):
+        if self.routes_to_kernel(x):
+            return pool_ops.maxpool3x3_s1(x), state
         xc = _nchw(x)
         (pt, pb), (pl, pr) = _pads(self.padding, xc.shape[2], xc.shape[3],
                                    self.window, self.stride)

@@ -1,12 +1,16 @@
 """Where a full-width training step's time goes on the card.
 
-    python -m theanompi_tpu_torch.tools.profile_step [--model alexnet|lm] [--steps 10] [--out PATH]
+    python -m theanompi_tpu_torch.tools.profile_step [--model alexnet|lm|googlenet]
+        [--no-pool-kernel] [--steps 10] [--out PATH]
 
 Builds a one-card training path as the training loop does: AlexNet's
 recipe (``BSPEngine`` with ``--fused-update``, batch 128, 227x227x3,
-1000 classes, bf16 compute), or with ``--model lm`` TransformerLM_136M's
+1000 classes, bf16 compute), with ``--model lm`` TransformerLM_136M's
 (batch 8 windows of 1024 tokens, 32k vocab, bf16 compute, Adam, the
-flash kernels), and measures, on the card:
+flash kernels), or with ``--model googlenet`` full-width GoogLeNet's at
+the repo's single-card batch 512 (224x224x3, 1000 classes, bf16 compute,
+``--fused-update``, the inception pools on the pool kernels unless
+``--no-pool-kernel``), and measures, on the card:
 
 - ``device_step_ms``: one training step with the batch already on the
   card (CUDA events over ``--steps`` steps, after warm-up) — the step
@@ -18,9 +22,9 @@ flash kernels), and measures, on the card:
   the fused optimizer kernel's share;
 - ``h2d_ms``: the pinned, non-blocking copy of one input batch;
 - ``categories``: the same device time summed by kind of kernel
-  (flash attention, convolution/GEMM, cuDNN layout transforms, dtype
-  casts and copies, elementwise, pooling, reductions, the fused
-  optimizer update, other);
+  (flash attention, the pool kernels, convolution/GEMM, cuDNN layout
+  transforms, dtype casts and copies, elementwise, pooling, reductions,
+  the fused optimizer update, other);
 - ``host_batch_ms``: the host-side gather + pin of one batch from the
   synthetic dataset in steady state (the first batch, which allocates,
   left out) — the work the training loop's prefetch thread overlaps
@@ -44,6 +48,7 @@ from theanompi_tpu_torch.data import Synthetic_data
 from theanompi_tpu_torch.data.lm import LMSynthetic_data
 from theanompi_tpu_torch.device import resolve_device
 from theanompi_tpu_torch.models.alex_net import AlexNet
+from theanompi_tpu_torch.models.googlenet import GoogLeNet
 from theanompi_tpu_torch.models.lm import TransformerLM_136M
 from theanompi_tpu_torch.parallel.bsp import BSPEngine
 
@@ -69,6 +74,7 @@ def _device_us(evt) -> float:
 # kernel name fragments -> category, first match wins
 CATEGORIES = (
     ("flash_attention", ("flash_fwd_kernel", "flash_dq_kernel", "flash_dkv_kernel")),
+    ("pool_kernel", ("maxpool_fwd_kernel", "maxpool_bwd_kernel")),
     ("fused_update", ("momentum_kernel", "sgd_kernel")),
     ("layout_transform", ("tensorTransform", "nhwcSlice", "nchwToNhwc", "nhwcToNchw")),
     ("copy_cast", ("direct_copy",)),
@@ -86,11 +92,21 @@ def _category(name: str) -> str:
     return "other"
 
 
+# GoogLeNet's single-card batch (the reference's zoo row, models/zoo.py)
+GOOGLENET_BATCH = 512
+
+
 def profile(steps: int = 10, warmup: int = 3, top: int = 15, host_batches: int = 6,
-            model_name: str = "alexnet") -> dict:
+            model_name: str = "alexnet", pool_kernel: bool = True) -> dict:
     device = resolve_device(None)
     lm = model_name == "lm"
-    model = TransformerLM_136M() if lm else AlexNet()
+    if lm:
+        model = TransformerLM_136M()
+    elif model_name == "googlenet":
+        model = GoogLeNet(GoogLeNet.default_recipe().replace(batch_size=GOOGLENET_BATCH),
+                          pool_kernel=pool_kernel)
+    else:
+        model = AlexNet()
     r = model.recipe
     batch = r.batch_size
     # Adam (the LM's rule) has no fused form
@@ -113,7 +129,9 @@ def profile(steps: int = 10, warmup: int = 3, top: int = 15, host_batches: int =
     for _ in range(warmup):
         step()
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
     device_step_ms = _events_ms(step, steps)
+    peak_bytes = torch.cuda.max_memory_allocated(device)
 
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
@@ -160,6 +178,7 @@ def profile(steps: int = 10, warmup: int = 3, top: int = 15, host_batches: int =
     return {
         "device": torch.cuda.get_device_name(device),
         "model": model.name,
+        "pool_kernel": bool(getattr(model, "pool_kernel", False)),
         "batch": batch,
         "steps": steps,
         "device_step_ms": device_step_ms,
@@ -170,6 +189,8 @@ def profile(steps: int = 10, warmup: int = 3, top: int = 15, host_batches: int =
         "fused_update_ms_per_step": fused_ms if kernels else None,
         "fused_update_share": fused_ms / busy_ms if kernels and busy_ms else None,
         "flash_ms_per_step": categories.get("flash_attention") if kernels else None,
+        "pool_kernel_ms_per_step": categories.get("pool_kernel") if kernels else None,
+        "peak_memory_bytes": peak_bytes,
         "categories": categories if kernels else None,
         "kernels": [{"name": n[:120], "ms_per_step": ms, "launches_per_step": c}
                     for n, ms, c in per_kernel[:top]],
@@ -181,12 +202,16 @@ def profile(steps: int = 10, warmup: int = 3, top: int = 15, host_batches: int =
 
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    p.add_argument("--model", choices=["alexnet", "lm"], default="alexnet",
-                   help="AlexNet (fused update) or TransformerLM_136M (Adam, flash kernels)")
+    p.add_argument("--model", choices=["alexnet", "lm", "googlenet"], default="alexnet",
+                   help="AlexNet (fused update), TransformerLM_136M (Adam, flash kernels) or "
+                        "GoogLeNet (fused update, pool kernels)")
+    p.add_argument("--no-pool-kernel", action="store_true",
+                   help="GoogLeNet's inception pools on F.max_pool2d instead of the pool kernels")
     p.add_argument("--steps", type=int, default=10)
     p.add_argument("--out", default=None, help="also write the JSON summary here")
     args = p.parse_args(argv)
-    result = profile(steps=args.steps, model_name=args.model)
+    result = profile(steps=args.steps, model_name=args.model,
+                     pool_kernel=not args.no_pool_kernel)
     for k in result["kernels"]:
         print(f"{k['ms_per_step']:9.4f} ms  x{k['launches_per_step']:<4d} {k['name']}")
     line = json.dumps(result)

@@ -67,14 +67,16 @@ def make_schedule_fn(model: Model, steps_per_epoch: int = 1):
 def loss_and_grads(model: Model, params, model_state, images, labels, gen):
     """Forward + backward -> ``(loss, logits, new_model_state, grads)``.
     ``grads`` is a tree shaped like ``params`` (from ``torch.autograd.grad``,
-    so nothing accumulates into ``.grad``)."""
+    so nothing accumulates into ``.grad``). ``logits`` is what the model's
+    training forward returns, detached: a tensor, or a tuple of them
+    (GoogLeNet's main and auxiliary logits), which ``model.metrics`` takes."""
     leaves = tree_leaves(params)
     logits, new_model_state = model.apply(params, model_state, images, train=True, gen=gen)
     loss = model.loss(logits, labels)
     flat = torch.autograd.grad(loss, leaves)
     it = iter(flat)
     grads = tree_map(lambda _: next(it), params)
-    return loss.detach(), logits.detach(), new_model_state, grads
+    return loss.detach(), tree_map(torch.Tensor.detach, logits), new_model_state, grads
 
 
 def _optimizer_for(model: Model, fused_update: bool):
