@@ -8,7 +8,11 @@ Phases (any failure ends the run with a non-zero exit and no result line):
 1. build      — compile every kernel of the paths (``csrc/*.cu``: the
                 fused update, the quantizer, flash attention, the pool) with nvcc
                 for sm_90a, one nvcc per source, all started together;
-                print the build's wall time.
+                print the build's wall time. Proof of design: the SASS of
+                ``flash_fwd_sm90_kernel`` (``cuobjdump -sass`` of the built
+                library) must hold HGMMA (wgmma) and UTMALDG (TMA loads);
+                its registers, shared memory and spills are printed
+                (``cuobjdump --dump-resource-usage``).
 2. kernels    — each fused-update kernel's wrapper against its plain
                 PyTorch version at AlexNet's 16 parameter-leaf shapes:
                 momentum, Nesterov and sgd; fp32 params with fp32 grads,
@@ -27,19 +31,23 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                 of a power-of-two scale; the ring's fused decode-and-add;
                 ``wire_encode``'s message byte-identical to the plain
                 version's (a NaN scale's payload aside) and its decode.
-   flash      — each flash attention kernel (#7-11: flash_fwd, flash_dq,
-                flash_dkv) against its plain version on the card: the 136M
-                LM's shape (BH 96, T 1024, D 64) in bf16 and fp32, ragged T
-                and D, Tq != Tk, causal and not, nonzero offsets with rows
-                that see no key (o = 0, lse ~ -1e30), and T = 8192 (BH 2,
-                bf16). Tolerances: fp32 o rtol 1e-5 + 1e-6 max|o|, dq/dk/dv
+   flash      — each flash attention kernel (#7-11: flash_fwd_sm90 and
+                flash_fwd, flash_dq, flash_dkv) against its plain version on
+                the card: the 136M LM's shape (BH 96, T 1024, D 64) in bf16
+                and fp32, ragged T and D, Tq != Tk, causal and not, nonzero
+                offsets with rows that see no key (o = 0, lse ~ -1e30), Tq
+                200 and 1000 at D 64 (not multiples of the 128-row Q tile),
+                q_off 160 over Tq 200 / Tk 360, a bf16 head of 60 (no whole
+                16-byte rows), and T = 8192 (BH 2, bf16). The counters show
+                each case's forward route: bf16 with D % 8 == 0 runs
+                flash_fwd_sm90, fp32 and the other bf16 heads flash_fwd. Tolerances: fp32 o rtol 1e-5 + 1e-6 max|o|, dq/dk/dv
                 rtol 1e-4 + 1e-5 of the largest value; bf16 o within 1 bf16
                 ulp plus 2^-7 of sum_i p_i |v_i| / l (the tensor cores sum
                 q.k in another order, so a p near a bf16 rounding boundary
                 can round to its neighbour on one side: see
                 ``bf16_o_excess``), dq/dk/dv rtol 1e-4 + 2^-8 of the largest
-                value (likewise one ds); lse atol 1e-5. Each counter moves
-                by one per call.
+                value (likewise one ds); lse atol 1e-5. The route's forward
+                counter, flash_dq and flash_dkv move by one per case.
    pool       — the 3x3/s1 max pool kernels (#12 maxpool3x3_fwd, #13
                 maxpool3x3_bwd) against their plain versions, bit for bit
                 (a NaN matches any NaN), in fp32 and bf16, at the distinct
@@ -76,8 +84,9 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    lm-main    — full-width TransformerLM_136M (12 layers, d 768, 12 heads
                 of 64, T 1024, vocab 32768, batch 8, bf16 compute, Adam,
                 random weights from a seed) through the CLI for 6 steps
-                and one validation batch: exactly 12 x 7 flash_fwd and
-                12 x 6 flash_dq and flash_dkv launches, no other kernel;
+                and one validation batch: exactly 12 x 7 flash_fwd_sm90,
+                no flash_fwd, and 12 x 6 flash_dq and flash_dkv launches,
+                no other kernel;
                 losses finite; step ms and tokens/s.
    googlenet-main — full-width GoogLeNet (224x224x3, 1000 classes, both
                 aux heads, bf16 compute, fp32 params, momentum 0.9, wd
@@ -127,7 +136,9 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                 launch at the 136M shape (bf16, causal): bound from bytes
                 and from operations (bf16 products at the bf16 tensor-core
                 peak, flash_dkv's fp32 dv product at the fp32 peak), and
-                SDPA's causal forward / backward as the yardstick. The
+                SDPA's causal forward / backward as the yardstick; the
+                old bf16 flash_fwd (through the module's own launcher) and
+                flash_fwd_sm90 in turns (old, new, new, old). The
                 pool kernels over the nine inception pools at batch 512
                 in bf16 (one step's launches): bound 2 (forward) or 4
                 (backward) bf16 tensor passes at the memory rate;
@@ -146,6 +157,8 @@ import io
 import json
 import math
 import os
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -675,8 +688,10 @@ def phase_quant_times(shapes, dev, mem_rate, fp32_peak):
 def flash_cases():
     """(label, BH, Tq, Tk, D, causal, q_off, k_off, dtype): the 136M LM's
     shape in bf16 and fp32, ragged T and D, Tq != Tk, causal and not,
-    nonzero offsets with rows that see no key, and T = 8192 (where the
-    reference's backward switches to its 2-D kernels #10 and #11)."""
+    nonzero offsets with rows that see no key, Tq 200 and 1000 (ragged
+    128-row Q tiles of flash_fwd_sm90), a bf16 head of 60 (the generic
+    forward), and T = 8192 (where the reference's backward switches to
+    its 2-D kernels #10 and #11)."""
     import torch
 
     bh = LM_SHAPE["B"] * LM_SHAPE["H"]
@@ -690,7 +705,13 @@ def flash_cases():
         out.append((f"offsets q 0 k 100, rows 0-99 blind {str(dt)[6:]}", 4, 192, 192, 64, True,
                     0, 100, dt))
         out.append((f"offsets q 160 k 0 {str(dt)[6:]}", 4, 96, 200, 64, True, 160, 0, dt))
-    out.append(("T 8192 bfloat16", 2, 8192, 8192, 64, True, 0, 0, torch.bfloat16))
+    bf = torch.bfloat16
+    for causal in (True, False):
+        out.append(("Tq 200 D 64 bfloat16", 6, 200, 200, 64, causal, 0, 0, bf))
+    out.append(("Tq 1000 D 64 bfloat16", 8, 1000, 1000, 64, True, 0, 0, bf))
+    out.append(("offsets q 160 k 0, Tq 200 Tk 360 bfloat16", 4, 200, 360, 64, True, 160, 0, bf))
+    out.append(("ragged T 200 D 60 bfloat16", 6, 200, 200, 60, True, 0, 0, bf))
+    out.append(("T 8192 bfloat16", 2, 8192, 8192, 64, True, 0, 0, bf))
     return out
 
 
@@ -745,7 +766,9 @@ def phase_flash(dev):
     from theanompi_tpu_torch.ops import flash_attention as fa
 
     g = torch.Generator(device=dev).manual_seed(8)
-    worst = {"flash_fwd": 0.0, "flash_dq": 0.0, "flash_dkv": 0.0}
+    worst = {"flash_fwd": 0.0, "flash_fwd_sm90": 0.0, "flash_dq": 0.0, "flash_dkv": 0.0}
+    counters = (fa.FLASH_FWD, fa.FLASH_FWD_SM90, fa.FLASH_DQ, fa.FLASH_DKV)
+    routes = {"flash_fwd": 0, "flash_fwd_sm90": 0}
     # the bf16 cases' worst share of each tolerance, and the control's
     readings = {"o": 0.0, "dq": 0.0, "dk": 0.0, "dv": 0.0, "dv_control": None}
     failures = []
@@ -755,7 +778,7 @@ def phase_flash(dev):
         v = torch.randn(BH, Tk, D, generator=g, device=dev).to(dt)
         do = torch.randn(BH, Tq, D, generator=g, device=dev).to(dt)
         kw = dict(causal=causal, scale=1.0 / math.sqrt(D), q_off=q_off, k_off=k_off)
-        before = (fa.FLASH_FWD.launches, fa.FLASH_DQ.launches, fa.FLASH_DKV.launches)
+        before = tuple(c.launches for c in counters)
         o, lse = fa.flash_fwd(q, k, v, **kw)
         po, plse = fa.flash_fwd_plain(q, k, v, **kw)
         dsum = torch.sum(do.float() * po.float(), dim=-1)
@@ -764,10 +787,14 @@ def phase_flash(dev):
         pdq = fa.flash_dq_plain(q, k, v, do, plse, dsum, **kw)
         pdk, pdv = fa.flash_dkv_plain(q, k, v, do, plse, dsum, **kw)
         torch.cuda.synchronize()
-        after = (fa.FLASH_FWD.launches, fa.FLASH_DQ.launches, fa.FLASH_DKV.launches)
+        after = tuple(c.launches for c in counters)
         bad = []
-        if tuple(b - a for a, b in zip(before, after)) != (1, 1, 1):
-            bad.append(f"counters moved {before} -> {after}")
+        fwd = "flash_fwd_sm90" if dt == torch.bfloat16 and D % 8 == 0 else "flash_fwd"
+        want = (int(fwd == "flash_fwd"), int(fwd == "flash_fwd_sm90"), 1, 1)
+        if tuple(b - a for a, b in zip(before, after)) != want:
+            bad.append(f"counters (flash_fwd, flash_fwd_sm90, flash_dq, flash_dkv) moved "
+                       f"{before} -> {after}, expected + {want}")
+        routes[fwd] += 1
         for name, t in (("o", o), ("lse", lse), ("dq", dq), ("dk", dk), ("dv", dv)):
             if not bool(torch.isfinite(t).all()):
                 bad.append(f"non-finite {name}")
@@ -813,13 +840,13 @@ def phase_flash(dev):
                 tol += f"; control bf16(p) dv at {readings['dv_control']:.3g}"
                 if readings["dv_control"] <= 1:
                     bad.append("the bf16(p) dv control passes the dv check: it sees no cast point")
-        errs = {"flash_fwd": (o.float() - po.float()).abs().max().item(),
+        errs = {fwd: (o.float() - po.float()).abs().max().item(),
                 "flash_dq": (dq - pdq).abs().max().item(),
                 "flash_dkv": max((dk - pdk).abs().max().item(), (dv - pdv).abs().max().item())}
         for n_, e in errs.items():
             worst[n_] = max(worst[n_], e)
-        print(f"  {label:42s} BH {BH:3d} Tq {Tq:5d} Tk {Tk:5d} D {D:3d} causal {causal!s:5s}: "
-              f"max abs err o {errs['flash_fwd']:.3g} (max|o| {po.float().abs().max().item():.3g}) "
+        print(f"  {label:42s} BH {BH:3d} Tq {Tq:5d} Tk {Tk:5d} D {D:3d} causal {causal!s:5s} "
+              f"[{fwd}]: max abs err o {errs[fwd]:.3g} (max|o| {po.float().abs().max().item():.3g}) "
               f"lse {lse_err:.3g} dq {errs['flash_dq']:.3g} dk/dv {errs['flash_dkv']:.3g} "
               f"({tol}; grads at {grad_x:.3g} of the tolerance)"
               + (f" FAILED: {'; '.join(bad)}" if bad else ""), flush=True)
@@ -828,7 +855,9 @@ def phase_flash(dev):
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     check(readings["dv_control"] is not None, "no 136M-shape bf16 case ran the dv control")
+    check(all(routes.values()), f"a forward route ran no case: {routes}")
     check(not failures, "flash kernels differ from their plain versions: " + " | ".join(failures))
+    print(f"[flash] forward cases per route: {routes}", flush=True)
     return worst, readings
 
 
@@ -851,8 +880,8 @@ def phase_lm_main():
     check("val" in summary and all(math.isfinite(v) for v in summary["val"].values()),
           f"lm run: bad val metrics {summary.get('val')}")
     val_batches = 1
-    want = {"flash_fwd": LM_LAYERS * (LM_STEPS + val_batches), "flash_dq": LM_LAYERS * LM_STEPS,
-            "flash_dkv": LM_LAYERS * LM_STEPS}
+    want = {"flash_fwd_sm90": LM_LAYERS * (LM_STEPS + val_batches), "flash_fwd": 0,
+            "flash_dq": LM_LAYERS * LM_STEPS, "flash_dkv": LM_LAYERS * LM_STEPS}
     got = {k: counts[k] for k in want}
     check(got == want, f"lm run launched {got}, expected {want}")
     stray = {k: v for k, v in counts.items() if k not in want and v}
@@ -894,8 +923,8 @@ def phase_lm_parity(dev):
                        launch_counts())
     (lc, bc, pc, kc), (lg, bg, pg, kg) = out["cpu"], out[str(dev)]
     check(not any(kc.values()), f"the CPU run launched kernels: {kc}")
-    check((kg["flash_fwd"], kg["flash_dq"], kg["flash_dkv"]) == (4, 4, 4),
-          f"the card run launched {kg}, expected 4 of each flash kernel")
+    check((kg["flash_fwd"], kg["flash_fwd_sm90"], kg["flash_dq"], kg["flash_dkv"]) == (4, 0, 4, 4),
+          f"the card run launched {kg}, expected 4 of each fp32 flash kernel")
     check(all(math.isclose(a, b, rel_tol=1e-4) for a, b in zip(lc, lg)),
           f"card losses {lg} vs CPU {lc}")
     worst = 0.0
@@ -911,7 +940,9 @@ def phase_lm_parity(dev):
 
 def phase_flash_times(dev, mem_rate, fp32_peak, bf16_peak):
     """Each flash kernel at the 136M LM's attention shape (bf16, causal):
-    per-launch time, its bound, the plain version, and the SDPA yardstick."""
+    per-launch time, its bound, the plain version, and the SDPA yardstick.
+    The two forwards (the generic kernel's bf16 instantiation and
+    flash_fwd_sm90) run in turns, old, new, new, old."""
     import torch
     import torch.nn.functional as F
     from theanompi_tpu_torch.ops import flash_attention as fa
@@ -927,9 +958,14 @@ def phase_flash_times(dev, mem_rate, fp32_peak, bf16_peak):
     pairs = BH * T * (T + 1) // 2  # the (query, key) pairs the causal mask keeps
     tile = 2 * BH * T * D  # bytes of one bf16 [BH, T, D] tensor
     rows = 4 * BH * T  # bytes of one f32 [BH, T] vector
+    fkw = dict(kw, q_off=0, k_off=0)
     specs = {
         # name: (kernel, plain, bytes, bf16 FLOPs, fp32 FLOPs)
-        "flash_fwd": (lambda: fa.flash_fwd(q, k, v, **kw),
+        "flash_fwd_sm90": (lambda: fa._launch_fwd_sm90(q, k, v, **fkw),
+                           lambda: fa.flash_fwd_plain(q, k, v, **kw),
+                           4 * tile + rows, 4 * D * pairs, 0),
+        # the generic kernel's bf16 instantiation, which the LM ran before
+        "flash_fwd": (lambda: fa._launch_fwd_generic(q, k, v, **fkw),
                       lambda: fa.flash_fwd_plain(q, k, v, **kw),
                       4 * tile + rows, 4 * D * pairs, 0),
         "flash_dq": (lambda: fa.flash_dq(q, k, v, do, lse, dsum, **kw),
@@ -948,22 +984,36 @@ def phase_flash_times(dev, mem_rate, fp32_peak, bf16_peak):
                            reps=20)
     sdpa_bwd = cuda_ms(lambda: torch.autograd.grad(out4, (q4, k4, v4), do4, retain_graph=True),
                        reps=20)
+    # the two forwards in turns (old, new, new, old): one mean each
+    turns = {"flash_fwd": [], "flash_fwd_sm90": []}
+    for name in ("flash_fwd", "flash_fwd_sm90", "flash_fwd_sm90", "flash_fwd"):
+        turns[name].append(cuda_ms(specs[name][0], reps=20))
+    print(f"[times] bf16 forward in turns (old, new, new, old): flash_fwd {turns['flash_fwd']} ms, "
+          f"flash_fwd_sm90 {turns['flash_fwd_sm90']} ms", flush=True)
+    fwd_plain_ms = None
     results = {}
     for name, (kern, plain, byts, bf16_ops, fp32_ops) in specs.items():
-        ms = cuda_ms(kern, reps=10)
-        plain_ms = cuda_ms(plain, reps=3, warmup=1)
+        if name in turns:
+            ms = sum(turns[name]) / len(turns[name])
+            if fwd_plain_ms is None:  # one function, one input: timed once for both
+                fwd_plain_ms = cuda_ms(plain, reps=3, warmup=1)
+            plain_ms = fwd_plain_ms
+        else:
+            ms = cuda_ms(kern, reps=10)
+            plain_ms = cuda_ms(plain, reps=3, warmup=1)
         bytes_ms = byts / mem_rate * 1e3
         ops_ms = (bf16_ops / bf16_peak + fp32_ops / fp32_peak) * 1e3
         bound_ms = max(bytes_ms, ops_ms)
-        lib = sdpa_fwd if name == "flash_fwd" else sdpa_bwd
+        lib = sdpa_fwd if name in turns else sdpa_bwd
         results[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bytes=byts,
                              bf16_flop=bf16_ops, fp32_flop=fp32_ops, library_ms=lib,
-                             bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+                             bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                             turns_ms=turns.get(name))
         print(f"[times] {name}: {ms:.4f} ms/launch | bound {bound_ms:.4f} ms ({byts / 1e6:.1f} MB "
               f"-> {bytes_ms * 1e3:.1f} us; {bf16_ops / 1e9:.2f} GFLOP bf16 + {fp32_ops / 1e9:.2f} "
               f"GFLOP fp32 -> {ops_ms * 1e3:.1f} us; {results[name]['bound_by']}) | "
               f"{bound_ms / ms * 100:.1f}% of bound | plain {plain_ms:.4f} ms | SDPA "
-              f"{'forward' if name == 'flash_fwd' else 'backward (dq, dk, dv)'} {lib:.4f} ms",
+              f"{'forward' if name in turns else 'backward (dq, dk, dv)'} {lib:.4f} ms",
               flush=True)
     del q4, k4, v4, out4
     torch.cuda.synchronize()
@@ -1279,6 +1329,54 @@ def phase_pool_times(dev, mem_rate, fp32_peak):
     return results
 
 
+def find_cuobjdump() -> str:
+    """The toolkit's cuobjdump, else the copy in Triton's package."""
+    import importlib.util
+
+    cands = [os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump"),
+             shutil.which("cuobjdump") or "", "/usr/local/cuda/bin/cuobjdump"]
+    spec = importlib.util.find_spec("triton")
+    if spec is not None and spec.submodule_search_locations:
+        root = list(spec.submodule_search_locations)[0]
+        cands.append(os.path.join(root, "backends", "nvidia", "bin", "cuobjdump"))
+    for c in cands:
+        if c and os.path.isfile(c) and os.access(c, os.X_OK):
+            return c
+    raise Failed(f"cuobjdump not found (looked at {[c for c in cands if c]})")
+
+
+def phase_sass():
+    """Proof of design: flash_fwd_sm90_kernel's SASS, in the library the
+    build phase made, holds HGMMA (wgmma) and UTMALDG (TMA loads). Prints
+    its registers, shared memory and spills."""
+    from theanompi_tpu_torch.ops.kernels import library_path
+
+    lib = str(library_path("flash_attention.cu"))
+    tool = find_cuobjdump()
+    out = subprocess.run([tool, "-sass", lib], capture_output=True, text=True, timeout=300)
+    check(out.returncode == 0, f"cuobjdump -sass failed: {out.stderr[-2000:]}")
+    funcs = {}
+    for chunk in re.split(r"\n\s*Function : ", out.stdout)[1:]:
+        name, _, body = chunk.partition("\n")
+        funcs[name.strip()] = body
+    mine = [n for n in funcs if "flash_fwd_sm90_kernel" in n]
+    check(len(mine) == 1, f"flash_fwd_sm90_kernel not found once in the SASS: {sorted(funcs)}")
+    body = funcs[mine[0]]
+    ops = {op: len(re.findall(rf"\b{op}\b", body)) for op in ("HGMMA", "UTMALDG", "UTMASTG")}
+    check(ops["HGMMA"] > 0 and ops["UTMALDG"] > 0,
+          f"flash_fwd_sm90_kernel's SASS lacks wgmma or TMA loads: {ops}")
+    res = subprocess.run([tool, "--dump-resource-usage", lib], capture_output=True, text=True,
+                         timeout=300)
+    check(res.returncode == 0, f"cuobjdump --dump-resource-usage failed: {res.stderr[-2000:]}")
+    lines = res.stdout.splitlines()
+    usage = next((lines[i + 1].strip() for i, line in enumerate(lines)
+                  if "flash_fwd_sm90_kernel" in line and i + 1 < len(lines)), "")
+    check(usage, "no resource usage line for flash_fwd_sm90_kernel")
+    print(f"[build] {os.path.basename(tool)} -sass: flash_fwd_sm90_kernel has {ops['HGMMA']} HGMMA, "
+          f"{ops['UTMALDG']} UTMALDG, {ops['UTMASTG']} UTMASTG; resources: {usage}", flush=True)
+    return {"sass_ops": ops, "resource_usage": usage, "function": mine[0]}
+
+
 def build_all():
     """Build every kernel library at once (one nvcc per source, started
     together); returns {source: nvcc seconds}."""
@@ -1329,6 +1427,7 @@ def main() -> int:
         for src, secs in builds.items():
             print(f"[build] csrc/{src} -> {library_path(src).name}: nvcc {secs:.2f} s", flush=True)
         print(f"[build] phase wall {time.perf_counter() - t0:.2f} s", flush=True)
+        sass = phase_sass()
 
         shapes = alexnet_leaf_shapes()
         check(len(shapes) == 16 and sum(math.prod(s) for s in shapes) == 60_965_224,
@@ -1444,6 +1543,7 @@ def main() -> int:
     src_fa = "theanompi_tpu_torch/csrc/flash_attention.cu"
     lm = lm_run["summary"]
     for name, replaces in (
+        ("flash_fwd_sm90", "theanompi_tpu/ops/pallas_attention.py:131"),
         ("flash_fwd", "theanompi_tpu/ops/pallas_attention.py:131"),
         ("flash_dq", "theanompi_tpu/ops/pallas_attention.py:174 + :264"),
         ("flash_dkv", "theanompi_tpu/ops/pallas_attention.py:207 + :302"),
@@ -1464,19 +1564,29 @@ def main() -> int:
                                               if k_ != "dv_control"},
             "bf16_dv_control_share": flash_readings["dv_control"],
             "work": ("one launch at the 136M LM's attention shape: BH 96, T 1024, D 64, bf16, "
-                     "causal"),
+                     "causal" + (" (the generic kernel's bf16 instantiation, which the LM ran "
+                                 "before flash_fwd_sm90)" if name == "flash_fwd" else "")),
             "library_note": (
                 "torch.nn.functional.scaled_dot_product_attention(is_causal=True) " +
-                ("forward" if name == "flash_fwd" else
+                ("forward" if name.startswith("flash_fwd") else
                  "backward, dq, dk and dv in one call (the same number for flash_dq and "
                  "flash_dkv)") +
                 ": not the same function (its dv product is bf16, its blocks its own); a "
                 "yardstick only, the port never calls it"),
             "launches_in": (f"the {LM_STEPS}-step TransformerLM_136M run through the CLI "
-                            f"({LM_LAYERS} layers; flash_fwd also in 1 validation batch)"),
+                            f"({LM_LAYERS} layers; the forward also in 1 validation batch)" +
+                            ("; bf16 heads with D % 8 == 0 go to flash_fwd_sm90, so this kernel "
+                             "takes fp32 (4 launches in phase lm-parity) and other bf16 heads"
+                             if name == "flash_fwd" else "")),
             "main_path_step_ms": lm["step_ms"],
             "main_path_tokens_per_sec": lm_run["tokens_per_sec"],
         })
+        if t.get("turns_ms"):
+            kernels[-1]["turns_ms"] = t["turns_ms"]
+        if name == "flash_fwd_sm90":
+            kernels[-1].update(design="TMA-fed 2-stage K/V ring, wgmma for QK^T "
+                               "and PV (P from registers), 128-row Q tiles heaviest first",
+                               sass=sass)
     src_pool = "theanompi_tpu_torch/csrc/pool.cu"
     gk = gnet_runs["pool-kernel"]
     gl = gnet_runs["library-pool"]

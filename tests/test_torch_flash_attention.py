@@ -206,11 +206,13 @@ def test_highest_precision_and_the_oracle(causal):
 
 
 def test_cpu_path_counts_no_launch_and_other_devices_need_cuda():
-    for c in (tfa.FLASH_FWD, tfa.FLASH_DQ, tfa.FLASH_DKV):
+    counters = (tfa.FLASH_FWD, tfa.FLASH_FWD_SM90, tfa.FLASH_DQ, tfa.FLASH_DKV)
+    for c in counters:
         c.reset()
-    q = torch.randn(2, 16, 2, 8, requires_grad=True)
-    tfa.flash_attention(q, q, q, causal=True).sum().backward()
-    assert (tfa.FLASH_FWD.launches, tfa.FLASH_DQ.launches, tfa.FLASH_DKV.launches) == (0, 0, 0)
+    for dt in (torch.float32, torch.bfloat16):
+        q = torch.randn(2, 16, 2, 8).to(dt).requires_grad_(True)
+        tfa.flash_attention(q, q, q, causal=True).sum().backward()
+    assert [c.launches for c in counters] == [0, 0, 0, 0]
     meta = torch.empty(4, 16, 8, device="meta")
     with pytest.raises(ValueError, match="CUDA"):
         tfa.flash_fwd(meta, meta, meta, causal=True, scale=1.0)
@@ -219,3 +221,29 @@ def test_cpu_path_counts_no_launch_and_other_devices_need_cuda():
         tfa.flash_fwd(wide, wide, wide, causal=True, scale=1.0)
     with pytest.raises(ValueError, match="tile K by 64"):
         tfa.flash_fwd(meta, meta, meta, causal=True, scale=1.0, block_k=32)
+
+
+@pytest.mark.parametrize("dtype,D,route", [
+    (torch.bfloat16, 8, "sm90"), (torch.bfloat16, 40, "sm90"), (torch.bfloat16, 48, "sm90"),
+    (torch.bfloat16, 64, "sm90"), (torch.bfloat16, 36, "generic"), (torch.bfloat16, 60, "generic"),
+    (torch.float32, 64, "generic"), (torch.float32, 40, "generic"),
+])
+def test_forward_route_is_chosen_from_dtype_and_head_dim(dtype, D, route):
+    """bf16 heads whose rows are whole 16-byte units go to the TMA/wgmma
+    kernel; fp32 and other bf16 heads to the generic one. The route is a
+    function of (dtype, D) alone, decided before any launch."""
+    assert tfa._fwd_route(dtype, D) == route
+
+
+def test_fwd_variants_find_their_anchors_in_the_source():
+    """``tools/fwd_variants.py`` builds its variants by text edits of
+    ``csrc/flash_attention.cu``: each edit's anchor must be there once."""
+    from theanompi_tpu_torch.ops.kernels import CSRC_DIR
+    from theanompi_tpu_torch.tools import fwd_variants
+
+    src = (CSRC_DIR / "flash_attention.cu").read_text()
+    variants = fwd_variants._variants(src)
+    assert variants["base"] == [] and len(variants) == 8
+    for name, edits in variants.items():
+        for old, new in edits:
+            assert src.count(old) == 1 and old != new, name

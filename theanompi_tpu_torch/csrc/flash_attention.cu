@@ -3,7 +3,8 @@
 // backward that recomputes the probabilities from (q, k, lse).
 //
 // Replaces the TPU kernels
-//   theanompi_tpu/ops/pallas_attention.py:131  _fwd_kernel     (#7)  -> flash_fwd
+//   theanompi_tpu/ops/pallas_attention.py:131  _fwd_kernel     (#7)  -> flash_fwd_sm90 (bf16,
+//                                                                   D % 8 == 0), flash_fwd
 //   theanompi_tpu/ops/pallas_attention.py:174  _dq_kernel      (#8)  -> flash_dq
 //   theanompi_tpu/ops/pallas_attention.py:264  _dq_kernel_2d   (#10) -> flash_dq
 //   theanompi_tpu/ops/pallas_attention.py:207  _dkv_kernel     (#9)  -> flash_dkv
@@ -35,7 +36,8 @@
 // q_off + row >= k_off + col (global positions).
 //
 // Products: bf16 tiles go through the tensor cores (nvcuda::wmma
-// 16x16x16, fp32 accumulators); fp32 tiles, and the fp32 x fp32 dv
+// 16x16x16 in the generic kernels, wgmma in flash_fwd_sm90; fp32
+// accumulators); fp32 tiles, and the fp32 x fp32 dv
 // product, through fp32 FMAs on the CUDA cores, never TF32. Softmax
 // statistics, probabilities and all accumulators are fp32. expf / logf,
 // not the __expf intrinsics. Built with -fmad=false, so the elementwise
@@ -43,7 +45,9 @@
 // in another order than on the CPU, so the kernels are held to a
 // tolerance, not to bit identity.
 //
-// Design: one block of 256 threads (8 warps) per (64-row tile, b*h). The
+// Design of the generic kernels (flash_fwd_sm90, the bf16 forward on TMA
+// and wgmma, has its own section below): one block of 256 threads (8
+// warps) per (64-row tile, b*h). The
 // block keeps its own tile (Q, or K and V) in shared memory and loops over
 // the other side's 64-row tiles, staging each in shared memory; products
 // land in fp32 shared tiles, and an elementwise phase (four threads per
@@ -58,15 +62,17 @@
 // GFLOP of bf16 products over the causal half (13-20 us at 989 TFLOP/s);
 // flash_dkv's fp32 dv product (6.4 GFLOP at 67 TFLOP/s, 96 us) makes it
 // the slowest by its bound (chip_smoke.py phase times computes each).
-// This first version is simple: synchronous 16-byte loads into shared
+// The generic kernels are simple: synchronous 16-byte loads into shared
 // memory (no cp.async/TMA), wmma (not wgmma), a block per tile with no
-// pipelining; making it fast is later work (ROADMAP section 3).
+// pipelining; dq and dkv are redesigned next (ROADMAP section 2).
 
+#include <cuda.h>  // CUtensorMap and its enums: types only, libcuda is not linked
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <mma.h>
 #include <math.h>
 #include <stdint.h>
+#include <stdio.h>
 
 #include <type_traits>
 
@@ -515,11 +521,475 @@ int dkv(const void* q, const void* k, const void* v, const void* d_o, const void
   return (int)cudaGetLastError();
 }
 
+
+// ---------------------------------------------------------------------------
+// flash_fwd_sm90: the bf16 forward for Hopper, on TMA and wgmma
+// ---------------------------------------------------------------------------
+//
+// The same function as flash_fwd_kernel<bf16> (the plain version is
+// flash_fwd_plain with block_k = 64): the online softmax over 64-key
+// tiles at the same cast points, expf/logf, -fmad=false. Only the
+// summation order inside the two products differs.
+//
+// Block: one CTA of 256 threads per (128-row Q tile, b*h); two consumer
+// warpgroups own 64 query rows each (one wgmma M). The Q tiles of a causal
+// launch go heaviest first (blockIdx.y reversed; b*h is blockIdx.x, the
+// fast grid dimension), so the longest CTAs start first instead of forming
+// the tail.
+//
+// Loads: TMA over 3-D tensor maps of [BH, T, D] bf16 with a box of 64
+// columns (D * 2 <= 128 bytes: one row of the 128-byte swizzle) and 64
+// (K, V, O) or 128 (Q) rows. Rows past T and columns past D come back as
+// zeros, which is the ragged edge and the zero-padded head for free; the
+// global row stride D * 2 must be a multiple of 16 (D % 8 == 0). Q is
+// loaded once; K and V go through a ring of kStages stages, each with a
+// "full" mbarrier (TMA bytes) and an "empty" one (all 256 threads arrive
+// when the stage is read). Thread 0 issues the load of tile j + 1 before
+// the warpgroups compute on tile j.
+//
+// Products: S = Q K^T as wgmma m64n64k16 (bf16 x bf16 -> fp32), both
+// operands K-major in the swizzled shared memory, 4 k-steps over D = 64.
+// The softmax runs on the accumulator in registers: a row's 64 values sit
+// in the 4 lanes of a quad (16 each), so its max and sum are 2 shuffles;
+// the mask is computed only on tiles that cross the diagonal or the
+// ragged key edge. O += P V takes P (rounded to bf16) from registers as
+// wgmma's A operand (the accumulator's fragment is the A fragment for
+// 16-bit types) and V from shared memory, read MN-major (transposed by
+// the descriptor: V's contiguous dim is D = N).
+//
+// Epilogue: acc / l_safe -> bf16 -> shared memory in the 128-byte swizzle
+// -> a TMA store, which clips rows past Tq and columns past D; lse from
+// the registers of each quad's first lane.
+//
+// Not yet: a producer warp with setmaxnreg (warp specialisation), the
+// softmax overlapped with the next tile's wgmma, 128-key tiles.
+
+namespace sm90 {
+
+constexpr int kQRows = 128;   // query rows of a CTA
+constexpr int kWgRows = 64;   // query rows of a consumer warpgroup
+constexpr int kKeys = 64;     // keys of a softmax tile (the plain version's block_k)
+constexpr int kStages = 2;    // depth of the K/V ring (3 and 4 measured no faster)
+constexpr int kThreads = 256;
+constexpr uint32_t kRowBytes = kD * 2;  // one 128-byte swizzle row
+constexpr uint32_t kAtom = 8 * kRowBytes;  // 8 rows: one swizzle atom, 1024 bytes
+
+// every array a multiple of 1024 bytes, so each tile starts on a swizzle atom
+struct Smem {
+  bf16 q[kQRows * kD];
+  bf16 k[kStages][kKeys * kD];
+  bf16 v[kStages][kKeys * kD];
+  bf16 o[kQRows * kD];
+  uint64_t full[kStages];
+  uint64_t empty[kStages];
+  uint64_t q_full;
+};
+constexpr size_t kSmemBytes = sizeof(Smem) + 1024;  // + slack to align the base to 1024
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_addr(bar)), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("{\n\t.reg .b64 st;\n\tmbarrier.arrive.shared::cta.b64 st, [%0];\n}" ::"r"(
+                   smem_addr(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile(
+      "{\n\t.reg .b64 st;\n\tmbarrier.arrive.expect_tx.shared::cta.b64 st, [%0], %1;\n}" ::"r"(
+          smem_addr(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+// until the phase of parity `parity` has completed; a wait that outlasts
+// any real one (2^28 polls) traps, so a broken ring is a launch error and
+// not a hung card
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done;
+  uint32_t polls = 0;
+  do {
+    asm volatile(
+        "{\n\t.reg .pred p;\n\tmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+        "selp.u32 %0, 1, 0, p;\n}"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+    if (!done && ++polls == (1u << 28)) __trap();
+  } while (!done);
+}
+
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar, int c0,
+                                         int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_store(const CUtensorMap* map, const void* src, int c0, int c1,
+                                          int c2) {
+  asm volatile("cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, %4}], [%1];" ::"l"(
+                   reinterpret_cast<uint64_t>(map)),
+               "r"(smem_addr(src)), "r"(c0), "r"(c1), "r"(c2)
+               : "memory");
+}
+
+// wgmma's shared-memory matrix descriptor for the 128-byte swizzle:
+// start address, leading and stride byte offsets (16-byte units), layout 1
+__device__ __forceinline__ uint64_t smem_desc(const void* p, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((smem_addr(p) & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) | (static_cast<uint64_t>(sbo >> 4) << 32) |
+         (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+}
+
+// keeps the compiler from touching accumulator registers across the
+// asynchronous wgmma (before its wait)
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+// d (+)= A B over m64 n64 k16: A and B K-major from swizzled shared memory
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t desc_a, uint64_t desc_b,
+                                         int accumulate) {
+  asm volatile(
+      "{\n\t.reg .pred p;\n\tsetp.ne.b32 p, %34, 0;\n\t"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
+      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
+// d += A B over m64 n64 k16: A (bf16 pairs) from registers, B MN-major from
+// swizzled shared memory (imm-trans-b = 1)
+__device__ __forceinline__ void wgmma_rs_tb(float (&d)[32], uint32_t a0, uint32_t a1, uint32_t a2,
+                                            uint32_t a3, uint64_t desc_b) {
+  asm volatile(
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
+      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, 1, 1, 1, 1;"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(desc_b));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// K tiles a query row range ending (exclusively) at q_end can see
+__device__ __forceinline__ int k_tiles_seen(int causal, int q_end, int q_off, int k_off, int nk) {
+  if (!causal) return nk;
+  const int j = floor_div(q_off - k_off + q_end - 1, kKeys) + 1;
+  return min(max(j, 0), nk);
+}
+
+// One tile's online softmax on the S accumulator, in place: sc[4g + e] is
+// row qr0 (e < 2) or qr1, key column c0 + 8g + e % 2. The scores become
+// p; the rows' m and l advance, and corr0/corr1 rescale the output. Only
+// kMasked tiles (across the diagonal or the ragged key edge) test each
+// element; the others are all visible.
+template <bool kMasked>
+__device__ __forceinline__ void tile_softmax(float (&sc)[32], float& m0, float& m1, float& l0,
+                                             float& l1, float& corr0, float& corr1, float scale,
+                                             int causal, int q_off, int k_off, int qr0, int qr1,
+                                             int c0, int Tk) {
+  float mx0 = kNeg, mx1 = kNeg;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    float x = sc[i] * scale;
+    if (kMasked && !visible(causal, q_off, k_off, (i % 4) < 2 ? qr0 : qr1, c0 + 8 * (i / 4) + i % 2, Tk))
+      x = kNeg;
+    sc[i] = x;
+    if ((i % 4) < 2) {
+      mx0 = fmaxf(mx0, x);
+    } else {
+      mx1 = fmaxf(mx1, x);
+    }
+  }
+  const float mn0 = fmaxf(m0, quad_max(mx0)), mn1 = fmaxf(m1, quad_max(mx1));
+  float sum0 = 0.0f, sum1 = 0.0f;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    const bool top = (i % 4) < 2;
+    float p = expf(sc[i] - (top ? mn0 : mn1));
+    if (kMasked && !visible(causal, q_off, k_off, top ? qr0 : qr1, c0 + 8 * (i / 4) + i % 2, Tk))
+      p = 0.0f;
+    sc[i] = p;
+    if (top) {
+      sum0 += p;
+    } else {
+      sum1 += p;
+    }
+  }
+  corr0 = expf(m0 - mn0);
+  corr1 = expf(m1 - mn1);
+  l0 = l0 * corr0 + quad_sum(sum0);
+  l1 = l1 * corr1 + quad_sum(sum1);
+  m0 = mn0;
+  m1 = mn1;
+}
+
+__device__ __forceinline__ void load_kv(Smem& sm, const CUtensorMap* tm_k, const CUtensorMap* tm_v,
+                                        int j, int bh) {
+  const int s = j % kStages;
+  mbar_arrive_expect_tx(&sm.full[s], 2 * kKeys * kRowBytes);
+  tma_load(sm.k[s], tm_k, &sm.full[s], 0, j * kKeys, bh);
+  tma_load(sm.v[s], tm_v, &sm.full[s], 0, j * kKeys, bh);
+}
+
+__global__ void __launch_bounds__(kThreads, 2)
+flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
+                      const __grid_constant__ CUtensorMap tm_k,
+                      const __grid_constant__ CUtensorMap tm_v,
+                      const __grid_constant__ CUtensorMap tm_o, float* __restrict__ lse, int Tq,
+                      int Tk, int q_off, int k_off, int causal, float scale) {
+  extern __shared__ __align__(16) unsigned char dyn_smem[];
+  const uint32_t raw = smem_addr(dyn_smem);
+  Smem& sm = *reinterpret_cast<Smem*>(dyn_smem + (((raw + 1023u) & ~1023u) - raw));
+  const int bh = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kQRows;  // heaviest causal tiles first
+  const int tid = threadIdx.x;
+  const int wg = tid / 128;
+  const int lane = tid % 32;
+  const int row0 = ((tid % 128) / 32) * 16 + lane / 4;  // first of this thread's 2 rows (+8)
+  const int col0 = 2 * (lane % 4);  // first of its 2 columns in each 8-column group
+  const int wq0 = q0 + wg * kWgRows;  // the warpgroup's first query row
+  const int qr0 = wq0 + row0, qr1 = qr0 + 8;
+  const int nk = (Tk + kKeys - 1) / kKeys;
+  const int n_tiles = k_tiles_seen(causal, min(q0 + kQRows, Tq), q_off, k_off, nk);
+  // the warpgroup's own last tile: the first warpgroup skips the CTA's
+  // last tile of a causal diagonal (it still waits for it and releases it)
+  const int n_mine = wq0 < Tq ? k_tiles_seen(causal, min(wq0 + kWgRows, Tq), q_off, k_off, nk) : 0;
+
+  if (tid == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&sm.full[s], 1);
+      mbar_init(&sm.empty[s], kThreads);
+    }
+    mbar_init(&sm.q_full, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  if (tid == 0) {
+    mbar_arrive_expect_tx(&sm.q_full, kQRows * kRowBytes);
+    tma_load(sm.q, &tm_q, &sm.q_full, 0, q0, bh);
+    for (int j = 0; j < kStages - 1 && j < n_tiles; ++j) load_kv(sm, &tm_k, &tm_v, j, bh);
+  }
+
+  float acc[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i] = 0.0f;
+  float m0 = kNeg, m1 = kNeg, l0 = 0.0f, l1 = 0.0f;
+  const bf16* q_wg = sm.q + wg * kWgRows * kD;
+  mbar_wait(&sm.q_full, 0);
+
+  for (int j = 0; j < n_tiles; ++j) {
+    const int s = j % kStages;
+    const int next = j + kStages - 1;
+    if (tid == 0 && next < n_tiles) {
+      // the stage of tile `next` last held tile j - 1: wait until all read it
+      if (j >= 1) mbar_wait(&sm.empty[(j - 1) % kStages], ((j - 1) / kStages) & 1);
+      load_kv(sm, &tm_k, &tm_v, next, bh);
+    }
+    mbar_wait(&sm.full[s], (j / kStages) & 1);
+    if (j >= n_mine) {
+      mbar_arrive(&sm.empty[s]);
+      continue;
+    }
+
+    // s = q k^T: 4 k-steps of 16 along D (32 bytes into each swizzled row)
+    float sc[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) sc[i] = 0.0f;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kD / 16; ++kk) {
+      wgmma_ss(sc, smem_desc(q_wg + kk * 16, 16, kAtom), smem_desc(sm.k[s] + kk * 16, 16, kAtom),
+               kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait();
+    fence_regs(sc);
+
+    // softmax on the accumulator: sc[4g + e] is row row0 (e < 2) or row0 + 8,
+    // column 8g + col0 + e % 2
+    const int k0 = j * kKeys;
+    float corr0, corr1;
+    if (k0 + kKeys > Tk || (causal && k_off + k0 + kKeys - 1 > q_off + wq0)) {
+      tile_softmax<true>(sc, m0, m1, l0, l1, corr0, corr1, scale, causal, q_off, k_off, qr0, qr1,
+                         k0 + col0, Tk);
+    } else {
+      tile_softmax<false>(sc, m0, m1, l0, l1, corr0, corr1, scale, causal, q_off, k_off, qr0, qr1,
+                          k0 + col0, Tk);
+    }
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[i] = acc[i] * ((i % 4) < 2 ? corr0 : corr1);
+
+    // P in bf16 as wgmma's A fragment: k-step kk takes column groups 2kk, 2kk + 1
+    uint32_t pa[16];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+      for (int h = 0; h < 4; ++h) pa[4 * kk + h] = pack_bf16(sc[8 * kk + 2 * h], sc[8 * kk + 2 * h + 1]);
+    }
+    // acc += T(p) v: 4 k-steps of 16 keys (16 rows of V, 2 swizzle atoms)
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kKeys / 16; ++kk) {
+      wgmma_rs_tb(acc, pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2], pa[4 * kk + 3],
+                  smem_desc(sm.v[s] + kk * 16 * kD, 16, kAtom));
+    }
+    wgmma_commit();
+    wgmma_wait();
+    fence_regs(acc);
+    fence_regs(pa);
+    mbar_arrive(&sm.empty[s]);
+  }
+
+  // epilogue: o = T(acc / l_safe) through the swizzled staging tile and a
+  // TMA store; lse from each quad's first lane
+  const float ls0 = fmaxf(l0, kTiny), ls1 = fmaxf(l1, kTiny);
+  unsigned char* o_wg = reinterpret_cast<unsigned char*>(sm.o + wg * kWgRows * kD);
+#pragma unroll
+  for (int g = 0; g < 8; ++g) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = row0 + 8 * h;
+      const float ls = h ? ls1 : ls0;
+      const uint32_t v = pack_bf16(acc[4 * g + 2 * h] / ls, acc[4 * g + 2 * h + 1] / ls);
+      // 16-byte chunk g of row r sits at chunk g ^ (r % 8)
+      *reinterpret_cast<uint32_t*>(o_wg + r * kRowBytes + ((g ^ (r & 7)) * 16) + col0 * 2) = v;
+    }
+  }
+  if (lane % 4 == 0) {
+    if (qr0 < Tq) lse[(int64_t)bh * Tq + qr0] = m0 + logf(ls0);
+    if (qr1 < Tq) lse[(int64_t)bh * Tq + qr1] = m1 + logf(ls1);
+  }
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  asm volatile("bar.sync %0, 128;" ::"r"(1 + wg) : "memory");
+  if (tid % 128 == 0 && wq0 < Tq) {
+    tma_store(&tm_o, o_wg, 0, wq0, bh);
+    asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+    asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
+  }
+}
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// libcuda's cuTensorMapEncodeTiled, looked up through the runtime so that
+// the library links no -lcuda
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                       cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// codes below 0 are the tensor maps' own (tmpi_cuda_error_string names them)
+constexpr int kNoEncoder = -100000;
+
+// a 3-D map of [BH, T, D] bf16 with a box of 64 columns x `rows` rows and
+// the 128-byte swizzle; 0 or a negative code
+int bf16_map(CUtensorMap* map, const void* base, int BH, int T, int D, int rows) {
+  const EncodeTiled enc = encode_tiled();
+  if (enc == nullptr) return kNoEncoder;
+  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)T, (cuuint64_t)BH};
+  const cuuint64_t strides[2] = {(cuuint64_t)D * 2, (cuuint64_t)T * D * 2};
+  const cuuint32_t box[3] = {(cuuint32_t)kD, (cuuint32_t)rows, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims,
+                         strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                         CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : -(int)r;
+}
+
+int fwd(const void* q, const void* k, const void* v, void* o, void* lse, int BH, int Tq, int Tk,
+        int D, int q_off, int k_off, int causal, float scale, cudaStream_t stream) {
+  if (D % 8 != 0 || D < 8 || D > kD) return (int)cudaErrorInvalidValue;
+  CUtensorMap mq, mk, mv, mo;
+  int rc = bf16_map(&mq, q, BH, Tq, D, kQRows);
+  if (rc == 0) rc = bf16_map(&mk, k, BH, Tk, D, kKeys);
+  if (rc == 0) rc = bf16_map(&mv, v, BH, Tk, D, kKeys);
+  if (rc == 0) rc = bf16_map(&mo, o, BH, Tq, D, kWgRows);
+  if (rc != 0) return rc;
+  cudaError_t err = prepare(flash_fwd_sm90_kernel, kSmemBytes);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(BH, (Tq + kQRows - 1) / kQRows);
+  flash_fwd_sm90_kernel<<<grid, kThreads, kSmemBytes, stream>>>(mq, mk, mv, mo, (float*)lse, Tq,
+                                                                Tk, q_off, k_off, causal, scale);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace sm90
+
 }  // namespace
 
 extern "C" {
 
 const char* tmpi_cuda_error_string(int code) {
+  if (code == sm90::kNoEncoder) return "cuTensorMapEncodeTiled not found through the runtime";
+  if (code < 0) {
+    static thread_local char buf[64];
+    snprintf(buf, sizeof buf, "cuTensorMapEncodeTiled failed with CUresult %d", -code);
+    return buf;
+  }
   return cudaGetErrorString((cudaError_t)code);
 }
 
@@ -535,6 +1005,17 @@ int tmpi_flash_fwd(int device, const void* q, const void* k, const void* v, void
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 1) return fwd<bf16>(q, k, v, o, lse, BH, Tq, Tk, D, q_off, k_off, causal, scale, s);
   return fwd<float>(q, k, v, o, lse, BH, Tq, Tk, D, q_off, k_off, causal, scale, s);
+}
+
+// bf16 only, 8 <= D <= 64 with D % 8 == 0, and q, k, v, o 16-byte aligned
+// (the tensor maps' rules); a negative code is a tensor map's failure.
+int tmpi_flash_fwd_sm90(int device, const void* q, const void* k, const void* v, void* o,
+                        void* lse, int BH, int Tq, int Tk, int D, int q_off, int k_off, int causal,
+                        float scale, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  return sm90::fwd(q, k, v, o, lse, BH, Tq, Tk, D, q_off, k_off, causal, scale,
+                   (cudaStream_t)stream);
 }
 
 int tmpi_flash_dq(int device, const void* q, const void* k, const void* v, const void* d_o,

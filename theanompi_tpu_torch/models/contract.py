@@ -63,14 +63,36 @@ def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.T
     return nll.mean()
 
 
+def _total_order_key(x: torch.Tensor) -> torch.Tensor:
+    """fp32 -> int32 keys in XLA's total order: ``-NaN < -inf < ... < -0.0
+    < +0.0 < ... < +inf < +NaN`` (the bits, with the magnitude flipped
+    for negative values, as XLA's comparator does)."""
+    bits = x.float().contiguous().view(torch.int32)
+    return bits ^ ((bits >> 31) & 0x7FFFFFFF)
+
+
+def _share(hits: torch.Tensor) -> torch.Tensor:
+    """Mean of a 0/1 vector as XLA computes ``jnp.mean``: the sum (exact
+    below 2^24 rows) times the fp32 reciprocal of the count."""
+    n = torch.full((), hits.numel(), dtype=torch.float32, device=hits.device)
+    return hits.float().sum() * torch.reciprocal(n)
+
+
 def classification_metrics(logits: torch.Tensor, labels: torch.Tensor) -> dict:
-    """top-1 / top-5 error."""
+    """top-1 / top-5 error, equal to the reference's bit for bit. Top-5
+    membership follows ``jax.lax.top_k``: the label is in the top k when
+    fewer than k entries come before it in XLA's total order, equal keys
+    at a lower index first (``torch.topk`` promises no order among equal
+    values). Top-1 takes the first maximum, as ``jnp.argmax`` does."""
     logits = logits.float()
     labels = labels.long()
-    err1 = (logits.argmax(dim=-1) != labels).float().mean()
+    err1 = _share(logits.argmax(dim=-1) != labels)
     k = min(5, logits.shape[-1])
-    topk = torch.topk(logits, k, dim=-1).indices
-    errk = 1.0 - (topk == labels[:, None]).any(dim=-1).float().mean()
+    key = _total_order_key(logits)
+    key_y = torch.gather(key, -1, labels[:, None])
+    lower = torch.arange(key.shape[-1], device=key.device)[None] < labels[:, None]
+    rank = (key > key_y).sum(dim=-1) + ((key == key_y) & lower).sum(dim=-1)
+    errk = 1.0 - _share(rank < k)
     return {"error": err1, "top5_error": errk}
 
 

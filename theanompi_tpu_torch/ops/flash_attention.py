@@ -4,7 +4,9 @@ the probabilities recomputed from (q, k, lse) in the backward.
 Port of ``theanompi_tpu/ops/pallas_attention.py`` (the local kernel and
 its custom VJP; ``ring_flash_attention`` comes with the
 sequence-parallel slice). The kernels are hand-written CUDA for Hopper
-(``csrc/flash_attention.cu``): ``flash_fwd`` (TPU kernel #7),
+(``csrc/flash_attention.cu``): the forward (TPU kernel #7) as
+``flash_fwd_sm90`` (TMA + wgmma) for bf16 with D % 8 == 0, and as
+``flash_fwd`` for fp32 and other bf16 heads (``_fwd_route``);
 ``flash_dq`` (#8 and its long-sequence twin #10) and ``flash_dkv`` (#9
 and #11). The TPU needs the 2-D backward kernels only because its 1-D
 ones keep the whole opposite sequence in VMEM; the CUDA kernels stream
@@ -60,6 +62,9 @@ _LIB = KernelLibrary(
         # device, q, k, v, o, lse, BH, Tq, Tk, D, q_off, k_off, causal, scale, dtype, stream
         "tmpi_flash_fwd": (_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float,
                            _I, _P),
+        # device, q, k, v, o, lse, BH, Tq, Tk, D, q_off, k_off, causal, scale, stream
+        "tmpi_flash_fwd_sm90": (_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                                ctypes.c_float, _P),
         # device, q, k, v, dO, lse, dsum, dq, BH, Tq, Tk, D, q_off, k_off, causal, scale,
         # dtype, stream
         "tmpi_flash_dq": (_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
@@ -72,6 +77,7 @@ _LIB = KernelLibrary(
 )
 
 FLASH_FWD = LaunchCounter("flash_fwd")
+FLASH_FWD_SM90 = LaunchCounter("flash_fwd_sm90")
 FLASH_DQ = LaunchCounter("flash_dq")
 FLASH_DKV = LaunchCounter("flash_dkv")
 
@@ -191,23 +197,58 @@ def _check_rows(t, name, shape, device):
                          f"{tuple(t.shape)} / {t.stride()}")
 
 
-def flash_fwd(q3, k3, v3, *, causal: bool, scale: float, q_off: int = 0, k_off: int = 0,
-              block_k: int = BLOCK):
-    """Flash forward -> ``(o [BH, Tq, D] in q3's dtype, lse [BH, Tq] f32)``."""
-    BH, Tq, Tk, D = _check_inputs(q3, k3, v3, block_k=block_k)
-    if q3.device.type == "cpu":
-        return flash_fwd_plain(q3, k3, v3, causal=causal, scale=scale, q_off=q_off,
-                               k_off=k_off, block_k=block_k)
+def _fwd_route(dtype: torch.dtype, D: int) -> str:
+    """Which forward kernel takes a CUDA input, from its dtype and head
+    dim alone: ``"sm90"`` (``flash_fwd_sm90``: TMA + wgmma, bf16, and
+    the tensor maps need a row of D bf16 to be whole 16-byte units) or
+    ``"generic"`` (``flash_fwd``: fp32, and bf16 with another D)."""
+    return "sm90" if dtype == torch.bfloat16 and D % 8 == 0 else "generic"
+
+
+def _launch_fwd_generic(q3, k3, v3, *, causal, scale, q_off, k_off):
+    """``flash_fwd_kernel`` (wmma, synchronous loads), fp32 or bf16."""
+    BH, Tq, D = q3.shape
     dev = q3.device
     o = torch.empty_like(q3)
     lse = torch.empty((BH, Tq), dtype=torch.float32, device=dev)
     rc = _LIB.get().tmpi_flash_fwd(dev.index, q3.data_ptr(), k3.data_ptr(), v3.data_ptr(),
-                                   o.data_ptr(), lse.data_ptr(), BH, Tq, Tk, D, int(q_off),
-                                   int(k_off), int(causal), float(scale), DTYPE_CODES[q3.dtype],
-                                   stream_handle(dev))
+                                   o.data_ptr(), lse.data_ptr(), BH, Tq, k3.shape[1], D,
+                                   int(q_off), int(k_off), int(causal), float(scale),
+                                   DTYPE_CODES[q3.dtype], stream_handle(dev))
     _LIB.check(rc, "flash attention forward kernel")
     FLASH_FWD.launches += 1
     return o, lse
+
+
+def _launch_fwd_sm90(q3, k3, v3, *, causal, scale, q_off, k_off):
+    """``flash_fwd_sm90_kernel`` (TMA + wgmma), bf16 with D % 8 == 0."""
+    BH, Tq, D = q3.shape
+    dev = q3.device
+    o = torch.empty_like(q3)
+    lse = torch.empty((BH, Tq), dtype=torch.float32, device=dev)
+    for name, t in (("q3", q3), ("k3", k3), ("v3", v3), ("o", o)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must start on a 16-byte boundary for the tensor maps")
+    rc = _LIB.get().tmpi_flash_fwd_sm90(dev.index, q3.data_ptr(), k3.data_ptr(), v3.data_ptr(),
+                                        o.data_ptr(), lse.data_ptr(), BH, Tq, k3.shape[1], D,
+                                        int(q_off), int(k_off), int(causal), float(scale),
+                                        stream_handle(dev))
+    _LIB.check(rc, "flash attention forward kernel (sm90)")
+    FLASH_FWD_SM90.launches += 1
+    return o, lse
+
+
+def flash_fwd(q3, k3, v3, *, causal: bool, scale: float, q_off: int = 0, k_off: int = 0,
+              block_k: int = BLOCK):
+    """Flash forward -> ``(o [BH, Tq, D] in q3's dtype, lse [BH, Tq] f32)``.
+    A CUDA input goes to the kernel ``_fwd_route`` names; a failure there
+    raises and is never handed to the other kernel."""
+    D = _check_inputs(q3, k3, v3, block_k=block_k)[3]
+    if q3.device.type == "cpu":
+        return flash_fwd_plain(q3, k3, v3, causal=causal, scale=scale, q_off=q_off,
+                               k_off=k_off, block_k=block_k)
+    launch = _launch_fwd_sm90 if _fwd_route(q3.dtype, D) == "sm90" else _launch_fwd_generic
+    return launch(q3, k3, v3, causal=causal, scale=scale, q_off=q_off, k_off=k_off)
 
 
 def flash_dq(q3, k3, v3, do3, lse, dsum, *, causal: bool, scale: float, q_off: int = 0,

@@ -20,6 +20,8 @@ the repo's single-card batch 512 (224x224x3, 1000 classes, bf16 compute,
   sum is the busy time) against the step's wall time;
 - ``kernels``: device time per kernel name per step, largest first, with
   the fused optimizer kernel's share;
+- ``heads_major_ms_per_step`` (LM): the copies of q, k and v into the
+  flash kernels' heads-major layout, three a layer, timed alone;
 - ``h2d_ms``: the pinned, non-blocking copy of one input batch;
 - ``categories``: the same device time summed by kind of kernel
   (flash attention, the pool kernels, convolution/GEMM, cuDNN layout
@@ -73,7 +75,8 @@ def _device_us(evt) -> float:
 
 # kernel name fragments -> category, first match wins
 CATEGORIES = (
-    ("flash_attention", ("flash_fwd_kernel", "flash_dq_kernel", "flash_dkv_kernel")),
+    ("flash_attention", ("flash_fwd_kernel", "flash_fwd_sm90_kernel", "flash_dq_kernel",
+                         "flash_dkv_kernel")),
     ("pool_kernel", ("maxpool_fwd_kernel", "maxpool_bwd_kernel")),
     ("fused_update", ("momentum_kernel", "sgd_kernel")),
     ("layout_transform", ("tensorTransform", "nhwcSlice", "nchwToNhwc", "nhwcToNchw")),
@@ -154,6 +157,18 @@ def profile(steps: int = 10, warmup: int = 3, top: int = 15, host_batches: int =
         cat = _category(name)
         categories[cat] = categories.get(cat, 0.0) + ms
 
+    heads_major_ms = None
+    if lm:
+        # the flash path's copies of q, k and v into heads-major [B*H, T, D],
+        # three a layer, timed alone
+        from theanompi_tpu_torch.models.contract import as_dtype
+        from theanompi_tpu_torch.ops.flash_attention import _heads_major
+
+        t = torch.randn(batch, r.input_shape[0], r.n_heads, r.d_model // r.n_heads,
+                        generator=gen, device=device).to(as_dtype(r.compute_dtype))
+        heads_major_ms = _events_ms(lambda: [_heads_major(t) for _ in range(3)], 20) * r.n_layers
+        del t
+
     host_x = torch.empty(x.shape, dtype=x.dtype).pin_memory()
     h2d_ms = _events_ms(lambda: x.copy_(host_x, non_blocking=True), 10)
 
@@ -190,6 +205,7 @@ def profile(steps: int = 10, warmup: int = 3, top: int = 15, host_batches: int =
         "fused_update_share": fused_ms / busy_ms if kernels and busy_ms else None,
         "flash_ms_per_step": categories.get("flash_attention") if kernels else None,
         "pool_kernel_ms_per_step": categories.get("pool_kernel") if kernels else None,
+        "heads_major_ms_per_step": heads_major_ms,
         "peak_memory_bytes": peak_bytes,
         "categories": categories if kernels else None,
         "kernels": [{"name": n[:120], "ms_per_step": ms, "launches_per_step": c}
