@@ -9,10 +9,11 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                 fused update, the quantizer, flash attention, the pool) with nvcc
                 for sm_90a, one nvcc per source, all started together;
                 print the build's wall time. Proof of design: the SASS of
-                ``flash_fwd_sm90_kernel`` (``cuobjdump -sass`` of the built
-                library) must hold HGMMA (wgmma) and UTMALDG (TMA loads);
-                its registers, shared memory and spills are printed
-                (``cuobjdump --dump-resource-usage``).
+                ``flash_fwd_sm90_kernel`` and of ``flash_dkv_sm90_kernel``
+                (``cuobjdump -sass`` of the built library) must hold HGMMA
+                (wgmma) and UTMALDG (TMA loads); their registers, shared
+                memory and spills are printed (``cuobjdump
+                --dump-resource-usage``).
 2. kernels    — each fused-update kernel's wrapper against its plain
                 PyTorch version at AlexNet's 16 parameter-leaf shapes:
                 momentum, Nesterov and sgd; fp32 params with fp32 grads,
@@ -32,22 +33,28 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                 ``wire_encode``'s message byte-identical to the plain
                 version's (a NaN scale's payload aside) and its decode.
    flash      — each flash attention kernel (#7-11: flash_fwd_sm90 and
-                flash_fwd, flash_dq, flash_dkv) against its plain version on
+                flash_fwd, flash_dq, flash_dkv_sm90 and flash_dkv) against
+                its plain version on
                 the card: the 136M LM's shape (BH 96, T 1024, D 64) in bf16
                 and fp32, ragged T and D, Tq != Tk, causal and not, nonzero
                 offsets with rows that see no key (o = 0, lse ~ -1e30), Tq
                 200 and 1000 at D 64 (not multiples of the 128-row Q tile),
                 q_off 160 over Tq 200 / Tk 360, a bf16 head of 60 (no whole
                 16-byte rows), and T = 8192 (BH 2, bf16). The counters show
-                each case's forward route: bf16 with D % 8 == 0 runs
-                flash_fwd_sm90, fp32 and the other bf16 heads flash_fwd. Tolerances: fp32 o rtol 1e-5 + 1e-6 max|o|, dq/dk/dv
+                each case's forward and dk/dv routes: bf16 with D % 8 == 0
+                runs flash_fwd_sm90 and flash_dkv_sm90, fp32 and the other
+                bf16 heads flash_fwd and flash_dkv. Tolerances: fp32 o rtol
+                1e-5 + 1e-6 max|o|, dq/dk/dv
                 rtol 1e-4 + 1e-5 of the largest value; bf16 o within 1 bf16
-                ulp plus 2^-7 of sum_i p_i |v_i| / l (the tensor cores sum
+                ulp plus 2^-9 of sum_i p_i |v_i| / l (the tensor cores sum
                 q.k in another order, so a p near a bf16 rounding boundary
                 can round to its neighbour on one side: see
-                ``bf16_o_excess``), dq/dk/dv rtol 1e-4 + 2^-8 of the largest
-                value (likewise one ds); lse atol 1e-5. The route's forward
-                counter, flash_dq and flash_dkv move by one per case.
+                ``bf16_o_excess``), dq/dk rtol 1e-4 + 2^-9 of the largest
+                value (likewise one ds), dv (p unrounded; flash_dkv_sm90
+                splits p into three exact bf16 parts) at the fp32 limit
+                rtol 1e-4 + 1e-5 of the largest value, which a dv from
+                bf16(p) must fail; lse atol 1e-5. The routes' forward and
+                dk/dv counters and flash_dq move by one per case.
    pool       — the 3x3/s1 max pool kernels (#12 maxpool3x3_fwd, #13
                 maxpool3x3_bwd) against their plain versions, bit for bit
                 (a NaN matches any NaN), in fp32 and bf16, at the distinct
@@ -85,8 +92,8 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                 of 64, T 1024, vocab 32768, batch 8, bf16 compute, Adam,
                 random weights from a seed) through the CLI for 6 steps
                 and one validation batch: exactly 12 x 7 flash_fwd_sm90,
-                no flash_fwd, and 12 x 6 flash_dq and flash_dkv launches,
-                no other kernel;
+                12 x 6 flash_dq and flash_dkv_sm90 launches, no flash_fwd,
+                no flash_dkv, no other kernel;
                 losses finite; step ms and tokens/s.
    googlenet-main — full-width GoogLeNet (224x224x3, 1000 classes, both
                 aux heads, bf16 compute, fp32 params, momentum 0.9, wd
@@ -114,7 +121,8 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                 vocab 512, batch 4, Adam, attn flash) trained 2 steps on the
                 card and on the CPU from the same weights and batches:
                 losses within rtol 1e-4, params within atol 1e-6 + rtol
-                1e-4, every leaf changed, 4 launches of each flash kernel.
+                1e-4, every leaf changed, 4 launches of each fp32 flash
+                kernel (flash_fwd, flash_dq, flash_dkv), none of an sm90 one.
    googlenet-parity — full-width GoogLeNet (224x224x3, 1000 classes, fp32,
                 dropout 0, pool kernel on, lr 0.001) trained 2 momentum
                 steps on the card and on the CPU from the same weights and
@@ -135,10 +143,12 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                 call computes the same function. Each flash kernel per
                 launch at the 136M shape (bf16, causal): bound from bytes
                 and from operations (bf16 products at the bf16 tensor-core
-                peak, flash_dkv's fp32 dv product at the fp32 peak), and
-                SDPA's causal forward / backward as the yardstick; the
-                old bf16 flash_fwd (through the module's own launcher) and
-                flash_fwd_sm90 in turns (old, new, new, old). The
+                peak, flash_dkv's fp32 dv product at the fp32 peak;
+                flash_dkv_sm90's split dv product as three bf16 products),
+                and SDPA's causal forward / backward as the yardstick; the
+                generic bf16 flash_fwd and flash_dkv (through the module's
+                own launchers) and flash_fwd_sm90 / flash_dkv_sm90 in turns
+                (old, new, new, old). The
                 pool kernels over the nine inception pools at batch 512
                 in bf16 (one step's launches): bound 2 (forward) or 4
                 (backward) bf16 tensor passes at the memory rate;
@@ -761,14 +771,18 @@ def phase_flash(dev):
     0.169); dv, an fp32 x fp32 product of the unrounded p, the fp32 limit
     rtol 1e-4 + 1e-5 of the largest value. At the 136M shape a control,
     dv with p rounded to bf16 (``bf16_dv_control``), must fail that dv
-    check."""
+    check. The counters must show each case's routes: bf16 with D % 8 ==
+    0 on flash_fwd_sm90 and flash_dkv_sm90, the rest on flash_fwd and
+    flash_dkv."""
     import torch
     from theanompi_tpu_torch.ops import flash_attention as fa
 
     g = torch.Generator(device=dev).manual_seed(8)
-    worst = {"flash_fwd": 0.0, "flash_fwd_sm90": 0.0, "flash_dq": 0.0, "flash_dkv": 0.0}
-    counters = (fa.FLASH_FWD, fa.FLASH_FWD_SM90, fa.FLASH_DQ, fa.FLASH_DKV)
-    routes = {"flash_fwd": 0, "flash_fwd_sm90": 0}
+    worst = {"flash_fwd": 0.0, "flash_fwd_sm90": 0.0, "flash_dq": 0.0, "flash_dkv": 0.0,
+             "flash_dkv_sm90": 0.0}
+    counters = (fa.FLASH_FWD, fa.FLASH_FWD_SM90, fa.FLASH_DQ, fa.FLASH_DKV, fa.FLASH_DKV_SM90)
+    names = tuple(c.name for c in counters)
+    routes = {"flash_fwd": 0, "flash_fwd_sm90": 0, "flash_dkv": 0, "flash_dkv_sm90": 0}
     # the bf16 cases' worst share of each tolerance, and the control's
     readings = {"o": 0.0, "dq": 0.0, "dk": 0.0, "dv": 0.0, "dv_control": None}
     failures = []
@@ -789,12 +803,14 @@ def phase_flash(dev):
         torch.cuda.synchronize()
         after = tuple(c.launches for c in counters)
         bad = []
-        fwd = "flash_fwd_sm90" if dt == torch.bfloat16 and D % 8 == 0 else "flash_fwd"
-        want = (int(fwd == "flash_fwd"), int(fwd == "flash_fwd_sm90"), 1, 1)
+        sm90 = dt == torch.bfloat16 and D % 8 == 0
+        fwd = "flash_fwd_sm90" if sm90 else "flash_fwd"
+        dkv = "flash_dkv_sm90" if sm90 else "flash_dkv"
+        want = tuple(int(n_ in (fwd, "flash_dq", dkv)) for n_ in names)
         if tuple(b - a for a, b in zip(before, after)) != want:
-            bad.append(f"counters (flash_fwd, flash_fwd_sm90, flash_dq, flash_dkv) moved "
-                       f"{before} -> {after}, expected + {want}")
+            bad.append(f"counters {names} moved {before} -> {after}, expected + {want}")
         routes[fwd] += 1
+        routes[dkv] += 1
         for name, t in (("o", o), ("lse", lse), ("dq", dq), ("dk", dk), ("dv", dv)):
             if not bool(torch.isfinite(t).all()):
                 bad.append(f"non-finite {name}")
@@ -842,12 +858,13 @@ def phase_flash(dev):
                     bad.append("the bf16(p) dv control passes the dv check: it sees no cast point")
         errs = {fwd: (o.float() - po.float()).abs().max().item(),
                 "flash_dq": (dq - pdq).abs().max().item(),
-                "flash_dkv": max((dk - pdk).abs().max().item(), (dv - pdv).abs().max().item())}
+                dkv: max((dk - pdk).abs().max().item(), (dv - pdv).abs().max().item())}
         for n_, e in errs.items():
             worst[n_] = max(worst[n_], e)
         print(f"  {label:42s} BH {BH:3d} Tq {Tq:5d} Tk {Tk:5d} D {D:3d} causal {causal!s:5s} "
-              f"[{fwd}]: max abs err o {errs[fwd]:.3g} (max|o| {po.float().abs().max().item():.3g}) "
-              f"lse {lse_err:.3g} dq {errs['flash_dq']:.3g} dk/dv {errs['flash_dkv']:.3g} "
+              f"[{fwd}, {dkv}]: max abs err o {errs[fwd]:.3g} (max|o| "
+              f"{po.float().abs().max().item():.3g}) lse {lse_err:.3g} dq {errs['flash_dq']:.3g} "
+              f"dk/dv {errs[dkv]:.3g} "
               f"({tol}; grads at {grad_x:.3g} of the tolerance)"
               + (f" FAILED: {'; '.join(bad)}" if bad else ""), flush=True)
         failures += [f"{label}: {b}" for b in bad]
@@ -855,9 +872,9 @@ def phase_flash(dev):
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     check(readings["dv_control"] is not None, "no 136M-shape bf16 case ran the dv control")
-    check(all(routes.values()), f"a forward route ran no case: {routes}")
+    check(all(routes.values()), f"a forward or dk/dv route ran no case: {routes}")
     check(not failures, "flash kernels differ from their plain versions: " + " | ".join(failures))
-    print(f"[flash] forward cases per route: {routes}", flush=True)
+    print(f"[flash] cases per route: {routes}", flush=True)
     return worst, readings
 
 
@@ -881,7 +898,8 @@ def phase_lm_main():
           f"lm run: bad val metrics {summary.get('val')}")
     val_batches = 1
     want = {"flash_fwd_sm90": LM_LAYERS * (LM_STEPS + val_batches), "flash_fwd": 0,
-            "flash_dq": LM_LAYERS * LM_STEPS, "flash_dkv": LM_LAYERS * LM_STEPS}
+            "flash_dq": LM_LAYERS * LM_STEPS, "flash_dkv_sm90": LM_LAYERS * LM_STEPS,
+            "flash_dkv": 0}
     got = {k: counts[k] for k in want}
     check(got == want, f"lm run launched {got}, expected {want}")
     stray = {k: v for k, v in counts.items() if k not in want and v}
@@ -923,8 +941,9 @@ def phase_lm_parity(dev):
                        launch_counts())
     (lc, bc, pc, kc), (lg, bg, pg, kg) = out["cpu"], out[str(dev)]
     check(not any(kc.values()), f"the CPU run launched kernels: {kc}")
-    check((kg["flash_fwd"], kg["flash_fwd_sm90"], kg["flash_dq"], kg["flash_dkv"]) == (4, 0, 4, 4),
-          f"the card run launched {kg}, expected 4 of each fp32 flash kernel")
+    flash = ("flash_fwd", "flash_fwd_sm90", "flash_dq", "flash_dkv", "flash_dkv_sm90")
+    check(tuple(kg[n] for n in flash) == (4, 0, 4, 4, 0),
+          f"the card run launched {kg}, expected 4 of each fp32 flash kernel and no sm90 one")
     check(all(math.isclose(a, b, rel_tol=1e-4) for a, b in zip(lc, lg)),
           f"card losses {lg} vs CPU {lc}")
     worst = 0.0
@@ -942,7 +961,8 @@ def phase_flash_times(dev, mem_rate, fp32_peak, bf16_peak):
     """Each flash kernel at the 136M LM's attention shape (bf16, causal):
     per-launch time, its bound, the plain version, and the SDPA yardstick.
     The two forwards (the generic kernel's bf16 instantiation and
-    flash_fwd_sm90) run in turns, old, new, new, old."""
+    flash_fwd_sm90) run in turns, old, new, new, old, and so do the two
+    dk/dv kernels (flash_dkv's bf16 instantiation and flash_dkv_sm90)."""
     import torch
     import torch.nn.functional as F
     from theanompi_tpu_torch.ops import flash_attention as fa
@@ -959,20 +979,24 @@ def phase_flash_times(dev, mem_rate, fp32_peak, bf16_peak):
     tile = 2 * BH * T * D  # bytes of one bf16 [BH, T, D] tensor
     rows = 4 * BH * T  # bytes of one f32 [BH, T] vector
     fkw = dict(kw, q_off=0, k_off=0)
+    fwd_plain = lambda: fa.flash_fwd_plain(q, k, v, **kw)  # noqa: E731
+    dkv_plain = lambda: fa.flash_dkv_plain(q, k, v, do, lse, dsum, **kw)  # noqa: E731
     specs = {
         # name: (kernel, plain, bytes, bf16 FLOPs, fp32 FLOPs)
-        "flash_fwd_sm90": (lambda: fa._launch_fwd_sm90(q, k, v, **fkw),
-                           lambda: fa.flash_fwd_plain(q, k, v, **kw),
+        "flash_fwd_sm90": (lambda: fa._launch_fwd_sm90(q, k, v, **fkw), fwd_plain,
                            4 * tile + rows, 4 * D * pairs, 0),
         # the generic kernel's bf16 instantiation, which the LM ran before
-        "flash_fwd": (lambda: fa._launch_fwd_generic(q, k, v, **fkw),
-                      lambda: fa.flash_fwd_plain(q, k, v, **kw),
+        "flash_fwd": (lambda: fa._launch_fwd_generic(q, k, v, **fkw), fwd_plain,
                       4 * tile + rows, 4 * D * pairs, 0),
         "flash_dq": (lambda: fa.flash_dq(q, k, v, do, lse, dsum, **kw),
                      lambda: fa.flash_dq_plain(q, k, v, do, lse, dsum, **kw),
                      4 * tile + 2 * rows + 2 * tile, 6 * D * pairs, 0),
-        "flash_dkv": (lambda: fa.flash_dkv(q, k, v, do, lse, dsum, **kw),
-                      lambda: fa.flash_dkv_plain(q, k, v, do, lse, dsum, **kw),
+        # dv's fp32 x fp32 product as three exact bf16 products: 12 D a pair
+        "flash_dkv_sm90": (lambda: fa._launch_dkv_sm90(q, k, v, do, lse, dsum, **fkw),
+                           dkv_plain, 4 * tile + 2 * rows + 4 * tile, 12 * D * pairs, 0),
+        # the generic kernel's bf16 instantiation (dv in fp32 FMAs), which
+        # the LM ran before flash_dkv_sm90
+        "flash_dkv": (lambda: fa._launch_dkv_generic(q, k, v, do, lse, dsum, **fkw), dkv_plain,
                       4 * tile + 2 * rows + 4 * tile, 6 * D * pairs, 2 * D * pairs),
     }
     # the yardstick: SDPA's causal forward, and its whole backward
@@ -984,27 +1008,29 @@ def phase_flash_times(dev, mem_rate, fp32_peak, bf16_peak):
                            reps=20)
     sdpa_bwd = cuda_ms(lambda: torch.autograd.grad(out4, (q4, k4, v4), do4, retain_graph=True),
                        reps=20)
-    # the two forwards in turns (old, new, new, old): one mean each
-    turns = {"flash_fwd": [], "flash_fwd_sm90": []}
-    for name in ("flash_fwd", "flash_fwd_sm90", "flash_fwd_sm90", "flash_fwd"):
-        turns[name].append(cuda_ms(specs[name][0], reps=20))
-    print(f"[times] bf16 forward in turns (old, new, new, old): flash_fwd {turns['flash_fwd']} ms, "
-          f"flash_fwd_sm90 {turns['flash_fwd_sm90']} ms", flush=True)
-    fwd_plain_ms = None
+    # the old and the new kernel of each pair in turns (old, new, new,
+    # old): one mean each
+    turns = {}
+    for old, new in (("flash_fwd", "flash_fwd_sm90"), ("flash_dkv", "flash_dkv_sm90")):
+        turns[old], turns[new] = [], []
+        for name in (old, new, new, old):
+            turns[name].append(cuda_ms(specs[name][0], reps=20))
+        print(f"[times] bf16 in turns (old, new, new, old): {old} {turns[old]} ms, {new} "
+              f"{turns[new]} ms", flush=True)
+    plain_ms_of = {}  # a pair shares its plain version: one function, one input, timed once
     results = {}
     for name, (kern, plain, byts, bf16_ops, fp32_ops) in specs.items():
         if name in turns:
             ms = sum(turns[name]) / len(turns[name])
-            if fwd_plain_ms is None:  # one function, one input: timed once for both
-                fwd_plain_ms = cuda_ms(plain, reps=3, warmup=1)
-            plain_ms = fwd_plain_ms
         else:
             ms = cuda_ms(kern, reps=10)
-            plain_ms = cuda_ms(plain, reps=3, warmup=1)
+        if plain not in plain_ms_of:
+            plain_ms_of[plain] = cuda_ms(plain, reps=3, warmup=1)
+        plain_ms = plain_ms_of[plain]
         bytes_ms = byts / mem_rate * 1e3
         ops_ms = (bf16_ops / bf16_peak + fp32_ops / fp32_peak) * 1e3
         bound_ms = max(bytes_ms, ops_ms)
-        lib = sdpa_fwd if name in turns else sdpa_bwd
+        lib = sdpa_fwd if name.startswith("flash_fwd") else sdpa_bwd
         results[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bytes=byts,
                              bf16_flop=bf16_ops, fp32_flop=fp32_ops, library_ms=lib,
                              bound_by="bytes" if bytes_ms >= ops_ms else "operations",
@@ -1013,7 +1039,8 @@ def phase_flash_times(dev, mem_rate, fp32_peak, bf16_peak):
               f"-> {bytes_ms * 1e3:.1f} us; {bf16_ops / 1e9:.2f} GFLOP bf16 + {fp32_ops / 1e9:.2f} "
               f"GFLOP fp32 -> {ops_ms * 1e3:.1f} us; {results[name]['bound_by']}) | "
               f"{bound_ms / ms * 100:.1f}% of bound | plain {plain_ms:.4f} ms | SDPA "
-              f"{'forward' if name in turns else 'backward (dq, dk, dv)'} {lib:.4f} ms",
+              f"{'forward' if name.startswith('flash_fwd') else 'backward (dq, dk, dv)'} "
+              f"{lib:.4f} ms",
               flush=True)
     del q4, k4, v4, out4
     torch.cuda.synchronize()
@@ -1345,10 +1372,14 @@ def find_cuobjdump() -> str:
     raise Failed(f"cuobjdump not found (looked at {[c for c in cands if c]})")
 
 
+SASS_KERNELS = ("flash_fwd_sm90_kernel", "flash_dkv_sm90_kernel")
+
+
 def phase_sass():
-    """Proof of design: flash_fwd_sm90_kernel's SASS, in the library the
-    build phase made, holds HGMMA (wgmma) and UTMALDG (TMA loads). Prints
-    its registers, shared memory and spills."""
+    """Proof of design: the SASS of each sm90 flash kernel
+    (``SASS_KERNELS``), in the library the build phase made, holds HGMMA
+    (wgmma) and UTMALDG (TMA loads). Prints each one's registers, shared
+    memory and spills."""
     from theanompi_tpu_torch.ops.kernels import library_path
 
     lib = str(library_path("flash_attention.cu"))
@@ -1359,22 +1390,25 @@ def phase_sass():
     for chunk in re.split(r"\n\s*Function : ", out.stdout)[1:]:
         name, _, body = chunk.partition("\n")
         funcs[name.strip()] = body
-    mine = [n for n in funcs if "flash_fwd_sm90_kernel" in n]
-    check(len(mine) == 1, f"flash_fwd_sm90_kernel not found once in the SASS: {sorted(funcs)}")
-    body = funcs[mine[0]]
-    ops = {op: len(re.findall(rf"\b{op}\b", body)) for op in ("HGMMA", "UTMALDG", "UTMASTG")}
-    check(ops["HGMMA"] > 0 and ops["UTMALDG"] > 0,
-          f"flash_fwd_sm90_kernel's SASS lacks wgmma or TMA loads: {ops}")
     res = subprocess.run([tool, "--dump-resource-usage", lib], capture_output=True, text=True,
                          timeout=300)
     check(res.returncode == 0, f"cuobjdump --dump-resource-usage failed: {res.stderr[-2000:]}")
     lines = res.stdout.splitlines()
-    usage = next((lines[i + 1].strip() for i, line in enumerate(lines)
-                  if "flash_fwd_sm90_kernel" in line and i + 1 < len(lines)), "")
-    check(usage, "no resource usage line for flash_fwd_sm90_kernel")
-    print(f"[build] {os.path.basename(tool)} -sass: flash_fwd_sm90_kernel has {ops['HGMMA']} HGMMA, "
-          f"{ops['UTMALDG']} UTMALDG, {ops['UTMASTG']} UTMASTG; resources: {usage}", flush=True)
-    return {"sass_ops": ops, "resource_usage": usage, "function": mine[0]}
+    proof = {}
+    for kernel in SASS_KERNELS:
+        mine = [n for n in funcs if kernel in n]
+        check(len(mine) == 1, f"{kernel} not found once in the SASS: {sorted(funcs)}")
+        body = funcs[mine[0]]
+        ops = {op: len(re.findall(rf"\b{op}\b", body)) for op in ("HGMMA", "UTMALDG", "UTMASTG")}
+        check(ops["HGMMA"] > 0 and ops["UTMALDG"] > 0,
+              f"{kernel}'s SASS lacks wgmma or TMA loads: {ops}")
+        usage = next((lines[i + 1].strip() for i, line in enumerate(lines)
+                      if kernel in line and i + 1 < len(lines)), "")
+        check(usage, f"no resource usage line for {kernel}")
+        print(f"[build] {os.path.basename(tool)} -sass: {kernel} has {ops['HGMMA']} HGMMA, "
+              f"{ops['UTMALDG']} UTMALDG, {ops['UTMASTG']} UTMASTG; resources: {usage}", flush=True)
+        proof[kernel] = {"sass_ops": ops, "resource_usage": usage, "function": mine[0]}
+    return proof
 
 
 def build_all():
@@ -1546,6 +1580,7 @@ def main() -> int:
         ("flash_fwd_sm90", "theanompi_tpu/ops/pallas_attention.py:131"),
         ("flash_fwd", "theanompi_tpu/ops/pallas_attention.py:131"),
         ("flash_dq", "theanompi_tpu/ops/pallas_attention.py:174 + :264"),
+        ("flash_dkv_sm90", "theanompi_tpu/ops/pallas_attention.py:207 + :302"),
         ("flash_dkv", "theanompi_tpu/ops/pallas_attention.py:207 + :302"),
     ):
         t = times[name]
@@ -1558,26 +1593,28 @@ def main() -> int:
             "tolerance": ("fp32: o rtol 1e-5 + 1e-6 max|o|, dq/dk/dv rtol 1e-4 + 1e-5 max; bf16: "
                           "o <= 1 bf16 ulp + 2^-9 sum_i p_i |v_i| / l (a p rounded to its "
                           "bf16 neighbour on one side), dq/dk rtol 1e-4 + 2^-9 max (a flipped "
-                          "bf16 rounding of ds), dv (fp32 product, p unrounded) rtol 1e-4 + "
+                          "bf16 rounding of ds), dv (fp32 product, p unrounded; in "
+                          "flash_dkv_sm90 three exact bf16 products of p's parts) rtol 1e-4 + "
                           "1e-5 max; lse atol 1e-5"),
             "bf16_worst_share_of_tolerance": {k_: v_ for k_, v_ in flash_readings.items()
                                               if k_ != "dv_control"},
             "bf16_dv_control_share": flash_readings["dv_control"],
             "work": ("one launch at the 136M LM's attention shape: BH 96, T 1024, D 64, bf16, "
-                     "causal" + (" (the generic kernel's bf16 instantiation, which the LM ran "
-                                 "before flash_fwd_sm90)" if name == "flash_fwd" else "")),
+                     "causal" + (f" (the generic kernel's bf16 instantiation, which the LM ran "
+                                 f"before {name}_sm90)" if name in ("flash_fwd", "flash_dkv")
+                                 else "")),
             "library_note": (
                 "torch.nn.functional.scaled_dot_product_attention(is_causal=True) " +
                 ("forward" if name.startswith("flash_fwd") else
-                 "backward, dq, dk and dv in one call (the same number for flash_dq and "
-                 "flash_dkv)") +
+                 "backward, dq, dk and dv in one call (the same number for flash_dq, "
+                 "flash_dkv_sm90 and flash_dkv)") +
                 ": not the same function (its dv product is bf16, its blocks its own); a "
                 "yardstick only, the port never calls it"),
             "launches_in": (f"the {LM_STEPS}-step TransformerLM_136M run through the CLI "
                             f"({LM_LAYERS} layers; the forward also in 1 validation batch)" +
-                            ("; bf16 heads with D % 8 == 0 go to flash_fwd_sm90, so this kernel "
+                            (f"; bf16 heads with D % 8 == 0 go to {name}_sm90, so this kernel "
                              "takes fp32 (4 launches in phase lm-parity) and other bf16 heads"
-                             if name == "flash_fwd" else "")),
+                             if name in ("flash_fwd", "flash_dkv") else "")),
             "main_path_step_ms": lm["step_ms"],
             "main_path_tokens_per_sec": lm_run["tokens_per_sec"],
         })
@@ -1586,7 +1623,13 @@ def main() -> int:
         if name == "flash_fwd_sm90":
             kernels[-1].update(design="TMA-fed 2-stage K/V ring, wgmma for QK^T "
                                "and PV (P from registers), 128-row Q tiles heaviest first",
-                               sass=sass)
+                               sass=sass["flash_fwd_sm90_kernel"])
+        if name == "flash_dkv_sm90":
+            kernels[-1].update(design="K/V once per 128-key CTA, TMA-fed 2-stage Q/dO ring, "
+                               "wgmma for S^T = K Q^T, dP^T = V dO^T, dK += dS^T Q and dV += "
+                               "P^T dO with p split into three exact bf16 parts (P and dS "
+                               "from registers), key tiles heaviest first",
+                               sass=sass["flash_dkv_sm90_kernel"])
     src_pool = "theanompi_tpu_torch/csrc/pool.cu"
     gk = gnet_runs["pool-kernel"]
     gl = gnet_runs["library-pool"]

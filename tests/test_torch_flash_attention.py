@@ -10,7 +10,9 @@ T below one block, Tq != Tk, and nonzero global offsets (a fully future
 K/V shard included); dq and dk/dv at offsets through the 1-D and the
 2-D kernels; and the gradients of the autograd.Function against
 ``jax.grad`` of the reference entry point, with the 1-D dispatch and
-with ``_BWD_2D_MIN_T`` monkeypatched to 1.
+with ``_BWD_2D_MIN_T`` monkeypatched to 1. Beside them: the routes
+(``_fwd_route``, ``_dkv_route``), the exact three-part bf16 split of p
+that ``flash_dkv_sm90`` runs dv through, and the variant tools' anchors.
 
 Tolerances. fp32: o atol 3e-6 rtol 1e-5, lse atol 1e-5, dq/dk/dv atol
 2e-5 rtol 1e-4 (the reference's own tests'): the sums run in another
@@ -206,16 +208,20 @@ def test_highest_precision_and_the_oracle(causal):
 
 
 def test_cpu_path_counts_no_launch_and_other_devices_need_cuda():
-    counters = (tfa.FLASH_FWD, tfa.FLASH_FWD_SM90, tfa.FLASH_DQ, tfa.FLASH_DKV)
+    counters = (tfa.FLASH_FWD, tfa.FLASH_FWD_SM90, tfa.FLASH_DQ, tfa.FLASH_DKV,
+                tfa.FLASH_DKV_SM90)
     for c in counters:
         c.reset()
     for dt in (torch.float32, torch.bfloat16):
         q = torch.randn(2, 16, 2, 8).to(dt).requires_grad_(True)
         tfa.flash_attention(q, q, q, causal=True).sum().backward()
-    assert [c.launches for c in counters] == [0, 0, 0, 0]
+    assert [c.launches for c in counters] == [0, 0, 0, 0, 0]
     meta = torch.empty(4, 16, 8, device="meta")
     with pytest.raises(ValueError, match="CUDA"):
         tfa.flash_fwd(meta, meta, meta, causal=True, scale=1.0)
+    rows = torch.empty(4, 16, device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        tfa.flash_dkv(meta, meta, meta, meta, rows, rows, causal=True, scale=1.0)
     wide = torch.empty(4, 16, 72, device="meta")
     with pytest.raises(ValueError, match="head dim 72"):
         tfa.flash_fwd(wide, wide, wide, causal=True, scale=1.0)
@@ -235,6 +241,66 @@ def test_forward_route_is_chosen_from_dtype_and_head_dim(dtype, D, route):
     assert tfa._fwd_route(dtype, D) == route
 
 
+@pytest.mark.parametrize("dtype,D,route", [
+    (torch.bfloat16, 8, "sm90"), (torch.bfloat16, 40, "sm90"), (torch.bfloat16, 48, "sm90"),
+    (torch.bfloat16, 64, "sm90"), (torch.bfloat16, 36, "generic"), (torch.bfloat16, 60, "generic"),
+    (torch.float32, 64, "generic"), (torch.float32, 40, "generic"),
+])
+def test_dkv_route_is_chosen_from_dtype_and_head_dim(dtype, D, route):
+    """dk/dv routes as the forward does: bf16 heads of whole 16-byte rows
+    to ``flash_dkv_sm90``, fp32 (the LM's parity run) and other bf16
+    heads to ``flash_dkv``."""
+    assert tfa._dkv_route(dtype, D) == route
+
+
+def _log_uniform_probs(n, seed):
+    """fp32 values spread over [2^-100, 1]: a uniform exponent and a
+    random full 24-bit significand."""
+    r = np.random.RandomState(seed)
+    mant = (1.0 + r.randint(0, 1 << 23, size=n) / float(1 << 23)).astype(np.float32)
+    p = np.ldexp(mant, r.randint(-100, 0, size=n)).astype(np.float32)
+    return torch.from_numpy(np.concatenate([p, np.float32([1.0, 2.0 ** -100, 0.0])]))
+
+
+def test_three_part_bf16_split_is_exact_and_two_parts_are_not():
+    """``split_bf16x3``: hi + mid + lo == p bit for bit over [2^-100, 1]
+    (the sum taken in fp32, each step exact); hi + mid alone misses p."""
+    p = _log_uniform_probs(200_000, seed=4)
+    hi, mid, lo = tfa.split_bf16x3(p)
+    assert hi.dtype == mid.dtype == lo.dtype == torch.bfloat16
+    assert torch.equal((hi.float() + mid.float()) + lo.float(), p)
+    assert torch.equal(((p - hi.float()) - mid.float()) - lo.float(), torch.zeros_like(p))
+    two = hi.float() + mid.float()
+    assert (two != p).float().mean().item() > 0.9
+    rel = ((two - p).abs() / p.clamp_min(1e-38)).max().item()
+    assert 2.0 ** -20 < rel <= 2.0 ** -17
+
+
+def _dv_excess(got, want):
+    """chip_smoke's dv limit (rtol 1e-4 + 1e-5 of the largest value) as a
+    share: <= 1 passes."""
+    return (((got - want).abs() - 1e-4 * want.abs()).max() / (1e-5 * want.abs().max())).item()
+
+
+def test_dv_from_the_three_part_split_meets_the_dv_limit_and_bf16_p_does_not():
+    """dv as flash_dkv_sm90 forms it (three bf16 products of p's parts
+    with dO, summed in fp32) against ``flash_dkv_plain`` (p unrounded, an
+    fp32 x fp32 product) at a small causal bf16 shape: within the fp32 dv
+    limit chip_smoke holds the kernel to, while dv from bf16(p) fails it."""
+    BH, T, D = 4, 192, 64
+    r = np.random.RandomState(6)
+    q3, k3, v3, do3 = (torch.from_numpy(r.randn(BH, T, D).astype(np.float32)).to(torch.bfloat16)
+                       for _ in range(4))
+    scale = 1.0 / math.sqrt(D)
+    o, lse = tfa.flash_fwd_plain(q3, k3, v3, causal=True, scale=scale)
+    dsum = torch.sum(do3.float() * o.float(), dim=-1)
+    _, want = tfa.flash_dkv_plain(q3, k3, v3, do3, lse, dsum, causal=True, scale=scale)
+    p, _ = tfa._probs_and_ds(q3, k3, v3, do3, lse, dsum, True, scale, 0, 0)
+    hi, mid, lo = (tfa._dot(part.transpose(1, 2), do3) for part in tfa.split_bf16x3(p))
+    assert _dv_excess((hi + mid) + lo, want) <= 1
+    assert _dv_excess(hi, want) > 10
+
+
 def test_fwd_variants_find_their_anchors_in_the_source():
     """``tools/fwd_variants.py`` builds its variants by text edits of
     ``csrc/flash_attention.cu``: each edit's anchor must be there once."""
@@ -244,6 +310,20 @@ def test_fwd_variants_find_their_anchors_in_the_source():
     src = (CSRC_DIR / "flash_attention.cu").read_text()
     variants = fwd_variants._variants(src)
     assert variants["base"] == [] and len(variants) == 8
+    for name, edits in variants.items():
+        for old, new in edits:
+            assert src.count(old) == 1 and old != new, name
+
+
+def test_dkv_variants_find_their_anchors_in_the_source():
+    """``tools/dkv_variants.py`` edits the same source for flash_dkv_sm90:
+    each edit's anchor must be there once."""
+    from theanompi_tpu_torch.ops.kernels import CSRC_DIR
+    from theanompi_tpu_torch.tools import dkv_variants
+
+    src = (CSRC_DIR / "flash_attention.cu").read_text()
+    variants = dkv_variants._variants(src)
+    assert variants["base"] == [] and len(variants) == 9
     for name, edits in variants.items():
         for old, new in edits:
             assert src.count(old) == 1 and old != new, name

@@ -7,8 +7,9 @@
 //                                                                   D % 8 == 0), flash_fwd
 //   theanompi_tpu/ops/pallas_attention.py:174  _dq_kernel      (#8)  -> flash_dq
 //   theanompi_tpu/ops/pallas_attention.py:264  _dq_kernel_2d   (#10) -> flash_dq
-//   theanompi_tpu/ops/pallas_attention.py:207  _dkv_kernel     (#9)  -> flash_dkv
-//   theanompi_tpu/ops/pallas_attention.py:302  _dkv_kernel_2d  (#11) -> flash_dkv
+//   theanompi_tpu/ops/pallas_attention.py:207  _dkv_kernel     (#9)  -> flash_dkv_sm90 (bf16,
+//                                                                   D % 8 == 0), flash_dkv
+//   theanompi_tpu/ops/pallas_attention.py:302  _dkv_kernel_2d  (#11) -> the same two
 // (wrappers and plain PyTorch versions in ops/flash_attention.py). The
 // TPU needs the 2-D kernels only because its 1-D ones keep the whole
 // opposite sequence in VMEM, which overflows at T >= 8192. Here every
@@ -28,26 +29,28 @@
 //         lse = m + log(max(l, 1e-37))
 //   dq:   p = valid ? exp(s - lse) : 0; dp = dot(T(dO), v);
 //         ds = T(p * (dp - dsum) * scale); dq += dot(ds, k)
-//   dkv:  dv += dot(p^T, f32(dO)) in fp32 FMAs with p NOT rounded (the
-//         reference upcasts dO to fp32 before this product);
+//   dkv:  dv += dot(p^T, f32(dO)) with p NOT rounded (the reference
+//         upcasts dO to fp32 before this product);
 //         dk += dot(ds^T, q)
 // where T() rounds to the input dtype (identity for fp32). Valid means
 // key column < Tk (padding is local) and, when causal,
 // q_off + row >= k_off + col (global positions).
 //
 // Products: bf16 tiles go through the tensor cores (nvcuda::wmma
-// 16x16x16 in the generic kernels, wgmma in flash_fwd_sm90; fp32
-// accumulators); fp32 tiles, and the fp32 x fp32 dv
-// product, through fp32 FMAs on the CUDA cores, never TF32. Softmax
+// 16x16x16 in the generic kernels, wgmma in the sm90 kernels; fp32
+// accumulators); fp32 tiles through fp32 FMAs on the CUDA cores, never
+// TF32. The fp32 x fp32 dv product runs as fp32 FMAs in flash_dkv and,
+// in flash_dkv_sm90, as three exact bf16 products of p's hi, mid and lo
+// parts on the tensor cores (its section below). Softmax
 // statistics, probabilities and all accumulators are fp32. expf / logf,
 // not the __expf intrinsics. Built with -fmad=false, so the elementwise
 // steps round as PyTorch's separate ops do; sums inside the products run
 // in another order than on the CPU, so the kernels are held to a
 // tolerance, not to bit identity.
 //
-// Design of the generic kernels (flash_fwd_sm90, the bf16 forward on TMA
-// and wgmma, has its own section below): one block of 256 threads (8
-// warps) per (64-row tile, b*h). The
+// Design of the generic kernels (flash_fwd_sm90 and flash_dkv_sm90, the
+// bf16 forward and dk/dv on TMA and wgmma, have their own sections
+// below): one block of 256 threads (8 warps) per (64-row tile, b*h). The
 // block keeps its own tile (Q, or K and V) in shared memory and loops over
 // the other side's 64-row tiles, staging each in shared memory; products
 // land in fp32 shared tiles, and an elementwise phase (four threads per
@@ -61,10 +64,12 @@
 // each launch moves 51-101 MB (15-30 us at 3.35 TB/s) and does 13-19
 // GFLOP of bf16 products over the causal half (13-20 us at 989 TFLOP/s);
 // flash_dkv's fp32 dv product (6.4 GFLOP at 67 TFLOP/s, 96 us) makes it
-// the slowest by its bound (chip_smoke.py phase times computes each).
+// the slowest by its bound, and flash_dkv_sm90's split (38.7 GFLOP of
+// bf16, 39 us) takes that away (chip_smoke.py phase times computes each).
 // The generic kernels are simple: synchronous 16-byte loads into shared
 // memory (no cp.async/TMA), wmma (not wgmma), a block per tile with no
-// pipelining; dq and dkv are redesigned next (ROADMAP section 2).
+// pipelining; on the LM's bf16 route the forward and dk/dv run on the
+// sm90 kernels, and dq is redesigned next (ROADMAP section 2).
 
 #include <cuda.h>  // CUtensorMap and its enums: types only, libcuda is not linked
 #include <cuda_runtime.h>
@@ -977,6 +982,308 @@ int fwd(const void* q, const void* k, const void* v, void* o, void* lse, int BH,
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// flash_dkv_sm90: the bf16 dk/dv backward for Hopper, on TMA and wgmma
+// ---------------------------------------------------------------------------
+//
+// The same function as flash_dkv_kernel<bf16> and flash_dkv_plain: p =
+// valid ? expf(s * scale - lse) : 0 with s = q.k (fp32 sums, the scale
+// after the dot); ds = bf16(p * (dp - dsum) * scale) with dp = dO.v;
+// dk += ds^T q; dv += p^T dO with p NOT rounded; expf, -fmad=false. The
+// tiling changes only the order of the sums, so the CTA shape is free.
+//
+// Bound: every product is on the tensor cores. The reference's fp32 x
+// fp32 dv product (pallas_attention.py:218 upcasts dO) is made exact in
+// bf16: p = p_hi + p_mid + p_lo, each part bf16 (3 x 8 significand bits
+// cover fp32's 24; exact for p >= 2^-100, the subtractions exact in
+// fp32), and dO is bf16 already, so each of the three products is exact
+// in fp32 and dv sums them into one fp32 accumulator. 12 D bf16 FLOPs a
+// visible pair (S, dP, dK once, dV three times): at the 136M LM's shape
+// 38.7 GFLOP, 39 us at 989 TFLOP/s, above the 30 us of its 101.5 MB.
+//
+// Block: one CTA of 256 threads per (128-key tile, b*h); two consumer
+// warpgroups own 64 keys each (one wgmma M). The key tiles go heaviest
+// first (blockIdx.y is the key tile: in a causal launch the lowest keys
+// see the most queries; b*h is blockIdx.x, the fast grid dimension).
+//
+// Transposed products (FlashAttention-3's dkv): S^T = K Q^T and dP^T =
+// V dO^T as wgmma_ss, both operands K-major, exactly like the forward's
+// Q K^T; the accumulator rows are keys, its columns queries. P^T (its
+// three parts) and dS^T then go from registers as wgmma's A operand into
+// dV += P^T dO and dK += dS^T Q, with dO and Q read MN-major through the
+// transpose bit, as the forward reads V: one swizzled Q (dO) tile serves
+// both of its descriptors, and neither P nor dS goes through shared
+// memory.
+//
+// Loads: K and V (128 rows) once per CTA by TMA; Q and dO (64 rows)
+// through a ring of kQStages stages with full/empty mbarriers, thread 0
+// loading tile j + kQAhead while tile j is computed, into a stage both
+// warpgroups have released. Rows past T and columns
+// past D come back as zeros. lse and dsum ([BH, Tq] fp32, whose rows need
+// not be 16-byte aligned, so no tensor map) are read by each thread for
+// its own 16 query columns, before the tile's wait so the loads hide
+// behind it.
+//
+// Masks: only on tiles across the causal diagonal or a ragged query or
+// key edge; a query column past Tq is masked explicitly (zero-filled q
+// and dO would give p = exp(-lse), not 0). Query tiles wholly above a
+// warpgroup's keys are skipped (they still pass through its barriers).
+//
+// Epilogue: dk and dv straight from the accumulators to fp32 [BH, Tk, D]
+// in 8-byte stores (a row's 4 lanes write one 32-byte sector), clipped
+// to rows < Tk and columns < D.
+//
+// Not yet: a producer warp with setmaxnreg (warp specialisation), and the
+// two warpgroups kept out of step, so one's products overlap the other's
+// elementwise work (tools/dkv_variants.py measures where the time goes).
+
+constexpr int kKeyRows = 128;  // keys of a CTA
+constexpr int kQTile = 64;     // queries of a streamed tile
+constexpr int kQStages = 2;    // depth of the Q/dO ring
+constexpr int kQAhead = 1;     // tiles loaded ahead of the one computed (< kQStages)
+static_assert(kQAhead >= 1 && kQAhead < kQStages, "a stage is refilled only after its release");
+static_assert(kQTile == kTile, "q_tile_start counts tiles of kTile queries");
+
+struct BwdSmem {
+  bf16 k[kKeyRows * kD];
+  bf16 v[kKeyRows * kD];
+  bf16 q[kQStages][kQTile * kD];
+  bf16 d_o[kQStages][kQTile * kD];
+  uint64_t full[kQStages];
+  uint64_t empty[kQStages];
+  uint64_t kv_full;
+};
+constexpr size_t kBwdSmemBytes = sizeof(BwdSmem) + 1024;  // + slack to align the base to 1024
+
+// until at most one committed wgmma group is still in flight
+__device__ __forceinline__ void wgmma_wait_1() {
+  asm volatile("wgmma.wait_group.sync.aligned 1;" ::: "memory");
+}
+
+// rounds (x0, x1) to a packed bf16 pair and leaves the exact remainders
+// x - bf16(x) in x0, x1: three calls split an fp32 pair into hi, mid, lo
+__device__ __forceinline__ uint32_t split_bf16(float& x0, float& x1) {
+  const __nv_bfloat162 b = __floats2bfloat162_rn(x0, x1);
+  x0 = __fsub_rn(x0, __low2float(b));
+  x1 = __fsub_rn(x1, __high2float(b));
+  return *reinterpret_cast<const uint32_t*>(&b);
+}
+
+__device__ __forceinline__ void load_qdo(BwdSmem& sm, const CUtensorMap* tm_q,
+                                         const CUtensorMap* tm_do, int j, int q0, int bh) {
+  const int s = j % kQStages;
+  mbar_arrive_expect_tx(&sm.full[s], 2 * kQTile * kRowBytes);
+  tma_load(sm.q[s], tm_q, &sm.full[s], 0, q0, bh);
+  tma_load(sm.d_o[s], tm_do, &sm.full[s], 0, q0, bh);
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+flash_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
+                      const __grid_constant__ CUtensorMap tm_k,
+                      const __grid_constant__ CUtensorMap tm_v,
+                      const __grid_constant__ CUtensorMap tm_do, const float* __restrict__ lse,
+                      const float* __restrict__ dsum, float* __restrict__ dk_out,
+                      float* __restrict__ dv_out, int Tq, int Tk, int D, int q_off, int k_off,
+                      int causal, float scale) {
+  extern __shared__ __align__(16) unsigned char dyn_smem[];
+  const uint32_t raw = smem_addr(dyn_smem);
+  BwdSmem& sm = *reinterpret_cast<BwdSmem*>(dyn_smem + (((raw + 1023u) & ~1023u) - raw));
+  const int bh = blockIdx.x;
+  const int k0 = blockIdx.y * kKeyRows;  // heaviest causal key tiles first
+  const int tid = threadIdx.x;
+  const int wg = tid / 128;
+  const int lane = tid % 32;
+  const int row0 = ((tid % 128) / 32) * 16 + lane / 4;  // first of this thread's 2 keys (+8)
+  const int col0 = 2 * (lane % 4);  // first of its 2 query columns in each 8-column group
+  const int wk0 = k0 + wg * kWgRows;  // the warpgroup's first key
+  const int kr0 = wk0 + row0, kr1 = kr0 + 8;
+  const int nq = (Tq + kQTile - 1) / kQTile;
+  const int i0 = q_tile_start(causal, k0, q_off, k_off);
+  const int n_tiles = max(nq - i0, 0);
+  // the warpgroup's own first tile: the second one skips the tiles of a
+  // causal diagonal that lie wholly above its keys (and has none past Tk)
+  const int i_mine = wk0 < Tk ? q_tile_start(causal, wk0, q_off, k_off) : nq;
+  const float* lse_b = lse + (int64_t)bh * Tq;
+  const float* dsum_b = dsum + (int64_t)bh * Tq;
+
+  if (tid == 0) {
+    for (int s = 0; s < kQStages; ++s) {
+      mbar_init(&sm.full[s], 1);
+      mbar_init(&sm.empty[s], kThreads);
+    }
+    mbar_init(&sm.kv_full, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  if (tid == 0) {
+    mbar_arrive_expect_tx(&sm.kv_full, 2 * kKeyRows * kRowBytes);
+    tma_load(sm.k, &tm_k, &sm.kv_full, 0, k0, bh);
+    tma_load(sm.v, &tm_v, &sm.kv_full, 0, k0, bh);
+    for (int j = 0; j < kQAhead && j < n_tiles; ++j)
+      load_qdo(sm, &tm_q, &tm_do, j, (i0 + j) * kQTile, bh);
+  }
+
+  float dk[32], dv[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) dk[i] = dv[i] = 0.0f;
+  const bf16* k_wg = sm.k + wg * kWgRows * kD;
+  const bf16* v_wg = sm.v + wg * kWgRows * kD;
+  mbar_wait(&sm.kv_full, 0);
+
+  for (int j = 0; j < n_tiles; ++j) {
+    const int s = j % kQStages;
+    const int next = j + kQAhead;
+    if (tid == 0 && next < n_tiles) {
+      // the stage of tile `next` last held tile `prev`: wait until all read it
+      const int prev = next - kQStages;
+      if (prev >= 0) mbar_wait(&sm.empty[prev % kQStages], (prev / kQStages) & 1);
+      load_qdo(sm, &tm_q, &tm_do, next, (i0 + next) * kQTile, bh);
+    }
+    const int i = i0 + j;
+    if (i < i_mine) {
+      mbar_wait(&sm.full[s], (j / kQStages) & 1);
+      mbar_arrive(&sm.empty[s]);
+      continue;
+    }
+    const int q0 = i * kQTile;
+    // lse and dsum of this thread's query columns 8g + col0 + e: c[2g + e]
+    float lse_c[16], dsum_c[16];
+#pragma unroll
+    for (int g = 0; g < 8; ++g) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int c = q0 + 8 * g + col0 + e;
+        lse_c[2 * g + e] = c < Tq ? __ldg(lse_b + c) : 0.0f;
+        dsum_c[2 * g + e] = c < Tq ? __ldg(dsum_b + c) : 0.0f;
+      }
+    }
+    mbar_wait(&sm.full[s], (j / kQStages) & 1);
+
+    // s^T = k q^T and dp^T = v dO^T: 4 k-steps of 16 along D each; the
+    // scores' group is waited for first, so p runs while dp^T finishes
+    float st[32], dpt[32];
+#pragma unroll
+    for (int r = 0; r < 32; ++r) st[r] = dpt[r] = 0.0f;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kD / 16; ++kk) {
+      wgmma_ss(st, smem_desc(k_wg + kk * 16, 16, kAtom), smem_desc(sm.q[s] + kk * 16, 16, kAtom),
+               kk > 0);
+    }
+    wgmma_commit();
+#pragma unroll
+    for (int kk = 0; kk < kD / 16; ++kk) {
+      wgmma_ss(dpt, smem_desc(v_wg + kk * 16, 16, kAtom),
+               smem_desc(sm.d_o[s] + kk * 16, 16, kAtom), kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait_1();
+    fence_regs(st);
+
+    // p on the accumulator: st[4g + e] is key kr0 (e < 2) or kr1, query
+    // column q0 + 8g + col0 + e % 2
+    const bool masked = q0 + kQTile > Tq || wk0 + kWgRows > Tk ||
+                        (causal && q_off + q0 < k_off + wk0 + kWgRows - 1);
+#pragma unroll
+    for (int r = 0; r < 32; ++r) {
+      const int c = 2 * (r / 4) + r % 2;
+      float p = expf(st[r] * scale - lse_c[c]);
+      if (masked) {
+        const int qc = q0 + 8 * (r / 4) + col0 + r % 2;
+        if (!(qc < Tq && visible(causal, q_off, k_off, qc, (r % 4) < 2 ? kr0 : kr1, Tk))) p = 0.0f;
+      }
+      st[r] = p;
+    }
+    wgmma_wait();
+    fence_regs(dpt);
+
+    // ds^T in bf16 as wgmma's A fragment (k-step kk takes column groups
+    // 2kk, 2kk + 1), and dk += ds^T q while the split of p is formed
+    uint32_t dsa[16];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+      for (int h = 0; h < 4; ++h) {
+        const int r = 8 * kk + 2 * h;
+        const int c = 2 * (r / 4);
+        dsa[4 * kk + h] = pack_bf16(st[r] * (dpt[r] - dsum_c[c]) * scale,
+                                    st[r + 1] * (dpt[r + 1] - dsum_c[c + 1]) * scale);
+      }
+    }
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kQTile / 16; ++kk) {
+      wgmma_rs_tb(dk, dsa[4 * kk], dsa[4 * kk + 1], dsa[4 * kk + 2], dsa[4 * kk + 3],
+                  smem_desc(sm.q[s] + kk * 16 * kD, 16, kAtom));
+    }
+    wgmma_commit();
+
+    // p = hi + mid + lo in bf16, exactly; dv += (hi + mid + lo)^T dO
+    uint32_t hi[16], mid[16], lo[16];
+#pragma unroll
+    for (int a = 0; a < 16; ++a) {
+      const int r = 8 * (a / 4) + 2 * (a % 4);
+      float x0 = st[r], x1 = st[r + 1];
+      hi[a] = split_bf16(x0, x1);
+      mid[a] = split_bf16(x0, x1);
+      lo[a] = split_bf16(x0, x1);
+    }
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kQTile / 16; ++kk) {
+      const uint64_t b = smem_desc(sm.d_o[s] + kk * 16 * kD, 16, kAtom);
+      wgmma_rs_tb(dv, hi[4 * kk], hi[4 * kk + 1], hi[4 * kk + 2], hi[4 * kk + 3], b);
+      wgmma_rs_tb(dv, mid[4 * kk], mid[4 * kk + 1], mid[4 * kk + 2], mid[4 * kk + 3], b);
+      wgmma_rs_tb(dv, lo[4 * kk], lo[4 * kk + 1], lo[4 * kk + 2], lo[4 * kk + 3], b);
+    }
+    wgmma_commit();
+    wgmma_wait();
+    fence_regs(dk);
+    fence_regs(dv);
+    fence_regs(dsa);
+    fence_regs(hi);
+    fence_regs(mid);
+    fence_regs(lo);
+    mbar_arrive(&sm.empty[s]);
+  }
+
+  // epilogue: rows kr0, kr1, columns 8g + col0 and + 1, as 8-byte stores
+  float* dk_b = dk_out + (int64_t)bh * Tk * D;
+  float* dv_b = dv_out + (int64_t)bh * Tk * D;
+#pragma unroll
+  for (int g = 0; g < 8; ++g) {
+    const int c = 8 * g + col0;
+    if (c >= D) continue;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int kr = h ? kr1 : kr0;
+      if (kr >= Tk) continue;
+      const int64_t at = (int64_t)kr * D + c;
+      *reinterpret_cast<float2*>(dk_b + at) = make_float2(dk[4 * g + 2 * h], dk[4 * g + 2 * h + 1]);
+      *reinterpret_cast<float2*>(dv_b + at) = make_float2(dv[4 * g + 2 * h], dv[4 * g + 2 * h + 1]);
+    }
+  }
+}
+
+int dkv(const void* q, const void* k, const void* v, const void* d_o, const void* lse,
+        const void* dsum, void* dk_out, void* dv_out, int BH, int Tq, int Tk, int D, int q_off,
+        int k_off, int causal, float scale, cudaStream_t stream) {
+  if (D % 8 != 0 || D < 8 || D > kD) return (int)cudaErrorInvalidValue;
+  CUtensorMap mq, mk, mv, mdo;
+  int rc = bf16_map(&mq, q, BH, Tq, D, kQTile);
+  if (rc == 0) rc = bf16_map(&mk, k, BH, Tk, D, kKeyRows);
+  if (rc == 0) rc = bf16_map(&mv, v, BH, Tk, D, kKeyRows);
+  if (rc == 0) rc = bf16_map(&mdo, d_o, BH, Tq, D, kQTile);
+  if (rc != 0) return rc;
+  cudaError_t err = prepare(flash_dkv_sm90_kernel, kBwdSmemBytes);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(BH, (Tk + kKeyRows - 1) / kKeyRows);
+  flash_dkv_sm90_kernel<<<grid, kThreads, kBwdSmemBytes, stream>>>(
+      mq, mk, mv, mdo, (const float*)lse, (const float*)dsum, (float*)dk_out, (float*)dv_out, Tq,
+      Tk, D, q_off, k_off, causal, scale);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace sm90
 
 }  // namespace
@@ -1041,6 +1348,19 @@ int tmpi_flash_dkv(int device, const void* q, const void* k, const void* v, cons
                      scale, s);
   return dkv<float>(q, k, v, d_o, lse, dsum, dk_out, dv_out, BH, Tq, Tk, D, q_off, k_off, causal,
                     scale, s);
+}
+
+// bf16 only, 8 <= D <= 64 with D % 8 == 0, and q, k, v, dO 16-byte
+// aligned (the tensor maps' rules), dk and dv 8-byte aligned; a negative
+// code is a tensor map's failure.
+int tmpi_flash_dkv_sm90(int device, const void* q, const void* k, const void* v, const void* d_o,
+                        const void* lse, const void* dsum, void* dk_out, void* dv_out, int BH,
+                        int Tq, int Tk, int D, int q_off, int k_off, int causal, float scale,
+                        void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  return sm90::dkv(q, k, v, d_o, lse, dsum, dk_out, dv_out, BH, Tq, Tk, D, q_off, k_off, causal,
+                   scale, (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -7,10 +7,13 @@ sequence-parallel slice). The kernels are hand-written CUDA for Hopper
 (``csrc/flash_attention.cu``): the forward (TPU kernel #7) as
 ``flash_fwd_sm90`` (TMA + wgmma) for bf16 with D % 8 == 0, and as
 ``flash_fwd`` for fp32 and other bf16 heads (``_fwd_route``);
-``flash_dq`` (#8 and its long-sequence twin #10) and ``flash_dkv`` (#9
-and #11). The TPU needs the 2-D backward kernels only because its 1-D
-ones keep the whole opposite sequence in VMEM; the CUDA kernels stream
-it through shared memory a tile at a time, so one kernel serves every T.
+``flash_dq`` (#8 and its long-sequence twin #10); dk/dv (#9 and #11) as
+``flash_dkv_sm90`` (TMA + wgmma, dv exact on the tensor cores through a
+three-part bf16 split of p) for bf16 with D % 8 == 0, and as
+``flash_dkv`` for the rest (``_dkv_route``). The TPU needs the 2-D
+backward kernels only because its 1-D ones keep the whole opposite
+sequence in VMEM; the CUDA kernels stream it through shared memory a
+tile at a time, so one kernel serves every T.
 
 Layout contract, as the reference's: ``flash_attention(q, k, v)`` maps
 ``[B, Tq, H, D], [B, Tk, H, D] x2 -> [B, Tq, H, D]`` in q's dtype, with
@@ -22,9 +25,10 @@ Inside, the kernels take heads-major ``[B*H, T, D]`` contiguous tensors.
 Numerics, at the reference's cast points (see the kernel's header): the
 products run in the input dtype with fp32 accumulation, softmax
 statistics and every accumulator are fp32, and ``dv += p^T dO`` is an
-fp32 x fp32 product with p not rounded. The plain versions beside the
-wrappers compute the same functions in PyTorch; the forward walks K in
-tiles of ``block_k`` as the kernel does, so that bf16 rounds the same
+fp32 x fp32 product with p not rounded (``flash_dkv_sm90`` runs it as
+three exact bf16 products, ``split_bf16x3``). The plain versions beside
+the wrappers compute the same functions in PyTorch; the forward walks K
+in tiles of ``block_k`` as the kernel does, so that bf16 rounds the same
 probabilities relative to the same running maxima. The wrappers run the
 plain versions only for CPU tensors; for CUDA tensors they launch the
 kernels or raise. The reference's ``TMPI_PALLAS=0`` switch has no
@@ -73,6 +77,10 @@ _LIB = KernelLibrary(
         # dtype, stream
         "tmpi_flash_dkv": (_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                            ctypes.c_float, _I, _P),
+        # device, q, k, v, dO, lse, dsum, dk, dv, BH, Tq, Tk, D, q_off, k_off, causal, scale,
+        # stream
+        "tmpi_flash_dkv_sm90": (_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                                ctypes.c_float, _P),
     },
 )
 
@@ -80,6 +88,7 @@ FLASH_FWD = LaunchCounter("flash_fwd")
 FLASH_FWD_SM90 = LaunchCounter("flash_fwd_sm90")
 FLASH_DQ = LaunchCounter("flash_dq")
 FLASH_DKV = LaunchCounter("flash_dkv")
+FLASH_DKV_SM90 = LaunchCounter("flash_dkv_sm90")
 
 
 def build() -> float:
@@ -107,6 +116,19 @@ def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Batched product with fp32 accumulation: bf16 operands are exact in
     fp32, so this is the tensor cores' bf16 x bf16 -> fp32 product."""
     return torch.matmul(a.float(), b.float())
+
+
+def split_bf16x3(p: torch.Tensor):
+    """fp32 ``p`` -> bf16 ``(hi, mid, lo)`` with ``hi + mid + lo == p``
+    exactly for every ``p >= 2^-100`` (and 0): each part rounds the
+    remainder the previous ones leave, and 3 x 8 significand bits cover
+    fp32's 24. ``flash_dkv_sm90`` forms the same parts in registers, so
+    its ``dv += p^T dO`` is three exact bf16 products on the tensor
+    cores; two parts would leave up to 2^-17 of each p out."""
+    hi = p.to(torch.bfloat16)
+    r = p - hi.float()
+    mid = r.to(torch.bfloat16)
+    return hi, mid, (r - mid.float()).to(torch.bfloat16)
 
 
 def flash_fwd_plain(q3, k3, v3, *, causal: bool, scale: float, q_off: int = 0, k_off: int = 0,
@@ -271,16 +293,20 @@ def flash_dq(q3, k3, v3, do3, lse, dsum, *, causal: bool, scale: float, q_off: i
     return dq
 
 
-def flash_dkv(q3, k3, v3, do3, lse, dsum, *, causal: bool, scale: float, q_off: int = 0,
-              k_off: int = 0):
-    """(dk, dv) partials, f32 ``[BH, Tk, D]``."""
-    BH, Tq, Tk, D = _check_inputs(q3, k3, v3, ("do3", do3))
-    if q3.device.type == "cpu":
-        return flash_dkv_plain(q3, k3, v3, do3, lse, dsum, causal=causal, scale=scale,
-                               q_off=q_off, k_off=k_off)
+def _dkv_route(dtype: torch.dtype, D: int) -> str:
+    """Which dk/dv kernel takes a CUDA input, from its dtype and head dim
+    alone, as ``_fwd_route``: ``"sm90"`` (``flash_dkv_sm90``: TMA +
+    wgmma, bf16 with rows of whole 16-byte units) or ``"generic"``
+    (``flash_dkv``: fp32, and bf16 with another D)."""
+    return "sm90" if dtype == torch.bfloat16 and D % 8 == 0 else "generic"
+
+
+def _launch_dkv_generic(q3, k3, v3, do3, lse, dsum, *, causal, scale, q_off, k_off):
+    """``flash_dkv_kernel`` (wmma, synchronous loads, dv in fp32 FMAs),
+    fp32 or bf16."""
+    BH, Tq, D = q3.shape
+    Tk = k3.shape[1]
     dev = q3.device
-    _check_rows(lse, "lse", (BH, Tq), dev)
-    _check_rows(dsum, "dsum", (BH, Tq), dev)
     dk = torch.empty((BH, Tk, D), dtype=torch.float32, device=dev)
     dv = torch.empty((BH, Tk, D), dtype=torch.float32, device=dev)
     rc = _LIB.get().tmpi_flash_dkv(dev.index, q3.data_ptr(), k3.data_ptr(), v3.data_ptr(),
@@ -291,6 +317,44 @@ def flash_dkv(q3, k3, v3, do3, lse, dsum, *, causal: bool, scale: float, q_off: 
     _LIB.check(rc, "flash attention dk/dv kernel")
     FLASH_DKV.launches += 1
     return dk, dv
+
+
+def _launch_dkv_sm90(q3, k3, v3, do3, lse, dsum, *, causal, scale, q_off, k_off):
+    """``flash_dkv_sm90_kernel`` (TMA + wgmma, dv through the exact
+    three-part split of p), bf16 with D % 8 == 0."""
+    BH, Tq, D = q3.shape
+    Tk = k3.shape[1]
+    dev = q3.device
+    dk = torch.empty((BH, Tk, D), dtype=torch.float32, device=dev)
+    dv = torch.empty((BH, Tk, D), dtype=torch.float32, device=dev)
+    for name, t in (("q3", q3), ("k3", k3), ("v3", v3), ("do3", do3)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must start on a 16-byte boundary for the tensor maps")
+    rc = _LIB.get().tmpi_flash_dkv_sm90(dev.index, q3.data_ptr(), k3.data_ptr(), v3.data_ptr(),
+                                        do3.data_ptr(), lse.data_ptr(), dsum.data_ptr(),
+                                        dk.data_ptr(), dv.data_ptr(), BH, Tq, Tk, D, int(q_off),
+                                        int(k_off), int(causal), float(scale),
+                                        stream_handle(dev))
+    _LIB.check(rc, "flash attention dk/dv kernel (sm90)")
+    FLASH_DKV_SM90.launches += 1
+    return dk, dv
+
+
+def flash_dkv(q3, k3, v3, do3, lse, dsum, *, causal: bool, scale: float, q_off: int = 0,
+              k_off: int = 0):
+    """(dk, dv) partials, f32 ``[BH, Tk, D]``. A CUDA input goes to the
+    kernel ``_dkv_route`` names; a failure there raises and is never
+    handed to the other kernel."""
+    BH, Tq, Tk, D = _check_inputs(q3, k3, v3, ("do3", do3))
+    if q3.device.type == "cpu":
+        return flash_dkv_plain(q3, k3, v3, do3, lse, dsum, causal=causal, scale=scale,
+                               q_off=q_off, k_off=k_off)
+    dev = q3.device
+    _check_rows(lse, "lse", (BH, Tq), dev)
+    _check_rows(dsum, "dsum", (BH, Tq), dev)
+    launch = _launch_dkv_sm90 if _dkv_route(q3.dtype, D) == "sm90" else _launch_dkv_generic
+    return launch(q3, k3, v3, do3, lse, dsum, causal=causal, scale=scale, q_off=q_off,
+                  k_off=k_off)
 
 
 # --------------------------------------------------------------------------

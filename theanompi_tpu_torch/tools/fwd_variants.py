@@ -60,11 +60,13 @@ def _variants(src: str) -> dict:
     }
 
 
-def build_variants(workdir: Path) -> dict:
-    """{variant: the library's tmpi_flash_fwd_sm90}, built in parallel."""
+def build_variants(workdir: Path, make_variants=_variants,
+                   entry: str = "tmpi_flash_fwd_sm90") -> dict:
+    """{variant: the library's ``entry``}, built in parallel;
+    ``make_variants`` maps the source to {variant: [(old, new), ...]}."""
     src = (K.CSRC_DIR / "flash_attention.cu").read_text()
     procs = {}
-    for name, edits in _variants(src).items():
+    for name, edits in make_variants(src).items():
         text = src
         for old, new in edits:
             if old not in text:
@@ -80,8 +82,8 @@ def build_variants(workdir: Path) -> dict:
         log = proc.communicate()[0]
         if proc.returncode:
             raise RuntimeError(f"nvcc failed on variant {name}:\n{log[-3000:]}")
-        fn = ctypes.CDLL(str(so)).tmpi_flash_fwd_sm90
-        fn.argtypes = list(fa._LIB.signatures["tmpi_flash_fwd_sm90"])
+        fn = getattr(ctypes.CDLL(str(so)), entry)
+        fn.argtypes = list(fa._LIB.signatures[entry])
         fn.restype = ctypes.c_int
         fns[name] = fn
     return fns
