@@ -9,8 +9,9 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                 fused update, the quantizer, flash attention, the pool) with nvcc
                 for sm_90a, one nvcc per source, all started together;
                 print the build's wall time. Proof of design: the SASS of
-                ``flash_fwd_sm90_kernel`` and of ``flash_dkv_sm90_kernel``
-                (``cuobjdump -sass`` of the built library) must hold HGMMA
+                ``flash_fwd_sm90_kernel``, ``flash_dq_sm90_kernel`` and
+                ``flash_dkv_sm90_kernel`` (``cuobjdump -sass`` of the
+                built library) must hold HGMMA
                 (wgmma) and UTMALDG (TMA loads); their registers, shared
                 memory and spills are printed (``cuobjdump
                 --dump-resource-usage``).
@@ -33,17 +34,18 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                 ``wire_encode``'s message byte-identical to the plain
                 version's (a NaN scale's payload aside) and its decode.
    flash      — each flash attention kernel (#7-11: flash_fwd_sm90 and
-                flash_fwd, flash_dq, flash_dkv_sm90 and flash_dkv) against
-                its plain version on
+                flash_fwd, flash_dq_sm90 and flash_dq, flash_dkv_sm90 and
+                flash_dkv) against its plain version on
                 the card: the 136M LM's shape (BH 96, T 1024, D 64) in bf16
                 and fp32, ragged T and D, Tq != Tk, causal and not, nonzero
                 offsets with rows that see no key (o = 0, lse ~ -1e30), Tq
                 200 and 1000 at D 64 (not multiples of the 128-row Q tile),
                 q_off 160 over Tq 200 / Tk 360, a bf16 head of 60 (no whole
                 16-byte rows), and T = 8192 (BH 2, bf16). The counters show
-                each case's forward and dk/dv routes: bf16 with D % 8 == 0
-                runs flash_fwd_sm90 and flash_dkv_sm90, fp32 and the other
-                bf16 heads flash_fwd and flash_dkv. Tolerances: fp32 o rtol
+                each case's forward, dq and dk/dv routes: bf16 with D % 8 ==
+                0 runs flash_fwd_sm90, flash_dq_sm90 and flash_dkv_sm90,
+                fp32 and the other bf16 heads flash_fwd, flash_dq and
+                flash_dkv. Tolerances: fp32 o rtol
                 1e-5 + 1e-6 max|o|, dq/dk/dv
                 rtol 1e-4 + 1e-5 of the largest value; bf16 o within 1 bf16
                 ulp plus 2^-9 of sum_i p_i |v_i| / l (the tensor cores sum
@@ -53,8 +55,8 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                 value (likewise one ds), dv (p unrounded; flash_dkv_sm90
                 splits p into three exact bf16 parts) at the fp32 limit
                 rtol 1e-4 + 1e-5 of the largest value, which a dv from
-                bf16(p) must fail; lse atol 1e-5. The routes' forward and
-                dk/dv counters and flash_dq move by one per case.
+                bf16(p) must fail; lse atol 1e-5. The routes' forward, dq
+                and dk/dv counters move by one per case.
    pool       — the 3x3/s1 max pool kernels (#12 maxpool3x3_fwd, #13
                 maxpool3x3_bwd) against their plain versions, bit for bit
                 (a NaN matches any NaN), in fp32 and bf16, at the distinct
@@ -92,8 +94,8 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                 of 64, T 1024, vocab 32768, batch 8, bf16 compute, Adam,
                 random weights from a seed) through the CLI for 6 steps
                 and one validation batch: exactly 12 x 7 flash_fwd_sm90,
-                12 x 6 flash_dq and flash_dkv_sm90 launches, no flash_fwd,
-                no flash_dkv, no other kernel;
+                12 x 6 flash_dq_sm90 and flash_dkv_sm90 launches, no
+                flash_fwd, flash_dq or flash_dkv, no other kernel;
                 losses finite; step ms and tokens/s.
    googlenet-main — full-width GoogLeNet (224x224x3, 1000 classes, both
                 aux heads, bf16 compute, fp32 params, momentum 0.9, wd
@@ -146,9 +148,9 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                 peak, flash_dkv's fp32 dv product at the fp32 peak;
                 flash_dkv_sm90's split dv product as three bf16 products),
                 and SDPA's causal forward / backward as the yardstick; the
-                generic bf16 flash_fwd and flash_dkv (through the module's
-                own launchers) and flash_fwd_sm90 / flash_dkv_sm90 in turns
-                (old, new, new, old). The
+                generic bf16 flash_fwd, flash_dq and flash_dkv (through the
+                module's own launchers) and flash_fwd_sm90 / flash_dq_sm90
+                / flash_dkv_sm90 in turns (old, new, new, old). The
                 pool kernels over the nine inception pools at batch 512
                 in bf16 (one step's launches): bound 2 (forward) or 4
                 (backward) bf16 tensor passes at the memory rate;
@@ -772,17 +774,17 @@ def phase_flash(dev):
     rtol 1e-4 + 1e-5 of the largest value. At the 136M shape a control,
     dv with p rounded to bf16 (``bf16_dv_control``), must fail that dv
     check. The counters must show each case's routes: bf16 with D % 8 ==
-    0 on flash_fwd_sm90 and flash_dkv_sm90, the rest on flash_fwd and
-    flash_dkv."""
+    0 on flash_fwd_sm90, flash_dq_sm90 and flash_dkv_sm90, the rest on
+    flash_fwd, flash_dq and flash_dkv."""
     import torch
     from theanompi_tpu_torch.ops import flash_attention as fa
 
     g = torch.Generator(device=dev).manual_seed(8)
-    worst = {"flash_fwd": 0.0, "flash_fwd_sm90": 0.0, "flash_dq": 0.0, "flash_dkv": 0.0,
-             "flash_dkv_sm90": 0.0}
-    counters = (fa.FLASH_FWD, fa.FLASH_FWD_SM90, fa.FLASH_DQ, fa.FLASH_DKV, fa.FLASH_DKV_SM90)
+    counters = (fa.FLASH_FWD, fa.FLASH_FWD_SM90, fa.FLASH_DQ, fa.FLASH_DQ_SM90, fa.FLASH_DKV,
+                fa.FLASH_DKV_SM90)
     names = tuple(c.name for c in counters)
-    routes = {"flash_fwd": 0, "flash_fwd_sm90": 0, "flash_dkv": 0, "flash_dkv_sm90": 0}
+    worst = dict.fromkeys(names, 0.0)
+    routes = dict.fromkeys(names, 0)
     # the bf16 cases' worst share of each tolerance, and the control's
     readings = {"o": 0.0, "dq": 0.0, "dk": 0.0, "dv": 0.0, "dv_control": None}
     failures = []
@@ -804,13 +806,13 @@ def phase_flash(dev):
         after = tuple(c.launches for c in counters)
         bad = []
         sm90 = dt == torch.bfloat16 and D % 8 == 0
-        fwd = "flash_fwd_sm90" if sm90 else "flash_fwd"
-        dkv = "flash_dkv_sm90" if sm90 else "flash_dkv"
-        want = tuple(int(n_ in (fwd, "flash_dq", dkv)) for n_ in names)
+        fwd, dqk, dkv = (n_ + "_sm90" if sm90 else n_ for n_ in ("flash_fwd", "flash_dq",
+                                                                  "flash_dkv"))
+        want = tuple(int(n_ in (fwd, dqk, dkv)) for n_ in names)
         if tuple(b - a for a, b in zip(before, after)) != want:
             bad.append(f"counters {names} moved {before} -> {after}, expected + {want}")
-        routes[fwd] += 1
-        routes[dkv] += 1
+        for n_ in (fwd, dqk, dkv):
+            routes[n_] += 1
         for name, t in (("o", o), ("lse", lse), ("dq", dq), ("dk", dk), ("dv", dv)):
             if not bool(torch.isfinite(t).all()):
                 bad.append(f"non-finite {name}")
@@ -857,13 +859,13 @@ def phase_flash(dev):
                 if readings["dv_control"] <= 1:
                     bad.append("the bf16(p) dv control passes the dv check: it sees no cast point")
         errs = {fwd: (o.float() - po.float()).abs().max().item(),
-                "flash_dq": (dq - pdq).abs().max().item(),
+                dqk: (dq - pdq).abs().max().item(),
                 dkv: max((dk - pdk).abs().max().item(), (dv - pdv).abs().max().item())}
         for n_, e in errs.items():
             worst[n_] = max(worst[n_], e)
         print(f"  {label:42s} BH {BH:3d} Tq {Tq:5d} Tk {Tk:5d} D {D:3d} causal {causal!s:5s} "
-              f"[{fwd}, {dkv}]: max abs err o {errs[fwd]:.3g} (max|o| "
-              f"{po.float().abs().max().item():.3g}) lse {lse_err:.3g} dq {errs['flash_dq']:.3g} "
+              f"[{fwd}, {dqk}, {dkv}]: max abs err o {errs[fwd]:.3g} (max|o| "
+              f"{po.float().abs().max().item():.3g}) lse {lse_err:.3g} dq {errs[dqk]:.3g} "
               f"dk/dv {errs[dkv]:.3g} "
               f"({tol}; grads at {grad_x:.3g} of the tolerance)"
               + (f" FAILED: {'; '.join(bad)}" if bad else ""), flush=True)
@@ -872,7 +874,7 @@ def phase_flash(dev):
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     check(readings["dv_control"] is not None, "no 136M-shape bf16 case ran the dv control")
-    check(all(routes.values()), f"a forward or dk/dv route ran no case: {routes}")
+    check(all(routes.values()), f"a forward, dq or dk/dv route ran no case: {routes}")
     check(not failures, "flash kernels differ from their plain versions: " + " | ".join(failures))
     print(f"[flash] cases per route: {routes}", flush=True)
     return worst, readings
@@ -898,8 +900,8 @@ def phase_lm_main():
           f"lm run: bad val metrics {summary.get('val')}")
     val_batches = 1
     want = {"flash_fwd_sm90": LM_LAYERS * (LM_STEPS + val_batches), "flash_fwd": 0,
-            "flash_dq": LM_LAYERS * LM_STEPS, "flash_dkv_sm90": LM_LAYERS * LM_STEPS,
-            "flash_dkv": 0}
+            "flash_dq_sm90": LM_LAYERS * LM_STEPS, "flash_dq": 0,
+            "flash_dkv_sm90": LM_LAYERS * LM_STEPS, "flash_dkv": 0}
     got = {k: counts[k] for k in want}
     check(got == want, f"lm run launched {got}, expected {want}")
     stray = {k: v for k, v in counts.items() if k not in want and v}
@@ -941,8 +943,9 @@ def phase_lm_parity(dev):
                        launch_counts())
     (lc, bc, pc, kc), (lg, bg, pg, kg) = out["cpu"], out[str(dev)]
     check(not any(kc.values()), f"the CPU run launched kernels: {kc}")
-    flash = ("flash_fwd", "flash_fwd_sm90", "flash_dq", "flash_dkv", "flash_dkv_sm90")
-    check(tuple(kg[n] for n in flash) == (4, 0, 4, 4, 0),
+    flash = ("flash_fwd", "flash_fwd_sm90", "flash_dq", "flash_dq_sm90", "flash_dkv",
+             "flash_dkv_sm90")
+    check(tuple(kg[n] for n in flash) == (4, 0, 4, 0, 4, 0),
           f"the card run launched {kg}, expected 4 of each fp32 flash kernel and no sm90 one")
     check(all(math.isclose(a, b, rel_tol=1e-4) for a, b in zip(lc, lg)),
           f"card losses {lg} vs CPU {lc}")
@@ -962,7 +965,8 @@ def phase_flash_times(dev, mem_rate, fp32_peak, bf16_peak):
     per-launch time, its bound, the plain version, and the SDPA yardstick.
     The two forwards (the generic kernel's bf16 instantiation and
     flash_fwd_sm90) run in turns, old, new, new, old, and so do the two
-    dk/dv kernels (flash_dkv's bf16 instantiation and flash_dkv_sm90)."""
+    dq kernels and the two dk/dv kernels (flash_dq's and flash_dkv's bf16
+    instantiations against flash_dq_sm90 and flash_dkv_sm90)."""
     import torch
     import torch.nn.functional as F
     from theanompi_tpu_torch.ops import flash_attention as fa
@@ -980,6 +984,7 @@ def phase_flash_times(dev, mem_rate, fp32_peak, bf16_peak):
     rows = 4 * BH * T  # bytes of one f32 [BH, T] vector
     fkw = dict(kw, q_off=0, k_off=0)
     fwd_plain = lambda: fa.flash_fwd_plain(q, k, v, **kw)  # noqa: E731
+    dq_plain = lambda: fa.flash_dq_plain(q, k, v, do, lse, dsum, **kw)  # noqa: E731
     dkv_plain = lambda: fa.flash_dkv_plain(q, k, v, do, lse, dsum, **kw)  # noqa: E731
     specs = {
         # name: (kernel, plain, bytes, bf16 FLOPs, fp32 FLOPs)
@@ -988,8 +993,11 @@ def phase_flash_times(dev, mem_rate, fp32_peak, bf16_peak):
         # the generic kernel's bf16 instantiation, which the LM ran before
         "flash_fwd": (lambda: fa._launch_fwd_generic(q, k, v, **fkw), fwd_plain,
                       4 * tile + rows, 4 * D * pairs, 0),
-        "flash_dq": (lambda: fa.flash_dq(q, k, v, do, lse, dsum, **kw),
-                     lambda: fa.flash_dq_plain(q, k, v, do, lse, dsum, **kw),
+        "flash_dq_sm90": (lambda: fa._launch_dq_sm90(q, k, v, do, lse, dsum, **fkw), dq_plain,
+                          4 * tile + 2 * rows + 2 * tile, 6 * D * pairs, 0),
+        # the generic kernel's bf16 instantiation, which the LM ran before
+        # flash_dq_sm90
+        "flash_dq": (lambda: fa._launch_dq_generic(q, k, v, do, lse, dsum, **fkw), dq_plain,
                      4 * tile + 2 * rows + 2 * tile, 6 * D * pairs, 0),
         # dv's fp32 x fp32 product as three exact bf16 products: 12 D a pair
         "flash_dkv_sm90": (lambda: fa._launch_dkv_sm90(q, k, v, do, lse, dsum, **fkw),
@@ -1011,7 +1019,8 @@ def phase_flash_times(dev, mem_rate, fp32_peak, bf16_peak):
     # the old and the new kernel of each pair in turns (old, new, new,
     # old): one mean each
     turns = {}
-    for old, new in (("flash_fwd", "flash_fwd_sm90"), ("flash_dkv", "flash_dkv_sm90")):
+    for old, new in (("flash_fwd", "flash_fwd_sm90"), ("flash_dq", "flash_dq_sm90"),
+                     ("flash_dkv", "flash_dkv_sm90")):
         turns[old], turns[new] = [], []
         for name in (old, new, new, old):
             turns[name].append(cuda_ms(specs[name][0], reps=20))
@@ -1372,7 +1381,7 @@ def find_cuobjdump() -> str:
     raise Failed(f"cuobjdump not found (looked at {[c for c in cands if c]})")
 
 
-SASS_KERNELS = ("flash_fwd_sm90_kernel", "flash_dkv_sm90_kernel")
+SASS_KERNELS = ("flash_fwd_sm90_kernel", "flash_dq_sm90_kernel", "flash_dkv_sm90_kernel")
 
 
 def phase_sass():
@@ -1575,10 +1584,12 @@ def main() -> int:
                             "not on the main path (whole-buffer scale; tests only)"),
         })
     src_fa = "theanompi_tpu_torch/csrc/flash_attention.cu"
+    generic_flash = ("flash_fwd", "flash_dq", "flash_dkv")
     lm = lm_run["summary"]
     for name, replaces in (
         ("flash_fwd_sm90", "theanompi_tpu/ops/pallas_attention.py:131"),
         ("flash_fwd", "theanompi_tpu/ops/pallas_attention.py:131"),
+        ("flash_dq_sm90", "theanompi_tpu/ops/pallas_attention.py:174 + :264"),
         ("flash_dq", "theanompi_tpu/ops/pallas_attention.py:174 + :264"),
         ("flash_dkv_sm90", "theanompi_tpu/ops/pallas_attention.py:207 + :302"),
         ("flash_dkv", "theanompi_tpu/ops/pallas_attention.py:207 + :302"),
@@ -1601,20 +1612,19 @@ def main() -> int:
             "bf16_dv_control_share": flash_readings["dv_control"],
             "work": ("one launch at the 136M LM's attention shape: BH 96, T 1024, D 64, bf16, "
                      "causal" + (f" (the generic kernel's bf16 instantiation, which the LM ran "
-                                 f"before {name}_sm90)" if name in ("flash_fwd", "flash_dkv")
-                                 else "")),
+                                 f"before {name}_sm90)" if name in generic_flash else "")),
             "library_note": (
                 "torch.nn.functional.scaled_dot_product_attention(is_causal=True) " +
                 ("forward" if name.startswith("flash_fwd") else
-                 "backward, dq, dk and dv in one call (the same number for flash_dq, "
-                 "flash_dkv_sm90 and flash_dkv)") +
+                 "backward, dq, dk and dv in one call (the same number for every dq "
+                 "and dk/dv kernel)") +
                 ": not the same function (its dv product is bf16, its blocks its own); a "
                 "yardstick only, the port never calls it"),
             "launches_in": (f"the {LM_STEPS}-step TransformerLM_136M run through the CLI "
                             f"({LM_LAYERS} layers; the forward also in 1 validation batch)" +
                             (f"; bf16 heads with D % 8 == 0 go to {name}_sm90, so this kernel "
                              "takes fp32 (4 launches in phase lm-parity) and other bf16 heads"
-                             if name in ("flash_fwd", "flash_dkv") else "")),
+                             if name in generic_flash else "")),
             "main_path_step_ms": lm["step_ms"],
             "main_path_tokens_per_sec": lm_run["tokens_per_sec"],
         })
@@ -1624,6 +1634,12 @@ def main() -> int:
             kernels[-1].update(design="TMA-fed 2-stage K/V ring, wgmma for QK^T "
                                "and PV (P from registers), 128-row Q tiles heaviest first",
                                sass=sass["flash_fwd_sm90_kernel"])
+        if name == "flash_dq_sm90":
+            kernels[-1].update(design="Q and dO once per 128-query CTA, TMA-fed 2-stage K/V "
+                               "ring, wgmma for S = Q K^T and dP = dO V^T (p while dP is in "
+                               "flight) and dQ += dS K (dS from registers, K read MN-major), "
+                               "query tiles heaviest first",
+                               sass=sass["flash_dq_sm90_kernel"])
         if name == "flash_dkv_sm90":
             kernels[-1].update(design="K/V once per 128-key CTA, TMA-fed 2-stage Q/dO ring, "
                                "wgmma for S^T = K Q^T, dP^T = V dO^T, dK += dS^T Q and dV += "

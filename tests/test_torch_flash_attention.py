@@ -11,8 +11,9 @@ K/V shard included); dq and dk/dv at offsets through the 1-D and the
 2-D kernels; and the gradients of the autograd.Function against
 ``jax.grad`` of the reference entry point, with the 1-D dispatch and
 with ``_BWD_2D_MIN_T`` monkeypatched to 1. Beside them: the routes
-(``_fwd_route``, ``_dkv_route``), the exact three-part bf16 split of p
-that ``flash_dkv_sm90`` runs dv through, and the variant tools' anchors.
+(``_fwd_route``, ``_dq_route``, ``_dkv_route``), the exact three-part
+bf16 split of p that ``flash_dkv_sm90`` runs dv through, and the variant
+tools' anchors.
 
 Tolerances. fp32: o atol 3e-6 rtol 1e-5, lse atol 1e-5, dq/dk/dv atol
 2e-5 rtol 1e-4 (the reference's own tests'): the sums run in another
@@ -208,18 +209,20 @@ def test_highest_precision_and_the_oracle(causal):
 
 
 def test_cpu_path_counts_no_launch_and_other_devices_need_cuda():
-    counters = (tfa.FLASH_FWD, tfa.FLASH_FWD_SM90, tfa.FLASH_DQ, tfa.FLASH_DKV,
-                tfa.FLASH_DKV_SM90)
+    counters = (tfa.FLASH_FWD, tfa.FLASH_FWD_SM90, tfa.FLASH_DQ, tfa.FLASH_DQ_SM90,
+                tfa.FLASH_DKV, tfa.FLASH_DKV_SM90)
     for c in counters:
         c.reset()
     for dt in (torch.float32, torch.bfloat16):
         q = torch.randn(2, 16, 2, 8).to(dt).requires_grad_(True)
         tfa.flash_attention(q, q, q, causal=True).sum().backward()
-    assert [c.launches for c in counters] == [0, 0, 0, 0, 0]
+    assert [c.launches for c in counters] == [0, 0, 0, 0, 0, 0]
     meta = torch.empty(4, 16, 8, device="meta")
     with pytest.raises(ValueError, match="CUDA"):
         tfa.flash_fwd(meta, meta, meta, causal=True, scale=1.0)
     rows = torch.empty(4, 16, device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        tfa.flash_dq(meta, meta, meta, meta, rows, rows, causal=True, scale=1.0)
     with pytest.raises(ValueError, match="CUDA"):
         tfa.flash_dkv(meta, meta, meta, meta, rows, rows, causal=True, scale=1.0)
     wide = torch.empty(4, 16, 72, device="meta")
@@ -251,6 +254,18 @@ def test_dkv_route_is_chosen_from_dtype_and_head_dim(dtype, D, route):
     to ``flash_dkv_sm90``, fp32 (the LM's parity run) and other bf16
     heads to ``flash_dkv``."""
     assert tfa._dkv_route(dtype, D) == route
+
+
+@pytest.mark.parametrize("dtype,D,route", [
+    (torch.bfloat16, 8, "sm90"), (torch.bfloat16, 40, "sm90"), (torch.bfloat16, 48, "sm90"),
+    (torch.bfloat16, 64, "sm90"), (torch.bfloat16, 36, "generic"), (torch.bfloat16, 60, "generic"),
+    (torch.float32, 64, "generic"), (torch.float32, 40, "generic"),
+])
+def test_dq_route_is_chosen_from_dtype_and_head_dim(dtype, D, route):
+    """dq routes as the forward does: bf16 heads of whole 16-byte rows to
+    ``flash_dq_sm90``, fp32 (the LM's parity run) and other bf16 heads
+    to ``flash_dq``."""
+    assert tfa._dq_route(dtype, D) == route
 
 
 def _log_uniform_probs(n, seed):
@@ -324,6 +339,20 @@ def test_dkv_variants_find_their_anchors_in_the_source():
     src = (CSRC_DIR / "flash_attention.cu").read_text()
     variants = dkv_variants._variants(src)
     assert variants["base"] == [] and len(variants) == 9
+    for name, edits in variants.items():
+        for old, new in edits:
+            assert src.count(old) == 1 and old != new, name
+
+
+def test_dq_variants_find_their_anchors_in_the_source():
+    """``tools/dq_variants.py`` edits the same source for flash_dq_sm90:
+    each edit's anchor must be there once."""
+    from theanompi_tpu_torch.ops.kernels import CSRC_DIR
+    from theanompi_tpu_torch.tools import dq_variants
+
+    src = (CSRC_DIR / "flash_attention.cu").read_text()
+    variants = dq_variants._variants(src)
+    assert variants["base"] == [] and len(variants) == 5
     for name, edits in variants.items():
         for old, new in edits:
             assert src.count(old) == 1 and old != new, name

@@ -5,8 +5,9 @@
 // Replaces the TPU kernels
 //   theanompi_tpu/ops/pallas_attention.py:131  _fwd_kernel     (#7)  -> flash_fwd_sm90 (bf16,
 //                                                                   D % 8 == 0), flash_fwd
-//   theanompi_tpu/ops/pallas_attention.py:174  _dq_kernel      (#8)  -> flash_dq
-//   theanompi_tpu/ops/pallas_attention.py:264  _dq_kernel_2d   (#10) -> flash_dq
+//   theanompi_tpu/ops/pallas_attention.py:174  _dq_kernel      (#8)  -> flash_dq_sm90 (bf16,
+//                                                                   D % 8 == 0), flash_dq
+//   theanompi_tpu/ops/pallas_attention.py:264  _dq_kernel_2d   (#10) -> the same two
 //   theanompi_tpu/ops/pallas_attention.py:207  _dkv_kernel     (#9)  -> flash_dkv_sm90 (bf16,
 //                                                                   D % 8 == 0), flash_dkv
 //   theanompi_tpu/ops/pallas_attention.py:302  _dkv_kernel_2d  (#11) -> the same two
@@ -48,10 +49,11 @@
 // in another order than on the CPU, so the kernels are held to a
 // tolerance, not to bit identity.
 //
-// Design of the generic kernels (flash_fwd_sm90 and flash_dkv_sm90, the
-// bf16 forward and dk/dv on TMA and wgmma, have their own sections
-// below): one block of 256 threads (8 warps) per (64-row tile, b*h). The
-// block keeps its own tile (Q, or K and V) in shared memory and loops over
+// Design of the generic kernels (flash_fwd_sm90, flash_dkv_sm90 and
+// flash_dq_sm90, the bf16 forward, dk/dv and dq on TMA and wgmma, have
+// their own sections below): one block of 256 threads (8 warps) per
+// (64-row tile, b*h). The block keeps its own tile (Q, or K and V) in
+// shared memory and loops over
 // the other side's 64-row tiles, staging each in shared memory; products
 // land in fp32 shared tiles, and an elementwise phase (four threads per
 // row, 16 columns each) applies masks, softmax and casts. The bf16
@@ -68,8 +70,8 @@
 // bf16, 39 us) takes that away (chip_smoke.py phase times computes each).
 // The generic kernels are simple: synchronous 16-byte loads into shared
 // memory (no cp.async/TMA), wmma (not wgmma), a block per tile with no
-// pipelining; on the LM's bf16 route the forward and dk/dv run on the
-// sm90 kernels, and dq is redesigned next (ROADMAP section 2).
+// pipelining; on the LM's bf16 route all three run on the sm90 kernels,
+// and the generic ones take fp32 and the other bf16 heads.
 
 #include <cuda.h>  // CUtensorMap and its enums: types only, libcuda is not linked
 #include <cuda_runtime.h>
@@ -778,9 +780,11 @@ __device__ __forceinline__ void tile_softmax(float (&sc)[32], float& m0, float& 
   m1 = mn1;
 }
 
-__device__ __forceinline__ void load_kv(Smem& sm, const CUtensorMap* tm_k, const CUtensorMap* tm_v,
+// K/V tile j into its stage of a ring (Smem's, or flash_dq_sm90's DqRing)
+template <typename Ring>
+__device__ __forceinline__ void load_kv(Ring& sm, const CUtensorMap* tm_k, const CUtensorMap* tm_v,
                                         int j, int bh) {
-  const int s = j % kStages;
+  const int s = j % (int)std::extent<decltype(Ring::full)>::value;
   mbar_arrive_expect_tx(&sm.full[s], 2 * kKeys * kRowBytes);
   tma_load(sm.k[s], tm_k, &sm.full[s], 0, j * kKeys, bh);
   tma_load(sm.v[s], tm_v, &sm.full[s], 0, j * kKeys, bh);
@@ -1284,6 +1288,241 @@ int dkv(const void* q, const void* k, const void* v, const void* d_o, const void
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// flash_dq_sm90: the bf16 dq backward for Hopper, on TMA and wgmma
+// ---------------------------------------------------------------------------
+//
+// The same function as flash_dq_kernel<bf16> and flash_dq_plain: p =
+// valid ? expf(s * scale - lse) : 0 with s = q.k (fp32 sums, the scale
+// after the dot); dp = dO.v; ds = bf16(p * (dp - dsum) * scale); dq +=
+// ds k with an fp32 accumulator; expf, -fmad=false. No rounding depends
+// on the key tile (there is no online softmax), so the tiling changes
+// only the order of the sums and the CTA shape is free.
+//
+// Bound, at the 136M LM's shape: 76.3 MB (q, k, v, dO in bf16, lse and
+// dsum, dq in fp32) at 3.35 TB/s, 22.8 us, above the 19.3 GFLOP of bf16
+// products (6 D a visible pair: S, dP, dQ) at 989 TFLOP/s.
+//
+// Block: flash_fwd_sm90's. One CTA of 256 threads per (128-query tile,
+// b*h), two consumer warpgroups of 64 queries each (one wgmma M); b*h is
+// blockIdx.x, the fast grid dimension, and causal query tiles go heaviest
+// first. Q and dO (128 rows) are loaded once by TMA; K and V (64-key
+// tiles) go through a ring of kDqStages stages with full/empty
+// mbarriers, thread 0 loading tile j + kDqStages - 1 while tile j is
+// computed, into the stage both warpgroups released last. lse and dsum
+// ([BH, Tq] fp32, rows not 16-byte aligned, so no tensor map) are read
+// once per thread for its two rows.
+//
+// Products per key tile and warpgroup: S = Q K^T and dP = dO V^T as
+// wgmma_ss (both operands K-major, the forward's Q K^T), committed as two
+// groups; wgmma_wait_1 lets p's exponentials run while dP finishes. ds
+// is rounded to bf16 from the accumulators' fragments straight into
+// wgmma's A fragments (as the forward packs P), and dQ += dS K reads the
+// K stage MN-major through the transpose bit, as the forward reads V: one
+// K tile serves both of its descriptors, and neither P nor dS goes
+// through shared memory.
+//
+// Masks: only on tiles across the causal diagonal or the ragged key edge
+// (kMasked); keys past Tk are masked explicitly, since zero-filled K
+// would give p = exp(-lse), not 0, and a masked element takes p = 0
+// without expf, so a blind row's -1e30 sentinel lse never gives an inf. Key tiles wholly above a warpgroup's queries are skipped (they
+// still pass through its barriers). Query rows past Tq read lse = dsum =
+// 0 from zero-filled Q and dO: ds = 0, and the rows are never stored.
+//
+// Epilogue: dq straight from the accumulator to fp32 [BH, Tq, D] in
+// 8-byte stores, clipped to rows < Tq and columns < D (flash_dkv_sm90's).
+//
+// Not yet: a producer warp with setmaxnreg (warp specialisation), the two
+// warpgroups out of step, 128-key tiles (tools/dq_variants.py measures
+// where the time goes).
+
+constexpr int kDqStages = 2;  // depth of the K/V ring
+
+struct DqRing {
+  bf16 q[kQRows * kD];
+  bf16 d_o[kQRows * kD];
+  bf16 k[kDqStages][kKeys * kD];
+  bf16 v[kDqStages][kKeys * kD];
+  uint64_t full[kDqStages];
+  uint64_t empty[kDqStages];
+  uint64_t qdo_full;
+};
+constexpr size_t kDqSmemBytes = sizeof(DqRing) + 1024;  // + slack to align the base to 1024
+
+// p on the S accumulator, in place: sc[4g + e] is row qr0 (e < 2) or
+// qr1, key column c0 + 8g + e % 2. Only kMasked tiles test each element.
+template <bool kMasked>
+__device__ __forceinline__ void tile_probs(float (&sc)[32], float lse0, float lse1, float scale,
+                                           int causal, int q_off, int k_off, int qr0, int qr1,
+                                           int c0, int Tk) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    const bool top = (i % 4) < 2;
+    const bool seen = visible(causal, q_off, k_off, top ? qr0 : qr1, c0 + 8 * (i / 4) + i % 2, Tk);
+    sc[i] = !kMasked || seen ? expf(sc[i] * scale - (top ? lse0 : lse1)) : 0.0f;
+  }
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+flash_dq_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
+                     const __grid_constant__ CUtensorMap tm_k,
+                     const __grid_constant__ CUtensorMap tm_v,
+                     const __grid_constant__ CUtensorMap tm_do, const float* __restrict__ lse,
+                     const float* __restrict__ dsum, float* __restrict__ dq_out, int Tq, int Tk,
+                     int D, int q_off, int k_off, int causal, float scale) {
+  extern __shared__ __align__(16) unsigned char dyn_smem[];
+  const uint32_t raw = smem_addr(dyn_smem);
+  DqRing& sm = *reinterpret_cast<DqRing*>(dyn_smem + (((raw + 1023u) & ~1023u) - raw));
+  const int bh = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kQRows;  // heaviest causal tiles first
+  const int tid = threadIdx.x;
+  const int wg = tid / 128;
+  const int lane = tid % 32;
+  const int row0 = ((tid % 128) / 32) * 16 + lane / 4;  // first of this thread's 2 rows (+8)
+  const int col0 = 2 * (lane % 4);  // first of its 2 columns in each 8-column group
+  const int wq0 = q0 + wg * kWgRows;  // the warpgroup's first query row
+  const int qr0 = wq0 + row0, qr1 = qr0 + 8;
+  const int nk = (Tk + kKeys - 1) / kKeys;
+  const int n_tiles = k_tiles_seen(causal, min(q0 + kQRows, Tq), q_off, k_off, nk);
+  // the warpgroup's own last tile, as flash_fwd_sm90's
+  const int n_mine = wq0 < Tq ? k_tiles_seen(causal, min(wq0 + kWgRows, Tq), q_off, k_off, nk) : 0;
+
+  if (tid == 0) {
+    for (int s = 0; s < kDqStages; ++s) {
+      mbar_init(&sm.full[s], 1);
+      mbar_init(&sm.empty[s], kThreads);
+    }
+    mbar_init(&sm.qdo_full, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  if (tid == 0) {
+    mbar_arrive_expect_tx(&sm.qdo_full, 2 * kQRows * kRowBytes);
+    tma_load(sm.q, &tm_q, &sm.qdo_full, 0, q0, bh);
+    tma_load(sm.d_o, &tm_do, &sm.qdo_full, 0, q0, bh);
+    for (int j = 0; j < kDqStages - 1 && j < n_tiles; ++j) load_kv(sm, &tm_k, &tm_v, j, bh);
+  }
+
+  const float* lse_b = lse + (int64_t)bh * Tq;
+  const float* dsum_b = dsum + (int64_t)bh * Tq;
+  const float lse0 = qr0 < Tq ? __ldg(lse_b + qr0) : 0.0f;
+  const float lse1 = qr1 < Tq ? __ldg(lse_b + qr1) : 0.0f;
+  const float dsum0 = qr0 < Tq ? __ldg(dsum_b + qr0) : 0.0f;
+  const float dsum1 = qr1 < Tq ? __ldg(dsum_b + qr1) : 0.0f;
+  float dq[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) dq[i] = 0.0f;
+  const bf16* q_wg = sm.q + wg * kWgRows * kD;
+  const bf16* do_wg = sm.d_o + wg * kWgRows * kD;
+  mbar_wait(&sm.qdo_full, 0);
+
+  for (int j = 0; j < n_tiles; ++j) {
+    const int s = j % kDqStages;
+    const int next = j + kDqStages - 1;
+    if (tid == 0 && next < n_tiles) {
+      // the stage of tile `next` last held tile j - 1: wait until all read it
+      if (j >= 1) mbar_wait(&sm.empty[(j - 1) % kDqStages], ((j - 1) / kDqStages) & 1);
+      load_kv(sm, &tm_k, &tm_v, next, bh);
+    }
+    mbar_wait(&sm.full[s], (j / kDqStages) & 1);
+    if (j >= n_mine) {
+      mbar_arrive(&sm.empty[s]);
+      continue;
+    }
+
+    // s = q k^T and dp = dO v^T: 4 k-steps of 16 along D each; the scores'
+    // group is waited for first, so p runs while dp finishes
+    float sc[32], dp[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) sc[i] = dp[i] = 0.0f;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kD / 16; ++kk) {
+      wgmma_ss(sc, smem_desc(q_wg + kk * 16, 16, kAtom), smem_desc(sm.k[s] + kk * 16, 16, kAtom),
+               kk > 0);
+    }
+    wgmma_commit();
+#pragma unroll
+    for (int kk = 0; kk < kD / 16; ++kk) {
+      wgmma_ss(dp, smem_desc(do_wg + kk * 16, 16, kAtom), smem_desc(sm.v[s] + kk * 16, 16, kAtom),
+               kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait_1();
+    fence_regs(sc);
+
+    const int k0 = j * kKeys;
+    const bool dq_masked = k0 + kKeys > Tk || (causal && k_off + k0 + kKeys - 1 > q_off + wq0);
+    if (dq_masked) {
+      tile_probs<true>(sc, lse0, lse1, scale, causal, q_off, k_off, qr0, qr1, k0 + col0, Tk);
+    } else {
+      tile_probs<false>(sc, lse0, lse1, scale, causal, q_off, k_off, qr0, qr1, k0 + col0, Tk);
+    }
+    wgmma_wait();
+    fence_regs(dp);
+
+    // ds in bf16 as wgmma's A fragment: k-step kk takes column groups 2kk,
+    // 2kk + 1; the pair of elements 8kk + 2h shares row qr0 (h even) or qr1
+    uint32_t dsa[16];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+      for (int h = 0; h < 4; ++h) {
+        const int r = 8 * kk + 2 * h;
+        const float ds_sum = h % 2 ? dsum1 : dsum0;
+        dsa[4 * kk + h] = pack_bf16(sc[r] * (dp[r] - ds_sum) * scale,
+                                    sc[r + 1] * (dp[r + 1] - ds_sum) * scale);
+      }
+    }
+    // dq += ds k: 4 k-steps of 16 keys, K read MN-major (16 rows, 2 atoms)
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kKeys / 16; ++kk) {
+      const uint64_t b = smem_desc(sm.k[s] + kk * 16 * kD, 16, kAtom);
+      wgmma_rs_tb(dq, dsa[4 * kk], dsa[4 * kk + 1], dsa[4 * kk + 2], dsa[4 * kk + 3], b);
+    }
+    wgmma_commit();
+    wgmma_wait();
+    fence_regs(dq);
+    fence_regs(dsa);
+    mbar_arrive(&sm.empty[s]);
+  }
+
+  // epilogue: rows qr0, qr1, columns 8g + col0 and + 1, as 8-byte stores
+  float* dq_b = dq_out + (int64_t)bh * Tq * D;
+#pragma unroll
+  for (int g = 0; g < 8; ++g) {
+    const int c = 8 * g + col0;
+    if (c >= D) continue;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int qr = h ? qr1 : qr0;
+      if (qr >= Tq) continue;
+      *reinterpret_cast<float2*>(dq_b + (int64_t)qr * D + c) =
+          make_float2(dq[4 * g + 2 * h], dq[4 * g + 2 * h + 1]);
+    }
+  }
+}
+
+int dq(const void* q, const void* k, const void* v, const void* d_o, const void* lse,
+       const void* dsum, void* dq_out, int BH, int Tq, int Tk, int D, int q_off, int k_off,
+       int causal, float scale, cudaStream_t stream) {
+  if (D % 8 != 0 || D < 8 || D > kD) return (int)cudaErrorInvalidValue;
+  CUtensorMap mq, mk, mv, mdo;
+  int rc = bf16_map(&mq, q, BH, Tq, D, kQRows);
+  if (rc == 0) rc = bf16_map(&mk, k, BH, Tk, D, kKeys);
+  if (rc == 0) rc = bf16_map(&mv, v, BH, Tk, D, kKeys);
+  if (rc == 0) rc = bf16_map(&mdo, d_o, BH, Tq, D, kQRows);
+  if (rc != 0) return rc;
+  cudaError_t err = prepare(flash_dq_sm90_kernel, kDqSmemBytes);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(BH, (Tq + kQRows - 1) / kQRows);
+  flash_dq_sm90_kernel<<<grid, kThreads, kDqSmemBytes, stream>>>(
+      mq, mk, mv, mdo, (const float*)lse, (const float*)dsum, (float*)dq_out, Tq, Tk, D, q_off,
+      k_off, causal, scale);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace sm90
 
 }  // namespace
@@ -1334,6 +1573,18 @@ int tmpi_flash_dq(int device, const void* q, const void* k, const void* v, const
   if (dtype == 1)
     return dq<bf16>(q, k, v, d_o, lse, dsum, dq_out, BH, Tq, Tk, D, q_off, k_off, causal, scale, s);
   return dq<float>(q, k, v, d_o, lse, dsum, dq_out, BH, Tq, Tk, D, q_off, k_off, causal, scale, s);
+}
+
+// bf16 only, 8 <= D <= 64 with D % 8 == 0, and q, k, v, dO 16-byte
+// aligned (the tensor maps' rules), dq 8-byte aligned; a negative code is
+// a tensor map's failure.
+int tmpi_flash_dq_sm90(int device, const void* q, const void* k, const void* v, const void* d_o,
+                       const void* lse, const void* dsum, void* dq_out, int BH, int Tq, int Tk,
+                       int D, int q_off, int k_off, int causal, float scale, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  return sm90::dq(q, k, v, d_o, lse, dsum, dq_out, BH, Tq, Tk, D, q_off, k_off, causal, scale,
+                  (cudaStream_t)stream);
 }
 
 int tmpi_flash_dkv(int device, const void* q, const void* k, const void* v, const void* d_o,

@@ -6,11 +6,13 @@ its custom VJP; ``ring_flash_attention`` comes with the
 sequence-parallel slice). The kernels are hand-written CUDA for Hopper
 (``csrc/flash_attention.cu``): the forward (TPU kernel #7) as
 ``flash_fwd_sm90`` (TMA + wgmma) for bf16 with D % 8 == 0, and as
-``flash_fwd`` for fp32 and other bf16 heads (``_fwd_route``);
-``flash_dq`` (#8 and its long-sequence twin #10); dk/dv (#9 and #11) as
-``flash_dkv_sm90`` (TMA + wgmma, dv exact on the tensor cores through a
-three-part bf16 split of p) for bf16 with D % 8 == 0, and as
-``flash_dkv`` for the rest (``_dkv_route``). The TPU needs the 2-D
+``flash_fwd`` for fp32 and other bf16 heads (``_fwd_route``); dq (#8
+and its long-sequence twin #10) as ``flash_dq_sm90`` (TMA + wgmma, dS
+from registers) for bf16 with D % 8 == 0, and as ``flash_dq`` for the
+rest (``_dq_route``); dk/dv (#9 and #11) as ``flash_dkv_sm90`` (TMA +
+wgmma, dv exact on the tensor cores through a three-part bf16 split of
+p) for bf16 with D % 8 == 0, and as ``flash_dkv`` for the rest
+(``_dkv_route``). The TPU needs the 2-D
 backward kernels only because its 1-D ones keep the whole opposite
 sequence in VMEM; the CUDA kernels stream it through shared memory a
 tile at a time, so one kernel serves every T.
@@ -73,6 +75,10 @@ _LIB = KernelLibrary(
         # dtype, stream
         "tmpi_flash_dq": (_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                           ctypes.c_float, _I, _P),
+        # device, q, k, v, dO, lse, dsum, dq, BH, Tq, Tk, D, q_off, k_off, causal, scale,
+        # stream
+        "tmpi_flash_dq_sm90": (_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                               ctypes.c_float, _P),
         # device, q, k, v, dO, lse, dsum, dk, dv, BH, Tq, Tk, D, q_off, k_off, causal, scale,
         # dtype, stream
         "tmpi_flash_dkv": (_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
@@ -87,6 +93,7 @@ _LIB = KernelLibrary(
 FLASH_FWD = LaunchCounter("flash_fwd")
 FLASH_FWD_SM90 = LaunchCounter("flash_fwd_sm90")
 FLASH_DQ = LaunchCounter("flash_dq")
+FLASH_DQ_SM90 = LaunchCounter("flash_dq_sm90")
 FLASH_DKV = LaunchCounter("flash_dkv")
 FLASH_DKV_SM90 = LaunchCounter("flash_dkv_sm90")
 
@@ -219,6 +226,13 @@ def _check_rows(t, name, shape, device):
                          f"{tuple(t.shape)} / {t.stride()}")
 
 
+def _check_tma_aligned(**tensors):
+    """The sm90 kernels' tensor maps need each base on a 16-byte boundary."""
+    for name, t in tensors.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must start on a 16-byte boundary for the tensor maps")
+
+
 def _fwd_route(dtype: torch.dtype, D: int) -> str:
     """Which forward kernel takes a CUDA input, from its dtype and head
     dim alone: ``"sm90"`` (``flash_fwd_sm90``: TMA + wgmma, bf16, and
@@ -248,9 +262,7 @@ def _launch_fwd_sm90(q3, k3, v3, *, causal, scale, q_off, k_off):
     dev = q3.device
     o = torch.empty_like(q3)
     lse = torch.empty((BH, Tq), dtype=torch.float32, device=dev)
-    for name, t in (("q3", q3), ("k3", k3), ("v3", v3), ("o", o)):
-        if t.data_ptr() % 16:
-            raise ValueError(f"{name} must start on a 16-byte boundary for the tensor maps")
+    _check_tma_aligned(q3=q3, k3=k3, v3=v3, o=o)
     rc = _LIB.get().tmpi_flash_fwd_sm90(dev.index, q3.data_ptr(), k3.data_ptr(), v3.data_ptr(),
                                         o.data_ptr(), lse.data_ptr(), BH, Tq, k3.shape[1], D,
                                         int(q_off), int(k_off), int(causal), float(scale),
@@ -273,9 +285,49 @@ def flash_fwd(q3, k3, v3, *, causal: bool, scale: float, q_off: int = 0, k_off: 
     return launch(q3, k3, v3, causal=causal, scale=scale, q_off=q_off, k_off=k_off)
 
 
+def _dq_route(dtype: torch.dtype, D: int) -> str:
+    """Which dq kernel takes a CUDA input, from its dtype and head dim
+    alone, as ``_fwd_route``: ``"sm90"`` (``flash_dq_sm90``: TMA + wgmma,
+    bf16 with rows of whole 16-byte units) or ``"generic"``
+    (``flash_dq``: fp32, and bf16 with another D)."""
+    return "sm90" if dtype == torch.bfloat16 and D % 8 == 0 else "generic"
+
+
+def _launch_dq_generic(q3, k3, v3, do3, lse, dsum, *, causal, scale, q_off, k_off):
+    """``flash_dq_kernel`` (wmma, synchronous loads), fp32 or bf16."""
+    BH, Tq, D = q3.shape
+    dev = q3.device
+    dq = torch.empty((BH, Tq, D), dtype=torch.float32, device=dev)
+    rc = _LIB.get().tmpi_flash_dq(dev.index, q3.data_ptr(), k3.data_ptr(), v3.data_ptr(),
+                                  do3.data_ptr(), lse.data_ptr(), dsum.data_ptr(), dq.data_ptr(),
+                                  BH, Tq, k3.shape[1], D, int(q_off), int(k_off), int(causal),
+                                  float(scale), DTYPE_CODES[q3.dtype], stream_handle(dev))
+    _LIB.check(rc, "flash attention dq kernel")
+    FLASH_DQ.launches += 1
+    return dq
+
+
+def _launch_dq_sm90(q3, k3, v3, do3, lse, dsum, *, causal, scale, q_off, k_off):
+    """``flash_dq_sm90_kernel`` (TMA + wgmma, dS from registers), bf16
+    with D % 8 == 0."""
+    BH, Tq, D = q3.shape
+    dev = q3.device
+    dq = torch.empty((BH, Tq, D), dtype=torch.float32, device=dev)
+    _check_tma_aligned(q3=q3, k3=k3, v3=v3, do3=do3)
+    rc = _LIB.get().tmpi_flash_dq_sm90(dev.index, q3.data_ptr(), k3.data_ptr(), v3.data_ptr(),
+                                       do3.data_ptr(), lse.data_ptr(), dsum.data_ptr(),
+                                       dq.data_ptr(), BH, Tq, k3.shape[1], D, int(q_off),
+                                       int(k_off), int(causal), float(scale), stream_handle(dev))
+    _LIB.check(rc, "flash attention dq kernel (sm90)")
+    FLASH_DQ_SM90.launches += 1
+    return dq
+
+
 def flash_dq(q3, k3, v3, do3, lse, dsum, *, causal: bool, scale: float, q_off: int = 0,
              k_off: int = 0):
-    """dq partial, f32 ``[BH, Tq, D]``."""
+    """dq partial, f32 ``[BH, Tq, D]``. A CUDA input goes to the kernel
+    ``_dq_route`` names; a failure there raises and is never handed to
+    the other kernel."""
     BH, Tq, Tk, D = _check_inputs(q3, k3, v3, ("do3", do3))
     if q3.device.type == "cpu":
         return flash_dq_plain(q3, k3, v3, do3, lse, dsum, causal=causal, scale=scale,
@@ -283,14 +335,9 @@ def flash_dq(q3, k3, v3, do3, lse, dsum, *, causal: bool, scale: float, q_off: i
     dev = q3.device
     _check_rows(lse, "lse", (BH, Tq), dev)
     _check_rows(dsum, "dsum", (BH, Tq), dev)
-    dq = torch.empty((BH, Tq, D), dtype=torch.float32, device=dev)
-    rc = _LIB.get().tmpi_flash_dq(dev.index, q3.data_ptr(), k3.data_ptr(), v3.data_ptr(),
-                                  do3.data_ptr(), lse.data_ptr(), dsum.data_ptr(), dq.data_ptr(),
-                                  BH, Tq, Tk, D, int(q_off), int(k_off), int(causal),
-                                  float(scale), DTYPE_CODES[q3.dtype], stream_handle(dev))
-    _LIB.check(rc, "flash attention dq kernel")
-    FLASH_DQ.launches += 1
-    return dq
+    launch = _launch_dq_sm90 if _dq_route(q3.dtype, D) == "sm90" else _launch_dq_generic
+    return launch(q3, k3, v3, do3, lse, dsum, causal=causal, scale=scale, q_off=q_off,
+                  k_off=k_off)
 
 
 def _dkv_route(dtype: torch.dtype, D: int) -> str:
@@ -327,9 +374,7 @@ def _launch_dkv_sm90(q3, k3, v3, do3, lse, dsum, *, causal, scale, q_off, k_off)
     dev = q3.device
     dk = torch.empty((BH, Tk, D), dtype=torch.float32, device=dev)
     dv = torch.empty((BH, Tk, D), dtype=torch.float32, device=dev)
-    for name, t in (("q3", q3), ("k3", k3), ("v3", v3), ("do3", do3)):
-        if t.data_ptr() % 16:
-            raise ValueError(f"{name} must start on a 16-byte boundary for the tensor maps")
+    _check_tma_aligned(q3=q3, k3=k3, v3=v3, do3=do3)
     rc = _LIB.get().tmpi_flash_dkv_sm90(dev.index, q3.data_ptr(), k3.data_ptr(), v3.data_ptr(),
                                         do3.data_ptr(), lse.data_ptr(), dsum.data_ptr(),
                                         dk.data_ptr(), dv.data_ptr(), BH, Tq, Tk, D, int(q_off),

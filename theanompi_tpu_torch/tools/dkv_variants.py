@@ -25,8 +25,6 @@ The last stdout line is a JSON summary. Needs a card and nvcc.
 
 from __future__ import annotations
 
-import argparse
-import json
 import math
 import tempfile
 from pathlib import Path
@@ -35,7 +33,7 @@ import torch
 
 from theanompi_tpu_torch.ops import flash_attention as fa
 from theanompi_tpu_torch.ops import kernels as K
-from theanompi_tpu_torch.tools.fwd_variants import SHAPE, _ms, build_variants
+from theanompi_tpu_torch.tools.fwd_variants import SHAPE, _ms, build_variants, run
 
 
 def _variants(src: str) -> dict:
@@ -93,21 +91,7 @@ def measure(reps: int = 30) -> dict:
 
 
 def main(argv=None) -> int:
-    p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    p.add_argument("--reps", type=int, default=30)
-    p.add_argument("--out", default=None, help="also write the JSON summary here")
-    args = p.parse_args(argv)
-    if not torch.cuda.is_available():
-        raise SystemExit("dkv_variants needs a CUDA card")
-    result = measure(args.reps)
-    for name, ms in result["ms"].items():
-        print(f"{name:18s} {ms:.4f} ms  {result['readings_ms'][name]}")
-    line = json.dumps(result)
-    if args.out:
-        with open(args.out, "w") as f:
-            f.write(line + "\n")
-    print(line)
-    return 0
+    return run(measure, __doc__, "dkv_variants", 30, argv)
 
 
 if __name__ == "__main__":

@@ -130,14 +130,17 @@ def measure(reps: int = 50) -> dict:
             "ms": {n: sum(r) / len(r) for n, r in readings.items()}, "readings_ms": readings}
 
 
-def main(argv=None) -> int:
-    p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    p.add_argument("--reps", type=int, default=50)
+def run(measure_fn, doc: str, tool: str, reps: int, argv=None) -> int:
+    """A variant tool's command line: time the variants with
+    ``measure_fn(reps)``, print each one's mean and readings, and the JSON
+    summary as the last line (also written to ``--out``)."""
+    p = argparse.ArgumentParser(description=doc.split("\n\n")[0])
+    p.add_argument("--reps", type=int, default=reps)
     p.add_argument("--out", default=None, help="also write the JSON summary here")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
-        raise SystemExit("fwd_variants needs a CUDA card")
-    result = measure(args.reps)
+        raise SystemExit(f"{tool} needs a CUDA card")
+    result = measure_fn(args.reps)
     for name, ms in result["ms"].items():
         print(f"{name:18s} {ms:.4f} ms  {result['readings_ms'][name]}")
     line = json.dumps(result)
@@ -146,6 +149,10 @@ def main(argv=None) -> int:
             f.write(line + "\n")
     print(line)
     return 0
+
+
+def main(argv=None) -> int:
+    return run(measure, __doc__, "fwd_variants", 50, argv)
 
 
 if __name__ == "__main__":

@@ -76,7 +76,7 @@ def _device_us(evt) -> float:
 # kernel name fragments -> category, first match wins
 CATEGORIES = (
     ("flash_attention", ("flash_fwd_kernel", "flash_fwd_sm90_kernel", "flash_dq_kernel",
-                         "flash_dkv_kernel", "flash_dkv_sm90_kernel")),
+                         "flash_dq_sm90_kernel", "flash_dkv_kernel", "flash_dkv_sm90_kernel")),
     ("pool_kernel", ("maxpool_fwd_kernel", "maxpool_bwd_kernel")),
     ("fused_update", ("momentum_kernel", "sgd_kernel")),
     ("layout_transform", ("tensorTransform", "nhwcSlice", "nchwToNhwc", "nhwcToNchw")),
