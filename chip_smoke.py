@@ -14,16 +14,25 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                 built library) must hold HGMMA
                 (wgmma) and UTMALDG (TMA loads); their registers, shared
                 memory and spills are printed (``cuobjdump
-                --dump-resource-usage``).
-2. kernels    — each fused-update kernel's wrapper against its plain
-                PyTorch version at AlexNet's 16 parameter-leaf shapes:
-                momentum, Nesterov and sgd; fp32 params with fp32 grads,
-                bf16 params with bf16 and with fp32 grads; conv leaves in
-                the default layout and in channels_last (the main path's);
-                clip off / norm under / norm over the limit. Tolerance:
-                fp32 params and every fp32 velocity bit-identical; bf16
-                params within 1 bf16 ulp. Launch counters must move by one
-                per leaf.
+                --dump-resource-usage``). ptxas's registers, stack and
+                spills of each instantiation of the fused update's
+                multi-tensor kernel (``nvcc -Xptxas -v``).
+2. kernels    — the fused update's multi-tensor kernel (#1-2, one launch
+                over a whole leaf list per dtype group) against its plain
+                PyTorch version, one call over each list: AlexNet's 16 and
+                GoogLeNet's 128 parameter leaves (from the port's models),
+                each in fp32 params with fp32 grads, bf16 params with bf16
+                and with fp32 grads, conv leaves in the default layout and
+                in channels_last (the main path's); and an edge list of 12
+                leaves mixing the three dtype pairs, with views 4 bytes off
+                a 16-byte boundary (p, v or g), lengths 1, 7, 0, odd and
+                past one chunk; there the whole buffers around the views
+                must match too. Momentum, Nesterov and sgd; clip off /
+                norm under / norm over the limit. Tolerance: fp32 params
+                and every fp32 velocity bit-identical; bf16 params within
+                1 bf16 ulp. Launch counters must move by the launches the
+                work table asks for (one per dtype group), not one per
+                leaf.
    quant      — the int8 quantizer kernels (#3–6) against their plain
                 versions on the card, bit-identical (int8 values, f32
                 scales with NaN where the plain version has NaN, decoded
@@ -76,18 +85,18 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                 same model under an sgd recipe with ``--wire-codec
                 int8:ef``, which one card must ignore (no collective and
                 no codec, as the reference's one-device path). Counters are
-                zeroed just before each run and read just after: 16
-                launches of the run's update kernel per step, none of any
-                other kernel.
+                zeroed just before each run and read just after: one
+                launch of the run's update kernel per step (one dtype group
+                of 16 leaves), none of any other kernel.
 4. bsp-ranks  — multi-rank BSP of the same model through the CLI: global
                 batch 128 split over the ranks, 6 steps, ``--fused-update
                 --strategy psum --wire-codec int8:ef``. With one card: 2
                 ranks on cuda:0 over gloo (NCCL refuses two ranks on one
                 card); with 2 or more: NCCL over 4 cards (2 when fewer than
                 4), and ``--strategy ring_int8`` too. Each rank counts its
-                own launches from 0: per step, under the codec 16
-                quant_block and 16 dequant_block; under ring_int8 at n
-                ranks n and 2n-1. Losses finite; params and velocities
+                own launches from 0: per step one fused_momentum, and under
+                the codec 16 quant_block and 16 dequant_block; under
+                ring_int8 at n ranks n and 2n-1. Losses finite; params and velocities
                 bit-identical across ranks (digests); each rank's
                 error-feedback residual nonzero and its own.
    lm-main    — full-width TransformerLM_136M (12 layers, d 768, 12 heads
@@ -102,7 +111,7 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                 1e-4, poly, batch 512, random weights from a seed) through
                 the CLI with ``--pool-kernel --fused-update`` for 6 steps
                 and one validation batch: exactly 9 x 7 maxpool3x3_fwd,
-                9 x 6 maxpool3x3_bwd and 128 x 6 fused_momentum launches,
+                9 x 6 maxpool3x3_bwd and 1 x 6 fused_momentum launches,
                 no other kernel; losses finite; peak memory. Then the same
                 command without ``--pool-kernel``: no pool kernel launch.
                 Both step times, and the device step of both with the
@@ -131,16 +140,24 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                 batches: the train-mode logits at the start within rtol
                 1e-4 + 1e-4 of their largest value, losses rtol 1e-4, each
                 leaf's velocity and parameter change within 1e-1 of its
-                norm, every leaf changed, 27 / 18 / 256 launches. Not
+                norm, every leaf changed, 27 / 18 / 2 launches. Not
                 phase parity's elementwise 2e-3: the gradient of this
                 network is not continuous in its weights (a ReLU or a
                 pool's maximum flips under a rounding change), and on the
                 CPU 1e-6 relative noise on the weights alone moves the
                 velocities after 2 steps by 4.2e-2 of their norm and
                 6.3e-2 of a leaf's largest value.
-6. times      — per kernel, over AlexNet's 16 leaves (one optimizer step,
-                one codec round): time (CUDA events), its bound (bytes /
-                memory rate vs operations / fp32 peak, the larger), the
+6. times      — #1-2 per optimizer step over AlexNet's 16 and GoogLeNet's
+                128 fp32 leaves, in turns (A B C D, twice): the wrapper,
+                the same launch with its table built once (the device's
+                time alone), the per-leaf launches it replaced
+                (``tools/update_variants.py``) and ``torch.optim.SGD(fused=
+                True)``; the host's microseconds per ``Optimizer.apply``,
+                the fused one and the replaced one in turns. #3-6 per
+                codec round over AlexNet's 16 leaves, #4 and #6 in turns
+                with ``torch.mul``. Each: time (CUDA events), its bound
+                (bytes / memory rate vs operations / fp32 peak, the larger;
+                #1-2 count the scalar block once per real launch), the
                 plain version's time, and a PyTorch yardstick where one
                 call computes the same function. Each flash kernel per
                 launch at the 136M shape (bf16, causal): bound from bytes
@@ -276,27 +293,83 @@ def alexnet_leaf_shapes():
     return [tuple(p.shape) for p in tree_leaves(params)]
 
 
-def phase_kernels(shapes, dev):
-    """Kernel against plain version at the main path's leaf shapes."""
+def update_launches(n_leaves: int) -> int:
+    """Launches of the fused update a step over ``n_leaves`` leaves of one
+    dtype group: one, unless the work table outgrows the kernel-parameter
+    limit the library was built for."""
+    from theanompi_tpu_torch.ops import fused_update as fu
+
+    return -(-n_leaves // fu._LIB.get().tmpi_fused_table_capacity())
+
+
+def edge_leaves(dev, gen):
+    """A leaf list of the edge cases, its dtype groups mixed in one call:
+    (p buffer, v buffer, g buffer, offsets of p, v and g in elements,
+    length). Offsets of 4 bytes leave a pointer off its 16-byte boundary;
+    lengths of 1 and 0, odd and not a whole number of 8-element groups."""
+    import torch
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    n = 1_000_003
+    specs = [(f32, f32, 0, 0, 0, n), (f32, f32, 1, 0, 0, n), (f32, f32, 0, 1, 0, 4099),
+             (f32, f32, 0, 0, 1, n), (f32, f32, 0, 0, 0, 1), (f32, f32, 0, 0, 0, 0),
+             (bf16, bf16, 0, 0, 0, n), (bf16, bf16, 2, 0, 0, n), (bf16, bf16, 0, 0, 2, 8191),
+             (bf16, f32, 2, 1, 1, n), (bf16, f32, 0, 0, 0, 7), (bf16, bf16, 0, 0, 0, 1)]
+    out = []
+    for pd, gd, po, vo, go, length in specs:
+        def buf(scale, dt, off):
+            return (torch.randn(length + 8, generator=gen, device=dev) * scale).to(dt), off
+        out.append((buf(0.01, pd, po), buf(1e-3, torch.float32, vo), buf(1e-2, gd, go), length))
+    return out
+
+
+def edge_copy(bufs):
+    """Fresh copies of the edge list's p and v buffers -> (the buffers,
+    the p views, the v views)."""
+    whole = [(p.clone(), v.clone()) for (p, _), (v, _), _, _ in bufs]
+    pv = [p[po:po + n] for (p, _), ((_, po), _, _, n) in zip(whole, bufs)]
+    vv = [v[vo:vo + n] for (_, v), (_, (_, vo), _, n) in zip(whole, bufs)]
+    return whole, pv, vv
+
+
+def phase_kernels(leaf_sets, dev):
+    """The multi-tensor kernel against its plain version, over whole leaf
+    lists in one call each: every model's leaves in every dtype and
+    layout case, and the edge-case list."""
     import torch
     from theanompi_tpu_torch.ops import fused_update as fu
 
+    cap = fu._LIB.get().tmpi_fused_table_capacity()
+    check(cap in (fu.table_capacity(), fu.table_capacity(4096)),
+          f"the library's work table holds {cap} leaves; ops/fused_update.py's layout gives "
+          f"{fu.table_capacity()} (CUDA >= 12.1) or {fu.table_capacity(4096)}")
     gen = torch.Generator(device=dev).manual_seed(0)
     worst = {"fused_momentum": 0.0, "fused_sgd": 0.0}
     worst_ulp = 0
-    cases = [(pd, gd, layout)
-             for pd, gd in ((torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
-                            (torch.bfloat16, torch.float32))
+    launches_seen = {}
+    dtype_pairs = ((torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+                   (torch.bfloat16, torch.float32))
+    cases = [(name, specs, pd, gd, layout) for name, specs in leaf_sets for pd, gd in dtype_pairs
              for layout in (torch.contiguous_format, torch.channels_last)]
-    for dtype, gdtype, layout in cases:
-        def leaf(s, scale, dt):
-            t = (torch.randn(s, generator=gen, device=dev) * scale).to(dt)
-            return t.contiguous(memory_format=layout) if len(s) == 4 else t
+    cases.append(("edge", None, None, None, None))
+    for set_name, specs, dtype, gdtype, layout in cases:
+        if specs is None:
+            bufs = edge_leaves(dev, gen)
+            ps = [p[po:po + n] for (p, po), _, _, n in bufs]
+            vs = [v[vo:vo + n] for _, (v, vo), _, n in bufs]
+            gs = [g[go:go + n] for _, _, (g, go), n in bufs]
+            case = "edge list: mixed dtypes, 4-byte-misaligned views, lengths 1 and 0"
+        else:
+            def leaf(s, scale, dt):
+                t = (torch.randn(s, generator=gen, device=dev) * scale).to(dt)
+                return t.contiguous(memory_format=layout) if len(s) == 4 else t
 
-        ps = [leaf(s, 0.01, dtype) for s in shapes]
-        vs = [leaf(s, 1e-3, torch.float32) for s in shapes]
-        gs = [leaf(s, 1e-2, gdtype) for s in shapes]
-        case = f"p {str(dtype)[6:]} g {str(gdtype)[6:]} {str(layout)[6:]}"
+            shapes = [s for s, _ in specs]
+            ps = [leaf(s, 0.01, dtype) for s in shapes]
+            vs = [leaf(s, 1e-3, torch.float32) for s in shapes]
+            gs = [leaf(s, 1e-2, gdtype) for s in shapes]
+            case = (f"{set_name} ({len(ps)} leaves) p {str(dtype)[6:]} g {str(gdtype)[6:]} "
+                    f"{str(layout)[6:]}")
         norm = float(torch.sqrt(sum(torch.sum(g.float() ** 2) for g in gs)).item())
         for clip_name, clip in (("off", None), ("under", norm * 10.0), ("over", norm / 3.0)):
             coef = fu.clip_coefficient(gs, clip)
@@ -307,37 +380,53 @@ def phase_kernels(shapes, dev):
             sc = fu.scalars(torch.full((), 0.01, device=dev), coef, dev)
             for variant in ("momentum", "nesterov", "sgd"):
                 counter = fu.SGD if variant == "sgd" else fu.MOMENTUM
+                want_launches = len(fu.plan(ps, gs, None if variant == "sgd" else vs, capacity=cap))
+                if specs is None:  # whole buffers, margins included: nothing outside a view moves
+                    kb, pk, vk = edge_copy(bufs)
+                    pb, pp, vp = edge_copy(bufs)
+                else:
+                    kb = pb = None
+                    pk, pp = [p.clone() for p in ps], [p.clone() for p in ps]
+                    vk, vp = [v.clone() for v in vs], [v.clone() for v in vs]
                 counter.reset()
+                if variant == "sgd":
+                    fu.fused_sgd_leaves(pk, gs, sc, weight_decay=5e-4)
+                    fu.fused_sgd_leaves_plain(pp, gs, sc, weight_decay=5e-4)
+                else:
+                    kw = dict(momentum=0.9, weight_decay=5e-4, nesterov=variant == "nesterov")
+                    fu.fused_update_leaves(pk, vk, gs, sc, **kw)
+                    fu.fused_update_leaves_plain(pp, vp, gs, sc, **kw)
+                check(counter.launches == want_launches,
+                      f"{counter.name} counter moved {counter.launches}, the work table asks for "
+                      f"{want_launches} ({case})")
+                launches_seen[case] = want_launches
+                if kb is not None:
+                    for (a, va), (b, vb) in zip(kb, pb):
+                        if a.dtype == torch.float32:
+                            check(torch.equal(a, b), f"{variant} fp32 param buffer differs ({case}, "
+                                                     f"clip {clip_name})")
+                        check(torch.equal(va, vb), f"{variant} velocity buffer differs ({case}, "
+                                                   f"clip {clip_name})")
                 err, ulp = 0.0, 0
-                for p, v, g in zip(ps, vs, gs):
-                    pk, pp = p.clone(), p.clone()
-                    vk, vp = v.clone(), v.clone()
-                    if variant == "sgd":
-                        fu.fused_sgd_leaf(pk, g, sc, weight_decay=5e-4)
-                        fu.fused_sgd_leaf_plain(pp, g, sc, weight_decay=5e-4)
-                    else:
-                        kw = dict(momentum=0.9, weight_decay=5e-4, nesterov=variant == "nesterov")
-                        fu.fused_update_leaf(pk, vk, g, sc, **kw)
-                        fu.fused_update_leaf_plain(pp, vp, g, sc, **kw)
-                        check(torch.equal(vk, vp), f"{variant} velocity differs ({case}, clip {clip_name})")
-                    err = max(err, (pk.float() - pp.float()).abs().max().item())
-                    if dtype == torch.float32:
-                        check(torch.equal(pk, pp),
-                              f"{variant} fp32 params not bit-identical ({case}, clip {clip_name}): "
-                              f"max abs err {err}")
-                    else:
-                        ulp = max(ulp, ulp_distance_bf16(pk, pp))
+                for a, b, va, vb in zip(pk, pp, vk, vp):
+                    check(torch.equal(va, vb), f"{variant} velocity differs ({case}, clip {clip_name})")
+                    if a.numel():
+                        err = max(err, (a.float() - b.float()).abs().max().item())
+                    if a.dtype == torch.float32:
+                        check(torch.equal(a, b), f"{variant} fp32 params not bit-identical ({case}, "
+                                                 f"clip {clip_name}): max abs err {err}")
+                    elif a.numel():
+                        ulp = max(ulp, ulp_distance_bf16(a, b))
                 check(ulp <= 1, f"{variant} bf16 params differ by {ulp} ulp ({case}, clip {clip_name})")
-                check(counter.launches == len(shapes),
-                      f"{counter.name} counter moved {counter.launches}, expected {len(shapes)}")
                 name = "fused_sgd" if variant == "sgd" else "fused_momentum"
                 worst[name] = max(worst[name], err)
                 worst_ulp = max(worst_ulp, ulp)
-                print(f"  {variant:9s} {case:40s} clip {clip_name:5s}: max abs err {err:.3g}, "
+                print(f"  {variant:9s} {case:58s} clip {clip_name:5s}: max abs err {err:.3g}, "
                       f"bf16 ulp {ulp}, launches {counter.launches}", flush=True)
+                del pk, pp, vk, vp, kb, pb
         del ps, vs, gs
     torch.cuda.synchronize()
-    return worst, worst_ulp
+    return worst, worst_ulp, launches_seen
 
 
 def bits_equal(a, b) -> bool:
@@ -475,7 +564,9 @@ def phase_main():
         losses = summary["losses"]
         check(len(losses) == steps and all(math.isfinite(x) for x in losses)
               and summary["nonfinite_steps"] == 0, f"{name} run: non-finite loss in {losses}")
-        check(launches == 16 * steps, f"{name} launched {launches} times, expected {16 * steps}")
+        want = update_launches(16) * steps
+        check(launches == want, f"{name} launched {launches} times, expected {want} (one "
+                                "multi-tensor launch a step over the 16 fp32 leaves)")
         stray = {k: v for k, v in counts.items() if k != name and v}
         check(not stray, f"the one-card {name} run launched other kernels: {stray} "
                          "(one card runs no codec and no collective)")
@@ -518,7 +609,7 @@ def phase_bsp_ranks(n_cards):
               and all(math.isfinite(x) for x in losses), f"{label}: losses {losses}")
         per_step = ({"quant_block": 16, "dequant_block": 16} if codec != "none"
                     else {"quant_block": n, "dequant_block": 2 * n - 1})
-        per_step["fused_momentum"] = 16
+        per_step["fused_momentum"] = update_launches(16)
         for r, counts in enumerate(summary["kernel_launches_per_rank"]):
             for k, v in per_step.items():
                 check(counts[k] == v * RANK_STEPS,
@@ -589,60 +680,96 @@ def phase_parity(dev):
           f"each leaf's largest value (limit 2e-3): {worst}", flush=True)
 
 
-def phase_times(shapes, dev, mem_rate, fp32_peak):
-    """Per-launch and per-step times of each kernel vs bound, plain, library."""
+def host_us(fn, reps: int = 20) -> float:
+    """Host wall-clock microseconds per call of ``fn`` (the enqueue: no
+    synchronise inside the timed loop)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    secs = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return secs / reps * 1e6
+
+
+def phase_times(leaf_sets, dev, mem_rate, fp32_peak):
+    """#1 and #2 per optimizer step over each model's leaves (fp32, the
+    models' layouts), in turns (A B C D, twice): the multi-tensor
+    kernel through its wrapper, the same launch with its table built once
+    (the device's time alone), the per-leaf launches it replaced
+    (tools/update_variants.py) and ATen's fused SGD; the bound; the plain
+    version; the host's microseconds per ``Optimizer.apply`` call, the
+    fused one and the replaced one in turns."""
     import torch
     from theanompi_tpu_torch.ops import fused_update as fu
+    from theanompi_tpu_torch.tools import update_variants as uv
 
-    gen = torch.Generator(device=dev).manual_seed(1)
-    ps = [torch.randn(s, generator=gen, device=dev) * 0.01 for s in shapes]
-    vs = [torch.randn(s, generator=gen, device=dev) * 1e-3 for s in shapes]
-    gs = [torch.randn(s, generator=gen, device=dev) * 1e-2 for s in shapes]
-    sc = fu.scalars(torch.full((), 0.01, device=dev), fu.clip_coefficient(gs, None), dev)
-    n_total = sum(p.numel() for p in ps)
-    kw = dict(momentum=0.9, weight_decay=5e-4, nesterov=False)
+    cap = fu._LIB.get().tmpi_fused_table_capacity()
+    lr = torch.full((), 0.01, device=dev)
     results = {}
-    specs = {
-        # name: (kernel leaf fn, plain leaf fn, bytes/elem, ops/elem, library optimizer kwargs)
-        "fused_momentum": (
-            lambda i: fu.fused_update_leaf(ps[i], vs[i], gs[i], sc, **kw),
-            lambda i: fu.fused_update_leaf_plain(ps[i], vs[i], gs[i], sc, **kw),
-            20, 7, dict(momentum=0.9, weight_decay=5e-4),
-        ),
-        "fused_sgd": (
-            lambda i: fu.fused_sgd_leaf(ps[i], gs[i], sc, weight_decay=5e-4),
-            lambda i: fu.fused_sgd_leaf_plain(ps[i], gs[i], sc, weight_decay=5e-4),
-            12, 5, dict(momentum=0.0, weight_decay=5e-4),
-        ),
-    }
-    with torch.no_grad():
-        for name, (kern, plain, bpe, ope, lib_kw) in specs.items():
-            per_leaf = [cuda_ms(lambda i=i: kern(i), reps=20) for i in range(len(ps))]
-            step_ms = cuda_ms(lambda: [kern(i) for i in range(len(ps))], reps=20)
-            plain_ms = cuda_ms(lambda: [plain(i) for i in range(len(ps))], reps=5)
-            byts = n_total * bpe + 8 * len(ps)  # + the 2-float scalar block per launch
+    for set_name, specs in leaf_sets:
+        ps, vs, gs = uv.make_leaves(specs, dev)
+        sc = fu.scalars(lr, fu.clip_coefficient(gs, None), dev)
+        n_total = sum(p.numel() for p in ps)
+        for name, rule in (("fused_momentum", "momentum"), ("fused_sgd", "sgd")):
+            kw = uv.RULES[rule]
+            ways = uv.step_fns(rule, ps, vs, gs, sc)
+            if rule == "sgd":
+                bpe, ope, state, lib_kw = 12, 5, (), dict(momentum=0.0, weight_decay=5e-4)
+            else:
+                bpe, ope, state, lib_kw = 20, 7, {"vel": vs}, dict(momentum=0.9, weight_decay=5e-4)
+            launches = len(fu.plan(ps, gs, None if rule == "sgd" else vs, capacity=cap))
+            # the same launches, checked and tabled once: the device's time alone
+            device_only = uv.prepare(fu._LIB.get().tmpi_fused_update_multi, rule, ps, gs, sc,
+                                     None if rule == "sgd" else vs, **kw)
+            byts = n_total * bpe + 8 * launches  # + the 2-float scalar block per launch
             ops = n_total * ope
-            bytes_ms = byts / mem_rate * 1e3
-            ops_ms = ops / fp32_peak * 1e3
+            bytes_ms, ops_ms = byts / mem_rate * 1e3, ops / fp32_peak * 1e3
             bound_ms = max(bytes_ms, ops_ms)
             leaves = [torch.nn.Parameter(p.clone()) for p in ps]
             for leaf, g in zip(leaves, gs):
                 leaf.grad = g.clone()
-            opt = torch.optim.SGD(leaves, lr=0.01, fused=True, **lib_kw)
-            lib_ms = cuda_ms(opt.step, reps=20)
-            del opt, leaves
-            results[name] = dict(step_ms=step_ms, per_leaf_ms=per_leaf, plain_ms=plain_ms,
-                                 bound_ms=bound_ms, bytes=byts, ops=ops,
-                                 bound_by="bytes" if bytes_ms >= ops_ms else "operations",
-                                 library_ms=lib_ms)
-            print(f"[times] {name}: {step_ms:.4f} ms/step (16 launches) | bound {bound_ms:.4f} ms "
-                  f"({byts / 1e9:.4f} GB at {mem_rate / 1e12:.2f} TB/s; {results[name]['bound_by']}) "
-                  f"| {bound_ms / step_ms * 100:.1f}% of bound | plain {plain_ms:.4f} ms "
-                  f"| torch.optim.SGD(fused=True, {lib_kw}) {lib_ms:.4f} ms", flush=True)
-            for s, t in zip(shapes, per_leaf):
-                n = math.prod(s)
-                print(f"[times]   {name} leaf {str(s):22s} {t * 1e3:9.2f} us/launch "
-                      f"(bound {n * bpe / mem_rate * 1e6:8.2f} us)", flush=True)
+            library = torch.optim.SGD(leaves, lr=0.01, fused=True, **lib_kw)
+            optimizer = fu.fuse_optimizer(rule, **kw)
+            turns = {"kernel": [], "kernel_table_built": [], "per_leaf": [], "library": []}
+            host = {"kernel": [], "per_leaf": []}
+            with torch.no_grad():
+                for _ in range(2):
+                    turns["kernel"].append(cuda_ms(ways["multi"], reps=20))
+                    turns["kernel_table_built"].append(cuda_ms(device_only, reps=20))
+                    turns["per_leaf"].append(cuda_ms(ways["per_leaf"], reps=20))
+                    turns["library"].append(cuda_ms(library.step, reps=20))
+                plain_ms = cuda_ms(ways["plain"], reps=5)
+            for _ in range(2):
+                host["kernel"].append(host_us(lambda: optimizer.apply(gs, state, ps, lr)))
+                host["per_leaf"].append(host_us(lambda: uv.per_leaf_apply(rule, ps, vs, gs, lr)))
+            del library, leaves
+            mean = {k: sum(v) / len(v) for k, v in turns.items()}
+            host_mean = {k: sum(v) / len(v) for k, v in host.items()}
+            results[(name, set_name)] = dict(
+                step_ms=mean["kernel"], per_leaf_ms=mean["per_leaf"], library_ms=mean["library"],
+                table_built_ms=mean["kernel_table_built"],
+                turns_ms=turns, plain_ms=plain_ms, bound_ms=bound_ms, bytes=byts, ops=ops,
+                launches=launches, host_us_per_apply=host_mean, host_us_turns=host,
+                bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+            print(f"[times] {name} over {set_name}'s {len(ps)} leaves ({n_total} params): "
+                  f"{mean['kernel']:.4f} ms/step ({launches} launch) | bound {bound_ms:.4f} ms "
+                  f"({byts / 1e9:.4f} GB at {mem_rate / 1e12:.2f} TB/s; "
+                  f"{results[(name, set_name)]['bound_by']}) | {bound_ms / mean['kernel'] * 100:.1f}% "
+                  f"of bound | table built once (device alone) {mean['kernel_table_built']:.4f} ms "
+                  f"({bound_ms / mean['kernel_table_built'] * 100:.1f}%) | per-leaf launches "
+                  f"{mean['per_leaf']:.4f} ms | "
+                  f"torch.optim.SGD(fused=True, {lib_kw}) {mean['library']:.4f} ms | plain "
+                  f"{plain_ms:.4f} ms | turns x 2: {turns}", flush=True)
+            print(f"[times] {name} over {set_name}: host us per Optimizer.apply (no sync) "
+                  f"{host_mean['kernel']:.1f} (one launch) vs {host_mean['per_leaf']:.1f} "
+                  f"({len(ps)} launches), {host_mean['per_leaf'] / host_mean['kernel']:.2f}x; "
+                  f"turns {host}", flush=True)
+        del ps, vs, gs
+        torch.cuda.empty_cache()
     torch.cuda.synchronize()
     return results
 
@@ -681,18 +808,24 @@ def phase_quant_times(shapes, dev, mem_rate, fp32_peak):
     }
     results = {}
     for name, (kern, plain, lib, byts, n_ops) in specs.items():
-        step_ms = cuda_ms(kern, reps=20)
+        turns = {"kernel": [], "library": []}
+        for _ in range(3 if lib else 1):  # kernel and library in turns
+            turns["kernel"].append(cuda_ms(kern, reps=20))
+            if lib:
+                turns["library"].append(cuda_ms(lib, reps=20))
+        step_ms = sum(turns["kernel"]) / len(turns["kernel"])
+        lib_ms = sum(turns["library"]) / len(turns["library"]) if lib else None
         plain_ms = cuda_ms(plain, reps=5)
-        lib_ms = cuda_ms(lib, reps=20) if lib else None
         bytes_ms, ops_ms = byts / mem_rate * 1e3, n_ops / fp32_peak * 1e3
         bound_ms = max(bytes_ms, ops_ms)
         results[name] = dict(step_ms=step_ms, plain_ms=plain_ms, library_ms=lib_ms,
-                             bound_ms=bound_ms, bytes=byts,
+                             bound_ms=bound_ms, bytes=byts, turns_ms=turns,
                              bound_by="bytes" if bytes_ms >= ops_ms else "operations")
         print(f"[times] {name}: {step_ms:.4f} ms per round (16 launches, {elems} elements) | "
               f"bound {bound_ms:.4f} ms ({byts / 1e6:.1f} MB; {results[name]['bound_by']}) | "
               f"{bound_ms / step_ms * 100:.1f}% of bound | plain {plain_ms:.4f} ms | library "
-              + (f"torch.mul(vals, scales) {lib_ms:.4f} ms" if lib else "none"), flush=True)
+              + (f"torch.mul(vals, scales) {lib_ms:.4f} ms, {step_ms / lib_ms:.3f}x; turns "
+                 f"(kernel, torch.mul) x 3: {turns}" if lib else "none"), flush=True)
     torch.cuda.synchronize()
     return results
 
@@ -1216,7 +1349,7 @@ def phase_googlenet_main():
         on = bool(flag)
         want = {"maxpool3x3_fwd": 9 * (GNET_STEPS + 1) if on else 0,
                 "maxpool3x3_bwd": 9 * GNET_STEPS if on else 0,
-                "fused_momentum": 128 * GNET_STEPS}
+                "fused_momentum": update_launches(128) * GNET_STEPS}
         got = {k: counts[k] for k in want}
         check(got == want, f"googlenet {label} run launched {got}, expected {want}")
         stray = {k: v for k, v in counts.items() if k not in want and v}
@@ -1274,7 +1407,7 @@ def phase_googlenet_parity(dev):
                        launch_counts())
     (lc, oc, dc, vc, kc), (lg, og, dg, vg, kg) = out["cpu"], out[str(dev)]
     check(not any(kc.values()), f"the CPU run launched kernels: {kc}")
-    want = {"maxpool3x3_fwd": 27, "maxpool3x3_bwd": 18, "fused_momentum": 256}
+    want = {"maxpool3x3_fwd": 27, "maxpool3x3_bwd": 18, "fused_momentum": update_launches(128) * 2}
     check({k: kg[k] for k in want} == want, f"the card run launched {kg}, expected {want}")
     logit_x = max(_rel_excess(a, b, 1e-4, 1e-4 * b.abs().max().item()) for a, b in zip(og, oc))
     check(logit_x <= 1, f"card logits differ from the CPU's beyond rtol 1e-4 + 1e-4 max "
@@ -1420,6 +1553,43 @@ def phase_sass():
     return proof
 
 
+def ptxas_report(source: str = "fused_update.cu",
+                 kernel: str = "fused_update_multi_kernel") -> dict:
+    """What ptxas reports for every instantiation of ``kernel`` in
+    ``csrc/<source>`` (``nvcc -Xptxas -v`` into a throwaway cubin, the
+    build's own flags): {label: registers, stack frame, spill bytes}."""
+    import tempfile
+
+    from theanompi_tpu_torch.ops import kernels as K
+
+    flags = [f for f in K.NVCC_FLAGS if f not in ("-shared", "-Xcompiler", "-fPIC")]
+    with tempfile.TemporaryDirectory() as tmp:
+        cmd = [K.nvcc_path(), *flags, "-Xptxas", "-v", "-cubin", "-o",
+               os.path.join(tmp, "k.cubin"), str(K.CSRC_DIR / source)]
+        out = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+    check(out.returncode == 0, f"nvcc -Xptxas -v failed on {source}: {out.stderr[-2000:]}")
+    report = {}
+    for block in re.split(r"Compiling entry function '", out.stdout + out.stderr)[1:]:
+        fn = block.split("'", 1)[0]
+        m = re.search(rf"{kernel}I(\w+?)Lb([01])E", fn)
+        if not m:
+            continue
+        types, momentum = m.groups()
+        label = (f"{'momentum' if momentum == '1' else 'sgd'} p "
+                 f"{'bf16' if 'bfloat16' in types else 'fp32'} g "
+                 f"{'fp32' if types.endswith('f') else 'bf16'}")
+        nums = {key: re.search(pattern, block) for key, pattern in (
+            ("registers", r"Used (\d+) registers"), ("stack_frame", r"(\d+) bytes stack frame"),
+            ("spill_stores", r"(\d+) bytes spill stores"), ("spill_loads", r"(\d+) bytes spill loads"))}
+        check(all(nums.values()), f"ptxas said nothing parseable of {fn}: {block[:500]}")
+        report[label] = {key: int(v.group(1)) for key, v in nums.items()}
+    check(len(report) == 6, f"expected 6 instantiations of {kernel} in ptxas's report, "
+                            f"found {sorted(report)}")
+    for label, r in sorted(report.items()):
+        print(f"[build] ptxas: {kernel} {label}: {r}", flush=True)
+    return report
+
+
 def build_all():
     """Build every kernel library at once (one nvcc per source, started
     together); returns {source: nvcc seconds}."""
@@ -1471,12 +1641,18 @@ def main() -> int:
             print(f"[build] csrc/{src} -> {library_path(src).name}: nvcc {secs:.2f} s", flush=True)
         print(f"[build] phase wall {time.perf_counter() - t0:.2f} s", flush=True)
         sass = phase_sass()
+        ptxas = ptxas_report()
+
+        from theanompi_tpu_torch.tools.update_variants import leaf_specs
 
         shapes = alexnet_leaf_shapes()
         check(len(shapes) == 16 and sum(math.prod(s) for s in shapes) == 60_965_224,
               f"unexpected AlexNet leaves {shapes}")
+        leaf_sets = [("alexnet", leaf_specs("alexnet")), ("googlenet", leaf_specs("googlenet"))]
+        check([s for s, _ in leaf_sets[0][1]] == shapes and len(leaf_sets[1][1]) == 128,
+              f"unexpected leaves: AlexNet {leaf_sets[0][1]}, GoogLeNet {len(leaf_sets[1][1])}")
         t0 = time.perf_counter()
-        worst, worst_ulp = phase_kernels(shapes, dev)
+        worst, worst_ulp, update_plans = phase_kernels(leaf_sets, dev)
         print(f"[kernels] all cases match ({time.perf_counter() - t0:.1f} s)", flush=True)
 
         t0 = time.perf_counter()
@@ -1523,7 +1699,7 @@ def main() -> int:
         print(f"[googlenet-parity] done ({time.perf_counter() - t0:.1f} s)", flush=True)
 
         t0 = time.perf_counter()
-        times = phase_times(shapes, dev, mem_rate, fp32_peak)
+        times = phase_times(leaf_sets, dev, mem_rate, fp32_peak)
         times.update(phase_quant_times(shapes, dev, mem_rate, fp32_peak))
         times.update(phase_flash_times(dev, mem_rate, fp32_peak, bf16_peak))
         times.update(phase_pool_times(dev, mem_rate, fp32_peak))
@@ -1539,7 +1715,8 @@ def main() -> int:
     kernels = []
     for name, replaces in (("fused_momentum", "theanompi_tpu/ops/pallas_update.py:78"),
                            ("fused_sgd", "theanompi_tpu/ops/pallas_update.py:90")):
-        t = times[name]
+        t, tg = times[(name, "alexnet")], times[(name, "googlenet")]
+        rule = "sgd" if name == "fused_sgd" else "momentum"
         kernels.append({
             "name": name, "route": "cuda", "source": src_fu, "replaces": replaces,
             "launches": runs[name]["launches"], "max_abs_err": worst[name],
@@ -1548,17 +1725,30 @@ def main() -> int:
             "matched": True,
             "tolerance": "fp32 params and velocity bit-identical; bf16 params <= 1 ulp "
                          f"(worst seen {worst_ulp})",
-            "work": "one optimizer step over AlexNet's 16 fp32 leaves (60,965,224 params)",
-            "ms_per_launch": t["per_leaf_ms"],
+            "work": ("one optimizer step over AlexNet's 16 fp32 leaves (60,965,224 params), "
+                     f"{t['launches']} multi-tensor launch"),
+            "turns_ms": t["turns_ms"],
+            "per_leaf_launches_ms": t["per_leaf_ms"],
+            "host_us_per_apply": t["host_us_per_apply"],
+            "table_built_ms": t["table_built_ms"],
+            "googlenet_step": {k: tg[k] for k in ("step_ms", "table_built_ms", "per_leaf_ms",
+                                                  "library_ms", "plain_ms", "bound_ms", "launches",
+                                                  "turns_ms", "host_us_per_apply")},
+            "ptxas": {k: v for k, v in ptxas.items() if k.startswith(rule)},
+            "launches_checked": update_plans,
             "library_note": (
                 "torch.optim.SGD(momentum=0.9, weight_decay=5e-4, fused=True).step(): "
                 "same class of rule, velocity parametrised differently (v=mu*v+g; p-=lr*v)"
                 if name == "fused_momentum" else
                 "torch.optim.SGD(momentum=0, weight_decay=5e-4, fused=True).step(): same function"
             ),
+            "launches_in": (f"the {MAIN_STEPS}-step AlexNet run through the CLI" if rule ==
+                            "momentum" else f"the {SGD_STEPS}-step AlexNet sgd run"),
             "main_path_step_ms": runs[name]["summary"]["step_ms"],
             "main_path_images_per_sec": runs[name]["summary"]["images_per_sec"],
         })
+        if rule == "momentum":
+            kernels[-1]["googlenet_main_launches"] = gnet_runs["pool-kernel"]["launches"][name]
     no_library = ("no single PyTorch call computes an absmax-scaled int8 quantize: "
                   "torch.quantize_per_tensor takes the scale as an input and multiplies by "
                   "its reciprocal")
@@ -1574,7 +1764,7 @@ def main() -> int:
             "name": name, "route": "cuda", "source": src_q, "replaces": replaces,
             "launches": launches, "max_abs_err": worst_q[name],
             "ms": t["step_ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-            "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"], "turns_ms": t["turns_ms"],
             "matched": True, "tolerance": "bit-identical (a NaN matches any NaN)",
             "work": "one codec round over AlexNet's 16 leaves, each padded to (rows, 128)",
             "library_note": (no_library if t["library_ms"] is None

@@ -49,8 +49,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("modelclass", help="model class name (e.g. AlexNet)")
     p.add_argument("--fused-update", action="store_true",
                    help="fuse the optimizer epilogue (weight decay + clip + "
-                        "momentum/Nesterov + param write) into one CUDA kernel "
-                        "launch per leaf (ops/fused_update.py); SGD-family "
+                        "momentum/Nesterov + param write) into one multi-tensor "
+                        "CUDA kernel launch over all leaves (ops/fused_update.py); SGD-family "
                         "recipes only (momentum/nesterov/sgd)")
     p.add_argument("--pool-kernel", action="store_true",
                    help="run the model's 3x3/stride-1 max pools (GoogLeNet's inception "

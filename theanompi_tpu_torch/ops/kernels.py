@@ -24,8 +24,9 @@ import shutil
 import subprocess
 import tempfile
 import time
+from dataclasses import dataclass
 from pathlib import Path
-from typing import Optional
+from typing import Hashable, Optional
 
 import torch
 
@@ -206,6 +207,65 @@ def require_cuda(t: torch.Tensor, name: str, *, dtypes, device: torch.device,
             f"{name} has shape {tuple(t.shape)} / strides {t.stride()}, expected "
             f"{tuple(like.shape)} / {like.stride()}"
         )
+
+
+# --------------------------------------------------------------------------
+# multi-tensor work tables: one launch over many leaves
+# --------------------------------------------------------------------------
+
+# 16-byte vector accesses need every base pointer of a leaf on this boundary
+VECTOR_ALIGN = 16
+
+
+@dataclass(frozen=True)
+class TableLaunch:
+    """One launch of a multi-tensor kernel: leaves of one group (``key``),
+    in the caller's order, each cut into ``chunk``-element chunks that
+    are numbered from 0 across the launch."""
+
+    key: Hashable
+    leaves: tuple      # positions of the leaves in the caller's list
+    ptrs: tuple        # per leaf: its arrays' device addresses
+    lengths: tuple     # per leaf: elements
+    chunk0: tuple      # per leaf: the number of its first chunk
+    aligned: tuple     # per leaf: every pointer on a VECTOR_ALIGN boundary
+    chunks: int        # chunks in the launch
+
+
+def work_table(ptrs, lengths, keys, *, chunk: int, capacity: int) -> list:
+    """The launches that cover a list of leaves -> ``[TableLaunch]``.
+
+    Leaf ``i`` has the device addresses ``ptrs[i]`` (one per array the
+    kernel walks), ``lengths[i]`` elements and the group key ``keys[i]``
+    (e.g. its dtypes: one kernel instantiation per key). Empty leaves
+    are dropped. Leaves are grouped by key, groups in the order their key
+    first appears, leaves in input order; a group is split into launches
+    only where it holds more than ``capacity`` leaves (the kernel-parameter
+    limit). A pure function of the integers it is given."""
+    if chunk < 1 or capacity < 1:
+        raise ValueError(f"chunk ({chunk}) and capacity ({capacity}) must be positive")
+    if not len(ptrs) == len(lengths) == len(keys):
+        raise ValueError(f"{len(ptrs)} pointer sets, {len(lengths)} lengths, {len(keys)} keys")
+    groups: dict = {}
+    for i, (n, key) in enumerate(zip(lengths, keys)):
+        if n < 0:
+            raise ValueError(f"leaf {i} has a negative length {n}")
+        if n:
+            groups.setdefault(key, []).append(i)
+    out = []
+    for key, members in groups.items():
+        for lo in range(0, len(members), capacity):
+            idx = tuple(members[lo:lo + capacity])
+            starts, total = [], 0
+            for i in idx:
+                starts.append(total)
+                total += -(-lengths[i] // chunk)
+            out.append(TableLaunch(
+                key=key, leaves=idx, ptrs=tuple(tuple(ptrs[i]) for i in idx),
+                lengths=tuple(lengths[i] for i in idx), chunk0=tuple(starts),
+                aligned=tuple(all(a % VECTOR_ALIGN == 0 for a in ptrs[i]) for i in idx),
+                chunks=total))
+    return out
 
 
 _SM_COUNT: dict = {}

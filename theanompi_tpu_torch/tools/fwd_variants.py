@@ -61,10 +61,13 @@ def _variants(src: str) -> dict:
 
 
 def build_variants(workdir: Path, make_variants=_variants,
-                   entry: str = "tmpi_flash_fwd_sm90") -> dict:
+                   entry: str = "tmpi_flash_fwd_sm90", library=None) -> dict:
     """{variant: the library's ``entry``}, built in parallel;
-    ``make_variants`` maps the source to {variant: [(old, new), ...]}."""
-    src = (K.CSRC_DIR / "flash_attention.cu").read_text()
+    ``make_variants`` maps the source to {variant: [(old, new), ...]};
+    ``library`` is the ``KernelLibrary`` whose source is edited (default:
+    flash attention's)."""
+    library = library or fa._LIB
+    src = (K.CSRC_DIR / library.source).read_text()
     procs = {}
     for name, edits in make_variants(src).items():
         text = src
@@ -83,7 +86,7 @@ def build_variants(workdir: Path, make_variants=_variants,
         if proc.returncode:
             raise RuntimeError(f"nvcc failed on variant {name}:\n{log[-3000:]}")
         fn = getattr(ctypes.CDLL(str(so)), entry)
-        fn.argtypes = list(fa._LIB.signatures[entry])
+        fn.argtypes = list(library.signatures[entry])
         fn.restype = ctypes.c_int
         fns[name] = fn
     return fns

@@ -78,7 +78,7 @@ CATEGORIES = (
     ("flash_attention", ("flash_fwd_kernel", "flash_fwd_sm90_kernel", "flash_dq_kernel",
                          "flash_dq_sm90_kernel", "flash_dkv_kernel", "flash_dkv_sm90_kernel")),
     ("pool_kernel", ("maxpool_fwd_kernel", "maxpool_bwd_kernel")),
-    ("fused_update", ("momentum_kernel", "sgd_kernel")),
+    ("fused_update", ("fused_update_multi_kernel", "momentum_kernel", "sgd_kernel")),
     ("layout_transform", ("tensorTransform", "nhwcSlice", "nchwToNhwc", "nhwcToNchw")),
     ("copy_cast", ("direct_copy",)),
     ("conv_gemm", ("conv", "gemm", "xmma", "cutlass", "wgrad", "dgrad", "fprop", "nvjet")),
@@ -151,7 +151,7 @@ def profile(steps: int = 10, warmup: int = 3, top: int = 15, host_batches: int =
     busy_ms = sum(_device_us(e) for e in kernels) / 1e3 / steps
     per_kernel = sorted(((e.key, _device_us(e) / 1e3 / steps, e.count // steps) for e in kernels),
                         key=lambda r: -r[1])
-    fused_ms = sum(ms for name, ms, _ in per_kernel if "momentum_kernel" in name)
+    fused_ms = sum(ms for name, ms, _ in per_kernel if _category(name) == "fused_update")
     categories: dict = {}
     for name, ms, _ in per_kernel:
         cat = _category(name)

@@ -97,7 +97,8 @@ def make_train_step(
     """Build the step ``(state, images, labels, gen) -> (state, metrics)``.
 
     ``fused_update``: swap the recipe's optimizer for its fused one-pass
-    form (ops/fused_update.py — one CUDA kernel per leaf on the card).
+    form (ops/fused_update.py — on the card, one multi-tensor CUDA kernel
+    launch over all leaves per (param dtype, grad dtype) group).
     SGD-family rules only; others refuse. The returned state shares its
     param and optimizer-state tensors with the input state: they are
     updated in place.
