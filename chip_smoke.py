@@ -16,7 +16,8 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                 memory and spills are printed (``cuobjdump
                 --dump-resource-usage``). ptxas's registers, stack and
                 spills of each instantiation of the fused update's
-                multi-tensor kernel (``nvcc -Xptxas -v``).
+                multi-tensor kernel and of the block codec's multi-leaf
+                kernel (``nvcc -Xptxas -v``).
 2. kernels    — the fused update's multi-tensor kernel (#1-2, one launch
                 over a whole leaf list per dtype group) against its plain
                 PyTorch version, one call over each list: AlexNet's 16 and
@@ -42,6 +43,16 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                 of a power-of-two scale; the ring's fused decode-and-add;
                 ``wire_encode``'s message byte-identical to the plain
                 version's (a NaN scale's payload aside) and its decode.
+                Then the block codec's multi-leaf launch (#3-4, one launch
+                a list): AlexNet's 16 flat leaves, lengths 1, 127, 128, 129
+                and 34,848 in one list, leaves with a NaN row, an inf and a
+                NaN in a 1-element last row, a list split at a table
+                capacity of 2 (two launches), the dequantize into outputs
+                and into padded accumulators; values (4 bytes off a
+                16-byte boundary), scales and outputs sit between guard
+                rows and elements that must not move. A misaligned leaf
+                is refused. Counters move by one a list (two for the
+                split).
    flash      — each flash attention kernel (#7-11: flash_fwd_sm90 and
                 flash_fwd, flash_dq_sm90 and flash_dq, flash_dkv_sm90 and
                 flash_dkv) against its plain version on
@@ -95,8 +106,8 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                 card); with 2 or more: NCCL over 4 cards (2 when fewer than
                 4), and ``--strategy ring_int8`` too. Each rank counts its
                 own launches from 0: per step one fused_momentum, and under
-                the codec 16 quant_block and 16 dequant_block; under
-                ring_int8 at n ranks n and 2n-1. Losses finite; params and velocities
+                the codec one quant_block and one dequant_block over all 16
+                leaves; under ring_int8 at n ranks n and 2n-1. Losses finite; params and velocities
                 bit-identical across ranks (digests); each rank's
                 error-feedback residual nonzero and its own.
    lm-main    — full-width TransformerLM_136M (12 layers, d 768, 12 heads
@@ -153,9 +164,13 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                 time alone), the per-leaf launches it replaced
                 (``tools/update_variants.py``) and ``torch.optim.SGD(fused=
                 True)``; the host's microseconds per ``Optimizer.apply``,
-                the fused one and the replaced one in turns. #3-6 per
-                codec round over AlexNet's 16 leaves, #4 and #6 in turns
-                with ``torch.mul``. Each: time (CUDA events), its bound
+                the fused one and the replaced one in turns. #3-4 per
+                codec round over AlexNet's 16 leaves in turns: the
+                wrapper (one launch), its table built once, the
+                codec's former 16 one-leaf calls, for #4 one
+                ``torch.mul`` over the round's buffers (and per leaf);
+                the host's microseconds per round. #5-6 per round,
+                #6 in turns with ``torch.mul``. Each: time (CUDA events), its bound
                 (bytes / memory rate vs operations / fp32 peak, the larger;
                 #1-2 count the scalar block once per real launch), the
                 plain version's time, and a PyTorch yardstick where one
@@ -488,6 +503,129 @@ def quant_buffers(shapes, dev):
     return out
 
 
+def quant_leaf_lists(shapes, dev):
+    """(label, flat f32 leaves, table capacity or None for the library's):
+    AlexNet's 16 leaf lengths; lengths 1, 127, 128, 129 and 34,848 (conv1's
+    kernel, 272.25 rows) in one list; a leaf with a NaN row, one with an
+    inf, one whose 1-element last row is NaN, and the special rows; four
+    leaves under a table capacity of 2 (two launches). Row magnitudes
+    spread over e^+-9."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(8)
+
+    def leaf(n):
+        rows = -(-n // 128)
+        spread = torch.exp(3 * torch.randn(rows, 1, generator=g, device=dev))
+        x = torch.randn(rows, 128, generator=g, device=dev) * 1e-2 * spread
+        return x.view(-1)[:n].clone()
+
+    nan_row, inf_leaf, nan_tail = leaf(1000), leaf(300), leaf(129)
+    nan_row[256:384] = float("nan")
+    inf_leaf[5] = float("inf")
+    nan_tail[128] = float("nan")
+    return [
+        ("AlexNet's 16 leaves", [leaf(math.prod(s)) for s in shapes], None),
+        ("lengths 1/127/128/129/34848", [leaf(n) for n in (1, 127, 128, 129, 34_848)], None),
+        ("NaN and inf rows", [nan_row, inf_leaf, nan_tail, special_rows(dev).view(-1).clone()],
+         None),
+        ("table split at capacity 2", [leaf(n) for n in (300, 1, 8193, 129)], 2),
+    ]
+
+
+def guarded(lengths, dev, fill, pad_rows=False):
+    """One f32 buffer holding a view per length (each 16-byte aligned, a
+    whole row each with ``pad_rows``), 8 guard elements around every
+    view, all filled with ``fill`` -> (buffer, views, mask of the guards)."""
+    import torch
+
+    sizes = [-(-n // 128) * 128 if pad_rows else n for n in lengths]
+    offs, at = [], 8
+    for size in sizes:
+        offs.append(at)
+        at += -(-size // 4) * 4 + 8
+    buf = torch.full((at,), fill, device=dev)
+    views = [buf[o:o + size] for o, size in zip(offs, sizes)]
+    guard = torch.ones(at, dtype=torch.bool, device=dev)
+    for o, v in zip(offs, views):
+        guard[o:o + v.numel()] = False
+    return buf, views, guard
+
+
+def phase_quant_leaves(shapes, dev):
+    """The multi-leaf block codec (#3-4: one launch per table) against its
+    plain version, bit for bit: values and scales written between guard
+    rows, the dequantize's outputs and padded accumulators between guard
+    elements, none of which may move; the wrapper's own buffers; a
+    misaligned leaf refused."""
+    import torch
+    from theanompi_tpu_torch.ops import quant as tq
+
+    cases = quant_leaf_lists(shapes, dev)
+    start = {c.name: c.launches for c in (tq.QUANT_BLOCK, tq.DEQUANT_BLOCK)}
+    want_q = want_d = 0
+    sentinel, g_rows = 1234.5, 2
+    for label, xs, cap in cases:
+        lengths = [x.numel() for x in xs]
+        row0s, rows = tq.leaf_rows(lengths)
+        pv, ps, prow0 = tq.quantize_int8_block_leaves_plain(xs)
+        launches = -(-len(xs) // (cap or len(xs)))
+        # the values 4 bytes off a 16-byte boundary (the kernel moves char4s)
+        v0 = g_rows * 128 + 4
+        vbuf = torch.full(((rows + 2 * g_rows) * 128,), 0x5A, dtype=torch.int8, device=dev)
+        sbuf = torch.full((rows + 2 * g_rows, 1), sentinel, device=dev)
+        vals, scales = vbuf[v0:v0 + rows * 128].view(rows, 128), sbuf[g_rows:g_rows + rows]
+        got_row0 = tq._quantize_into(xs, vals, scales, capacity=cap)[2]
+        check(got_row0 == prow0 == row0s, f"{label}: row0s {got_row0}, plain {prow0}")
+        check(bits_equal(vals, pv) and bits_equal(scales, ps),
+              f"#3 multi-leaf quantize differs from the plain version ({label})")
+        check(bool((vbuf[:v0] == 0x5A).all() and (vbuf[v0 + rows * 128:] == 0x5A).all()
+                   and (sbuf[:g_rows] == sentinel).all()
+                   and (sbuf[g_rows + rows:] == sentinel).all()),
+              f"#3 multi-leaf quantize wrote outside its rows ({label})")
+        want_q += launches
+        if cap is None:
+            wv, ws, _ = tq.quantize_int8_block_leaves(xs)
+            check(bits_equal(wv, pv) and bits_equal(ws, ps),
+                  f"quantize_int8_block_leaves differs ({label})")
+            want_q += 1
+        for accumulate in (False, True):
+            buf, outs, guard = guarded(lengths, dev, sentinel, pad_rows=accumulate)
+            if accumulate:
+                for o in outs:
+                    o.copy_(torch.randn(o.numel(), device=dev))
+            want = tq.dequantize_int8_block_leaves_plain(pv, ps, [o.clone() for o in outs], row0s,
+                                                         accumulate)
+            tq._dequantize_into(vals, scales, outs, row0s, accumulate, capacity=cap)
+            check(all(bits_equal(o, w) for o, w in zip(outs, want)),
+                  f"#4 multi-leaf dequantize{' (accumulate)' if accumulate else ''} differs "
+                  f"from the plain version ({label})")
+            check(bool((buf[guard] == sentinel).all()),
+                  f"#4 multi-leaf dequantize wrote outside its outputs ({label})")
+            want_d += launches
+        print(f"  {label:30s} {len(xs):2d} leaves, {rows:7d} rows, {launches} launch(es) each way: "
+              "#3-4 bit-identical, guards untouched", flush=True)
+    base = torch.randn(1001, device=dev)
+    for what, call in (
+        ("x[1]", lambda: tq.quantize_int8_block_leaves([base[:256], base[1:1001]])),
+        ("out[0]", lambda: tq.dequantize_int8_block_leaves(
+            *tq.quantize_int8_block_leaves([base[:256]])[:2], [base[1:257]], (0,))),
+    ):
+        try:
+            call()
+        except ValueError as e:
+            check(what in str(e) and "16-byte aligned" in str(e), f"misaligned {what}: {e}")
+        else:
+            raise Failed(f"a misaligned {what} was not refused")
+    want_q += 1  # the quantize that fed the misaligned dequantize
+    torch.cuda.synchronize()
+    got = {c.name: c.launches - start[c.name] for c in (tq.QUANT_BLOCK, tq.DEQUANT_BLOCK)}
+    check(got == {"quant_block": want_q, "dequant_block": want_d},
+          f"multi-leaf counters moved {got}, expected {want_q} / {want_d}")
+    print("  misaligned x[1] and out[0] refused", flush=True)
+    return len(cases)
+
+
 def phase_quant(shapes, dev):
     """Kernels #3-6 and the packed wire against their plain versions."""
     import torch
@@ -534,7 +672,7 @@ def phase_quant(shapes, dev):
     want = {"quant_block": 2 * k, "dequant_block": 3 * k, "quant": k, "dequant": k}
     got = {c.name: c.launches for c in (tq.QUANT_BLOCK, tq.DEQUANT_BLOCK, tq.QUANT, tq.DEQUANT)}
     check(got == want, f"quant counters moved {got}, expected {want}")
-    return worst, k
+    return worst, k + phase_quant_leaves(shapes, dev)
 
 
 def phase_main():
@@ -607,7 +745,8 @@ def phase_bsp_ranks(n_cards):
         losses = summary["losses"]
         check(summary["steps"] == RANK_STEPS and len(losses) == RANK_STEPS
               and all(math.isfinite(x) for x in losses), f"{label}: losses {losses}")
-        per_step = ({"quant_block": 16, "dequant_block": 16} if codec != "none"
+        # under the codec one launch each way a step over all 16 leaves
+        per_step = ({"quant_block": 1, "dequant_block": 1} if codec != "none"
                     else {"quant_block": n, "dequant_block": 2 * n - 1})
         per_step["fused_momentum"] = update_launches(16)
         for r, counts in enumerate(summary["kernel_launches_per_rank"]):
@@ -774,58 +913,101 @@ def phase_times(leaf_sets, dev, mem_rate, fp32_peak):
     return results
 
 
-def phase_quant_times(shapes, dev, mem_rate, fp32_peak):
-    """#3-6 over AlexNet's 16 leaves (one codec round: a launch per leaf)
-    against the bytes bound, the plain version and, where one PyTorch
-    call computes the same function, that call."""
+def phase_quant_times(dev, mem_rate, fp32_peak):
+    """#3-4 per codec round over AlexNet's 16 leaves (flat f32, one launch
+    each way), in turns (A B C [D E], twice): the wrapper, host work
+    included; the same launch with its table built once (the device's
+    time alone); the codec's former call pattern, one call of the
+    one-buffer wrapper per leaf's padded (rows, 128) buffer (16 one-leaf
+    launches; ``tools/quant_variants.py``); for #4 ``torch.mul(vals,
+    scales)`` over the round's (R, 128) and (R, 1) buffers in ONE call,
+    the yardstick, and per leaf as a second reading. The host's
+    microseconds per round, the wrapper and the per-leaf calls in turns.
+    #5-6 per round as before (one three-pass / one launch per padded
+    leaf), #6 in turns with ``torch.mul`` per leaf. Each against the
+    bytes bound and its plain version."""
     import torch
     from theanompi_tpu_torch.ops import quant as tq
+    from theanompi_tpu_torch.tools import quant_variants as qv
 
-    g = torch.Generator(device=dev).manual_seed(7)
-    xs = []
-    for s in shapes:
-        x = torch.randn(-(-math.prod(s) // 128), 128, generator=g, device=dev) * 1e-2
-        xs.append(x * torch.exp(3 * torch.randn(x.shape[0], 1, generator=g, device=dev)))
-    vs = [tq.quantize_int8_block(x) for x in xs]
-    v5 = [tq.quantize_int8(x) for x in xs]
-    elems = sum(x.numel() for x in xs)
-    rows = sum(x.shape[0] for x in xs)
+    xs = qv.round_leaves(dev)
+    lengths = [x.numel() for x in xs]
+    x2ds = [tq.pad_rows(x) for x in xs]
+    vals, scales, row0s = tq.quantize_int8_block_leaves(xs)
+    back, outs = qv.out_views(row0s, lengths, dev)
+    pairs = [(vals[r0:r0 + x.shape[0]], scales[r0:r0 + x.shape[0]]) for r0, x in zip(row0s, x2ds)]
+    v5 = [tq.quantize_int8(x) for x in x2ds]
+    elems = sum(x.numel() for x in x2ds)  # the padded rows, as the kernels write them
+    rows = elems // 128
     block_bytes = elems * 5 + rows * 4  # f32 in, int8 + one f32 scale per row out (or back)
     whole_bytes = elems * 5 + len(xs) * 4
     ops = elems * 4  # |x|, max, divide, round (and clamp) per element
+    q_buf = (torch.empty_like(vals), torch.empty_like(scales))
     specs = {
-        "quant_block": (lambda: [tq.quantize_int8_block(x) for x in xs],
-                        lambda: [tq.quantize_int8_block_plain(x) for x in xs], None,
-                        block_bytes, ops),
-        "dequant_block": (lambda: [tq.dequantize_int8_block(v, s) for v, s in vs],
-                          lambda: [tq.dequantize_int8_block_plain(v, s) for v, s in vs],
-                          lambda: [torch.mul(v, s) for v, s in vs], block_bytes, elems),
-        "quant": (lambda: [tq.quantize_int8(x) for x in xs],
-                  lambda: [tq.quantize_int8_plain(x) for x in xs], None, whole_bytes, ops),
-        "dequant": (lambda: [tq.dequantize_int8(v, s) for v, s in v5],
-                    lambda: [tq.dequantize_int8_plain(v, s) for v, s in v5],
-                    lambda: [torch.mul(v, s) for v, s in v5], whole_bytes, elems),
+        "quant_block": dict(
+            kernel=lambda: tq.quantize_int8_block_leaves(xs),
+            table_built=qv.prepare(None, "quantize", xs, *q_buf, outs, row0s),
+            per_leaf=lambda: qv.per_leaf_quantize(x2ds), library=None,
+            plain=lambda: tq.quantize_int8_block_leaves_plain(xs), bytes=block_bytes, ops=ops),
+        "dequant_block": dict(
+            kernel=lambda: tq.dequantize_int8_block_leaves(vals, scales, outs, row0s),
+            table_built=qv.prepare(None, "dequantize", xs, vals, scales, outs, row0s),
+            per_leaf=lambda: qv.per_leaf_dequantize(pairs),
+            library=lambda: torch.mul(vals, scales, out=back.view(rows, 128)),
+            library_per_leaf=lambda: [torch.mul(v, s) for v, s in pairs],
+            plain=lambda: tq.dequantize_int8_block_leaves_plain(vals, scales, outs, row0s),
+            bytes=block_bytes, ops=elems),
+        "quant": dict(kernel=lambda: [tq.quantize_int8(x) for x in x2ds], library=None,
+                      plain=lambda: [tq.quantize_int8_plain(x) for x in x2ds],
+                      bytes=whole_bytes, ops=ops),
+        "dequant": dict(kernel=lambda: [tq.dequantize_int8(v, s) for v, s in v5],
+                        library=lambda: [torch.mul(v, s) for v, s in v5],
+                        plain=lambda: [tq.dequantize_int8_plain(v, s) for v, s in v5],
+                        bytes=whole_bytes, ops=elems),
     }
     results = {}
-    for name, (kern, plain, lib, byts, n_ops) in specs.items():
-        turns = {"kernel": [], "library": []}
-        for _ in range(3 if lib else 1):  # kernel and library in turns
-            turns["kernel"].append(cuda_ms(kern, reps=20))
-            if lib:
-                turns["library"].append(cuda_ms(lib, reps=20))
-        step_ms = sum(turns["kernel"]) / len(turns["kernel"])
-        lib_ms = sum(turns["library"]) / len(turns["library"]) if lib else None
-        plain_ms = cuda_ms(plain, reps=5)
-        bytes_ms, ops_ms = byts / mem_rate * 1e3, n_ops / fp32_peak * 1e3
+    for name, sp in specs.items():
+        ways = {k: sp[k] for k in ("kernel", "table_built", "per_leaf", "library",
+                                   "library_per_leaf") if sp.get(k) is not None}
+        turns = {k: [] for k in ways}
+        for _ in range(2 if "per_leaf" in ways else 3):
+            for k, fn in ways.items():
+                turns[k].append(cuda_ms(fn, reps=20))
+        mean = {k: sum(v) / len(v) for k, v in turns.items()}
+        plain_ms = cuda_ms(sp["plain"], reps=5)
+        bytes_ms, ops_ms = sp["bytes"] / mem_rate * 1e3, sp["ops"] / fp32_peak * 1e3
         bound_ms = max(bytes_ms, ops_ms)
-        results[name] = dict(step_ms=step_ms, plain_ms=plain_ms, library_ms=lib_ms,
-                             bound_ms=bound_ms, bytes=byts, turns_ms=turns,
-                             bound_by="bytes" if bytes_ms >= ops_ms else "operations")
-        print(f"[times] {name}: {step_ms:.4f} ms per round (16 launches, {elems} elements) | "
-              f"bound {bound_ms:.4f} ms ({byts / 1e6:.1f} MB; {results[name]['bound_by']}) | "
-              f"{bound_ms / step_ms * 100:.1f}% of bound | plain {plain_ms:.4f} ms | library "
-              + (f"torch.mul(vals, scales) {lib_ms:.4f} ms, {step_ms / lib_ms:.3f}x; turns "
-                 f"(kernel, torch.mul) x 3: {turns}" if lib else "none"), flush=True)
+        res = dict(step_ms=mean["kernel"], plain_ms=plain_ms, library_ms=mean.get("library"),
+                   bound_ms=bound_ms, bytes=sp["bytes"], turns_ms=turns,
+                   bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+        line = (f"[times] {name}: {mean['kernel']:.4f} ms per round ({elems} elements) | bound "
+                f"{bound_ms:.4f} ms ({sp['bytes'] / 1e6:.1f} MB; {res['bound_by']}) | "
+                f"{bound_ms / mean['kernel'] * 100:.1f}% of bound | plain {plain_ms:.4f} ms")
+        if "per_leaf" in ways:
+            host = {"kernel": [], "per_leaf": []}
+            for _ in range(2):
+                for k in host:
+                    host[k].append(host_us(ways[k]))
+            host_mean = {k: sum(v) / len(v) for k, v in host.items()}
+            res.update(table_built_ms=mean["table_built"], per_leaf_ms=mean["per_leaf"],
+                       host_us_per_round=host_mean, host_us_turns=host)
+            line += (f" | table built once (device alone) {mean['table_built']:.4f} ms "
+                     f"({bound_ms / mean['table_built'] * 100:.1f}%) | 16 one-leaf calls "
+                     f"{mean['per_leaf']:.4f} ms | host us per round {host_mean['kernel']:.1f} "
+                     f"(1 launch) vs {host_mean['per_leaf']:.1f} (16), "
+                     f"{host_mean['per_leaf'] / host_mean['kernel']:.2f}x")
+        if "library_per_leaf" in ways:
+            res["library_per_leaf_ms"] = mean["library_per_leaf"]
+            line += (f" | library torch.mul(vals, scales) in one call {mean['library']:.4f} ms, "
+                     f"{mean['kernel'] / mean['library']:.3f}x (device alone "
+                     f"{mean['table_built'] / mean['library']:.3f}x); per leaf "
+                     f"{mean['library_per_leaf']:.4f} ms")
+        else:
+            line += (f" | library torch.mul(vals, scales) per leaf {mean['library']:.4f} ms, "
+                     f"{mean['kernel'] / mean['library']:.3f}x" if "library" in ways else
+                     " | library none")
+        print(line + f" | turns {turns}", flush=True)
+        results[name] = res
     torch.cuda.synchronize()
     return results
 
@@ -1553,11 +1735,28 @@ def phase_sass():
     return proof
 
 
-def ptxas_report(source: str = "fused_update.cu",
-                 kernel: str = "fused_update_multi_kernel") -> dict:
-    """What ptxas reports for every instantiation of ``kernel`` in
-    ``csrc/<source>`` (``nvcc -Xptxas -v`` into a throwaway cubin, the
-    build's own flags): {label: registers, stack frame, spill bytes}."""
+def update_label(fn: str):
+    """The fused update's instantiation in a mangled name, or None."""
+    m = re.search(r"fused_update_multi_kernelI(\w+?)Lb([01])E", fn)
+    if not m:
+        return None
+    types, momentum = m.groups()
+    return (f"{'momentum' if momentum == '1' else 'sgd'} p "
+            f"{'bf16' if 'bfloat16' in types else 'fp32'} g "
+            f"{'fp32' if types.endswith('f') else 'bf16'}")
+
+
+def codec_label(fn: str):
+    """The block codec's instantiation (its op) in a mangled name, or None."""
+    m = re.search(r"block_codec_multi_kernelILi([012])E", fn)
+    return ("quantize", "dequantize", "dequantize-add")[int(m.group(1))] if m else None
+
+
+def ptxas_report(source: str = "fused_update.cu", label_of=update_label, count: int = 6) -> dict:
+    """What ptxas reports for each kernel instantiation in
+    ``csrc/<source>`` that ``label_of`` names (``nvcc -Xptxas -v`` into a
+    throwaway cubin, the build's own flags): {label: registers, stack
+    frame, spill bytes}; there must be ``count`` of them."""
     import tempfile
 
     from theanompi_tpu_torch.ops import kernels as K
@@ -1571,22 +1770,18 @@ def ptxas_report(source: str = "fused_update.cu",
     report = {}
     for block in re.split(r"Compiling entry function '", out.stdout + out.stderr)[1:]:
         fn = block.split("'", 1)[0]
-        m = re.search(rf"{kernel}I(\w+?)Lb([01])E", fn)
-        if not m:
+        label = label_of(fn)
+        if label is None:
             continue
-        types, momentum = m.groups()
-        label = (f"{'momentum' if momentum == '1' else 'sgd'} p "
-                 f"{'bf16' if 'bfloat16' in types else 'fp32'} g "
-                 f"{'fp32' if types.endswith('f') else 'bf16'}")
         nums = {key: re.search(pattern, block) for key, pattern in (
             ("registers", r"Used (\d+) registers"), ("stack_frame", r"(\d+) bytes stack frame"),
             ("spill_stores", r"(\d+) bytes spill stores"), ("spill_loads", r"(\d+) bytes spill loads"))}
         check(all(nums.values()), f"ptxas said nothing parseable of {fn}: {block[:500]}")
         report[label] = {key: int(v.group(1)) for key, v in nums.items()}
-    check(len(report) == 6, f"expected 6 instantiations of {kernel} in ptxas's report, "
-                            f"found {sorted(report)}")
+    check(len(report) == count, f"expected {count} kernel instantiations in ptxas's report of "
+                                f"{source}, found {sorted(report)}")
     for label, r in sorted(report.items()):
-        print(f"[build] ptxas: {kernel} {label}: {r}", flush=True)
+        print(f"[build] ptxas: {source} {label}: {r}", flush=True)
     return report
 
 
@@ -1642,6 +1837,7 @@ def main() -> int:
         print(f"[build] phase wall {time.perf_counter() - t0:.2f} s", flush=True)
         sass = phase_sass()
         ptxas = ptxas_report()
+        ptxas_codec = ptxas_report("quant.cu", codec_label, 3)
 
         from theanompi_tpu_torch.tools.update_variants import leaf_specs
 
@@ -1700,7 +1896,7 @@ def main() -> int:
 
         t0 = time.perf_counter()
         times = phase_times(leaf_sets, dev, mem_rate, fp32_peak)
-        times.update(phase_quant_times(shapes, dev, mem_rate, fp32_peak))
+        times.update(phase_quant_times(dev, mem_rate, fp32_peak))
         times.update(phase_flash_times(dev, mem_rate, fp32_peak, bf16_peak))
         times.update(phase_pool_times(dev, mem_rate, fp32_peak))
         print(f"[times] done ({time.perf_counter() - t0:.1f} s)", flush=True)
@@ -1766,13 +1962,28 @@ def main() -> int:
             "ms": t["step_ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"], "turns_ms": t["turns_ms"],
             "matched": True, "tolerance": "bit-identical (a NaN matches any NaN)",
-            "work": "one codec round over AlexNet's 16 leaves, each padded to (rows, 128)",
-            "library_note": (no_library if t["library_ms"] is None
-                             else "torch.mul(int8 vals, f32 scales): the same function"),
+            "work": ("one codec round over AlexNet's 16 leaves in one multi-leaf launch "
+                     "(tails zero-padded in the kernel)" if "per_leaf_ms" in t else
+                     "one codec round over AlexNet's 16 leaves, each padded to (rows, 128), "
+                     "a launch each"),
+            "library_note": (
+                no_library if t["library_ms"] is None else
+                "torch.mul(int8 vals (R, 128), f32 scales (R, 1), out=) over the round's "
+                "buffers in one call: the same function (per leaf: library_per_leaf_ms)"
+                if "library_per_leaf_ms" in t else
+                "torch.mul(int8 vals, f32 scales) per leaf: the same function"),
             "launches_in": (f"the {codec_run['n']}-rank psum + int8:ef run, all ranks, "
                             f"{RANK_STEPS} steps" if launches else
                             "not on the main path (whole-buffer scale; tests only)"),
         })
+        if "per_leaf_ms" in t:
+            kernels[-1].update(table_built_ms=t["table_built_ms"],
+                               one_leaf_calls_ms=t["per_leaf_ms"],
+                               host_us_per_round=t["host_us_per_round"],
+                               ptxas={k: v for k, v in ptxas_codec.items()
+                                      if (k == "quantize") == (name == "quant_block")})
+        if "library_per_leaf_ms" in t:
+            kernels[-1]["library_per_leaf_ms"] = t["library_per_leaf_ms"]
     src_fa = "theanompi_tpu_torch/csrc/flash_attention.cu"
     generic_flash = ("flash_fwd", "flash_dq", "flash_dkv")
     lm = lm_run["summary"]

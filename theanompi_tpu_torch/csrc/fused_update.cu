@@ -34,10 +34,11 @@
 //   (ops/fused_update.py, ops/kernels.py::work_table) cuts every leaf into
 //   chunks of `chunk` elements and writes a work table: per leaf its
 //   pointers, length, index of its first chunk and whether all of its
-//   pointers are 16-byte aligned. The table travels as a __grid_constant__
-//   kernel parameter (32,764 bytes with CUDA >= 12.1, 818 leaves; 4,096
-//   before, 101): no device allocation, no host-to-device copy, no host
-//   sync, and legal inside a CUDA graph capture.
+//   pointers are 16-byte aligned. The table (csrc/work_table.cuh, shared
+//   with csrc/quant.cu) travels as a __grid_constant__ kernel parameter
+//   (32,764 bytes with CUDA >= 12.1, 818 leaves; 4,096 before, 101): no
+//   device allocation, no host-to-device copy, no host sync, and legal
+//   inside a CUDA graph capture.
 // - The grid is kBlocksPerSm CTAs an SM (or one CTA a chunk, if fewer).
 //   Each CTA walks the chunks grid-stride and finds a chunk's leaf by a
 //   binary search over the leaves' first chunks, uniform across the CTA.
@@ -78,6 +79,8 @@
 #include <stdint.h>
 #include <string.h>
 
+#include "work_table.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -115,22 +118,18 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(flo
 // the multi-tensor kernel
 // ---------------------------------------------------------------------------
 
-// One leaf of the work table; the layout is ops/fused_update.py's
-// (TABLE_LEAF_BYTES, the packing of chunk0 and aligned into one int64).
+// One leaf of the work table; the layout is ops/fused_update.py's (its
+// table_rows, through ops/kernels.py::pack_rows).
 struct Leaf {
   int64_t p, v, g;  // device addresses (v = 0 for sgd)
   int64_t n;        // elements
   int32_t chunk0;   // index of the leaf's first chunk within the launch
   int32_t aligned;  // 1 when p, v and g are all 16-byte aligned
 };
-static_assert(sizeof(Leaf) == 40, "Leaf layout is shared with ops/fused_update.py");
+static_assert(sizeof(Leaf) == work_table::kRowBytes,
+              "Leaf layout is shared with ops/fused_update.py");
 
-#if CUDART_VERSION >= 12010
-constexpr int kParamLimit = 32764;  // kernel-parameter bytes, CUDA >= 12.1 on Volta and later
-#else
-constexpr int kParamLimit = 4096;
-#endif
-constexpr int kCap = (kParamLimit - 32) / (int)sizeof(Leaf);  // leaves a launch's table holds
+constexpr int kCap = work_table::capacity(32);  // leaves a launch's table holds
 
 struct Table {
   const float* sc;  // [lr, coef] on the device
@@ -139,7 +138,7 @@ struct Table {
   Leaf leaves[kCap];
 };
 static_assert(offsetof(Table, leaves) == 32, "header layout is shared with ops/fused_update.py");
-static_assert(sizeof(Table) <= kParamLimit, "work table exceeds the parameter limit");
+static_assert(sizeof(Table) <= work_table::kParamLimit, "work table exceeds the parameter limit");
 
 __device__ __forceinline__ void f4_to(const float4& a, float* x) {
   x[0] = a.x; x[1] = a.y; x[2] = a.z; x[3] = a.w;
@@ -223,27 +222,12 @@ fused_update_multi_kernel(const __grid_constant__ Table t) {
   const float coef = t.sc[1];
   const bool nesterov = t.nesterov != 0;
   for (int c = blockIdx.x; c < t.chunks; c += gridDim.x) {
-    int lo = 0, hi = t.n_leaves - 1;  // the last leaf whose first chunk is <= c
-    while (lo < hi) {
-      const int mid = (lo + hi + 1) >> 1;
-      if (t.leaves[mid].chunk0 <= c) lo = mid; else hi = mid - 1;
-    }
-    const Leaf L = t.leaves[lo];
+    const Leaf L = t.leaves[work_table::leaf_of(t.leaves, t.n_leaves, c)];
     const int64_t start = (int64_t)(c - L.chunk0) * t.chunk;
     const int64_t rest = L.n - start;
     const int len = (int)(rest < t.chunk ? rest : t.chunk);
     run_chunk<P, G, kMomentum>(L, start, len, lr, coef, t.mu, t.wd, nesterov);
   }
-}
-
-int sm_count(int device) {
-  static int cache[64];
-  if (device >= 0 && device < 64 && cache[device]) return cache[device];
-  int n = 0;
-  if (cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, device) != cudaSuccess || n < 1)
-    n = 1;
-  if (device >= 0 && device < 64) cache[device] = n;
-  return n;
 }
 
 template <typename P, typename G, bool kMomentum>
@@ -258,7 +242,7 @@ int launch_multi(int device, const void* rows, int n_leaves, int chunks, int chu
   t.chunks = chunks;
   t.chunk = chunk;
   memcpy(t.leaves, rows, (size_t)n_leaves * sizeof(Leaf));
-  const int cap = sm_count(device) * kBlocksPerSm;
+  const int cap = work_table::sm_count(device) * kBlocksPerSm;
   const int grid = chunks < cap ? chunks : cap;
   fused_update_multi_kernel<P, G, kMomentum><<<grid, kThreads, 0, s>>>(t);
   return (int)cudaGetLastError();

@@ -1,6 +1,6 @@
 // int8 absmax quantizer kernels for Hopper (sm_90a): the building block of
 // the compressed gradient wire (--wire-codec int8[:ef], --strategy
-// ring_int8). The flat f32 buffer is viewed as (rows, 128) lanes.
+// ring_int8). A flat f32 buffer is viewed as (rows, 128) lanes.
 //
 // Replaces the TPU kernels
 //   theanompi_tpu/ops/pallas_quant.py:114  _quant_block_kernel    (#3)
@@ -20,25 +20,66 @@
 //   q     = clamp(rint(x / scale), -127, 127) -- a TRUE division (x/scale
 //           has no constant divisor), round half to even; NaN -> 0, as
 //           XLA's f32 -> s8 convert of NaN (scale NaN or inf: all zeros)
-//   out   = float(q) * scale
+//   out   = float(q) * scale, or with the ring's decode-and-add
+//           fma(float(q), scale, out), one rounding, as XLA contracts them
 // Built with -fmad=false and without --use_fast_math (-prec-div stays on,
 // no flush of denormals), so every operation rounds as IEEE float.
 //
 // Bound: device-memory bytes. #3 reads 4 B and writes 1 B + 4/128 B of
-// scale per element (5.03 B); #4 the reverse. A few operations per byte,
-// far below the card's ridge. Design for the bytes: each element is read
-// once and written once with 16-byte loads (float4) and 4-byte stores
-// (char4); #3 is one warp per 128-lane row (each lane 4 floats, the
-// row's absmax by warp shuffles, no shared memory); #4 one thread per 4
-// values. Both are grid-stride loops over a capped grid. The whole-buffer
-// #5 needs a reduction across blocks, which Hopper's blocks cannot carry
-// between them as the TPU's sequential grid can: pass 1 writes each
-// block's absmax to scratch, pass 2 (one block) reduces those and writes
-// the scale to device memory, pass 3 quantizes with it. No host sync.
+// scale per element (5.03 B); #4 the reverse (and with accumulate also
+// reads the 4 B it adds to). A few operations per byte, far below the
+// card's ridge.
+//
+// Design of #3 / #4 (block_codec_multi_kernel): ONE launch over all the
+// leaves of a codec round, driven by a work table that travels as a
+// __grid_constant__ kernel parameter, as csrc/fused_update.cu does.
+// - Table: per leaf its f32 pointer (the input of #3, the output of #4),
+//   its int8 values and f32 scales pointers (the scales only 4-byte
+//   aligned inside a packed wire message), its element count n, its first
+//   chunk and its first row in the wrapper's value buffer (the table's
+//   layout: csrc/work_table.cuh, shared with csrc/fused_update.cu). The
+//   host (ops/quant.py, ops/kernels.py::work_table) cuts every leaf into
+//   chunks of `chunk_rows` 128-lane rows; a CTA walks the chunks
+//   grid-stride and finds a chunk's leaf by a binary search over the
+//   first chunks, so fc6's 37.7M elements and a 1-element bias share one
+//   wave.
+// - Ragged tails in the kernel: a leaf's last row reads the elements past
+//   n as +0.0 (the reference's zero pad) and writes their int8 values as
+//   0; the dequantize writes only the leaf's n outputs. No padded copy of
+//   a leaf is made and none is cut back.
+// - Memory: kRowThreads threads share a row. A thread's float4 slots of
+//   the row interleave with its group's (slot g + kRowThreads * k), so
+//   every warp-wide float4 access covers whole 128-byte lines and every
+//   char4 access whole 32-byte sectors; a thread has its 4 float4s (64
+//   bytes) in flight. The row's scale is read at one address by its group
+//   (one request a row), and its absmax is a 3-step shuffle inside the
+//   group. The grid is kQuantBlocksPerSm / kDequantBlocksPerSm CTAs an SM
+//   (or one CTA a chunk, if fewer). The dequantize stores its output
+//   with an evict-first hint (__stcs; the ring's accumulate does not,
+//   its sum is read again at the next hop). Settled on the card with
+//   tools/quant_variants.py (PERF.md): 16 consecutive elements a thread
+//   (one 16-byte int8 vector) tied for the quantize but took 2.9x as long
+//   for the dequantize, whose float4 stores then lie 64 bytes apart
+//   across a warp; a warp a row (4 bytes of int8 a thread) was slower at
+//   every occupancy tried.
+// - Alignment: the f32 pointers must be 16-byte aligned, the values and
+//   the scales 4-byte; the wrappers refuse anything else (no scalar path).
+// It replaced one launch per (rows, 128) buffer: a warp a row for #3, a
+// thread per 4 values for #4 (PERF.md).
+//
+// The whole-buffer #5 needs a reduction across blocks, which Hopper's
+// blocks cannot carry between them as the TPU's sequential grid can: pass
+// 1 writes each block's absmax to scratch, pass 2 (one block) reduces
+// those and writes the scale to device memory, pass 3 quantizes with it.
+// No host sync. #5 and #6 are grid-stride loops with float4 loads.
 
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stddef.h>
 #include <stdint.h>
+#include <string.h>
+
+#include "work_table.cuh"
 
 namespace {
 
@@ -47,6 +88,16 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr float kFloor = 1e-30f;
 constexpr float kInv127 = 1.0f / 127.0f;
+
+// the multi-leaf kernel's layout: threads a 128-lane row, and CTAs an SM
+// for the quantize and the dequantize (tools/quant_variants.py, PERF.md)
+constexpr int kRowThreads = 8;
+constexpr int kQuantBlocksPerSm = 4;
+constexpr int kDequantBlocksPerSm = 2;
+constexpr int kSlots = kLanes / 4 / kRowThreads;      // float4 slots of a row a thread
+constexpr int kRowsPerPass = kThreads / kRowThreads;  // rows a CTA takes at once
+static_assert(kRowThreads >= 8 && kRowThreads <= 32 && kLanes % (4 * kRowThreads) == 0,
+              "a thread owns 1, 2 or 4 float4 slots of its row");
 
 // max that keeps a NaN (jnp.max / torch.amax semantics)
 __device__ __forceinline__ float nanmax(float a, float b) {
@@ -84,38 +135,150 @@ __device__ __forceinline__ float4 dequant4(char4 q, float s) {
                      __fmul_rn((float)q.z, s), __fmul_rn((float)q.w, s));
 }
 
-// #3: one warp per row; lane l holds the row's floats 4l..4l+3
-__global__ void quant_block_kernel(const float4* __restrict__ x, char4* __restrict__ vals,
-                                   float* __restrict__ scales, int64_t rows) {
-  const int lane = threadIdx.x & 31;
-  const int64_t warp = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-  const int64_t n_warps = ((int64_t)gridDim.x * blockDim.x) >> 5;
-  for (int64_t r = warp; r < rows; r += n_warps) {
-    const int64_t i = r * (kLanes / 4) + lane;
-    const float4 v = x[i];
-    const float s = scale_of(warp_nanmax(absmax4(v)));
-    if (lane == 0) scales[r] = s;
-    vals[i] = quant4(v, s);
-  }
-}
-
 __device__ __forceinline__ float4 dequant_add4(char4 q, float s, float4 a) {
   return make_float4(__fmaf_rn((float)q.x, s, a.x), __fmaf_rn((float)q.y, s, a.y),
                      __fmaf_rn((float)q.z, s, a.z), __fmaf_rn((float)q.w, s, a.w));
 }
 
-// #4: one thread per 4 values; row r's 32 char4 share scales[r]. With
-// `accumulate` it adds into `out` with one rounding (the ring's decode
-// and add as the reference compiles them: an fma)
-__global__ void dequant_block_kernel(const char4* __restrict__ vals,
-                                     const float* __restrict__ scales,
-                                     float4* __restrict__ out, int64_t n4, int accumulate) {
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n4; i += stride) {
-    const float s = scales[i / (kLanes / 4)];
-    out[i] = accumulate ? dequant_add4(vals[i], s, out[i]) : dequant4(vals[i], s);
+// ---------------------------------------------------------------------------
+// #3 / #4: one launch over a work table of leaves
+// ---------------------------------------------------------------------------
+
+// One leaf of the work table; the layout is ops/quant.py's (its
+// table_rows, through ops/kernels.py::pack_rows).
+struct Leaf {
+  int64_t x;       // f32: the input (quantize) or the output (dequantize)
+  int64_t vals;    // int8: the leaf's rows x 128 values
+  int64_t scales;  // f32: one scale a row
+  int64_t n;       // elements of x
+  int32_t chunk0;  // index of the leaf's first chunk within the launch
+  int32_t row0;    // the leaf's first row in the wrapper's buffer (row0s); not read here
+};
+static_assert(sizeof(Leaf) == work_table::kRowBytes, "Leaf layout is shared with ops/quant.py");
+
+constexpr int kCap = work_table::capacity(16);  // leaves a launch's table holds
+
+struct Table {
+  int32_t n_leaves, chunks, chunk_rows, op;
+  Leaf leaves[kCap];
+};
+static_assert(offsetof(Table, leaves) == 16, "header layout is shared with ops/quant.py");
+static_assert(sizeof(Table) <= work_table::kParamLimit,
+              "work table exceeds the parameter limit");
+
+enum { kQuantize = 0, kDequantize = 1, kDequantizeAdd = 2 };
+
+// the lanes of this thread's row group (kRowThreads consecutive lanes)
+__device__ __forceinline__ unsigned group_mask() {
+  const int lane = threadIdx.x & 31;
+  return (0xffffffffu >> (32 - kRowThreads)) << (lane & ~(kRowThreads - 1));
+}
+
+__device__ __forceinline__ float group_nanmax(float m, unsigned mask) {
+#pragma unroll
+  for (int off = kRowThreads / 2; off > 0; off >>= 1)
+    m = nanmax(m, __shfl_xor_sync(mask, m, off));
+  return m;
+}
+
+// the element offset within its row of float4 slot k of the row group's
+// thread g: slots interleave, so each warp-wide access of a slot covers
+// whole 128-byte lines of f32 (whole 32-byte sectors of int8)
+__device__ __forceinline__ int slot_at(int g, int k) { return 4 * (g + kRowThreads * k); }
+
+// this thread's slots of one row of the leaf
+__device__ __forceinline__ void quant_part(const Leaf& L, int64_t row, int g, unsigned mask) {
+  const int64_t base = row * kLanes;
+  const float* x = reinterpret_cast<const float*>(L.x) + base;
+  float4 v[kSlots];
+  if (base + kLanes <= L.n) {
+#pragma unroll
+    for (int k = 0; k < kSlots; ++k) v[k] = *reinterpret_cast<const float4*>(x + slot_at(g, k));
+  } else {  // the leaf's last row: past n, the zero pad
+    const int64_t left = L.n - base;
+#pragma unroll
+    for (int k = 0; k < kSlots; ++k) {
+      const int e = slot_at(g, k);
+      v[k] = make_float4(e < left ? x[e] : 0.0f, e + 1 < left ? x[e + 1] : 0.0f,
+                         e + 2 < left ? x[e + 2] : 0.0f, e + 3 < left ? x[e + 3] : 0.0f);
+    }
+  }
+  float m = 0.0f;  // |x| >= 0: 0 is max's identity
+#pragma unroll
+  for (int k = 0; k < kSlots; ++k) m = nanmax(m, absmax4(v[k]));
+  const float s = scale_of(group_nanmax(m, mask));
+  if (g == 0) reinterpret_cast<float*>(L.scales)[row] = s;
+  signed char* out = reinterpret_cast<signed char*>(L.vals) + base;
+#pragma unroll
+  for (int k = 0; k < kSlots; ++k)
+    *reinterpret_cast<char4*>(out + slot_at(g, k)) = quant4(v[k], s);
+}
+
+template <bool kAdd>
+__device__ __forceinline__ void dequant_part(const Leaf& L, int64_t row, int g) {
+  const int64_t base = row * kLanes;
+  const signed char* in = reinterpret_cast<const signed char*>(L.vals) + base;
+  char4 c[kSlots];
+#pragma unroll
+  for (int k = 0; k < kSlots; ++k) c[k] = *reinterpret_cast<const char4*>(in + slot_at(g, k));
+  const float s = reinterpret_cast<const float*>(L.scales)[row];
+  float* out = reinterpret_cast<float*>(L.x) + base;
+  if (base + kLanes <= L.n) {
+    float4 a[kSlots];
+    if constexpr (kAdd) {
+#pragma unroll
+      for (int k = 0; k < kSlots; ++k)
+        a[k] = *reinterpret_cast<const float4*>(out + slot_at(g, k));
+    }
+#pragma unroll
+    for (int k = 0; k < kSlots; ++k) {
+      if constexpr (kAdd) {
+        *reinterpret_cast<float4*>(out + slot_at(g, k)) = dequant_add4(c[k], s, a[k]);
+      } else {
+        __stcs(reinterpret_cast<float4*>(out + slot_at(g, k)), dequant4(c[k], s));
+      }
+    }
+  } else {  // the leaf's last row: only its n outputs
+    const int64_t left = L.n - base;
+#pragma unroll
+    for (int k = 0; k < kSlots; ++k) {
+      const signed char* q = reinterpret_cast<const signed char*>(&c[k]);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int e = slot_at(g, k) + j;
+        if (e < left)
+          out[e] = kAdd ? __fmaf_rn((float)q[j], s, out[e]) : __fmul_rn((float)q[j], s);
+      }
+    }
   }
 }
+
+template <int kOp>
+__global__ void __launch_bounds__(kThreads)
+block_codec_multi_kernel(const __grid_constant__ Table t) {
+  const int g = threadIdx.x % kRowThreads;   // this thread's place in its row group
+  const int r_in = threadIdx.x / kRowThreads;  // its group's row within a pass
+  const unsigned mask = group_mask();
+  for (int c = blockIdx.x; c < t.chunks; c += gridDim.x) {
+    const Leaf L = t.leaves[work_table::leaf_of(t.leaves, t.n_leaves, c)];
+    const int64_t row0 = (int64_t)(c - L.chunk0) * t.chunk_rows;
+    const int64_t left = (L.n + kLanes - 1) / kLanes - row0;
+    const int rows = (int)(left < t.chunk_rows ? left : t.chunk_rows);
+    // a row's group is all in or all out of an iteration, so its shuffles
+    // see every lane of the mask
+    for (int r = r_in; r < rows; r += kRowsPerPass) {
+      if constexpr (kOp == kQuantize) {
+        quant_part(L, row0 + r, g, mask);
+      } else {
+        dequant_part<kOp == kDequantizeAdd>(L, row0 + r, g);
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// #5 / #6: one scale for the whole buffer
+// ---------------------------------------------------------------------------
 
 __device__ __forceinline__ float block_nanmax(float m) {
   __shared__ float warp_max[kWarps];
@@ -184,25 +347,38 @@ const char* tmpi_cuda_error_string(int code) {
 }
 
 // Each returns cudaGetLastError() after its launch(es) (0 = launched).
-// rows > 0; pointers 16-byte (float4) / 4-byte (char4, scales) aligned,
+
+// Leaves one launch's work table may hold (the kernel-parameter limit).
+int tmpi_block_codec_capacity() { return kCap; }
+
+// One launch of #3 (op 0), #4 (op 1) or #4 with accumulate (op 2) over a
+// work table of `n_leaves` rows (struct Leaf, host memory) holding `chunks`
+// chunks of `chunk_rows` rows. Pointers aligned as the file's header says,
 // checked by the wrappers in ops/quant.py.
-
-int tmpi_quant_block(int device, const void* x, void* vals, void* scales, int64_t rows,
-                     int max_blocks, void* stream) {
+int tmpi_block_codec_multi(int device, int op, const void* rows, int n_leaves, int chunks,
+                           int chunk_rows, void* stream) {
+  if (n_leaves < 1 || n_leaves > kCap || chunks < 1 || chunk_rows < 1 || op < kQuantize ||
+      op > kDequantizeAdd)
+    return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  quant_block_kernel<<<grid_for(rows, kWarps, max_blocks), kThreads, 0, (cudaStream_t)stream>>>(
-      (const float4*)x, (char4*)vals, (float*)scales, rows);
-  return (int)cudaGetLastError();
-}
-
-int tmpi_dequant_block(int device, const void* vals, const void* scales, void* out,
-                       int64_t rows, int accumulate, int max_blocks, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  const int64_t n4 = rows * (kLanes / 4);
-  dequant_block_kernel<<<grid_for(n4, kThreads, max_blocks), kThreads, 0, (cudaStream_t)stream>>>(
-      (const char4*)vals, (const float*)scales, (float4*)out, n4, accumulate);
+  Table t;
+  t.n_leaves = n_leaves;
+  t.chunks = chunks;
+  t.chunk_rows = chunk_rows;
+  t.op = op;
+  memcpy(t.leaves, rows, (size_t)n_leaves * sizeof(Leaf));
+  const int cap = work_table::sm_count(device) *
+                  (op == kQuantize ? kQuantBlocksPerSm : kDequantBlocksPerSm);
+  const int grid = chunks < cap ? chunks : cap;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (op == kQuantize) {
+    block_codec_multi_kernel<kQuantize><<<grid, kThreads, 0, s>>>(t);
+  } else if (op == kDequantize) {
+    block_codec_multi_kernel<kDequantize><<<grid, kThreads, 0, s>>>(t);
+  } else {
+    block_codec_multi_kernel<kDequantizeAdd><<<grid, kThreads, 0, s>>>(t);
+  }
   return (int)cudaGetLastError();
 }
 

@@ -48,13 +48,17 @@ import torch
 
 from theanompi_tpu_torch.ops.kernels import (
     DTYPE_CODES,
+    PARAM_LIMIT,
+    TABLE_LEAF_BYTES,
     KernelLibrary,
     LaunchCounter,
     is_dense,
+    pack_rows,
     require_cuda,
     stream_handle,
     work_table,
 )
+from theanompi_tpu_torch.ops.kernels import table_capacity as kernel_table_capacity
 from theanompi_tpu_torch.ops.optimizers import Optimizer, _acc_like
 from theanompi_tpu_torch.tree import tree_leaves, tree_map
 
@@ -81,19 +85,15 @@ _F32 = torch.float32
 # elements per chunk of the work table: a CTA's unit of work
 CHUNK = 8192
 # the kernel's parameter struct (csrc/fused_update.cu, struct Table): a
-# 32-byte header, then 40 bytes per leaf (p, v, g, n as int64; chunk0 and
-# the aligned flag as two int32, packed here into one int64)
+# 32-byte header, then a TABLE_LEAF_BYTES row per leaf (p, v, g, n;
+# chunk0 and the aligned flag)
 TABLE_HEADER_BYTES = 32
-TABLE_LEAF_BYTES = 40
-# kernel-parameter bytes a launch may take: CUDA >= 12.1 on Volta and
-# later; 4,096 before (the built library reports its table capacity)
-PARAM_LIMIT = 32764
 _RULE_MOMENTUM, _RULE_SGD = 0, 1
 
 
 def table_capacity(param_limit: int = PARAM_LIMIT) -> int:
     """Leaves one launch's work table can hold under ``param_limit``."""
-    return (param_limit - TABLE_HEADER_BYTES) // TABLE_LEAF_BYTES
+    return kernel_table_capacity(TABLE_HEADER_BYTES, param_limit)
 
 
 def build() -> float:
@@ -220,11 +220,10 @@ def table_rows(launch) -> array.array:
     """A launch's work table as the kernel's ``Leaf`` rows, 5 int64 each
     (an sgd leaf's velocity address is 0); the kernel reads them at
     ``rows.buffer_info()[0]``."""
-    flat = []
-    for ptrs, n, c0, aligned in zip(launch.ptrs, launch.lengths, launch.chunk0, launch.aligned):
-        p, v, g = ptrs if len(ptrs) == 3 else (ptrs[0], 0, ptrs[1])
-        flat += (p, v, g, n, c0 | aligned << 32)
-    return array.array("q", flat)
+    return pack_rows(
+        (*(ptrs if len(ptrs) == 3 else (ptrs[0], 0, ptrs[1])), n, c0, aligned)
+        for ptrs, n, c0, aligned in zip(launch.ptrs, launch.lengths, launch.chunk0,
+                                        launch.aligned))
 
 
 def _checked_plan(ps, gs, sc, vs, capacity=None, chunk=CHUNK):

@@ -17,6 +17,7 @@ includes PyTorch's headers takes minutes to build, this one seconds.
 
 from __future__ import annotations
 
+import array
 import ctypes
 import hashlib
 import os
@@ -215,6 +216,29 @@ def require_cuda(t: torch.Tensor, name: str, *, dtypes, device: torch.device,
 
 # 16-byte vector accesses need every base pointer of a leaf on this boundary
 VECTOR_ALIGN = 16
+# kernel-parameter bytes a launch may take: CUDA >= 12.1 on Volta and
+# later; 4,096 before (each built library reports its table capacity)
+PARAM_LIMIT = 32764
+# a work table's row (csrc/work_table.cuh): four int64, then the leaf's
+# first chunk and one more int32 of the kernel's own
+TABLE_LEAF_BYTES = 40
+
+
+def table_capacity(header_bytes: int, param_limit: int = PARAM_LIMIT) -> int:
+    """Leaves one launch's work table can hold under ``param_limit``
+    behind its kernel's header of ``header_bytes``."""
+    return (param_limit - header_bytes) // TABLE_LEAF_BYTES
+
+
+def pack_rows(rows) -> array.array:
+    """Work-table rows ``(a, b, c, d, chunk0, extra)`` (four int64, two
+    int32) as the kernels' 40-byte rows: the int32 pair packed into one
+    little-endian int64. The kernel reads them at
+    ``buffer_info()[0]``."""
+    flat = []
+    for a, b, c, d, chunk0, extra in rows:
+        flat += (a, b, c, d, chunk0 | extra << 32)
+    return array.array("q", flat)
 
 
 @dataclass(frozen=True)

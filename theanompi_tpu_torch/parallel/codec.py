@@ -41,9 +41,8 @@ from theanompi_tpu_torch.nn.layers import (
 )
 from theanompi_tpu_torch.ops.quant import (
     LANES,
-    dequantize_int8_block,
-    pad_rows,
-    quantize_int8_block,
+    dequantize_int8_block_leaves,
+    quantize_int8_block_leaves,
     wire_decode,
     wire_encode,
     wire_rows,
@@ -61,16 +60,20 @@ CODEC_WIRE_BYTES = {
 }
 
 
-def _qdq_int8_block(x: torch.Tensor, layout: str) -> torch.Tensor:
-    """Block quantize-dequantize of an f32 tensor of any shape: flattened
-    in the reference's order, zero-padded to (rows, 128), one kernel
-    launch each way, un-padded and laid out as ``x`` again."""
-    ref = to_reference_layout(x, layout)
-    flat = ref.reshape(-1)
-    n = flat.numel()
-    vals, scales = quantize_int8_block(pad_rows(flat))
-    back = dequantize_int8_block(vals, scales).reshape(-1)[:n]
-    return from_reference_layout(back.view(ref.shape), layout)
+def _qdq_int8_leaves(xs, layouts) -> list:
+    """Block quantize-dequantize of f32 tensors of any shape, ``layouts``
+    their tags: each flattened in the reference's order, all of them
+    quantized in one kernel launch and dequantized in one (each leaf's
+    tail zero-padded to a 128-element row inside the kernel), each laid
+    out as its ``x`` again."""
+    refs = [to_reference_layout(x, lay) for x, lay in zip(xs, layouts, strict=True)]
+    flats = [r.reshape(-1) for r in refs]
+    vals, scales, row0s = quantize_int8_block_leaves(flats)
+    # every leaf's output starts on a row of one buffer: 512-byte aligned
+    back = torch.empty(vals.shape[0] * LANES, dtype=torch.float32, device=vals.device)
+    outs = [back[r0 * LANES:r0 * LANES + f.numel()] for r0, f in zip(row0s, flats)]
+    dequantize_int8_block_leaves(vals, scales, outs, row0s)
+    return [from_reference_layout(o.view(r.shape), lay) for o, r, lay in zip(outs, refs, layouts)]
 
 
 @dataclass(frozen=True)
@@ -114,8 +117,21 @@ class WireCodec:
         if self.name == "bf16":
             return x.to(torch.bfloat16).float()
         if self.name == "int8":
-            return _qdq_int8_block(x, layout)
+            return _qdq_int8_leaves([x], [layout])[0]
         return x
+
+    def _through(self, vs, efs, layouts) -> tuple:
+        """Leaves through the active codec -> ``(wire values, residuals')``:
+        with error feedback each carried residual (``efs[i]``; None without
+        it) is added before quantizing, and the new one is what the
+        quantizer discarded (None without error feedback). ``int8``
+        quantizes every leaf in one kernel launch and dequantizes them in
+        one, in the given order."""
+        xs = [v.float() if r is None else v.float() + r for v, r in zip(vs, efs, strict=True)]
+        qs = (_qdq_int8_leaves(xs, layouts) if self.name == "int8"
+              else [self.qdq(x, lay) for x, lay in zip(xs, layouts)])
+        wire = [q.to(v.dtype) for v, q in zip(vs, qs)]
+        return wire, ([x - q for x, q in zip(xs, qs)] if self.error_feedback else None)
 
     def compress_leaf(self, v: torch.Tensor, ef: Optional[torch.Tensor],
                       layout: str = PLAIN):
@@ -125,35 +141,33 @@ class WireCodec:
         residual passes through."""
         if not self.active:
             return v, ef
-        x = v.float()
-        if self.error_feedback:
-            x = x + ef
-        q = self.qdq(x, layout)
-        if self.error_feedback:
-            ef = x - q
-        return q.to(v.dtype), ef
+        wire, efs = self._through([v], [ef if self.error_feedback else None], [layout])
+        return wire[0], (efs[0] if self.error_feedback else ef)
 
     def compress(self, tree: Tree, ef: Tree, layouts: Tree):
         """:meth:`compress_leaf` over the tree -> ``(wire_tree, ef')``.
         With error feedback ``ef`` is this rank's residual tree
         (:meth:`init_ef`); otherwise it passes through untouched.
-        ``layouts``: the tree's layout tags (``Model.param_layouts``)."""
+        ``layouts``: the tree's layout tags (``Model.param_layouts``).
+        ``int8`` quantizes every leaf in one kernel launch and
+        dequantizes them in one, in the reference's leaf order."""
         if not self.active:
             return tree, ef
-        if not self.error_feedback:
-            return tree_map(lambda v, lay: self.compress_leaf(v, None, lay)[0], tree,
-                            layouts), ef
-        leaves, ef_leaves = tree_leaves(tree), tree_leaves(ef)
+        leaves, lays = tree_leaves(tree), tree_leaves(layouts)
+        ef_leaves = tree_leaves(ef) if self.error_feedback else [None] * len(leaves)
         if len(ef_leaves) != len(leaves):
             raise ValueError(
                 f"error-feedback state has {len(ef_leaves)} leaves for a "
                 f"{len(leaves)}-leaf wire tree — the engine state was not "
                 "initialized with init_ef"
             )
-        done = [self.compress_leaf(v, r, lay)
-                for v, r, lay in zip(leaves, ef_leaves, tree_leaves(layouts))]
-        wire_it, ef_it = iter([d[0] for d in done]), iter([d[1] for d in done])
-        return tree_map(lambda _: next(wire_it), tree), tree_map(lambda _: next(ef_it), tree)
+        wire_leaves, ef_out = self._through(leaves, ef_leaves, lays)
+        wire_it = iter(wire_leaves)
+        wire = tree_map(lambda _: next(wire_it), tree)
+        if not self.error_feedback:
+            return wire, ef
+        ef_it = iter(ef_out)
+        return wire, tree_map(lambda _: next(ef_it), tree)
 
     def init_ef(self, tree: Tree) -> Tree:
         """Zero residuals for ``tree`` (f32, one per leaf, in each leaf's

@@ -77,9 +77,10 @@ def build_variants(workdir: Path, make_variants=_variants,
             text = text.replace(old, new)
         cu, so = workdir / f"{name}.cu", workdir / f"{name}.so"
         cu.write_text(text)
-        procs[name] = (so, subprocess.Popen([K.nvcc_path(), *K.NVCC_FLAGS, "-o", str(so), str(cu)],
-                                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                                            text=True))
+        # -I: the copy includes its headers (csrc/*.cuh) from beside the source
+        cmd = [K.nvcc_path(), *K.NVCC_FLAGS, "-I", str(K.CSRC_DIR), "-o", str(so), str(cu)]
+        procs[name] = (so, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                            stderr=subprocess.STDOUT, text=True))
     fns = {}
     for name, (so, proc) in procs.items():
         log = proc.communicate()[0]
