@@ -16,8 +16,9 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                 memory and spills are printed (``cuobjdump
                 --dump-resource-usage``). ptxas's registers, stack and
                 spills of each instantiation of the fused update's
-                multi-tensor kernel and of the block codec's multi-leaf
-                kernel (``nvcc -Xptxas -v``).
+                multi-tensor kernel, of the block codec's multi-leaf
+                kernel and of the two halo-tile pool kernels, with their
+                static shared memory (``nvcc -Xptxas -v``).
 2. kernels    — the fused update's multi-tensor kernel (#1-2, one launch
                 over a whole leaf list per dtype group) against its plain
                 PyTorch version, one call over each list: AlexNet's 16 and
@@ -82,9 +83,14 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                 (a NaN matches any NaN), in fp32 and bf16, at the distinct
                 inception pool inputs of GoogLeNet at batch 512 ([512, 28,
                 28, 192 / 256], [512, 14, 14, 480 / 512 / 528], [512, 7, 7,
-                832]) and the reference tests' (2, 8, 8, 16) and (3, 7, 5,
-                130): random, tie-heavy (ReLU zeros, a few levels) and
-                NaN/+-inf inputs. Control: select-and-scatter's gradient
+                832]), the reference tests' (2, 8, 8, 16) and (3, 7, 5,
+                130), shapes that cut the halo tile ((4, 29, 31, 72): a
+                ragged band and width; (2, 64, 64, 64): the widest map
+                ``routable`` admits, two column tiles; (3, 1, 1, 8)), and
+                (2, 14, 14, 64) from views one element past a 16-byte
+                boundary (the one-channel-a-word path): random, tie-heavy
+                (ReLU zeros, a few levels) and NaN/+-inf inputs. Control:
+                select-and-scatter's gradient
                 (F.max_pool2d's backward, first maximum) on tie-heavy input
                 must fail the backward check. Each counter moves by one
                 per call.
@@ -185,9 +191,15 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                 / flash_dkv_sm90 in turns (old, new, new, old). The
                 pool kernels over the nine inception pools at batch 512
                 in bf16 (one step's launches): bound 2 (forward) or 4
-                (backward) bf16 tensor passes at the memory rate;
-                F.max_pool2d in channels_last as the yardstick (its
-                backward takes the first maximum).
+                (backward) bf16 tensor passes at the data sheet's memory
+                rate and at the card's copy rate, measured once here
+                (``dst.copy_(src)`` over 2 GB, read + write bytes; a
+                yardstick, not a kernel of the port); F.max_pool2d in
+                channels_last as the yardstick (its backward takes the
+                first maximum); and, when the parent's tree is unpacked
+                at ``_tree_check/parent`` (``git archive``), its
+                grid-stride pool kernels and these in turns (old, new,
+                new, old), outputs first checked equal.
 
 Then one JSON line ``{"kernels": [...]}``, the card's name and power
 limit as nvidia-smi prints them, and last ``{"ok": true, "device": ...}``.
@@ -1400,28 +1412,49 @@ def pool_inputs(kind: str, shape, dtype, gen, dev):
     return x.to(dtype)
 
 
+# shapes that cut the halo tile (ops/pool.py: tile_plan): a ragged band and
+# width, the widest map ``routable`` admits (two column tiles), one pixel
+POOL_TILE_EDGES = [(4, 29, 31, 72), (2, 64, 64, 64), (3, 1, 1, 8)]
+# a 16-byte-aligned shape, run from views off the boundary (the VEC = 1 path)
+POOL_MISALIGNED = (2, 14, 14, 64)
+
+
+def off_by_one(t):
+    """``t``'s values in a contiguous view whose base lies one element past
+    a 16-byte boundary: a slice of a larger flat buffer."""
+    buf = t.new_empty(t.numel() + 1)
+    v = buf[1:].view(t.shape)
+    v.copy_(t)
+    check(v.data_ptr() % 16 == t.element_size(), "the view is not one element off alignment")
+    return v
+
+
 def phase_pool(dev):
     """Kernels #12-13 against their plain versions, bit for bit, at the
-    inception pools' shapes at batch 512 and the reference tests' odd
-    shapes, then the tie-rule control."""
+    inception pools' shapes at batch 512, the reference tests' odd
+    shapes, shapes that cut the halo tile and views off 16-byte
+    alignment, then the tie-rule control."""
     import torch
     import torch.nn.functional as F
     from theanompi_tpu_torch.ops import pool as tp
 
     g = torch.Generator(device=dev).manual_seed(12)
     shapes = sorted(set(inception_pool_shapes()), key=lambda s: (-s[1], s[3]))
-    shapes += [(2, 8, 8, 16), (3, 7, 5, 130)]
+    shapes += [(2, 8, 8, 16), (3, 7, 5, 130)] + POOL_TILE_EDGES + [POOL_MISALIGNED]
     worst = {"maxpool3x3_fwd": 0.0, "maxpool3x3_bwd": 0.0}
     n = 0
     tp.MAXPOOL_FWD.reset()
     tp.MAXPOOL_BWD.reset()
-    for shape in shapes:
+    for i, shape in enumerate(shapes):
+        # the last case: every tensor a view one element past a 16-byte boundary
+        view = off_by_one if i == len(shapes) - 1 else (lambda t: t)
         for dt in (torch.float32, torch.bfloat16):
             for kind in ("random", "tie-heavy", "nan-inf"):
-                x = pool_inputs(kind, shape, dt, g, dev)
-                gy = torch.randn(shape, generator=g, device=dev).to(dt)
-                y, py = tp.maxpool3x3_fwd(x), tp.maxpool3x3_fwd_plain(x)
-                dx, pdx = tp.maxpool3x3_bwd(x, py, gy), tp.maxpool3x3_bwd_plain(x, py, gy)
+                x = view(pool_inputs(kind, shape, dt, g, dev))
+                gy = view(torch.randn(shape, generator=g, device=dev).to(dt))
+                py = tp.maxpool3x3_fwd_plain(x)
+                y, pyv = tp.maxpool3x3_fwd(x), view(py)
+                dx, pdx = tp.maxpool3x3_bwd(x, pyv, gy), tp.maxpool3x3_bwd_plain(x, py, gy)
                 torch.cuda.synchronize()
                 n += 1
                 check(bits_equal(y, py), f"#12 forward differs from its plain version "
@@ -1432,9 +1465,10 @@ def phase_pool(dev):
                     fin = torch.isfinite(a.float()) & torch.isfinite(b.float())
                     worst[name] = max(worst[name], (a.float()[fin] - b.float()[fin]).abs().max().item()
                                       if fin.any() else 0.0)
-                del x, gy, y, py, dx, pdx
-        print(f"  {str(shape):20s} fp32 and bf16, random / tie-heavy / nan-inf: "
-              "forward and backward bit-identical", flush=True)
+                del x, gy, y, py, pyv, dx, pdx
+        print(f"  {str(shape):20s} fp32 and bf16, random / tie-heavy / nan-inf"
+              f"{' (views 1 element past 16-byte alignment)' if i == len(shapes) - 1 else ''}"
+              ": forward and backward bit-identical", flush=True)
     got = (tp.MAXPOOL_FWD.launches, tp.MAXPOOL_BWD.launches)
     check(got == (n, n), f"pool counters moved {got}, expected ({n}, {n})")
     # the control: select-and-scatter's gradient (F.max_pool2d's backward,
@@ -1616,14 +1650,91 @@ def phase_googlenet_parity(dev):
     return {"logit_excess": logit_x, "rel_norm": worst, "elementwise": elementwise}
 
 
+def copy_rate(dev) -> dict:
+    """The card's streaming rate, measured once as a yardstick (not a
+    kernel of the port): ``dst.copy_(src)`` over a 2 GB buffer, read +
+    write bytes over CUDA-event time."""
+    import torch
+
+    src = torch.ones(10 ** 9, dtype=torch.bfloat16, device=dev)
+    dst = torch.empty_like(src)
+    ms = cuda_ms(lambda: dst.copy_(src), reps=20, warmup=5)
+    moved = 2 * src.numel() * src.element_size()
+    rate = moved / (ms * 1e-3)
+    del src, dst
+    torch.cuda.empty_cache()
+    print(f"[times] copy rate: dst.copy_(src) over {moved / 2e9:.1f} GB: {ms:.4f} ms, "
+          f"{rate / 1e12:.4f} TB/s read + write ({rate / 3.35e12 * 100:.1f}% of the data "
+          "sheet's 3.35 TB/s)", flush=True)
+    return {"ms": ms, "bytes": moved, "rate": rate}
+
+
+# the parent's committed tree, unpacked (git archive) into the gitignored
+# _tree_check/: phase times reads #12-13 in turns with the kernels of its
+# csrc/pool.cu (the grid-stride design) when it is there
+PARENT_TREE = os.path.join(REPO, "_tree_check", "parent")
+
+
+def pool_turns(xs, ys, gs) -> dict:
+    """#12 and #13 over the nine inception pools in turns with the
+    parent's kernels (old, new, new, old), each launch prepared (plans and
+    outputs made once): {name: {"old": [ms, ms], "new": [ms, ms]}}, or
+    {} when no parent tree is unpacked at ``PARENT_TREE``."""
+    import tempfile
+    from pathlib import Path
+
+    import torch
+    from theanompi_tpu_torch.ops import pool as tp
+    from theanompi_tpu_torch.tools.pool_variants import build_parent
+
+    source = Path(PARENT_TREE) / "theanompi_tpu_torch" / "csrc" / "pool.cu"
+    if not source.is_file():
+        print(f"[times] pool old/new turns: not measured (no parent tree at {source})",
+              flush=True)
+        return {}
+    with tempfile.TemporaryDirectory() as tmp:
+        old_fwd, old_bwd = build_parent(source, Path(tmp))
+    lib = tp._LIB.get()
+    plans = [tp.tile_plan(*x.shape, x.element_size()) for x in xs]
+    outs = [torch.empty_like(x) for x in xs]
+    runs = {
+        "maxpool3x3_fwd": {
+            "new": lambda: [tp.launch_fwd(lib.tmpi_maxpool3x3_fwd, x, o, p)
+                            for x, o, p in zip(xs, outs, plans)],
+            "old": lambda: [old_fwd(x, o) for x, o in zip(xs, outs)]},
+        "maxpool3x3_bwd": {
+            "new": lambda: [tp.launch_bwd(lib.tmpi_maxpool3x3_bwd, x, y, g, o, p)
+                            for x, y, g, o, p in zip(xs, ys, gs, outs, plans)],
+            "old": lambda: [old_bwd(x, y, g, o) for x, y, g, o in zip(xs, ys, gs, outs)]},
+    }
+    turns = {}
+    for name, fns in runs.items():
+        got = {}
+        for label in ("old", "new"):
+            fns[label]()
+            got[label] = [o.clone() for o in outs]
+        check(all(bits_equal(a, b) for a, b in zip(got["old"], got["new"])),
+              f"{name}: the parent's kernel and this one disagree")
+        del got
+        turns[name] = {"old": [], "new": []}
+        for label in ("old", "new", "new", "old"):
+            turns[name][label].append(cuda_ms(fns[label], reps=20))
+        print(f"[times] {name} in turns (old, new, new, old), ms a step of {len(xs)}: "
+              f"old {turns[name]['old']}, new {turns[name]['new']}", flush=True)
+    del outs
+    return turns
+
+
 def phase_pool_times(dev, mem_rate, fp32_peak):
     """#12 and #13 over the nine inception pools at batch 512 in bf16 (one
-    training step's launches): time, bound, plain version, and
-    F.max_pool2d in channels_last as the yardstick."""
+    training step's launches): time, bound (at the data sheet's rate and
+    at the measured copy rate), plain version, F.max_pool2d in
+    channels_last as the yardstick, and the parent's kernels in turns."""
     import torch
     import torch.nn.functional as F
     from theanompi_tpu_torch.ops import pool as tp
 
+    copy = copy_rate(dev)
     g = torch.Generator(device=dev).manual_seed(13)
     shapes = inception_pool_shapes()
     xs = [torch.relu(torch.randn(s, generator=g, device=dev)).to(torch.bfloat16) for s in shapes]
@@ -1655,17 +1766,21 @@ def phase_pool_times(dev, mem_rate, fp32_peak):
         ops = ope * elems
         bytes_ms, ops_ms = byts / mem_rate * 1e3, ops / fp32_peak * 1e3
         bound_ms = max(bytes_ms, ops_ms)
+        measured_ms = max(byts / copy["rate"] * 1e3, ops_ms)
         results[name] = dict(step_ms=step_ms, per_launch_ms=per, plain_ms=plain_ms,
                              library_ms=lib_ms, bound_ms=bound_ms, bytes=byts, ops=ops,
-                             bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+                             bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                             bound_ms_measured_rate=measured_ms, copy_rate=copy)
         print(f"[times] {name}: {step_ms:.4f} ms/step ({k} launches, {elems} elements) | bound "
               f"{bound_ms:.4f} ms ({byts / 1e6:.1f} MB; {results[name]['bound_by']}) | "
-              f"{bound_ms / step_ms * 100:.1f}% of bound | plain {plain_ms:.4f} ms | "
-              f"F.max_pool2d channels_last {'forward' if name.endswith('fwd') else 'backward'} "
-              f"{lib_ms:.4f} ms", flush=True)
+              f"{bound_ms / step_ms * 100:.1f}% of bound | at the measured copy rate "
+              f"{measured_ms:.4f} ms, {measured_ms / step_ms * 100:.1f}% | plain "
+              f"{plain_ms:.4f} ms | F.max_pool2d channels_last "
+              f"{'forward' if name.endswith('fwd') else 'backward'} {lib_ms:.4f} ms", flush=True)
         for s, t in zip(shapes, per):
             print(f"[times]   {name} {str(s):22s} {t * 1e3:9.2f} us/launch (bound "
-                  f"{passes * 2 * math.prod(s) / mem_rate * 1e6:8.2f} us)", flush=True)
+                  f"{passes * 2 * math.prod(s) / mem_rate * 1e6:8.2f} us; at the copy rate "
+                  f"{passes * 2 * math.prod(s) / copy['rate'] * 1e6:8.2f} us)", flush=True)
     lib_fwd_bwd = cuda_ms(lambda: [torch.autograd.grad(F.max_pool2d(a, 3, 1, 1), a, b)
                                    for a, b in zip(xr, gr)], reps=20)
     results["maxpool3x3_bwd"]["library_fwd_bwd_ms"] = lib_fwd_bwd
@@ -1674,7 +1789,11 @@ def phase_pool_times(dev, mem_rate, fp32_peak):
           f"{lib_fwd_bwd:.4f} ms; kernels #12 + #13: "
           f"{results['maxpool3x3_fwd']['step_ms'] + results['maxpool3x3_bwd']['step_ms']:.4f} ms",
           flush=True)
-    del xs, gs, ys, xr, yr, gr
+    del xr, yr, gr
+    turns = pool_turns(xs, ys, gs)
+    for name, t in turns.items():
+        results[name]["turns_ms"] = t
+    del xs, gs, ys
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     return results
@@ -1752,11 +1871,18 @@ def codec_label(fn: str):
     return ("quantize", "dequantize", "dequantize-add")[int(m.group(1))] if m else None
 
 
+def pool_label(fn: str):
+    """The halo-tile pool kernel's instantiation in a mangled name, or None."""
+    m = re.search(r"maxpool_(fwd|bwd)_tile_kernelI\w*?(F32|BF16)ELi(\d+)E", fn)
+    return f"{m.group(1)} {m.group(2).lower()} vec{m.group(3)}" if m else None
+
+
 def ptxas_report(source: str = "fused_update.cu", label_of=update_label, count: int = 6) -> dict:
     """What ptxas reports for each kernel instantiation in
     ``csrc/<source>`` that ``label_of`` names (``nvcc -Xptxas -v`` into a
     throwaway cubin, the build's own flags): {label: registers, stack
-    frame, spill bytes}; there must be ``count`` of them."""
+    frame, spill bytes, static shared memory}; there must be ``count`` of
+    them."""
     import tempfile
 
     from theanompi_tpu_torch.ops import kernels as K
@@ -1778,6 +1904,8 @@ def ptxas_report(source: str = "fused_update.cu", label_of=update_label, count: 
             ("spill_stores", r"(\d+) bytes spill stores"), ("spill_loads", r"(\d+) bytes spill loads"))}
         check(all(nums.values()), f"ptxas said nothing parseable of {fn}: {block[:500]}")
         report[label] = {key: int(v.group(1)) for key, v in nums.items()}
+        smem = re.search(r"(\d+) bytes smem", block)  # static; ptxas omits it at 0
+        report[label]["static_smem"] = int(smem.group(1)) if smem else 0
     check(len(report) == count, f"expected {count} kernel instantiations in ptxas's report of "
                                 f"{source}, found {sorted(report)}")
     for label, r in sorted(report.items()):
@@ -1838,6 +1966,7 @@ def main() -> int:
         sass = phase_sass()
         ptxas = ptxas_report()
         ptxas_codec = ptxas_report("quant.cu", codec_label, 3)
+        ptxas_pool = ptxas_report("pool.cu", pool_label, 8)
 
         from theanompi_tpu_torch.tools.update_variants import leaf_specs
 
@@ -2082,7 +2211,20 @@ def main() -> int:
             "resident_step_ms": gnet_runs["resident_step_ms"],
             "peak_memory_bytes": gk["peak_bytes"],
             "parity": gnet_parity,
+            "design": ("a CTA a (image, 64-channel block, band of rows, <= 32 columns) stages "
+                       "its halo tile (x; y and g for the backward) in shared memory by "
+                       "16-byte cp.async, the frame written in place; a thread a (column, "
+                       "16-byte word) walks down the band" +
+                       (" keeping 3 horizontal maxima in registers" if name == "maxpool3x3_fwd"
+                        else " with a 3x3 window of y and g words in registers, x straight "
+                             "to registers, the nine adds in order") +
+                       "; the plan from ops/pool.py:tile_plan, no 64-bit division"),
+            "bound_ms_measured_rate": t["bound_ms_measured_rate"],
+            "copy_rate_bytes_per_s": t["copy_rate"]["rate"],
+            "ptxas": {k_: v_ for k_, v_ in ptxas_pool.items() if k_.startswith(name[-3:])},
         })
+        if "turns_ms" in t:
+            kernels[-1]["parent_turns_ms"] = t["turns_ms"]
     print(f"chip_smoke: wall {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(smi)

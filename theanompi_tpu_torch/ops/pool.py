@@ -4,9 +4,12 @@ all-maxima backward.
 Port of ``theanompi_tpu/ops/pallas_pool.py``. The kernels are
 hand-written CUDA for Hopper (``csrc/pool.cu``): ``maxpool3x3_fwd``
 (TPU kernel #12, ``_fwd_kernel``) and ``maxpool3x3_bwd`` (#13,
-``_bwd_kernel``). ``maxpool3x3_s1`` is the ``torch.autograd.Function``
-around them: like the reference's ``custom_vjp`` it saves ``(x, y)`` and
-hands ``(x, y, g)`` to the backward.
+``_bwd_kernel``), both computed from a halo tile of the input staged in
+shared memory; ``tile_plan`` is their launch plan, computed here and
+passed to them as plain integers. ``maxpool3x3_s1`` is the
+``torch.autograd.Function`` around them: like the reference's
+``custom_vjp`` it saves ``(x, y)`` and hands ``(x, y, g)`` to the
+backward.
 
 The function, exactly as the TPU kernels compute it:
 
@@ -24,10 +27,12 @@ The function, exactly as the TPU kernels compute it:
 The plain versions (``maxpool3x3_fwd_plain``, ``maxpool3x3_bwd_plain``)
 compute it with PyTorch ops in the same order; the kernels are
 bit-identical to them in fp32 and bf16 (a NaN's payload aside). The
-wrappers run them only for CPU tensors; for CUDA tensors they launch the
-kernels or raise. There is no environment switch: a layer routes here
-when its caller asks for it (``nn.Pool(..., kernel=True)``) and
-``routable`` holds.
+forward kernel takes its maxima row by row (three horizontal maxima,
+then their maximum), which returns the same bits on every input free of
+-0.0. The wrappers run them only for CPU tensors; for CUDA tensors they
+launch the kernels or raise. There is no environment switch: a layer
+routes here when its caller asks for it (``nn.Pool(..., kernel=True)``)
+and ``routable`` holds.
 
 One divergence inside the reference, followed here as its TPU kernel has
 it: the reference's jnp fallback (``TMPI_PALLAS=0``) is a
@@ -47,7 +52,6 @@ from theanompi_tpu_torch.ops.kernels import (
     DTYPE_CODES,
     KernelLibrary,
     LaunchCounter,
-    max_blocks,
     require_cuda,
     stream_handle,
 )
@@ -61,16 +65,110 @@ _OFFSETS = tuple((di, dj) for di in range(3) for dj in range(3))
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_I64 = ctypes.c_int64
+# H, W, C and the launch plan: bh, bw, cb_log2, bands, ctiles, cblocks,
+# blocks, threads, smem (``tile_plan``)
+_PLAN = (_I,) * 12
 _LIB = KernelLibrary(
     "pool.cu",
     {
-        # device, dtype, x, y, N, H, W, C, max_blocks, stream
-        "tmpi_maxpool3x3_fwd": (_I, _I, _P, _P, _I64, _I, _I, _I, _I, _P),
-        # device, dtype, x, y, g, dx, N, H, W, C, max_blocks, stream
-        "tmpi_maxpool3x3_bwd": (_I, _I, _P, _P, _P, _P, _I64, _I, _I, _I, _I, _P),
+        # device, dtype, x, y, plan, stream
+        "tmpi_maxpool3x3_fwd": (_I, _I, _P, _P, *_PLAN, _P),
+        # device, dtype, x, y, g, dx, plan, stream
+        "tmpi_maxpool3x3_bwd": (_I, _I, _P, _P, _P, _P, *_PLAN, _P),
     },
 )
+
+# The halo tile (csrc/pool.cu): a staged tensor's tile holds at most
+# TILE_ELEMS elements (36 KB of bf16, 72 KB of fp32); a tile is at most
+# MAX_TILE_COLS output columns wide (a band of 32 columns x 8 bf16 words
+# is 256 threads) and MAX_CHANNELS channels deep; a CTA has at most
+# MAX_THREADS threads.
+TILE_ELEMS = 18432
+MAX_TILE_COLS = 32
+MAX_CHANNELS = 64
+MAX_THREADS = 256
+# sm_90's limits (H100): dynamic shared memory a CTA may have, shared
+# memory an SM holds, the 1 KB the runtime keeps for each resident CTA,
+# resident CTAs and threads an SM, the grid's x dimension
+SMEM_PER_CTA = 232448
+SMEM_PER_SM = 233472
+SMEM_RESERVED_PER_CTA = 1024
+CTAS_PER_SM = 32
+THREADS_PER_SM = 2048
+GRID_X_MAX = 2 ** 31 - 1
+
+
+def _ceil_div(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def tile_plan(N: int, H: int, W: int, C: int, itemsize: int, *, rows: int | None = None,
+              channels: int | None = None) -> dict:
+    """The launch plan of both kernels for an ``[N, H, W, C]`` tensor of
+    ``itemsize``-byte elements, as plain integers (see csrc/pool.cu).
+
+    A CTA owns one image, a block of ``cb`` channels (a power of two: the
+    smallest that holds C, at most ``MAX_CHANNELS``), a band of ``bh``
+    output rows and ``bw`` output columns; it stages the ``(bh + 2) x
+    (bw + 2) x cb`` halo of each input it reads. Bands and column tiles
+    are as even as their counts allow. ``rows`` caps the band (else the
+    tile budget ``TILE_ELEMS`` does) and ``channels`` sets ``cb``; both
+    are for the variant tool. Blocks are numbered channel block fastest,
+    then column tile, band and image, all in ``gridDim.x``. Raises when
+    a tile or the grid does not fit the card."""
+    if min(N, H, W, C) < 1:
+        raise ValueError(f"tile_plan needs a non-empty map, got {(N, H, W, C)}")
+    cb = channels or min(MAX_CHANNELS, max(8, 1 << (C - 1).bit_length()))
+    if cb < 8 or cb & (cb - 1):
+        raise ValueError(f"the channel block must be a power of two >= 8, got {cb}")
+    ctiles = _ceil_div(W, MAX_TILE_COLS)
+    bw = _ceil_div(W, ctiles)
+    bh_max = rows or max(1, TILE_ELEMS // ((bw + 2) * cb) - 2)
+    bands = _ceil_div(H, bh_max)
+    bh = _ceil_div(H, bands)
+    cblocks = _ceil_div(C, cb)
+    blocks = N * bands * ctiles * cblocks
+    # the vector path's (column, 16-byte word) pairs of a tile, whole warps
+    threads = min(MAX_THREADS, _ceil_div(bw * cb * itemsize // 16, 32) * 32)
+    tile_bytes = (bh + 2) * (bw + 2) * cb * itemsize
+    plan = dict(bh=bh, bw=bw, cb=cb, cb_log2=cb.bit_length() - 1, bands=bands, ctiles=ctiles,
+                cblocks=cblocks, blocks=blocks, threads=threads, smem_fwd=tile_bytes,
+                smem_bwd=2 * tile_bytes)
+    for k in ("fwd", "bwd"):
+        smem = plan[f"smem_{k}"]
+        if smem > SMEM_PER_CTA:
+            raise ValueError(f"the {k} tile of {(N, H, W, C)} needs {smem} B of shared memory "
+                             f"(at most {SMEM_PER_CTA})")
+        plan[f"ctas_per_sm_{k}"] = min(CTAS_PER_SM, THREADS_PER_SM // threads,
+                                       SMEM_PER_SM // (smem + SMEM_RESERVED_PER_CTA))
+    if blocks > GRID_X_MAX:
+        raise ValueError(f"{(N, H, W, C)} needs {blocks} CTAs, more than gridDim.x holds")
+    return plan
+
+
+def _plan_args(x: torch.Tensor, plan: dict, kind: str) -> tuple:
+    _, H, W, C = x.shape
+    return (H, W, C, plan["bh"], plan["bw"], plan["cb_log2"], plan["bands"], plan["ctiles"],
+            plan["cblocks"], plan["blocks"], plan["threads"], plan[f"smem_{kind}"])
+
+
+def launch_fwd(entry, x: torch.Tensor, y: torch.Tensor, plan: dict) -> None:
+    """One launch of the forward through ``entry`` (the library's
+    ``tmpi_maxpool3x3_fwd``, or a variant's) with ``plan``; the caller
+    has checked the tensors. Raises on a CUDA error at launch."""
+    dev = x.device
+    rc = entry(dev.index, DTYPE_CODES[x.dtype], x.data_ptr(), y.data_ptr(),
+               *_plan_args(x, plan, "fwd"), stream_handle(dev))
+    _LIB.check(rc, "maxpool3x3 forward kernel")
+
+
+def launch_bwd(entry, x: torch.Tensor, y: torch.Tensor, g: torch.Tensor, dx: torch.Tensor,
+               plan: dict) -> None:
+    """Likewise one launch of the backward."""
+    dev = x.device
+    rc = entry(dev.index, DTYPE_CODES[x.dtype], x.data_ptr(), y.data_ptr(), g.data_ptr(),
+               dx.data_ptr(), *_plan_args(x, plan, "bwd"), stream_handle(dev))
+    _LIB.check(rc, "maxpool3x3 backward kernel")
 
 MAXPOOL_FWD = LaunchCounter("maxpool3x3_fwd")
 MAXPOOL_BWD = LaunchCounter("maxpool3x3_bwd")
@@ -168,11 +266,7 @@ def maxpool3x3_fwd(x: torch.Tensor) -> torch.Tensor:
     y = torch.empty_like(x)
     if x.numel() == 0:
         return y
-    dev = x.device
-    rc = _LIB.get().tmpi_maxpool3x3_fwd(dev.index, DTYPE_CODES[x.dtype], x.data_ptr(),
-                                         y.data_ptr(), N, H, W, C, max_blocks(dev),
-                                         stream_handle(dev))
-    _LIB.check(rc, "maxpool3x3 forward kernel")
+    launch_fwd(_LIB.get().tmpi_maxpool3x3_fwd, x, y, tile_plan(N, H, W, C, x.element_size()))
     MAXPOOL_FWD.launches += 1
     return y
 
@@ -190,11 +284,8 @@ def maxpool3x3_bwd(x: torch.Tensor, y: torch.Tensor, g: torch.Tensor) -> torch.T
     dx = torch.empty_like(x)
     if x.numel() == 0:
         return dx
-    dev = x.device
-    rc = _LIB.get().tmpi_maxpool3x3_bwd(dev.index, DTYPE_CODES[x.dtype], x.data_ptr(),
-                                         y.data_ptr(), g.data_ptr(), dx.data_ptr(), N, H, W, C,
-                                         max_blocks(dev), stream_handle(dev))
-    _LIB.check(rc, "maxpool3x3 backward kernel")
+    launch_bwd(_LIB.get().tmpi_maxpool3x3_bwd, x, y, g, dx,
+               tile_plan(N, H, W, C, x.element_size()))
     MAXPOOL_BWD.launches += 1
     return dx
 

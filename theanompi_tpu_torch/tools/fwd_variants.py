@@ -62,7 +62,8 @@ def _variants(src: str) -> dict:
 
 def build_variants(workdir: Path, make_variants=_variants,
                    entry: str = "tmpi_flash_fwd_sm90", library=None) -> dict:
-    """{variant: the library's ``entry``}, built in parallel;
+    """{variant: the library's ``entry``}, built in parallel ({variant:
+    {entry: function}} when ``entry`` is a tuple of names);
     ``make_variants`` maps the source to {variant: [(old, new), ...]};
     ``library`` is the ``KernelLibrary`` whose source is edited (default:
     flash attention's)."""
@@ -86,10 +87,14 @@ def build_variants(workdir: Path, make_variants=_variants,
         log = proc.communicate()[0]
         if proc.returncode:
             raise RuntimeError(f"nvcc failed on variant {name}:\n{log[-3000:]}")
-        fn = getattr(ctypes.CDLL(str(so)), entry)
-        fn.argtypes = list(library.signatures[entry])
-        fn.restype = ctypes.c_int
-        fns[name] = fn
+        lib = ctypes.CDLL(str(so))
+        loaded = {}
+        for e in (entry,) if isinstance(entry, str) else entry:
+            fn = getattr(lib, e)
+            fn.argtypes = list(library.signatures[e])
+            fn.restype = ctypes.c_int
+            loaded[e] = fn
+        fns[name] = loaded[entry] if isinstance(entry, str) else loaded
     return fns
 
 

@@ -77,7 +77,7 @@ def _device_us(evt) -> float:
 CATEGORIES = (
     ("flash_attention", ("flash_fwd_kernel", "flash_fwd_sm90_kernel", "flash_dq_kernel",
                          "flash_dq_sm90_kernel", "flash_dkv_kernel", "flash_dkv_sm90_kernel")),
-    ("pool_kernel", ("maxpool_fwd_kernel", "maxpool_bwd_kernel")),
+    ("pool_kernel", ("maxpool_fwd_tile_kernel", "maxpool_bwd_tile_kernel")),
     ("fused_update", ("fused_update_multi_kernel", "momentum_kernel", "sgd_kernel")),
     ("layout_transform", ("tensorTransform", "nhwcSlice", "nchwToNhwc", "nhwcToNchw")),
     ("copy_cast", ("direct_copy",)),
