@@ -94,6 +94,25 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                 (F.max_pool2d's backward, first maximum) on tie-heavy input
                 must fail the backward check. Each counter moves by one
                 per call.
+   feed       — the input feed's host side. The port's native loader
+                (``native/loader.cpp``) built with this host's g++, and
+                ``gather_rows`` (from a memory-mapped shard),
+                ``crop_mirror_u8`` and ``crop_mirror_normalize`` (scalar,
+                per-channel and 227x227 plane means) held bit for bit
+                against their numpy versions over a 256-row batch of
+                256x256x3 images cropped to 227, at 1 thread and at the
+                default count; the card's ``(x.float() - mean) * scale``
+                (``train.make_input_transform``) bit for bit against the
+                CPU's. Then the host batch (AlexNet's: 128 rows at 227)
+                of three feeds, median of 11 after one left out
+                (``tools/profile_step.py::feed_times``): float32
+                ``synthetic``, uint8 ``imagenet_synthetic`` and
+                ``imagenet`` over 256x256x3 shards that ``write_shards``
+                writes to a temporary directory (2,816 + 128 images, also
+                phase feed-main's), each as gather, crop, pin and H2D ms;
+                the uint8 feeds both written into pinned memory as the
+                training loop does (``data/loader.py::pinned_array``) and
+                into fresh arrays then pinned (the reference's order).
 3. main       — the training path a user runs, through
                 ``theanompi_tpu_torch.cli.main``: full-width AlexNet (batch
                 128, 227x227x3, 1000 classes, bf16 compute, fp32 params,
@@ -133,6 +152,23 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                 command without ``--pool-kernel``: no pool kernel launch.
                 Both step times, and the device step of both with the
                 batch resident, in turns (on, off, on, off).
+   feed-main  — the feed through the CLI, long enough to drain the
+                prefetch queue: full-width AlexNet with ``--fused-update``
+                on ``--dataset imagenet_synthetic`` and on ``--dataset
+                imagenet`` (the shards of phase feed, 10-crop validation),
+                22 steps (20 steady), and GoogLeNet at batch 512 on
+                ``imagenet_synthetic`` with ``--pool-kernel
+                --fused-update``, 14 steps (12 steady). Kernel counters and
+                the native loader's call counts zeroed just before each run
+                and read just after: one fused_momentum a step, for
+                GoogLeNet also 9 maxpool3x3_fwd a step and a val batch and
+                9 maxpool3x3_bwd a step, nothing else; at least one native
+                gather a step (and crop, on the shards). Losses and val
+                metrics finite, batches uint8 normalized on the card,
+                10 views a validation image on the shards. Each run's step
+                against the same model's step with a uint8 batch resident
+                on the card (twice), and the host time the loop waited on
+                the loader a step.
 5. parity     — the same small AlexNet (67x67, fp32, dropout off) trained 2
                 steps on the card and on the CPU (where the wrappers run
                 their plain versions) from the same weights and batches.
@@ -201,7 +237,8 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                 grid-stride pool kernels and these in turns (old, new,
                 new, old), outputs first checked equal.
 
-Then one JSON line ``{"kernels": [...]}``, the card's name and power
+A ``[feed]`` line sums up both feed phases as JSON. Then one JSON line
+``{"kernels": [...]}``, the card's name and power
 limit as nvidia-smi prints them, and last ``{"ok": true, "device": ...}``.
 Exits 2 without a card, or when run outside a checkout of the repo.
 """
@@ -217,6 +254,7 @@ import re
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -1913,6 +1951,231 @@ def ptxas_report(source: str = "fused_update.cu", label_of=update_label, count: 
     return report
 
 
+# the input feed: a native-loader check batch at ImageNet's sizes, host
+# batches timed per feed (median over FEED_BATCHES, the first left out),
+# and the CLI runs long enough to drain the prefetch queue
+FEED_ROWS = 256
+FEED_SIDE = 256
+FEED_CROP = 227
+FEED_BATCHES = 11
+FEED_ALEX_STEPS = 22   # 20 steady steps
+FEED_GNET_STEPS = 14   # 12 steady steps
+
+
+def native_cases(gen_seed: int = 0):
+    """A 256-row batch of 256x256x3 uint8 images from a memory-mapped
+    shard, with 227-crop offsets, flips, and the three kinds of mean."""
+    import numpy as np
+
+    r = np.random.RandomState(gen_seed)
+    n, s, c = FEED_ROWS, FEED_SIDE, FEED_CROP
+    images = r.randint(0, 256, size=(n, s, s, 3)).astype(np.uint8)
+    oy = r.randint(0, s - c + 1, n)
+    ox = r.randint(0, s - c + 1, n)
+    flips = r.rand(n) < 0.5
+    means = {"scalar": np.float32(127.5),
+             "channel": (r.rand(3) * 255).astype(np.float32),
+             "plane": (r.rand(c, c, 3) * 255).astype(np.float32)}
+    return images, oy, ox, flips, means
+
+
+def phase_feed(dev, shard_dir):
+    """The native loader built on this host and held bit for bit against
+    its numpy versions at ImageNet's sizes (1 thread and the default
+    count); the card's (x - mean) * scale bit for bit against the CPU's;
+    then the host batch of three feeds timed, split into gather, crop,
+    pin and H2D. Writes the ImageNet shards of phase feed-main under
+    ``shard_dir``."""
+    import numpy as np
+    import torch
+    from theanompi_tpu_torch import native
+    from theanompi_tpu_torch.data.loader import host_tensors, pinned_array
+    from theanompi_tpu_torch.models.alex_net import AlexNet
+    from theanompi_tpu_torch.tools.profile_step import feed_dataset, feed_times, temp_shards
+    from theanompi_tpu_torch.train import make_input_transform
+
+    path, secs = native.build()
+    print(f"[feed] native loader: g++ {' '.join(native.CXX_FLAGS)} -> {path.name} "
+          f"({secs:.2f} s); {native.default_threads()} threads a call by default", flush=True)
+    images, oy, ox, flips, means = native_cases()
+    shard = os.path.join(shard_dir, "check_images.npy")
+    np.save(shard, images)
+    mm = np.load(shard, mmap_mode="r")
+    idx = np.random.RandomState(1).permutation(FEED_ROWS)[:FEED_ROWS // 2]
+    n_cases = 0
+    for threads in (1, None):
+        label = f"{threads or native.default_threads()} thread(s)"
+        check(np.array_equal(native.gather_rows(mm, idx, n_threads=threads),
+                             native.gather_rows_plain(mm, idx)),
+              f"gather_rows differs from numpy's fancy index ({label})")
+        got = native.crop_mirror_u8(images, oy, ox, flips, FEED_CROP, n_threads=threads)
+        check(got.dtype == np.uint8 and np.array_equal(
+            got, native.crop_mirror_plain(images, oy, ox, flips, FEED_CROP)),
+            f"crop_mirror_u8 differs from the numpy crop + mirror ({label})")
+        n_cases += 2
+        for kind, mean in means.items():
+            got = native.crop_mirror_normalize(images, oy, ox, flips, FEED_CROP, mean,
+                                               1.0 / 58.0, n_threads=threads)
+            want = native.crop_mirror_normalize_plain(images, oy, ox, flips, FEED_CROP, mean,
+                                                      np.float32(1.0 / 58.0))
+            check(got.dtype == np.float32 and np.array_equal(got, want),
+                  f"crop_mirror_normalize ({kind} mean, {label}) differs from numpy")
+            n_cases += 1
+    os.remove(shard)
+    crops = native.crop_mirror_u8(images[:128], oy[:128], ox[:128], flips[:128], FEED_CROP)
+    x_cpu = torch.from_numpy(crops)
+    x_dev = x_cpu.to(dev)
+    for kind, mean in means.items():
+        spec = {"mean": mean, "scale": float(np.float32(1.0 / 58.0))}
+        on_card = make_input_transform(spec, dev)(x_dev).cpu()
+        on_cpu = make_input_transform(spec, "cpu")(x_cpu)
+        check(torch.equal(on_card, on_cpu),
+              f"the card's (x - mean) * scale ({kind} mean) differs from the CPU's")
+        n_cases += 1
+    print(f"[feed] {n_cases} cases bit-identical: gather_rows, crop_mirror_u8, "
+          "crop_mirror_normalize (scalar / per-channel / plane mean) at 1 thread and the "
+          f"default count over {FEED_ROWS} rows of {FEED_SIDE}x{FEED_SIDE}x3; the card's "
+          "input transform against the CPU's (three means)", flush=True)
+
+    recipe = AlexNet.default_recipe()
+    batch = recipe.batch_size
+    n_host = (FEED_BATCHES + 1) * batch
+    t0 = time.perf_counter()
+    temp_shards(shard_dir, FEED_ALEX_STEPS * batch, batch)
+    print(f"[feed] wrote {FEED_ALEX_STEPS * batch} + {batch} shard images of "
+          f"{FEED_SIDE}x{FEED_SIDE}x3 ({time.perf_counter() - t0:.1f} s)", flush=True)
+    # a pinned_array batch goes to the card as its own tensor, uncopied
+    buf = pinned_array((batch, *recipe.input_shape), np.uint8)
+    (t,) = host_tensors((buf,), True)
+    check(t.is_pinned() and t.data_ptr() == buf.ctypes.data and t.shape == buf.shape,
+          "host_tensors copied a pinned_array batch")
+    del buf, t
+    feeds = {}
+    for name in ("synthetic", "imagenet_synthetic", "imagenet"):
+        data = feed_dataset(name, recipe, n_host, root=shard_dir)
+        # the loop's way last; float32 batches are numpy's, then pinned
+        for into_pinned in ((False, True) if name != "synthetic" else (True,)):
+            f = feed_times(data, batch, dev, FEED_BATCHES, into_pinned=into_pinned)
+            check(f["written_into_pinned"] == (into_pinned and name != "synthetic"),
+                  f"{name}: written into pinned memory {f['written_into_pinned']}")
+            feeds[f"{name}{'' if into_pinned else '/fresh+pin'}"] = f
+            how = ("written into pinned memory" if f["written_into_pinned"] else
+                   "fresh arrays, then pinned")
+            print(f"[feed] {name} ({f['dtype']}, {f['batch_bytes'] / 1e6:.1f} MB a batch of "
+                  f"{batch}), {how}, median of {FEED_BATCHES} ms: gather {f['gather_ms']:.3f}, "
+                  f"crop {f['crop_ms']:.3f}, pin {f['pin_ms']:.3f}, host batch "
+                  f"{f['host_batch_ms']:.3f}, H2D {f['h2d_ms']:.3f}", flush=True)
+        del data
+    return {"cases": n_cases, "build_seconds": secs, "feeds": feeds}
+
+
+def resident_step_ms(model_name: str, pool_kernel: bool = False, steps: int = 10,
+                     warmup: int = 3) -> float:
+    """One training step with a uint8 batch resident on the card, normalized
+    in the step as the feed's CLI runs do (BSPEngine, --fused-update):
+    AlexNet at batch 128 or GoogLeNet at batch 512. CUDA events."""
+    import torch
+    from theanompi_tpu_torch.data.imagenet import MEAN, SCALE
+    from theanompi_tpu_torch.models.alex_net import AlexNet
+    from theanompi_tpu_torch.models.googlenet import GoogLeNet
+    from theanompi_tpu_torch.parallel.bsp import BSPEngine
+    from theanompi_tpu_torch.train import make_input_transform
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    if model_name == "googlenet":
+        model = GoogLeNet(GoogLeNet.default_recipe().replace(batch_size=GNET_BATCH),
+                          pool_kernel=pool_kernel)
+    else:
+        model = AlexNet()
+    r = model.recipe
+    engine = BSPEngine(model, 1, dev, steps_per_epoch=10_000, fused_update=True,
+                       input_transform=make_input_transform(
+                           {"mean": MEAN, "scale": float(SCALE)}, dev))
+    box = {"state": engine.init_state(torch.Generator().manual_seed(0))}
+    gen = torch.Generator(device=dev).manual_seed(1)
+    x = torch.randint(0, 256, (r.batch_size, *r.input_shape), generator=gen, device=dev,
+                      dtype=torch.uint8)
+    y = torch.randint(0, r.num_classes, (r.batch_size,), generator=gen, device=dev)
+
+    def step():
+        box["state"], _ = engine.train_step(box["state"], x, y, gen)
+
+    ms = cuda_ms(step, reps=steps, warmup=warmup)
+    del box, x, y, engine
+    torch.cuda.empty_cache()
+    return ms
+
+
+def phase_feed_main(shard_dir):
+    """The feed through the CLI: AlexNet on imagenet_synthetic and on the
+    ImageNet shards (10-crop validation), GoogLeNet at batch 512 on
+    imagenet_synthetic with the pool kernels; kernel and native counters
+    zeroed just before each run and read just after. Each run's step
+    against the same model's resident uint8 step."""
+    import torch
+    from theanompi_tpu_torch import native
+    from theanompi_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+
+    runs = {}
+    for label, model, steps, extra in (
+        ("alexnet-imagenet_synthetic", "alexnet", FEED_ALEX_STEPS,
+         ["--dataset", "imagenet_synthetic", "--dataset-arg", f"n_train={128 * FEED_ALEX_STEPS}",
+          "--dataset-arg", "n_val=128"]),
+        ("alexnet-imagenet", "alexnet", FEED_ALEX_STEPS,
+         ["--dataset", "imagenet", "--dataset-arg", f"root={shard_dir}",
+          "--dataset-arg", "val_crops=10"]),
+        ("googlenet-imagenet_synthetic", "googlenet", FEED_GNET_STEPS,
+         ["--dataset", "imagenet_synthetic", "--pool-kernel", "--batch-size", str(GNET_BATCH),
+          "--dataset-arg", f"n_train={GNET_BATCH * FEED_GNET_STEPS}",
+          "--dataset-arg", f"n_val={GNET_BATCH}"]),
+    ):
+        cls = "AlexNet" if model == "alexnet" else "GoogLeNet"
+        # the default print frequency: no per-step read-back, as a user runs
+        argv = ["BSP", "1", model, cls, "--fused-update", "--max-steps", str(steps),
+                "--seed", "0", *extra]
+        print(f"[feed-main] python -m theanompi_tpu_torch.cli {' '.join(argv)}", flush=True)
+        torch.cuda.empty_cache()
+        reset_launch_counts()
+        native.LOADER.reset()
+        summary = run_cli(argv)
+        counts = launch_counts()
+        calls = dict(native.LOADER.calls)
+        losses = summary["losses"]
+        check(summary["steps"] == steps and len(losses) == steps
+              and all(math.isfinite(v) for v in losses) and summary["nonfinite_steps"] == 0,
+              f"feed-main {label}: steps {summary['steps']}, losses {losses}")
+        check("val" in summary and all(math.isfinite(v) for v in summary["val"].values()),
+              f"feed-main {label}: bad val metrics {summary.get('val')}")
+        check(summary["device_normalize"] and summary["steady_steps"] == steps - 2,
+              f"feed-main {label}: device_normalize {summary['device_normalize']}, "
+              f"steady steps {summary['steady_steps']}")
+        gnet = model == "googlenet"
+        want = {"maxpool3x3_fwd": 9 * (steps + 1) if gnet else 0,
+                "maxpool3x3_bwd": 9 * steps if gnet else 0,
+                "fused_momentum": update_launches(128 if gnet else 16) * steps}
+        got = {k: counts[k] for k in want}
+        check(got == want, f"feed-main {label} launched {got}, expected {want}")
+        stray = {k: v for k, v in counts.items() if k not in want and v}
+        check(not stray, f"feed-main {label} launched other kernels: {stray}")
+        native_want = ["tmpi_gather_rows"] + (["tmpi_crop_mirror_u8"]
+                                              if label.endswith("-imagenet") else [])
+        check(all(calls.get(k, 0) >= steps for k in native_want),
+              f"feed-main {label}: native calls {calls}, expected >= {steps} of {native_want}")
+        if label == "alexnet-imagenet":
+            check(summary["eval_views"] == 10, f"feed-main {label}: {summary['eval_views']} views")
+        resident = [resident_step_ms(model, pool_kernel=gnet) for _ in range(2)]
+        ratio = summary["step_ms"] / min(resident)
+        print(f"[feed-main] {label}: per-step loss {losses}; val {summary['val']}", flush=True)
+        print(f"[feed-main] {label}: CLI step {summary['step_ms']:.3f} ms over "
+              f"{summary['steady_steps']} steady steps, {summary['images_per_sec']:.1f} img/s; "
+              f"resident uint8 device step {resident} ms; CLI / resident {ratio:.3f}; the loop "
+              f"waited {summary['feed_wait_ms_per_rank'][0]:.3f} ms a step on the loader; "
+              f"launches {got}; native calls {calls}", flush=True)
+        runs[label] = {"launches": got, "summary": summary, "resident_step_ms": resident,
+                       "cli_over_resident": ratio, "native_calls": calls}
+    return runs
+
+
 def build_all():
     """Build every kernel library at once (one nvcc per source, started
     together); returns {source: nvcc seconds}."""
@@ -1946,6 +2209,7 @@ def main() -> int:
     sys.path.insert(0, REPO)
     print(f"python {sys.version.split()[0]}, torch {torch.__version__}, cuda {torch.version.cuda}",
           flush=True)
+    stack = contextlib.ExitStack()
     try:
         smi = nvidia_smi_line()
         kind = torch.cuda.get_device_name(0)
@@ -1955,6 +2219,8 @@ def main() -> int:
         print(f"card: {smi} | {kind} | memory rate for bounds {mem_rate / 1e12:.2f} TB/s", flush=True)
         dev = torch.device("cuda", 0)
         torch.cuda.set_device(dev)
+        # the feed phases' ImageNet shards, removed at exit
+        shard_dir = stack.enter_context(tempfile.TemporaryDirectory(prefix="tmpi-shards-"))
 
         from theanompi_tpu_torch.ops.kernels import library_path
 
@@ -1996,6 +2262,10 @@ def main() -> int:
               f"({time.perf_counter() - t0:.1f} s)", flush=True)
 
         t0 = time.perf_counter()
+        feed = phase_feed(dev, shard_dir)
+        print(f"[feed] done ({time.perf_counter() - t0:.1f} s)", flush=True)
+
+        t0 = time.perf_counter()
         runs = phase_main()
         print(f"[main] done ({time.perf_counter() - t0:.1f} s)", flush=True)
 
@@ -2006,6 +2276,20 @@ def main() -> int:
         t0 = time.perf_counter()
         gnet_runs = phase_googlenet_main()
         print(f"[googlenet-main] done ({time.perf_counter() - t0:.1f} s)", flush=True)
+
+        t0 = time.perf_counter()
+        feed_runs = phase_feed_main(shard_dir)
+        print(f"[feed-main] done ({time.perf_counter() - t0:.1f} s)", flush=True)
+        print("[feed] " + json.dumps({
+            "host_batch_ms": {k: {m: f[m] for m in ("gather_ms", "crop_ms", "pin_ms",
+                                                    "host_batch_ms", "h2d_ms")}
+                              for k, f in feed["feeds"].items()},
+            "cli": {k: {"step_ms": r["summary"]["step_ms"],
+                        "resident_step_ms": r["resident_step_ms"],
+                        "cli_over_resident": r["cli_over_resident"],
+                        "feed_wait_ms": r["summary"]["feed_wait_ms_per_rank"][0],
+                        "images_per_sec": r["summary"]["images_per_sec"]}
+                    for k, r in feed_runs.items()}}), flush=True)
 
         t0 = time.perf_counter()
         rank_runs = phase_bsp_ranks(torch.cuda.device_count())
@@ -2033,6 +2317,8 @@ def main() -> int:
     except Failed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
+    finally:
+        stack.close()
 
     codec_run = rank_runs["psum+int8:ef"]
     src_fu = "theanompi_tpu_torch/csrc/fused_update.cu"
@@ -2074,6 +2360,10 @@ def main() -> int:
         })
         if rule == "momentum":
             kernels[-1]["googlenet_main_launches"] = gnet_runs["pool-kernel"]["launches"][name]
+            kernels[-1]["feed_main"] = {k: {"launches": r["launches"][name],
+                                            "step_ms": r["summary"]["step_ms"],
+                                            "resident_step_ms": r["resident_step_ms"]}
+                                        for k, r in feed_runs.items()}
     no_library = ("no single PyTorch call computes an absmax-scaled int8 quantize: "
                   "torch.quantize_per_tensor takes the scale as an input and multiplies by "
                   "its reciprocal")
@@ -2225,6 +2515,10 @@ def main() -> int:
         })
         if "turns_ms" in t:
             kernels[-1]["parent_turns_ms"] = t["turns_ms"]
+        gf = feed_runs["googlenet-imagenet_synthetic"]
+        kernels[-1]["feed_main"] = {"launches": gf["launches"][name],
+                                    "step_ms": gf["summary"]["step_ms"],
+                                    "resident_step_ms": gf["resident_step_ms"]}
     print(f"chip_smoke: wall {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(smi)

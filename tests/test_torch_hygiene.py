@@ -63,6 +63,9 @@ def test_importing_the_port_loads_no_jax():
         "import theanompi_tpu_torch.data.lm, theanompi_tpu_torch.ops.flash_attention\n"
         "import theanompi_tpu_torch.ops.ring_attention\n"
         "import theanompi_tpu_torch.ops.pool, theanompi_tpu_torch.models.googlenet\n"
+        "import theanompi_tpu_torch.native, theanompi_tpu_torch.utils.hostaffinity\n"
+        "import theanompi_tpu_torch.data.loader, theanompi_tpu_torch.data.imagenet\n"
+        "import theanompi_tpu_torch.tools.profile_step\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'theanompi_tpu'))\n"
         "print(bad)\n"
     )

@@ -14,6 +14,16 @@ kernels (the reference's ``TMPI_PALLAS_POOL=1``)::
         --pool-kernel --fused-update --batch-size 512 --max-steps 6 \
         --dataset-arg n_train=3072 --dataset-arg n_val=512
 
+AlexNet on uint8 ImageNet batches, gathered, cropped and mirrored by the
+native loader and normalized on the card (``imagenet_synthetic`` needs no
+data; ``imagenet`` reads the ``.npy`` shards of ``data/imagenet.py``)::
+
+    python -m theanompi_tpu_torch.cli BSP 1 alexnet AlexNet \
+        --dataset imagenet_synthetic --fused-update --max-steps 22 \
+        --dataset-arg n_train=2816 --dataset-arg n_val=128
+    python -m theanompi_tpu_torch.cli BSP 1 alexnet AlexNet --dataset imagenet \
+        --dataset-arg root=SHARD_DIR --dataset-arg val_crops=10 --fused-update
+
 Several ranks, one process per card over NCCL (the global batch split
 across them)::
 
@@ -69,8 +79,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--epochs", type=int, default=None, help="override recipe n_epochs")
     p.add_argument("--max-steps", type=int, default=None)
     p.add_argument("--batch-size", type=int, default=None, help="override recipe batch")
+    p.add_argument("--dataset", default=None,
+                   help="override the recipe's dataset: synthetic, imagenet_synthetic (uint8, "
+                        "normalized on the card), imagenet (uint8 .npy shards: --dataset-arg "
+                        "root=DIR), cifar10, digits, lm_synthetic, lm_text")
     p.add_argument("--synthetic", action="store_true",
-                   help="train on the seeded synthetic dataset (no data on disk)")
+                   help="train on the seeded synthetic dataset (no data on disk); the "
+                        "shortcut for --dataset synthetic")
     p.add_argument("--dataset-arg", action="append", default=[], metavar="K=V",
                    help="dataset constructor kwarg (repeatable)")
     p.add_argument("--recipe-arg", action="append", default=[], metavar="K=V",
@@ -101,7 +116,10 @@ def _parse_kv(pairs, flag) -> dict:
 
 
 def main(argv=None) -> int:
-    args = build_parser().parse_args(list(argv) if argv is not None else sys.argv[1:])
+    parser = build_parser()
+    args = parser.parse_args(list(argv) if argv is not None else sys.argv[1:])
+    if args.synthetic and args.dataset not in (None, "synthetic"):
+        parser.error(f"--synthetic is --dataset synthetic; it contradicts --dataset {args.dataset}")
 
     from theanompi_tpu_torch.launch.session import launch_training
 
@@ -127,7 +145,7 @@ def main(argv=None) -> int:
         wire_codec=args.wire_codec,
         n_epochs=args.epochs,
         max_steps=args.max_steps,
-        dataset="synthetic" if args.synthetic else None,
+        dataset="synthetic" if args.synthetic else args.dataset,
         dataset_kwargs=dataset_kwargs,
         recipe_overrides=overrides,
         seed=args.seed,

@@ -21,22 +21,28 @@ each rank's step time and kernel launch counts and, with several ranks,
 a digest of each rank's params and optimizer state (equal on every rank
 when the replicas agree) and of its error-feedback residuals.
 
-Hot loop. A background thread (``tmpi-prefetch``) gathers each host
-batch and pins it; the loop copies it to the card with
-``non_blocking=True`` and dispatches the step, which never waits on the
-device. The host reads losses back only every ``print_freq`` steps and
-at epoch ends. Step time comes from CUDA events recorded after every
-step (``time.perf_counter`` on the CPU, where ops are synchronous); the
-first ``WARMUP_STEPS`` steps of a run are left out of the steady-state
-figures.
+Hot loop. A ``PrefetchLoader`` thread (``tmpi-prefetch``, pinned to
+``TMPI_LOADER_CPUS`` when set) gathers each host batch (uint8 datasets
+through the native gather and crop, ``native/``) into pinned memory
+(``data/loader.py::pinned_array``; a batch made elsewhere is copied
+there); the loop copies it to the card with ``non_blocking=True`` and
+dispatches the step, which never waits on the device. A dataset with a ``device_transform``
+ships uint8 batches, and the step computes ``(x - mean) * scale`` on the
+card (``train.make_input_transform``); one with ``val_views > 1`` ships
+that many view-major rows per validation image, whose logits the eval
+step averages. The host reads losses back only every ``print_freq``
+steps and at epoch ends. Step time comes from CUDA events recorded after
+every step (``time.perf_counter`` on the CPU, where ops are
+synchronous); the first ``WARMUP_STEPS`` steps of a run are left out of
+the steady-state figures, as they are from ``feed_wait_ms``, the host
+time the loop spent waiting for the loader a step (near 0 when the card,
+not the feed, paces the run).
 """
 
 from __future__ import annotations
 
 import hashlib
 import math
-import queue
-import threading
 import time
 from collections import deque
 from typing import Optional
@@ -45,83 +51,26 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from theanompi_tpu_torch import native
 from theanompi_tpu_torch.data import get_dataset
+from theanompi_tpu_torch.data.loader import PrefetchLoader, host_tensors, pinned_array
 from theanompi_tpu_torch.device import resolve_device
 from theanompi_tpu_torch.models.contract import Model
 from theanompi_tpu_torch.ops.kernels import launch_counts
 from theanompi_tpu_torch.parallel.bsp import BSPEngine
 from theanompi_tpu_torch.parallel.codec import get_codec
 from theanompi_tpu_torch.parallel.mesh import host_local_batch_slice, rank_generator
+from theanompi_tpu_torch.train import make_input_transform
 from theanompi_tpu_torch.tree import tree_leaves
 
 # summary["losses"] keeps the most recent per-step losses
 LOSS_HISTORY = 1000
-# host batches the prefetch thread may hold ready (each 79 MB at AlexNet's shape)
+# host batches the prefetch thread may hold ready (19.8 MB each for
+# AlexNet's uint8 ImageNet batch, 79 MB for its float32 synthetic one)
 PREFETCH_DEPTH = 2
 # first steps of a run left out of the steady-state step time (cuDNN
 # set-up, the kernel library's first load)
 WARMUP_STEPS = 2
-
-
-class _Prefetcher:
-    """Runs ``source`` (an iterator of numpy (x, y) batches) on a named
-    thread, turning each batch into (pinned, when ``pin``) CPU tensors,
-    at most ``depth`` batches ahead. A context manager: leaving it stops
-    and joins the thread."""
-
-    _DONE = object()
-
-    def __init__(self, source, depth: int, pin: bool):
-        self._source = source
-        self._pin = pin
-        self._q: queue.Queue = queue.Queue(maxsize=max(1, depth))
-        self._stop = threading.Event()
-        self._thread = threading.Thread(target=self._run, name="tmpi-prefetch", daemon=True)
-
-    def _put(self, item) -> bool:
-        while not self._stop.is_set():
-            try:
-                self._q.put(item, timeout=0.1)
-                return True
-            except queue.Full:
-                continue
-        return False
-
-    def _run(self):
-        try:
-            for x, y in self._source:
-                xt = torch.from_numpy(np.ascontiguousarray(x))
-                yt = torch.from_numpy(np.ascontiguousarray(y))
-                if self._pin:
-                    xt, yt = xt.pin_memory(), yt.pin_memory()
-                if not self._put((xt, yt)):
-                    return
-            self._put(self._DONE)
-        except BaseException as e:  # re-raised in the consuming thread
-            self._put(e)
-
-    def __enter__(self):
-        self._thread.start()
-        return self
-
-    def __iter__(self):
-        while True:
-            item = self._q.get()
-            if item is self._DONE:
-                return
-            if isinstance(item, BaseException):
-                raise item
-            yield item
-
-    def __exit__(self, *exc):
-        self._stop.set()
-        while True:  # unblock a producer waiting on a full queue
-            try:
-                self._q.get_nowait()
-            except queue.Empty:
-                break
-        self._thread.join(timeout=30)
-        return False
 
 
 def _digest(tensors) -> str:
@@ -200,9 +149,12 @@ def run_training(
         # `--synthetic` on an LM means synthetic TOKENS, not float images
         dataset = "lm_synthetic"
     dataset_kwargs = dict(dataset_kwargs or {})
-    if dataset == "synthetic":
-        # synthetic stand-in defaults to the MODEL's shapes
-        dataset_kwargs.setdefault("image_shape", tuple(recipe.input_shape))
+    if dataset in ("synthetic", "imagenet_synthetic"):
+        # synthetic stand-ins default to the MODEL's shapes
+        if dataset == "synthetic":
+            dataset_kwargs.setdefault("image_shape", tuple(recipe.input_shape))
+        else:
+            dataset_kwargs.setdefault("crop", recipe.input_shape[0])
         dataset_kwargs.setdefault("n_classes", recipe.num_classes)
     elif dataset in ("lm_synthetic", "lm_text"):
         # token datasets default to the MODEL's sequence length / vocab
@@ -240,8 +192,13 @@ def run_training(
             "(set recipe val_batch_size or enlarge the val split)"
         )
 
+    # uint8 batches normalized on the card, multi-view validation: the
+    # dataset's opt-ins (reference worker.py:604-616)
+    input_transform = make_input_transform(getattr(data, "device_transform", None), device)
+    eval_views = int(getattr(data, "val_views", 1))
     engine = BSPEngine(model, devices, device, steps_per_epoch=steps_per_epoch,
-                       fused_update=fused_update, strategy=strategy, wire_codec=wire_codec)
+                       fused_update=fused_update, strategy=strategy, wire_codec=wire_codec,
+                       input_transform=input_transform, eval_views=eval_views)
     rank = dist.get_rank() if devices > 1 else 0
     shard = host_local_batch_slice(batch, rank, devices)
     vshard = host_local_batch_slice(vbatch, rank, devices)
@@ -254,6 +211,9 @@ def run_training(
     clock = _StepClock(device)
     verbose = print_freq and rank == 0
 
+    def place(batch):
+        return host_tensors(batch, pin)
+
     def to_device(t):
         return t.to(device, non_blocking=True)
 
@@ -261,10 +221,12 @@ def run_training(
                      "device": str(device), "fused_update": bool(fused_update),
                      "pool_kernel": bool(pool_kernel),
                      "batch_size": batch, "devices": devices, "strategy": strategy,
-                     "wire_codec": get_codec(wire_codec).spec}
+                     "wire_codec": get_codec(wire_codec).spec, "dataset": dataset,
+                     "device_normalize": input_transform is not None, "eval_views": eval_views}
     losses: deque = deque(maxlen=LOSS_HISTORY)
     nonfinite = 0
     intervals: list = []  # steady-state step ms, all epochs
+    waits: list = []  # host ms waiting for the loader, a step, all epochs
     seen_intervals = 0
     train_loop_s = 0.0
     step_count = 0
@@ -284,9 +246,18 @@ def run_training(
         t_loop0 = time.perf_counter()
         marks = [clock.mark()]
         pending: list = []
-        source = data.train_epoch(epoch, batch, seed=seed, rows=shard)
-        with _Prefetcher(source, PREFETCH_DEPTH, pin) as batches:
-            for x, y in batches:
+        epoch_waits: list = []
+        # on the card, the native loader writes each batch into pinned memory
+        source = data.train_epoch(epoch, batch, seed=seed, rows=shard,
+                                  out=pinned_array if pin else None)
+        with PrefetchLoader(source, place, depth=PREFETCH_DEPTH) as batches:
+            while True:
+                t_wait = time.perf_counter()
+                try:
+                    x, y = next(batches)
+                except StopIteration:
+                    break
+                epoch_waits.append((time.perf_counter() - t_wait) * 1e3)
                 state, metrics = engine.train_step(state, to_device(x), to_device(y), step_gen)
                 step_count += 1
                 marks.append(clock.mark())
@@ -300,12 +271,14 @@ def run_training(
         skip = max(0, WARMUP_STEPS - seen_intervals)
         seen_intervals += len(ivals)
         intervals += ivals[skip:]
+        # the wait before a step falls in that step's interval
+        waits += epoch_waits[skip:]
         train_loop_s += time.perf_counter() - t_loop0
 
         val_sum, n_val = None, 0
         for vx, vy in data.val_epoch(vbatch, rows=vshard):
-            vm = engine.eval_step(state, to_device(torch.from_numpy(vx)),
-                                  to_device(torch.from_numpy(vy)))
+            vx, vy = place((vx, vy))
+            vm = engine.eval_step(state, to_device(vx), to_device(vy))
             val_sum = vm if val_sum is None else {k: val_sum[k] + vm[k] for k in vm}
             n_val += 1
         if n_val:
@@ -323,7 +296,10 @@ def run_training(
     step_ms = sum(recent) / len(recent) if recent else None
     summary["step_ms"] = step_ms
     summary["steady_steps"] = len(intervals)
-    own = {"step_ms": step_ms, "kernel_launches": launch_counts()}
+    recent_waits = waits[-50:]
+    own = {"step_ms": step_ms, "kernel_launches": launch_counts(),
+           "feed_wait_ms": sum(recent_waits) / len(recent_waits) if recent_waits else None,
+           "native_calls": dict(native.LOADER.calls)}
     per_rank = [own]
     if devices > 1:
         # what each rank holds at the end: the replicas must agree bit

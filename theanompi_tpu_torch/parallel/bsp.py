@@ -43,7 +43,9 @@ class BSPEngine:
     ``device``: ``None`` is the current CUDA device and raises when there
     is none; ``"cpu"`` runs on the CPU because it was asked for.
     ``n_devices > 1`` needs this process to be one rank of an initialized
-    process group of that many ranks."""
+    process group of that many ranks. ``input_transform`` runs on the
+    images first in both steps (``train.make_input_transform``);
+    ``eval_views`` is the validation batches' views per image."""
 
     name = "bsp"
     exchange_every = 0  # the allreduce is inside every step
@@ -57,6 +59,8 @@ class BSPEngine:
         fused_update: bool = False,
         strategy: str = "psum",
         wire_codec=None,
+        input_transform=None,
+        eval_views: int = 1,
     ):
         self.device = resolve_device(device)
         self.model = model
@@ -83,8 +87,8 @@ class BSPEngine:
             grad_sync = get_strategy(strategy, self.n, codec=self.codec,
                                      layouts=model.param_layouts)
         self._step = make_train_step(model, steps_per_epoch, fused_update=fused_update,
-                                     grad_sync=grad_sync)
-        self._eval = make_eval_step(model)
+                                     grad_sync=grad_sync, input_transform=input_transform)
+        self._eval = make_eval_step(model, input_transform=input_transform, views=eval_views)
 
     def init_state(self, gen: torch.Generator) -> TrainState:
         """Params from ``gen`` (every rank draws the same, from the same

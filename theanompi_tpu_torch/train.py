@@ -10,8 +10,9 @@ The caller decides when to read metrics back.
 
 from __future__ import annotations
 
-from typing import Any, NamedTuple
+from typing import Any, Callable, NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from theanompi_tpu_torch.device import resolve_device
@@ -87,12 +88,32 @@ def _optimizer_for(model: Model, fused_update: bool):
     return model.optimizer()
 
 
+def make_input_transform(spec: Optional[dict], device=None) -> Optional[Callable]:
+    """A dataset's ``device_transform`` (``{"mean", "scale"}``) as the
+    step's input transform: ``(x.float() - mean) * scale`` in fp32 on
+    ``device``, with ``mean`` a scalar, a per-channel vector or a
+    crop-sized ``[H, W, C]`` plane over NHWC batches (the reference's
+    ``launch/worker.py`` closure). ``None`` for ``None``. Plain PyTorch,
+    as the reference's is ``jnp`` inside the step."""
+    if spec is None:
+        return None
+    device = resolve_device(device)
+    mean = torch.as_tensor(np.asarray(spec["mean"], np.float32), device=device)
+    scale = torch.tensor(float(spec["scale"]), dtype=torch.float32, device=device)
+
+    def input_transform(x: torch.Tensor) -> torch.Tensor:
+        return (x.float() - mean) * scale
+
+    return input_transform
+
+
 def make_train_step(
     model: Model,
     steps_per_epoch: int = 1,
     accum_steps: int = 1,
     fused_update: bool = False,
     grad_sync=None,
+    input_transform: Optional[Callable] = None,
 ):
     """Build the step ``(state, images, labels, gen) -> (state, metrics)``.
 
@@ -110,12 +131,18 @@ def make_train_step(
     the (accumulated) gradients before the update; ``None`` means a
     single replica. A ``stateful`` sync runs as ``grads, ef =
     sync(grads, state.ef)``, threading the codec's residuals.
+
+    ``input_transform``: applied to the images first, on the card (e.g.
+    ``make_input_transform``: uint8 batches normalized in the step, so
+    the host gathers, pins and copies 4x fewer bytes).
     """
     optimizer = _optimizer_for(model, fused_update)
     schedule_lr = make_schedule_fn(model, steps_per_epoch)
     accum_steps = max(1, int(accum_steps))
 
     def train_step(state: TrainState, images, labels, gen):
+        if input_transform is not None:
+            images = input_transform(images)
         if accum_steps == 1:
             loss, logits, new_model_state, grads = loss_and_grads(
                 model, state.params, state.model_state, images, labels, gen,
@@ -170,15 +197,34 @@ def make_train_step(
     return train_step
 
 
-def make_eval_step(model: Model):
-    """``(state, images, labels) -> metrics`` (loss + errors) in eval mode."""
+def view_mean(logits: torch.Tensor, views: int) -> torch.Tensor:
+    """Each image's logits averaged over its ``views`` view-major rows, in
+    fp32 as XLA computes ``jnp.mean`` (the sum times the reciprocal of
+    the count), returned in the logits' dtype."""
+    n = torch.full((), views, dtype=torch.float32, device=logits.device)
+    x = logits.float().reshape(-1, views, logits.shape[-1])
+    return (x.sum(dim=1) * torch.reciprocal(n)).to(logits.dtype)
+
+
+def make_eval_step(model: Model, input_transform: Optional[Callable] = None, views: int = 1):
+    """``(state, images, labels) -> metrics`` (loss + errors) in eval mode.
+
+    ``input_transform`` as in ``make_train_step``. ``views > 1``:
+    multi-view evaluation (10-crop: 4 corners + center, each mirrored):
+    ``images`` holds ``len(labels) * views`` rows, view-major per image,
+    and each image's logits are averaged over its views before the loss
+    and metrics."""
     from theanompi_tpu_torch.models.zoo import infer_fn
 
     fwd = infer_fn(model)
 
     def eval_step(state: TrainState, images, labels):
+        if input_transform is not None:
+            images = input_transform(images)
         logits = fwd(state.params, state.model_state, images)
         with torch.no_grad():
+            if views > 1:
+                logits = view_mean(logits, views)
             return {"loss": model.loss(logits, labels), **model.metrics(logits, labels)}
 
     return eval_step
