@@ -169,6 +169,26 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                 against the same model's step with a uint8 batch resident
                 on the card (twice), and the host time the loop waited on
                 the loader a step.
+   resume     — checkpoint and resume through the CLI at AlexNet's full
+                width (``--synthetic --fused-update``, 4 steps an epoch,
+                so the 3-step cut is mid-epoch), on one card and on 2
+                ranks on cuda:0 over gloo with psum + int8:ef: 6 steps
+                twice without a break (the determinism control, once with
+                the async writer and once ``--sync-ckpt``), then 3 steps
+                with ``--ckpt-dir`` and ``--resume`` to 6, async and
+                sync. The state the resumed run loads has the digest the
+                writer recorded at step 3; the resumed runs launch the
+                update (and on 2 ranks the codec) once a step from the
+                restored state. The final checkpoints (every entry:
+                params, velocities, step, residuals, generator states)
+                equal the async control's bit for bit wherever the two
+                controls are equal; elsewhere the controls' largest
+                relative difference is printed and the resumed run is
+                held to no more than twice it. Prints the file size, the
+                sync save (gather, CRC, write), what an async save costs
+                the loop and the writer's wall time, the load, and the
+                step time of the epoch whose steps overlap the writer
+                against the sync run's same epoch.
 5. parity     — the same small AlexNet (67x67, fp32, dropout off) trained 2
                 steps on the card and on the CPU (where the wrappers run
                 their plain versions) from the same weights and batches.
@@ -277,6 +297,10 @@ LM_SHAPE = dict(B=8, T=1024, H=12, D=64)
 GNET_BATCH = 512
 GNET_STEPS = 6
 FULL_WIDTH = ["--dataset-arg", "image_shape=[227,227,3]", "--dataset-arg", "n_classes=1000"]
+# phase resume: steps a run and an epoch (the cut at RESUME_STEPS // 2
+# lands mid-epoch)
+RESUME_STEPS = 6
+RESUME_EPOCH = 4
 
 
 class Failed(Exception):
@@ -818,6 +842,152 @@ def phase_bsp_ranks(n_cards):
                        "launches": {k: sum(c[k] for c in summary["kernel_launches_per_rank"])
                                     for k in ("quant_block", "dequant_block")}}
     return runs
+
+
+def _keep_newest(ckpt_dir: str) -> None:
+    """Remove every checkpoint in ``ckpt_dir`` but the newest (disk)."""
+    files = sorted((int(re.search(r"ckpt_(\d+)\.npz$", f).group(1)), f)
+                   for f in os.listdir(ckpt_dir) if f.endswith(".npz"))
+    for _, f in files[:-1]:
+        os.unlink(os.path.join(ckpt_dir, f))
+
+
+def _rel_diff(a, b) -> float:
+    a64, b64 = a.astype("float64"), b.astype("float64")
+    return float(abs(a64 - b64).max() / max(abs(a64).max(), 1e-30))
+
+
+def compare_final(control_a: str, control_b: str, resumed: dict) -> dict:
+    """Entry by entry: where the two controls' bytes agree the resumed
+    runs' must equal them; elsewhere each resumed run is held to twice the
+    controls' largest relative difference over all entries."""
+    import numpy as np
+
+    from theanompi_tpu_torch.utils.checkpoint import META_KEYS
+
+    with np.load(control_a) as fa, np.load(control_b) as fb:
+        keys = [k for k in fa.files if k not in META_KEYS]
+        check(sorted(keys) == sorted(k for k in fb.files if k not in META_KEYS),
+              "the controls' checkpoints hold different entries")
+        ctrl = {}
+        for k in keys:
+            a, b = fa[k], fb[k]
+            same = a.tobytes() == b.tobytes()
+            ctrl[k] = (a, 0.0 if same else _rel_diff(a, b), same)
+        limit = max(c[1] for c in ctrl.values())
+        out = {"entries": len(keys), "controls_bit_identical": sum(c[2] for c in ctrl.values()),
+               "controls_max_rel_diff": limit}
+        for label, path in resumed.items():
+            worst = 0.0
+            with np.load(path) as fr:
+                for k, (a, _, same) in ctrl.items():
+                    r = fr[k]
+                    if same:
+                        check(r.tobytes() == a.tobytes(),
+                              f"{label}: {k} differs from the controls, which agree bit for bit")
+                    else:
+                        d = _rel_diff(r, a)
+                        check(d <= 2 * limit, f"{label}: {k} relative difference {d:.3e} > "
+                                              f"twice the controls' {limit:.3e}")
+                        worst = max(worst, d)
+            out[f"{label}_max_rel_diff"] = worst
+    return out
+
+
+def phase_resume():
+    """Checkpoint and resume through the CLI (module docstring, phase
+    resume), on one card and on 2 ranks sharing it over gloo."""
+    import torch
+
+    from theanompi_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+
+    results = {}
+    for label, n, extra in (
+        ("one-card", 1, []),
+        ("2-ranks-psum-int8:ef", 2, ["--device", "cuda:0", "--backend", "gloo",
+                                     "--strategy", "psum", "--wire-codec", "int8:ef"]),
+    ):
+        torch.cuda.empty_cache()
+        root = tempfile.mkdtemp(prefix="tmpi-resume-")
+        try:
+            def run(name, steps, *flags):
+                d = os.path.join(root, name)
+                argv = ["BSP", str(n), "alexnet", "AlexNet", "--synthetic", "--fused-update",
+                        "--max-steps", str(steps), "--seed", "0", *FULL_WIDTH,
+                        "--dataset-arg", f"n_train={128 * RESUME_EPOCH}",
+                        "--dataset-arg", "n_val=128", "--ckpt-dir", d, *extra, *flags]
+                print(f"[resume] python -m theanompi_tpu_torch.cli {' '.join(argv)}", flush=True)
+                reset_launch_counts()
+                summary = run_cli(argv)
+                counts = summary["kernel_launches_per_rank"] if n > 1 else [launch_counts()]
+                check(summary["steps"] == steps and summary["nonfinite_steps"] == 0
+                      and all(math.isfinite(v) for v in summary["losses"]),
+                      f"{label} {name}: steps {summary['steps']}, losses {summary['losses']}")
+                _keep_newest(d)
+                return summary, counts
+
+            half = RESUME_STEPS // 2
+            ctrl_a, _ = run("control-async", RESUME_STEPS)
+            ctrl_b, _ = run("control-sync", RESUME_STEPS, "--sync-ckpt")
+            resumed, firsts, resumed_counts = {}, {}, {}
+            for mode, flags in (("async", []), ("sync", ["--sync-ckpt"])):
+                firsts[mode], _ = run(f"resumed-{mode}", half, *flags)
+                resumed[mode], resumed_counts[mode] = run(f"resumed-{mode}", RESUME_STEPS,
+                                                          "--resume", *flags)
+                r, f = resumed[mode], firsts[mode]
+                check(r["resumed_from_step"] == half,
+                      f"{label} {mode}: resumed from {r['resumed_from_step']}, expected {half}")
+                check(r["resume"]["digest"] == f["checkpoints"][-1]["digest"],
+                      f"{label} {mode}: the loaded state's digest {r['resume']['digest']} is not "
+                      f"the writer's {f['checkpoints'][-1]['digest']}")
+                check(r["resume"]["torch_rng_restored"],
+                      f"{label} {mode}: the dropout generators were not restored")
+                want = {"fused_momentum": update_launches(16)}
+                if n > 1:
+                    want.update(quant_block=1, dequant_block=1)
+                for rank, counts in enumerate(resumed_counts[mode]):
+                    for k, v in want.items():
+                        check(counts[k] == v * (RESUME_STEPS - half),
+                              f"{label} {mode}: rank {rank} launched {k} {counts[k]} times after "
+                              f"the resume, expected {v} x {RESUME_STEPS - half}")
+                if n > 1:
+                    check(r["ef_digest_per_rank"] != f["ef_digest_per_rank"]
+                          and len(set(r["replica_digest_per_rank"])) == 1,
+                          f"{label} {mode}: residuals or replicas after the resume: "
+                          f"{r['ef_digest_per_rank']} {r['replica_digest_per_rank']}")
+            final = {k: s["checkpoints"][-1]["path"] for k, s in resumed.items()}
+            cmp = compare_final(ctrl_a["checkpoints"][-1]["path"],
+                                ctrl_b["checkpoints"][-1]["path"], final)
+            saves = {"async": ctrl_a["checkpoints"], "sync": ctrl_b["checkpoints"]}
+            info = {
+                "ranks": n, "compare": cmp,
+                "file_bytes": saves["sync"][-1]["bytes"],
+                "sync_save_ms": [{k: c[k] for k in ("step", "gather_ms", "crc_ms", "write_ms",
+                                                     "loop_ms")} for c in saves["sync"]],
+                "async_save_ms": [{k: c[k] for k in ("step", "loop_ms", "writer_ms", "crc_ms",
+                                                      "write_ms")} for c in saves["async"]],
+                "load_ms": {m: {k: r["resume"][k] for k in ("verify_ms", "load_ms")}
+                            for m, r in resumed.items()},
+                "epoch_step_ms": {"async": ctrl_a["epoch_step_ms"],
+                                  "sync": ctrl_b["epoch_step_ms"]},
+                "resumed_launches": {m: c for m, c in resumed_counts.items()},
+                "losses": {"control-async": ctrl_a["losses"], "control-sync": ctrl_b["losses"],
+                           **{f"resumed-{m}": firsts[m]["losses"] + r["losses"]
+                              for m, r in resumed.items()}},
+            }
+            print(f"[resume] {label}: {cmp['controls_bit_identical']} of {cmp['entries']} "
+                  f"entries bit-identical between the two uninterrupted runs (largest relative "
+                  f"difference {cmp['controls_max_rel_diff']:.3e}); resumed runs within "
+                  f"{cmp['async_max_rel_diff']:.3e} / {cmp['sync_max_rel_diff']:.3e}", flush=True)
+            print(f"[resume] {label}: file {info['file_bytes']} bytes; sync save "
+                  f"{info['sync_save_ms']}; async save {info['async_save_ms']}; load "
+                  f"{info['load_ms']}; epoch step ms (epoch 1 overlaps the async writer) "
+                  f"{info['epoch_step_ms']}", flush=True)
+            results[label] = info
+        finally:
+            shutil.rmtree(root, ignore_errors=True)
+    print("[resume] " + json.dumps(results), flush=True)
+    return results
 
 
 def phase_parity(dev):
@@ -2296,6 +2466,10 @@ def main() -> int:
         print(f"[bsp-ranks] done ({time.perf_counter() - t0:.1f} s)", flush=True)
 
         t0 = time.perf_counter()
+        resume_runs = phase_resume()
+        print(f"[resume] done ({time.perf_counter() - t0:.1f} s)", flush=True)
+
+        t0 = time.perf_counter()
         phase_parity(dev)
         print(f"[parity] done ({time.perf_counter() - t0:.1f} s)", flush=True)
 
@@ -2519,6 +2693,13 @@ def main() -> int:
         kernels[-1]["feed_main"] = {"launches": gf["launches"][name],
                                     "step_ms": gf["summary"]["step_ms"],
                                     "resident_step_ms": gf["resident_step_ms"]}
+    for k in kernels:
+        if k["name"] in ("fused_momentum", "quant_block", "dequant_block"):
+            k["resume_launches"] = {
+                label: {mode: [c[k["name"]] for c in counts]
+                        for mode, counts in r["resumed_launches"].items()}
+                for label, r in resume_runs.items() if r["ranks"] > 1 or k["name"] ==
+                "fused_momentum"}
     print(f"chip_smoke: wall {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -124,5 +124,7 @@ def test_cli_two_ranks_on_cpu():
     # the CPU path runs the plain versions: no kernel launched on any rank
     assert len(summary["kernel_launches_per_rank"]) == 2
     assert all(v == 0 for counts in summary["kernel_launches_per_rank"] for v in counts.values())
-    # rank 0 alone prints the per-step log
-    assert sum(line.startswith("[bsp] epoch 0 step 2") for line in out.stdout.splitlines()) == 1
+    # rank 0 alone prints the per-step log (the recorder's console line)
+    lines = out.stdout.splitlines()
+    assert sum(line.startswith("[rank 0] step 2 loss=") for line in lines) == 1
+    assert not any(line.startswith("[rank 1] step") for line in lines)

@@ -66,6 +66,7 @@ def test_importing_the_port_loads_no_jax():
         "import theanompi_tpu_torch.native, theanompi_tpu_torch.utils.hostaffinity\n"
         "import theanompi_tpu_torch.data.loader, theanompi_tpu_torch.data.imagenet\n"
         "import theanompi_tpu_torch.tools.profile_step\n"
+        "import theanompi_tpu_torch.utils.checkpoint, theanompi_tpu_torch.utils.recorder\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'theanompi_tpu'))\n"
         "print(bad)\n"
     )

@@ -159,3 +159,13 @@ def bsp_rank(rank, n, device, params_np, vel_np, batches, strategy):
         losses.append(float(m["loss"]))
     return {"losses": losses, "params": _tree_np(state.params),
             "vel": _tree_np(state.opt_state), "step": int(state.step)}
+
+
+def resume_step_rank(rank, n, device, steps):
+    """``agree_on_step`` with rank r holding ``steps[r]``; returns what
+    every rank gathered when they agree (it raises on every rank when
+    they do not)."""
+    from theanompi_tpu_torch.parallel.distributed import agree_on_step, all_gather_objects
+
+    agree_on_step(steps[rank], n)
+    return all_gather_objects(steps[rank], n)

@@ -1,7 +1,8 @@
 """Carry parameter and optimizer-state trees between the reference's
 layout (numpy arrays, as ``np.asarray`` gives them from the JAX
-package's pytrees) and the port's tensors. Test support: the parity
-tests feed both packages the same weights through here.
+package's pytrees) and the port's tensors. The parity tests feed both
+packages the same weights through here, and checkpoints carry a
+TrainState in the reference's file layout through here.
 
 The one layout difference is the conv kernel: the reference stores HWIO
 with ``I = cin / groups``, the port OIHW with the same ``I``. Both
@@ -19,6 +20,15 @@ no permuting.
 
 bfloat16 leaves travel as float32 numpy arrays (numpy has no bfloat16);
 the values are exact either way. The round trip is exact.
+
+A whole ``TrainState`` maps to the flat entries of the reference's
+checkpoint file (``utils/checkpoint.py``) through :func:`state_entries`
+/ :func:`state_to_flat` and back through :func:`state_from_flat`: the
+entry names are the reference's tree paths (``.params/00_conv1/w``,
+``.opt_state/vel/...``, ``.step``), every parameter-shaped leaf (a
+param, its velocity or Adam moment, its residual) follows the model's
+layout tag, and ``.ef/<leaf>`` is the ``[n, ...]`` stack of every rank's
+residual, as the reference keeps its residuals.
 """
 
 from __future__ import annotations
@@ -34,7 +44,8 @@ from theanompi_tpu_torch.nn.layers import (
     from_reference_layout,
     to_reference_layout,
 )
-from theanompi_tpu_torch.tree import tree_map
+from theanompi_tpu_torch.tree import tree_leaves, tree_map
+from theanompi_tpu_torch.utils.checkpoint import to_numpy
 
 Tree = Any
 
@@ -67,11 +78,7 @@ def _leaf_from_jax(a, layout: str, device, requires_grad: bool) -> torch.Tensor:
 
 
 def _leaf_to_jax(t: torch.Tensor, layout: str) -> np.ndarray:
-    t = t.detach().cpu()
-    if t.dtype == torch.bfloat16:
-        t = t.float()
-    # a C-ordered copy (np.ascontiguousarray would turn a 0-d leaf 1-d)
-    return np.array(to_reference_layout(t, layout).numpy(), order="C")  # OIHW -> HWIO
+    return to_numpy(to_reference_layout(t, layout))  # OIHW -> HWIO
 
 
 def tree_from_jax(tree: Tree, device="cpu", requires_grad: bool = False,
@@ -105,3 +112,127 @@ def opt_state_from_jax(np_state: Tree, device="cpu") -> Tree:
 
 def opt_state_to_jax(state: Tree) -> Tree:
     return tree_to_jax(state)
+
+
+# --------------------------------------------------------------------------
+# TrainState <-> the reference's checkpoint entries
+# --------------------------------------------------------------------------
+
+
+def _paths(tree: Tree, prefix: str) -> list:
+    """``(key, leaf)`` pairs in ``tree_leaves`` order, each key the
+    reference's tree path (dict keys and sequence indices joined by
+    ``/``)."""
+    if isinstance(tree, dict):
+        return [kv for k in sorted(tree) for kv in _paths(tree[k], f"{prefix}/{k}")]
+    if isinstance(tree, (list, tuple)):
+        return [kv for i, t in enumerate(tree) for kv in _paths(t, f"{prefix}/{i}")]
+    if tree is None:
+        return []
+    return [(prefix, tree)]
+
+
+def _opt_layouts(opt_state: Tree, layouts: Tree) -> Tree:
+    """Layout tags of an optimizer state: each param-shaped tree of it
+    (``vel``, Adam's ``m`` and ``v``) takes the params' tags, a lone
+    tensor (Adam's ``t``) is ``PLAIN``."""
+    if isinstance(opt_state, dict):
+        return {k: PLAIN if isinstance(v, torch.Tensor) else layouts
+                for k, v in opt_state.items()}
+    if isinstance(opt_state, (list, tuple)) and not tree_leaves(opt_state):
+        return opt_state
+    raise ValueError(f"unsupported optimizer state {type(opt_state).__name__}")
+
+
+def _state_pairs(state, layouts: Tree) -> list:
+    """``(key, tensor, layout)`` of every leaf of ``state`` but ``ef``."""
+    out = []
+    for field, lays in (("params", layouts), ("model_state", None),
+                        ("opt_state", _opt_layouts(state.opt_state, layouts))):
+        tree = getattr(state, field)
+        tags = tree_leaves(lays) if lays is not None else [PLAIN] * len(tree_leaves(tree))
+        pairs = _paths(tree, f".{field}")
+        if len(tags) != len(pairs):
+            raise ValueError(f"{len(tags)} layout tags for the {len(pairs)} leaves of .{field}")
+        out += [(k, t, lay) for (k, t), lay in zip(pairs, tags)]
+    out.append((".step", state.step, PLAIN))
+    return out
+
+
+def state_entries(state, layouts: Tree, ef_ranks: list = None) -> dict:
+    """The checkpoint entries of a TrainState, as tensors in the
+    reference's layout (views where no copy is needed): params, model
+    state, optimizer state, ``.step``, and ``.ef/<leaf>``, the stack
+    ``[n, ...]`` of ``ef_ranks`` (every rank's residual tree in rank
+    order; required when ``state.ef`` has leaves). ``layouts``: the
+    params' tags (``Model.param_layouts``)."""
+    entries = {k: to_reference_layout(t.detach(), lay) for k, t, lay in _state_pairs(state, layouts)}
+    if tree_leaves(state.ef):
+        if not ef_ranks:
+            raise ValueError("state.ef has residuals: the .ef stack needs every rank's "
+                             "residual tree (ef_ranks)")
+        lays = tree_leaves(layouts)
+        for i, (k, _) in enumerate(_paths(state.ef, ".ef")):
+            rows = [to_reference_layout(tree_leaves(r)[i].detach(), lays[i]) for r in ef_ranks]
+            entries[k] = torch.stack([r.to(rows[0].device) for r in rows])
+    return entries
+
+
+def state_to_flat(state, layouts: Tree, ef_ranks: list = None) -> dict:
+    """:func:`state_entries` as numpy arrays (bf16 as f32), the dict the
+    reference's checkpoint holds."""
+    return {k: to_numpy(t) for k, t in state_entries(state, layouts, ef_ranks).items()}
+
+
+def _entry(flat: dict, key: str) -> np.ndarray:
+    if key not in flat:
+        raise KeyError(f"checkpoint is missing {key!r} — structure mismatch "
+                       f"(available: {sorted(flat)[:8]}...)")
+    return np.asarray(flat[key])
+
+
+def _restored(arr: np.ndarray, tmpl: torch.Tensor, layout: str, key: str) -> torch.Tensor:
+    want = tuple(to_reference_layout(tmpl, layout).shape)
+    if tuple(arr.shape) != want:
+        raise ValueError(f"checkpoint leaf {key!r} has shape {tuple(arr.shape)}, expected {want}")
+    if arr.dtype.name == "bfloat16" or arr.dtype == np.dtype("V2"):
+        # the reference's bf16 leaf (read as raw 2-byte records where
+        # ml_dtypes is not loaded): widen exactly to f32
+        arr = (arr.view(np.uint16).astype(np.uint32) << 16).view(np.float32)
+    # a C-ordered copy (np.ascontiguousarray would turn a 0-d leaf 1-d)
+    src = from_reference_layout(torch.from_numpy(np.array(arr, order="C")), layout)
+    out = torch.empty_like(tmpl, requires_grad=False)  # the template's strides
+    with torch.no_grad():
+        out.copy_(src)
+    return out.requires_grad_(tmpl.requires_grad)
+
+
+def state_from_flat(flat: dict, template, layouts: Tree, rank: int = 0, world: int = 1):
+    """A TrainState shaped like ``template`` (its structure, dtypes,
+    devices, strides and ``requires_grad``; its values are ignored) from
+    checkpoint entries (``utils/checkpoint.py::load_checkpoint``). Rank
+    ``rank`` of ``world`` takes row ``rank`` of each ``.ef`` stack. Raises
+    naming the entry on a missing key (KeyError), a wrong shape or an
+    ``.ef`` stack of another world size (ValueError); nothing is
+    resharded. Entries the template lacks are ignored, as the reference
+    ignores them."""
+    pairs = _state_pairs(template, layouts)
+    vals = {k: _restored(_entry(flat, k), t, lay, k) for k, t, lay in pairs}
+    stacks = sorted(k for k in flat if k.startswith(".ef/"))
+    for k in stacks:
+        n = np.shape(flat[k])[0] if np.ndim(flat[k]) else None
+        if n != world:
+            raise ValueError(f"checkpoint leaf {k!r} stacks the residuals of {n} ranks; this "
+                             f"run has {world} (resharding is not ported)")
+    ef = template.ef
+    if tree_leaves(template.ef):
+        lays = tree_leaves(layouts)
+        ef_pairs = _paths(template.ef, ".ef")
+        rows = [_restored(_entry(flat, k)[rank], t, lays[i], k)
+                for i, (k, t) in enumerate(ef_pairs)]
+        it = iter(rows)
+        ef = tree_map(lambda _: next(it), template.ef)
+    it = iter(vals[k] for k, _, _ in pairs)
+    rebuilt = {f: tree_map(lambda _: next(it), getattr(template, f))
+               for f in ("params", "model_state", "opt_state")}
+    return template._replace(**rebuilt, step=next(it), ef=ef)

@@ -32,6 +32,15 @@ across them)::
     python -m theanompi_tpu_torch.cli BSP 4 alexnet AlexNet --synthetic \
         --fused-update --strategy psum --wire-codec int8:ef ...
 
+Checkpoints in the reference's ``.npz`` format after each epoch (and
+after a ``--max-steps`` cut), and a resume from the newest verified one;
+the JAX package resumes from these files and the port from its::
+
+    python -m theanompi_tpu_torch.cli BSP 1 alexnet AlexNet --synthetic \
+        --fused-update --max-steps 3 --ckpt-dir CKPT --save-dir LOGS
+    python -m theanompi_tpu_torch.cli BSP 1 alexnet AlexNet --synthetic \
+        --fused-update --max-steps 6 --ckpt-dir CKPT --save-dir LOGS --resume
+
 Runs on the CUDA card(s); ``--device cpu`` runs on the CPU instead
 (ranks over gloo), ``--device cuda:0 --backend gloo`` puts every rank on
 one card. Without a card and without ``--device cpu`` it fails. The
@@ -92,6 +101,16 @@ def build_parser() -> argparse.ArgumentParser:
                    help="recipe override (repeatable, JSON values), e.g. "
                         "--recipe-arg 'input_shape=[67,67,3]'")
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--save-dir", default=None, help="recorder output dir (JSONL + pickle)")
+    p.add_argument("--ckpt-dir", default=None)
+    p.add_argument("--sync-ckpt", action="store_true",
+                   help="write epoch checkpoints synchronously instead "
+                        "of on the background writer thread: the save "
+                        "is durable before the next step dispatches "
+                        "(deterministic durability for preemption-prone "
+                        "runs, at the cost of stalling the loop for the "
+                        "full gather+write)")
+    p.add_argument("--resume", action="store_true")
     p.add_argument("--print-freq", type=int, default=40)
     p.add_argument("--device", default=None,
                    help="'cpu' to run on the CPU, 'cuda:K' to put every rank on card K; "
@@ -149,6 +168,10 @@ def main(argv=None) -> int:
         dataset_kwargs=dataset_kwargs,
         recipe_overrides=overrides,
         seed=args.seed,
+        save_dir=args.save_dir,
+        ckpt_dir=args.ckpt_dir,
+        async_checkpoint=not args.sync_ckpt,
+        resume=args.resume,
         print_freq=args.print_freq,
     )
     print(json.dumps(summary, default=str))

@@ -168,7 +168,7 @@ def launch_training(rule: str, devices: int, modelfile: str, modelclass: str, *,
     else in one spawned process per rank (``spawn_ranks``); returns rank
     0's summary (which holds every rank's step time and launch counts).
     ``kwargs`` are ``run_training``'s (``fused_update``, ``pool_kernel``,
-    ``strategy``, ...), passed to every rank."""
+    ``strategy``, ``ckpt_dir``, ``resume``, ...), passed to every rank."""
     if devices <= 1:
         from theanompi_tpu_torch.launch.worker import run_training
 

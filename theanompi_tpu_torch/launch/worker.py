@@ -8,8 +8,25 @@ a summary dict whose keys match the reference's where they exist
 For an LM (``model.is_lm``) ``--synthetic`` means the ``lm_synthetic``
 token dataset, a batch row is one token window, and ``images_per_sec``
 counts sequences.
-Observability, checkpointing, the supervisor and elastic resume come in
-later slices.
+Checkpoints and resume (``ckpt_dir``, ``resume``): after validation at
+each epoch end, and after a ``max_steps`` cut, every rank gathers its
+error-feedback residuals and dropout generator state to rank 0, which
+writes ``ckpt_<step>.npz`` in the reference's format
+(``utils/checkpoint.py``; ``bridge.state_entries``), on the writer
+thread of an ``AsyncCheckpointer`` unless ``async_checkpoint=False``.
+``resume=True`` loads the newest verified checkpoint on every rank (all
+ranks must resolve the same step), restores each rank's residual row and
+generator, and starts at epoch ``step // steps_per_epoch``, skipping the
+batches of a mid-epoch checkpoint that the restored steps consumed, so
+the data and dropout streams continue bit for bit. ``max_steps`` counts
+from step 0 of the run's timeline. An exception in a one-rank run saves
+the last whole step first (the crash save). The JAX package reads these
+files and the port reads the JAX package's; a JAX file carries no torch
+generator state, so the dropout stream then starts from the seed.
+The recorder (``utils/recorder.py``; files on rank 0 under
+``save_dir``) gets one ``train`` row a step from the loop's drains,
+``val`` and ``epoch`` rows, and prints the reference's console lines.
+The supervisor and elastic resume come in later slices.
 
 Ranks. With ``devices=n > 1`` this function runs in each of n rank
 processes of one process group (``launch/session.py`` spawns them). As
@@ -42,7 +59,9 @@ not the feed, paces the run).
 from __future__ import annotations
 
 import hashlib
+import itertools
 import math
+import sys
 import time
 from collections import deque
 from typing import Optional
@@ -51,7 +70,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from theanompi_tpu_torch import native
+from theanompi_tpu_torch import bridge, native
 from theanompi_tpu_torch.data import get_dataset
 from theanompi_tpu_torch.data.loader import PrefetchLoader, host_tensors, pinned_array
 from theanompi_tpu_torch.device import resolve_device
@@ -59,9 +78,22 @@ from theanompi_tpu_torch.models.contract import Model
 from theanompi_tpu_torch.ops.kernels import launch_counts
 from theanompi_tpu_torch.parallel.bsp import BSPEngine
 from theanompi_tpu_torch.parallel.codec import get_codec
+from theanompi_tpu_torch.parallel.distributed import agree_on_step, all_gather_objects, gather_tree
 from theanompi_tpu_torch.parallel.mesh import host_local_batch_slice, rank_generator
 from theanompi_tpu_torch.train import make_input_transform
 from theanompi_tpu_torch.tree import tree_leaves
+from theanompi_tpu_torch.utils.checkpoint import (
+    TORCH_RNG_KEY,
+    AsyncCheckpointer,
+    checkpoint_step,
+    integrity_manifest,
+    latest_checkpoint,
+    load_checkpoint,
+    manifest_digest,
+    save_checkpoint,
+    to_numpy,
+)
+from theanompi_tpu_torch.utils.recorder import Recorder
 
 # summary["losses"] keeps the most recent per-step losses
 LOSS_HISTORY = 1000
@@ -104,6 +136,23 @@ class _StepClock:
         return [(b - a) * 1e3 for a, b in zip(marks, marks[1:])]
 
 
+
+
+def _checkpoint_entries(state, layouts, step_gen, devices: int, rank: int):
+    """The entries of a checkpoint of ``state`` on rank 0 (None on the
+    others): the state in the reference's layout, every rank's residuals
+    as ``.ef`` stacks and every rank's dropout generator state as
+    ``__torch_rng__`` (``[n, L]`` uint8). Collective: every rank calls it,
+    on the training thread."""
+    ef_ranks = gather_tree(state.ef, devices) if tree_leaves(state.ef) else None
+    gens = all_gather_objects(step_gen.get_state().numpy(), devices)
+    if rank != 0:
+        return None
+    entries = bridge.state_entries(state, layouts, ef_ranks)
+    entries[TORCH_RNG_KEY] = np.stack(gens)
+    return entries
+
+
 def run_training(
     rule: str = "bsp",
     model_cls: type = None,
@@ -120,6 +169,10 @@ def run_training(
     dataset_kwargs: Optional[dict] = None,
     recipe_overrides: Optional[dict] = None,
     seed: int = 0,
+    save_dir: Optional[str] = None,
+    ckpt_dir: Optional[str] = None,
+    async_checkpoint: bool = True,
+    resume: bool = False,
     print_freq: int = 40,
 ) -> dict:
     """Train ``model_cls`` under a sync rule; returns a summary dict.
@@ -131,7 +184,9 @@ def run_training(
     ``strategy`` / ``wire_codec``: the gradient exchange
     (``parallel/strategies.py``, ``parallel/codec.py``). ``pool_kernel``:
     the model routes its 3x3/stride-1 max pools to the pool kernels
-    (``ops/pool.py``; a model with no such pool refuses)."""
+    (``ops/pool.py``; a model with no such pool refuses). ``save_dir``:
+    the recorder's JSONL log and pickled history. ``ckpt_dir``,
+    ``async_checkpoint``, ``resume``: checkpoints (module docstring)."""
     device = resolve_device(device)
     if model_cls is None:
         raise ValueError("model_cls is required")
@@ -203,13 +258,65 @@ def run_training(
     shard = host_local_batch_slice(batch, rank, devices)
     vshard = host_local_batch_slice(vbatch, rank, devices)
     state = engine.init_state(torch.Generator().manual_seed(seed))
+    layouts = model.param_layouts(state.params)
     # dropout masks: an explicit generator per rank on its card (the
     # global RNG is never touched)
     step_gen = (rank_generator(seed + 1, rank, device) if devices > 1
                 else torch.Generator(device=device).manual_seed(seed + 1))
     pin = device.type == "cuda"
     clock = _StepClock(device)
-    verbose = print_freq and rank == 0
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    summary: dict = {"epochs": [], "rule": rule, "model": model.name,
+                     "device": str(device), "fused_update": bool(fused_update),
+                     "pool_kernel": bool(pool_kernel),
+                     "batch_size": batch, "devices": devices, "strategy": strategy,
+                     "wire_codec": get_codec(wire_codec).spec, "dataset": dataset,
+                     "device_normalize": input_transform is not None, "eval_views": eval_views,
+                     "resumed_from_step": None}
+
+    start_epoch = 0
+    if resume and ckpt_dir:
+        t0 = time.perf_counter()
+        # verify=True walks back past a corrupt or truncated newest file
+        path = latest_checkpoint(ckpt_dir, verify=True)
+        verify_ms = (time.perf_counter() - t0) * 1e3
+        if devices > 1:
+            agree_on_step(checkpoint_step(path), devices)
+        if path:
+            t0 = time.perf_counter()
+            flat = load_checkpoint(path)
+            state = bridge.state_from_flat(flat, state, layouts, rank=rank, world=devices)
+            saved = flat.get(TORCH_RNG_KEY)
+            own = step_gen.get_state()
+            rng_restored = saved is not None and saved.shape == (devices, own.numel())
+            if rng_restored:
+                step_gen.set_state(torch.from_numpy(saved[rank].copy()))
+            elif rank == 0:
+                print(f"[rank 0] {path} holds no dropout generator state of this run "
+                      f"({'none' if saved is None else f'shape {saved.shape}'}; this run's "
+                      f"{devices} x {own.numel()} bytes): the dropout stream starts from the "
+                      "seed, as a fresh run's does", flush=True)
+            sync()
+            load_ms = (time.perf_counter() - t0) * 1e3
+            step0 = engine.get_step(state)
+            start_epoch = step0 // steps_per_epoch
+            summary["resumed_from_step"] = step0
+            # what the resumed run holds, digested as a save would write
+            # it: equal to the digest the writer recorded at that step
+            entries = _checkpoint_entries(state, layouts, step_gen, devices, rank)
+            if rank == 0:
+                if not rng_restored:
+                    entries.pop(TORCH_RNG_KEY)
+                digest = manifest_digest(integrity_manifest(
+                    {k: to_numpy(v) for k, v in entries.items()}))
+                summary["resume"] = {"path": path, "step": step0, "verify_ms": verify_ms,
+                                     "load_ms": load_ms, "digest": digest,
+                                     "torch_rng_restored": rng_restored}
+                print(f"resumed from {path} at step {step0}", flush=True)
 
     def place(batch):
         return host_tensors(batch, pin)
@@ -217,77 +324,160 @@ def run_training(
     def to_device(t):
         return t.to(device, non_blocking=True)
 
-    summary: dict = {"epochs": [], "rule": rule, "model": model.name,
-                     "device": str(device), "fused_update": bool(fused_update),
-                     "pool_kernel": bool(pool_kernel),
-                     "batch_size": batch, "devices": devices, "strategy": strategy,
-                     "wire_codec": get_codec(wire_codec).spec, "dataset": dataset,
-                     "device_normalize": input_transform is not None, "eval_views": eval_views}
+    rec = Recorder(rank=rank, print_freq=print_freq if rank == 0 else 0,
+                   save_dir=save_dir if rank == 0 else None, run_name=f"{model.name}_{rule}")
+    writer = AsyncCheckpointer() if (ckpt_dir and async_checkpoint and rank == 0) else None
+    saves: list = []  # rank 0's sync saves; the writer keeps its own records
+
+    def save(state, step: int, sync_write: bool = False) -> None:
+        """Collective: every rank gathers, rank 0 writes (on the writer
+        thread unless there is none or ``sync_write``)."""
+        t0 = time.perf_counter()
+        entries = _checkpoint_entries(state, layouts, step_gen, devices, rank)
+        if rank != 0:
+            return
+        if writer is not None and not sync_write:
+            writer.save(ckpt_dir, entries, step)
+            return
+        flat = {k: to_numpy(v) for k, v in entries.items()}
+        info = {"step": step, "gather_ms": (time.perf_counter() - t0) * 1e3}
+        info["path"] = save_checkpoint(ckpt_dir, flat, step, info=info)
+        info["loop_ms"] = (time.perf_counter() - t0) * 1e3
+        saves.append(info)
+
     losses: deque = deque(maxlen=LOSS_HISTORY)
     nonfinite = 0
     intervals: list = []  # steady-state step ms, all epochs
     waits: list = []  # host ms waiting for the loader, a step, all epochs
+    epoch_step_ms: list = []  # each epoch's steady-state mean
     seen_intervals = 0
     train_loop_s = 0.0
-    step_count = 0
+    step_count = summary["resumed_from_step"] or 0
+    last_ckpt_step = step_count if summary["resumed_from_step"] is not None else -1
+    # a mid-epoch checkpoint: the batches its steps consumed are skipped
+    skip_batches = step_count % steps_per_epoch
+    torn = False  # True while a step may be half applied (in-place update)
 
-    def drain(pending: list, epoch: int):
+    def drain(pending: list, marks: list, epoch_ivals: list):
+        """Read the pending steps' metrics back in one copy, and record a
+        row per step with its time from the step events."""
         nonlocal nonfinite
         if not pending:
             return
-        vals = torch.stack(pending).float().cpu().tolist()
+        keys = sorted(pending[0][1])
+        vals = torch.stack([torch.stack([torch.as_tensor(m[k]).float().reshape(()) for k in keys])
+                            for _, m, _ in pending]).cpu().tolist()
+        ivals = clock.intervals_ms(marks[-(len(pending) + 1):])
+        for (step, _, wait_ms), row, ms in zip(pending, vals, ivals):
+            metrics = dict(zip(keys, row))
+            nonfinite += not math.isfinite(metrics["loss"])
+            losses.append(metrics["loss"])
+            rec.note_time("wait", wait_ms / 1e3)
+            rec.note_time("step", ms / 1e3)
+            rec.train_metrics(step, metrics, n_images=batch)
+        epoch_ivals += ivals
         pending.clear()
-        nonfinite += sum(1 for v in vals if not math.isfinite(v))
-        losses.extend(vals)
-        if verbose:
-            print(f"[bsp] epoch {epoch} step {step_count} loss {vals[-1]:.6f}", flush=True)
 
-    for epoch in range(n_epochs):
-        t_loop0 = time.perf_counter()
-        marks = [clock.mark()]
-        pending: list = []
-        epoch_waits: list = []
-        # on the card, the native loader writes each batch into pinned memory
-        source = data.train_epoch(epoch, batch, seed=seed, rows=shard,
-                                  out=pinned_array if pin else None)
-        with PrefetchLoader(source, place, depth=PREFETCH_DEPTH) as batches:
-            while True:
-                t_wait = time.perf_counter()
+    try:
+        for epoch in range(start_epoch, n_epochs):
+            if max_steps and step_count >= max_steps:
+                break
+            rec.start_epoch()
+            t_loop0 = time.perf_counter()
+            marks = [clock.mark()]
+            pending: list = []
+            epoch_ivals: list = []
+            epoch_waits: list = []
+            epoch_steps = 0
+            # on the card, the native loader writes each batch into pinned memory
+            source = data.train_epoch(epoch, batch, seed=seed, rows=shard,
+                                      out=pinned_array if pin else None)
+            if skip_batches:
+                source = itertools.islice(source, skip_batches, None)
+                skip_batches = 0
+            with PrefetchLoader(source, place, depth=PREFETCH_DEPTH) as batches:
+                while True:
+                    t_wait = time.perf_counter()
+                    try:
+                        x, y = next(batches)
+                    except StopIteration:
+                        break
+                    wait_ms = (time.perf_counter() - t_wait) * 1e3
+                    epoch_waits.append(wait_ms)
+                    torn = True
+                    state, metrics = engine.train_step(state, to_device(x), to_device(y), step_gen)
+                    torn = False
+                    step_count += 1
+                    epoch_steps += 1
+                    marks.append(clock.mark())
+                    pending.append((step_count, metrics, wait_ms))
+                    if print_freq and step_count % print_freq == 0:
+                        drain(pending, marks, epoch_ivals)
+                    if max_steps and step_count >= max_steps:
+                        break
+            drain(pending, marks, epoch_ivals)
+            rec.end_epoch(epoch, n_images=epoch_steps * batch)
+            skip = max(0, WARMUP_STEPS - seen_intervals)
+            seen_intervals += len(epoch_ivals)
+            steady = epoch_ivals[skip:]
+            intervals += steady
+            epoch_step_ms.append(sum(steady) / len(steady) if steady else None)
+            # the wait before a step falls in that step's interval
+            waits += epoch_waits[skip:]
+            train_loop_s += time.perf_counter() - t_loop0
+
+            val_sum, n_val = None, 0
+            for vx, vy in data.val_epoch(vbatch, rows=vshard):
+                vx, vy = place((vx, vy))
+                vm = engine.eval_step(state, to_device(vx), to_device(vy))
+                val_sum = vm if val_sum is None else {k: val_sum[k] + vm[k] for k in vm}
+                n_val += 1
+            if n_val:
+                summary["val"] = {k: float(v) / n_val for k, v in val_sum.items()}
+                rec.val_metrics(epoch, summary["val"])
+            if ckpt_dir:
+                rec.start("checkpoint")
+                save(state, step_count)
+                rec.end("checkpoint")
+                last_ckpt_step = step_count
+            rec.save()
+            summary["epochs"].append(epoch)
+    except Exception:
+        # the crash save: the newest whole step must not be lost. A save
+        # is collective, so it runs only where no other rank can be left
+        # waiting in it.
+        if ckpt_dir and step_count > last_ckpt_step:
+            if devices > 1:
+                print(f"[rank {rank}] no crash checkpoint: a save is collective and the "
+                      "other ranks may never reach it", flush=True)
+            elif torn:
+                print(f"[rank {rank}] no crash checkpoint: the exception came inside a step, "
+                      "whose in-place update may be half applied", flush=True)
+            else:
                 try:
-                    x, y = next(batches)
-                except StopIteration:
-                    break
-                epoch_waits.append((time.perf_counter() - t_wait) * 1e3)
-                state, metrics = engine.train_step(state, to_device(x), to_device(y), step_gen)
-                step_count += 1
-                marks.append(clock.mark())
-                pending.append(metrics["loss"])
-                if print_freq and step_count % print_freq == 0:
-                    drain(pending, epoch)
-                if max_steps and step_count >= max_steps:
-                    break
-        drain(pending, epoch)
-        ivals = clock.intervals_ms(marks)
-        skip = max(0, WARMUP_STEPS - seen_intervals)
-        seen_intervals += len(ivals)
-        intervals += ivals[skip:]
-        # the wait before a step falls in that step's interval
-        waits += epoch_waits[skip:]
-        train_loop_s += time.perf_counter() - t_loop0
-
-        val_sum, n_val = None, 0
-        for vx, vy in data.val_epoch(vbatch, rows=vshard):
-            vx, vy = place((vx, vy))
-            vm = engine.eval_step(state, to_device(vx), to_device(vy))
-            val_sum = vm if val_sum is None else {k: val_sum[k] + vm[k] for k in vm}
-            n_val += 1
-        if n_val:
-            summary["val"] = {k: float(v) / n_val for k, v in val_sum.items()}
-            if verbose:
-                print(f"[bsp] epoch {epoch} val {summary['val']}", flush=True)
-        summary["epochs"].append(epoch)
-        if max_steps and step_count >= max_steps:
-            break
+                    if writer is not None:
+                        writer.wait()
+                    save(state, step_count, sync_write=True)
+                    print(f"[rank {rank}] crash checkpoint saved at step {step_count}", flush=True)
+                except Exception as e:  # noqa: BLE001 — must not mask the training error
+                    print(f"crash checkpoint failed during error unwinding (suppressed): {e!r}",
+                          flush=True)
+        raise
+    finally:
+        try:
+            if writer is not None:
+                # a failed background write raises here, but never in
+                # place of a training exception already propagating
+                if sys.exc_info()[0] is not None:
+                    try:
+                        writer.close()
+                    except Exception as e:  # noqa: BLE001
+                        print(f"checkpoint writer failed during error unwinding "
+                              f"(suppressed): {e!r}", flush=True)
+                else:
+                    writer.close()
+        finally:
+            rec.close()
 
     summary["steps"] = step_count
     summary["device_steps"] = engine.get_step(state)
@@ -296,6 +486,14 @@ def run_training(
     step_ms = sum(recent) / len(recent) if recent else None
     summary["step_ms"] = step_ms
     summary["steady_steps"] = len(intervals)
+    summary["epoch_step_ms"] = epoch_step_ms
+    if ckpt_dir and rank == 0:
+        summary["checkpoints"] = sorted(
+            [dict(r, mode="sync") for r in saves]
+            + [dict(r, mode="async") for r in (writer.records if writer else [])],
+            key=lambda r: r["step"])
+        if writer is not None:
+            summary["ckpt_storage_failures"] = writer.storage_failures
     recent_waits = waits[-50:]
     own = {"step_ms": step_ms, "kernel_launches": launch_counts(),
            "feed_wait_ms": sum(recent_waits) / len(recent_waits) if recent_waits else None,
