@@ -220,6 +220,25 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                 CPU 1e-6 relative noise on the weights alone moves the
                 velocities after 2 steps by 4.2e-2 of their norm and
                 6.3e-2 of a leaf's largest value.
+   graph      — step fusion: full-width AlexNet (batch 128, uint8
+                ``imagenet_synthetic``, ``--fused-update``), TransformerLM_136M
+                (batch 8, T 1024) and GoogLeNet at batch 512 (uint8,
+                ``--pool-kernel --fused-update``) each through the CLI
+                twice over the same 14 steps (8 an epoch, a validation
+                batch after each epoch): eagerly, and with
+                ``--steps-per-dispatch 4``, whose steps replay one captured
+                CUDA graph of the step (groups 4 4 | 4 2). Counters zeroed
+                just before each run and read just after. Each pair must
+                be bit-identical (every loss, the validation metrics, the
+                digest of the final params and velocities), launch every
+                kernel the same number of times (the capture's launches
+                added back at each replay), and the grouped run must have
+                made 1 capture and 13 replays. Both CLI step times; then
+                ``tools/bench.py``'s compute mode of each model, eager and
+                captured (its JSON line), whose last losses must agree.
+                Last, full-width AlexNet with every leaf of its state
+                replaced between two groups must be captured again (2
+                captures, 3 replays) and equal 4 eager steps bit for bit.
 6. times      — #1-2 per optimizer step over AlexNet's 16 and GoogLeNet's
                 128 fp32 leaves, in turns (A B C D, twice): the wrapper,
                 the same launch with its table built once (the device's
@@ -256,6 +275,10 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                 at ``_tree_check/parent`` (``git archive``), its
                 grid-stride pool kernels and these in turns (old, new,
                 new, old), outputs first checked equal.
+
+   capture-failure — last: a step with a host sync (``float()`` of a
+                card tensor) must make the graph runner raise
+                ``GraphCaptureError`` naming that line, with no replay.
 
 A ``[feed]`` line sums up both feed phases as JSON. Then one JSON line
 ``{"kernels": [...]}``, the card's name and power
@@ -1858,6 +1881,194 @@ def phase_googlenet_parity(dev):
     return {"logit_excess": logit_x, "rel_norm": worst, "elementwise": elementwise}
 
 
+# phase graph: each model through the CLI, eager and in groups of
+# GRAPH_K captured steps, over GRAPH_STEPS steps of GRAPH_EPOCH an epoch
+# (so the last group of each epoch is cut: 4 4 | 4 2)
+GRAPH_STEPS = 14
+GRAPH_EPOCH = 8
+GRAPH_K = 4
+
+
+def graph_runs():
+    """``{label: (CLI argv without the group flag, {kernel: launches
+    expected})}``: full-width AlexNet on uint8 ImageNet batches, the 136M
+    LM, GoogLeNet at 512 with the pool kernels."""
+    vals = 2  # one validation batch after each of the 2 epochs
+    return {
+        "alexnet": (["BSP", "1", "alexnet", "AlexNet", "--dataset", "imagenet_synthetic",
+                     "--fused-update", "--dataset-arg", f"n_train={128 * GRAPH_EPOCH}",
+                     "--dataset-arg", "n_val=128"],
+                    {"fused_momentum": GRAPH_STEPS}),
+        "lm_136m": (["BSP", "1", "transformer_lm", "TransformerLM_136M", "--synthetic",
+                     "--dataset-arg", f"n_train={LM_SHAPE['B'] * GRAPH_EPOCH}",
+                     "--dataset-arg", f"n_val={LM_VAL}"],
+                    {"flash_fwd_sm90": LM_LAYERS * (GRAPH_STEPS + vals),
+                     "flash_dq_sm90": LM_LAYERS * GRAPH_STEPS,
+                     "flash_dkv_sm90": LM_LAYERS * GRAPH_STEPS}),
+        "googlenet": (["BSP", "1", "googlenet", "GoogLeNet", "--dataset", "imagenet_synthetic",
+                       "--pool-kernel", "--fused-update", "--batch-size", str(GNET_BATCH),
+                       "--dataset-arg", f"n_train={GNET_BATCH * GRAPH_EPOCH}",
+                       "--dataset-arg", f"n_val={GNET_BATCH}"],
+                      {"maxpool3x3_fwd": 9 * (GRAPH_STEPS + vals),
+                       "maxpool3x3_bwd": 9 * GRAPH_STEPS, "fused_momentum": GRAPH_STEPS}),
+    }
+
+
+# tools/bench.py per model: (kwargs, steps a call); 3 timed calls each
+GRAPH_BENCH = {
+    "alexnet": ({"fused_update": True}, 10),
+    "lm_136m": ({}, 5),
+    "googlenet": ({"fused_update": True, "pool_kernel": True}, 5),
+}
+
+
+def graph_recapture_check() -> dict:
+    """A state whose tensors are replaced between groups (as a resume's
+    ``bridge.state_from_flat`` replaces them) is captured again, never
+    replayed over the old pointers: full-width AlexNet (dropout on) with
+    a resident batch, two groups of 2 with every leaf of the state cloned
+    between them, against 4 eager steps of an engine from the same seeds.
+    Losses and final state bit-identical; 2 captures, 3 replays."""
+    import torch
+    from theanompi_tpu_torch.models.alex_net import AlexNet
+    from theanompi_tpu_torch.parallel.bsp import BSPEngine
+    from theanompi_tpu_torch.train import TrainState
+    from theanompi_tpu_torch.tree import tree_leaves, tree_map
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    gen = torch.Generator(device=dev).manual_seed(5)
+    x = torch.randn(128, 227, 227, 3, generator=gen, device=dev)
+    y = torch.randint(0, 1000, (128,), generator=gen, device=dev)
+
+    def fresh():
+        engine = BSPEngine(AlexNet(), 1, dev, steps_per_epoch=10_000, fused_update=True)
+        return (engine, engine.init_state(torch.Generator().manual_seed(0)),
+                torch.Generator(device=dev).manual_seed(1))
+
+    engine, state, g = fresh()
+    eager = []
+    for _ in range(4):
+        state, m = engine.train_step(state, x, y, g)
+        eager.append(float(m["loss"]))
+    engine2, state2, g2 = fresh()
+    state2, m1 = engine2.fused_train_step(state2, [x, x], [y, y], g2)
+    state2 = TrainState(*[tree_map(lambda t: t.detach().clone().requires_grad_(t.requires_grad),
+                                   f) for f in state2])
+    state2, m2 = engine2.fused_train_step(state2, [x, x], [y, y], g2)
+    got = m1["loss"].tolist() + m2["loss"].tolist()
+    graph = engine2.graph
+    check(got == eager, f"recapture: losses {got} != eager {eager}")
+    check((graph.captures, graph.replays) == (2, 3),
+          f"recapture: {graph.captures} captures and {graph.replays} replays, expected 2 and 3")
+    same = all(torch.equal(a, b) for a, b in zip(tree_leaves((state.params, state.opt_state)),
+                                                  tree_leaves((state2.params, state2.opt_state))))
+    check(same, "recapture: the final params or velocities differ from the eager run's")
+    print(f"[graph] a replaced state was captured again (2 captures, 3 replays); 4 steps "
+          f"bit-identical to eager: {got}", flush=True)
+    return {"losses": got, "captures": graph.captures, "replays": graph.replays}
+
+
+def phase_graph():
+    """Step fusion on the card: each model of ``graph_runs`` through the
+    CLI eagerly and with ``--steps-per-dispatch GRAPH_K`` (counters zeroed
+    just before each run and read just after). The pair must agree bit
+    for bit (every loss, the validation metrics, the final params and
+    velocities' digest) and launch the same kernels the same number of
+    times; the grouped run must have replayed one capture for every step
+    but the first. Then ``tools/bench.py``'s compute mode of each model,
+    eager and captured, whose last losses must agree too."""
+    import gc
+
+    import torch
+    from theanompi_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from theanompi_tpu_torch.tools.bench import bench_compute
+
+    out = {}
+    for label, (argv, want) in graph_runs().items():
+        pair = {}
+        for mode, k in (("eager", 1), ("captured", GRAPH_K)):
+            full = [*argv, "--epochs", "2", "--max-steps", str(GRAPH_STEPS), "--seed", "0",
+                    "--steps-per-dispatch", str(k)]
+            print(f"[graph] python -m theanompi_tpu_torch.cli {' '.join(full)}", flush=True)
+            gc.collect()
+            torch.cuda.empty_cache()
+            reset_launch_counts()
+            summary = run_cli(full)
+            counts = launch_counts()
+            losses = summary["losses"]
+            check(summary["steps"] == GRAPH_STEPS and len(losses) == GRAPH_STEPS
+                  and all(math.isfinite(v) for v in losses) and summary["nonfinite_steps"] == 0,
+                  f"graph {label} {mode}: steps {summary['steps']}, losses {losses}")
+            got = {n: counts[n] for n in want}
+            check(got == want, f"graph {label} {mode} launched {got}, expected {want}")
+            stray = {n: v for n, v in counts.items() if n not in want and v}
+            check(not stray, f"graph {label} {mode} launched other kernels: {stray}")
+            pair[mode] = {"summary": summary, "launches": counts}
+        eager, cap = pair["eager"]["summary"], pair["captured"]["summary"]
+        check(eager["captured"] is False and cap["captured"] is True
+              and cap["graph"] == {"captures": 1, "replays": GRAPH_STEPS - 1},
+              f"graph {label}: eager captured {eager['captured']}, grouped captured "
+              f"{cap['captured']} with {cap['graph']} (expected 1 capture and "
+              f"{GRAPH_STEPS - 1} replays)")
+        check(cap["losses"] == eager["losses"],
+              f"graph {label}: captured losses {cap['losses']} != eager {eager['losses']}")
+        check(cap["val"] == eager["val"],
+              f"graph {label}: captured val {cap['val']} != eager {eager['val']}")
+        check(cap["replica_digest_per_rank"] == eager["replica_digest_per_rank"],
+              f"graph {label}: final params/velocities differ (digests "
+              f"{cap['replica_digest_per_rank']} vs {eager['replica_digest_per_rank']})")
+        check(pair["captured"]["launches"] == pair["eager"]["launches"],
+              f"graph {label}: launch counts differ: captured {pair['captured']['launches']}, "
+              f"eager {pair['eager']['launches']}")
+        print(f"[graph] {label}: eager and {GRAPH_K}-step groups bit-identical (losses, val, "
+              f"digest {cap['replica_digest_per_rank'][0]}), launches equal; CLI step "
+              f"{eager['step_ms']:.3f} ms eager, {cap['step_ms']:.3f} ms captured "
+              f"({eager['images_per_sec']:.2f} / {cap['images_per_sec']:.2f} per s); by epoch "
+              f"{eager['epoch_step_ms']} / {cap['epoch_step_ms']} (an epoch's first group "
+              f"waits for its {GRAPH_K} batches)", flush=True)
+        bench = {}
+        kw, steps = GRAPH_BENCH[label]
+        for mode in ("eager", "captured"):
+            gc.collect()
+            torch.cuda.empty_cache()
+            bench[mode] = bench_compute(label, steps=steps, trials=3, eager=mode == "eager", **kw)
+            print(f"[graph] bench {json.dumps(bench[mode])}", flush=True)
+        check(bench["captured"]["captured"] and not bench["eager"]["captured"]
+              and bench["captured"]["last_losses"] == bench["eager"]["last_losses"],
+              f"graph bench {label}: captured {bench['captured']['last_losses']} vs eager "
+              f"{bench['eager']['last_losses']}")
+        out[label] = {"eager": pair["eager"], "captured": pair["captured"], "bench": bench}
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["recapture"] = graph_recapture_check()
+    return out
+
+
+def phase_capture_failure(dev):
+    """A step with a host sync cannot be captured: the runner must raise,
+    naming the line, and not fall back to eager steps."""
+    import torch
+    from theanompi_tpu_torch.graphs import GraphCaptureError, StepGraph
+
+    def host_sync_step(state, x, y, gen):
+        scale = float(x.abs().max())  # reads the card back: no capture takes it
+        return (state[0] + scale,), {"loss": (x * scale).sum()}
+
+    state = (torch.zeros(4, device=dev),)
+    x = torch.ones(4, device=dev)
+    graph = StepGraph(host_sync_step, dev)
+    try:
+        graph.run(state, [x, x], [x, x], None)
+    except GraphCaptureError as e:
+        msg = str(e)
+    else:
+        raise Failed("a step with a host sync was captured")
+    check("host_sync_step" in msg and "float(x.abs().max())" in msg and graph.replays == 0,
+          f"the capture error does not name the host sync: {msg}")
+    print(f"[capture-failure] refused as it must be: {msg[:300]}", flush=True)
+    return msg
+
+
 def copy_rate(dev) -> dict:
     """The card's streaming rate, measured once as a yardstick (not a
     kernel of the port): ``dst.copy_(src)`` over a 2 GB buffer, read +
@@ -2482,12 +2693,18 @@ def main() -> int:
         print(f"[googlenet-parity] done ({time.perf_counter() - t0:.1f} s)", flush=True)
 
         t0 = time.perf_counter()
+        graph_runs_ = phase_graph()
+        print(f"[graph] done ({time.perf_counter() - t0:.1f} s)", flush=True)
+
+        t0 = time.perf_counter()
         times = phase_times(leaf_sets, dev, mem_rate, fp32_peak)
         times.update(phase_quant_times(dev, mem_rate, fp32_peak))
         times.update(phase_flash_times(dev, mem_rate, fp32_peak, bf16_peak))
         times.update(phase_pool_times(dev, mem_rate, fp32_peak))
         print(f"[times] done ({time.perf_counter() - t0:.1f} s)", flush=True)
         torch.cuda.synchronize()
+        # last: a failed capture leaves its stream's pool to the process
+        phase_capture_failure(dev)
     except Failed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -2700,6 +2917,12 @@ def main() -> int:
                         for mode, counts in r["resumed_launches"].items()}
                 for label, r in resume_runs.items() if r["ranks"] > 1 or k["name"] ==
                 "fused_momentum"}
+    for k in kernels:
+        # each model's pair of phase-graph runs: launches eager and in
+        # captured groups (equal, or the phase failed)
+        k["graph_launches"] = {label: {mode: graph_runs_[label][mode]["launches"][k["name"]]
+                                       for mode in ("eager", "captured")}
+                               for label in graph_runs()}
     print(f"chip_smoke: wall {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(smi)

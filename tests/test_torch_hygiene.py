@@ -67,6 +67,8 @@ def test_importing_the_port_loads_no_jax():
         "import theanompi_tpu_torch.data.loader, theanompi_tpu_torch.data.imagenet\n"
         "import theanompi_tpu_torch.tools.profile_step\n"
         "import theanompi_tpu_torch.utils.checkpoint, theanompi_tpu_torch.utils.recorder\n"
+        "import theanompi_tpu_torch.graphs, theanompi_tpu_torch.utils.flops\n"
+        "import theanompi_tpu_torch.tools.bench\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'theanompi_tpu'))\n"
         "print(bad)\n"
     )
@@ -78,14 +80,16 @@ def test_importing_the_port_loads_no_jax():
 
 
 def test_entry_points_raise_without_a_card_unless_cpu_is_asked_for(monkeypatch):
-    """No silent CPU fallback: without CUDA, run_training(), BSPEngine and
-    init_train_state with no ``device`` raise before doing any work;
-    ``device='cpu'`` is honoured."""
+    """No silent CPU fallback: without CUDA, run_training(), BSPEngine,
+    init_train_state, make_multi_step and the benchmark with no
+    ``device`` raise before doing any work; ``device='cpu'`` is
+    honoured."""
     from theanompi_tpu_torch.device import resolve_device
     from theanompi_tpu_torch.launch.worker import run_training
     from theanompi_tpu_torch.models.alex_net import AlexNet
     from theanompi_tpu_torch.parallel.bsp import BSPEngine
-    from theanompi_tpu_torch.train import init_train_state
+    from theanompi_tpu_torch.tools.bench import bench_compute
+    from theanompi_tpu_torch.train import init_train_state, make_multi_step
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -96,6 +100,10 @@ def test_entry_points_raise_without_a_card_unless_cpu_is_asked_for(monkeypatch):
         BSPEngine(AlexNet(), n_devices=2)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         init_train_state(AlexNet(), torch.Generator().manual_seed(0))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_multi_step(lambda *a: a, 2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        bench_compute("alexnet", steps=1, trials=1)
     assert BSPEngine(AlexNet(), device="cpu").device == torch.device("cpu")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         resolve_device("cuda")

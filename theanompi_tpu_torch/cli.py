@@ -41,6 +41,13 @@ the JAX package resumes from these files and the port from its::
     python -m theanompi_tpu_torch.cli BSP 1 alexnet AlexNet --synthetic \
         --fused-update --max-steps 6 --ckpt-dir CKPT --save-dir LOGS --resume
 
+Steps in groups of 4, each step a replay of one captured CUDA graph of
+the train step (one card)::
+
+    python -m theanompi_tpu_torch.cli BSP 1 alexnet AlexNet \
+        --dataset imagenet_synthetic --fused-update --max-steps 22 \
+        --steps-per-dispatch 4 --dataset-arg n_train=2816 --dataset-arg n_val=128
+
 Runs on the CUDA card(s); ``--device cpu`` runs on the CPU instead
 (ranks over gloo), ``--device cuda:0 --backend gloo`` puts every rank on
 one card. Without a card and without ``--device cpu`` it fails. The
@@ -112,6 +119,16 @@ def build_parser() -> argparse.ArgumentParser:
                         "full gather+write)")
     p.add_argument("--resume", action="store_true")
     p.add_argument("--print-freq", type=int, default=40)
+    p.add_argument("--steps-per-dispatch", type=int, default=1,
+                   help="run the steps in groups of this many: on the card each step of a "
+                        "group replays one captured CUDA graph of the train step (one host "
+                        "call a step, no wait for the card inside a group); groups never "
+                        "cross an epoch and the last one stops at --max-steps. One rank "
+                        "only on the card for now")
+    p.add_argument("--accum-steps", type=int, default=1,
+                   help="gradient accumulation: split each rank's batch into this many "
+                        "microbatches inside the step, their fp32 gradients averaged before "
+                        "the one update (large-batch SGD at small-batch activation memory)")
     p.add_argument("--device", default=None,
                    help="'cpu' to run on the CPU, 'cuda:K' to put every rank on card K; "
                         "default: card r for rank r")
@@ -173,6 +190,8 @@ def main(argv=None) -> int:
         async_checkpoint=not args.sync_ckpt,
         resume=args.resume,
         print_freq=args.print_freq,
+        steps_per_dispatch=args.steps_per_dispatch,
+        accum_steps=args.accum_steps,
     )
     print(json.dumps(summary, default=str))
     return 0

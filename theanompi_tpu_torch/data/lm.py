@@ -9,12 +9,25 @@ packages yield identical windows.
 
 from __future__ import annotations
 
+import functools
 import os
 from typing import Optional
 
 import numpy as np
 
 from theanompi_tpu_torch.data.datasets import Dataset, register_dataset
+
+
+@functools.lru_cache(maxsize=4)
+def _successors(vocab: int, branching: int, seed: int) -> np.ndarray:
+    """The chain's transition table, symbol -> ``branching`` successors
+    (read-only). Drawn once a process for each (vocab, branching, seed):
+    each row costs a permutation of the whole vocabulary, so the 136M
+    LM's 32,768 symbols cost 32,768 permutations of 32,768."""
+    rng = np.random.RandomState(seed)
+    succ = np.stack([rng.choice(vocab, size=branching, replace=False) for _ in range(vocab)])
+    succ.setflags(write=False)
+    return succ
 
 
 class LMSynthetic_data(Dataset):
@@ -36,11 +49,7 @@ class LMSynthetic_data(Dataset):
     ):
         self.image_shape = (seq_len,)
         self.n_classes = vocab
-        rng = np.random.RandomState(seed)
-        # transition table: symbol -> `branching` successors
-        succ = np.stack(
-            [rng.choice(vocab, size=branching, replace=False) for _ in range(vocab)]
-        )
+        succ = _successors(vocab, branching, seed)
 
         def chain(n_windows, salt):
             r = np.random.RandomState(seed + salt)

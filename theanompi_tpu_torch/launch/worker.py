@@ -54,6 +54,18 @@ synchronous); the first ``WARMUP_STEPS`` steps of a run are left out of
 the steady-state figures, as they are from ``feed_wait_ms``, the host
 time the loop spent waiting for the loader a step (near 0 when the card,
 not the feed, paces the run).
+
+Groups (``steps_per_dispatch = k > 1``, the reference's fused dispatch):
+the loop takes up to k batches of one epoch at a time, the last group of
+a run trimmed to land on ``max_steps``, and runs them through
+``BSPEngine.fused_train_step``: on the card each step replays one
+captured CUDA graph of the step (``graphs.py``), its batch copied from
+pinned memory into the graph's input buffer; on the CPU the steps run
+eagerly. Each step keeps its recorder row, its CUDA-event interval and
+its wait, and saves fall where the per-step loop's do (epoch ends, the
+``max_steps`` cut), since no group crosses them. A group enqueues
+without waiting for the card, so the drains every ``print_freq`` steps
+are what bound how far the host runs ahead.
 """
 
 from __future__ import annotations
@@ -76,7 +88,7 @@ from theanompi_tpu_torch.data.loader import PrefetchLoader, host_tensors, pinned
 from theanompi_tpu_torch.device import resolve_device
 from theanompi_tpu_torch.models.contract import Model
 from theanompi_tpu_torch.ops.kernels import launch_counts
-from theanompi_tpu_torch.parallel.bsp import BSPEngine
+from theanompi_tpu_torch.parallel.bsp import BSPEngine, check_fused_ranks
 from theanompi_tpu_torch.parallel.codec import get_codec
 from theanompi_tpu_torch.parallel.distributed import agree_on_step, all_gather_objects, gather_tree
 from theanompi_tpu_torch.parallel.mesh import host_local_batch_slice, rank_generator
@@ -174,6 +186,8 @@ def run_training(
     async_checkpoint: bool = True,
     resume: bool = False,
     print_freq: int = 40,
+    steps_per_dispatch: int = 1,
+    accum_steps: int = 1,
 ) -> dict:
     """Train ``model_cls`` under a sync rule; returns a summary dict.
 
@@ -186,8 +200,18 @@ def run_training(
     the model routes its 3x3/stride-1 max pools to the pool kernels
     (``ops/pool.py``; a model with no such pool refuses). ``save_dir``:
     the recorder's JSONL log and pickled history. ``ckpt_dir``,
-    ``async_checkpoint``, ``resume``: checkpoints (module docstring)."""
+    ``async_checkpoint``, ``resume``: checkpoints (module docstring).
+    ``steps_per_dispatch``: steps a group (module docstring; several
+    ranks on the card are refused, ``bsp.check_fused_ranks``).
+    ``accum_steps``: microbatches a step, their gradients averaged
+    before the one update (each rank's batch must divide by it)."""
     device = resolve_device(device)
+    k = int(steps_per_dispatch)
+    if k < 1:
+        raise ValueError(f"steps_per_dispatch must be >= 1, got {steps_per_dispatch}")
+    if int(accum_steps) < 1:
+        raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
+    check_fused_ranks(devices, k, device)
     if model_cls is None:
         raise ValueError("model_cls is required")
     rule = rule.lower()
@@ -217,6 +241,9 @@ def run_training(
         if dataset == "lm_synthetic":
             dataset_kwargs.setdefault("vocab", recipe.num_classes)
     batch = recipe.batch_size
+    if (batch // max(1, devices)) % int(accum_steps):
+        raise ValueError(f"each rank's batch ({batch} / {devices} ranks) must divide into "
+                         f"accum_steps={accum_steps} microbatches")
 
     data = get_dataset(dataset, **dataset_kwargs)
     if tuple(data.image_shape) != tuple(recipe.input_shape):
@@ -253,7 +280,8 @@ def run_training(
     eval_views = int(getattr(data, "val_views", 1))
     engine = BSPEngine(model, devices, device, steps_per_epoch=steps_per_epoch,
                        fused_update=fused_update, strategy=strategy, wire_codec=wire_codec,
-                       input_transform=input_transform, eval_views=eval_views)
+                       input_transform=input_transform, eval_views=eval_views,
+                       accum_steps=accum_steps)
     rank = dist.get_rank() if devices > 1 else 0
     shard = host_local_batch_slice(batch, rank, devices)
     vshard = host_local_batch_slice(vbatch, rank, devices)
@@ -276,6 +304,7 @@ def run_training(
                      "batch_size": batch, "devices": devices, "strategy": strategy,
                      "wire_codec": get_codec(wire_codec).spec, "dataset": dataset,
                      "device_normalize": input_transform is not None, "eval_views": eval_views,
+                     "steps_per_dispatch": k, "accum_steps": engine.accum_steps,
                      "resumed_from_step": None}
 
     start_epoch = 0
@@ -397,23 +426,42 @@ def run_training(
                 skip_batches = 0
             with PrefetchLoader(source, place, depth=PREFETCH_DEPTH) as batches:
                 while True:
-                    t_wait = time.perf_counter()
-                    try:
-                        x, y = next(batches)
-                    except StopIteration:
+                    # a group of up to k batches, never past max_steps
+                    # and never across an epoch
+                    want = min(k, max_steps - step_count) if max_steps else k
+                    group = []
+                    while len(group) < want:
+                        t_wait = time.perf_counter()
+                        try:
+                            x, y = next(batches)
+                        except StopIteration:
+                            break
+                        group.append((x, y, (time.perf_counter() - t_wait) * 1e3))
+                    if not group:
                         break
-                    wait_ms = (time.perf_counter() - t_wait) * 1e3
-                    epoch_waits.append(wait_ms)
                     torn = True
-                    state, metrics = engine.train_step(state, to_device(x), to_device(y), step_gen)
+                    if k == 1:
+                        x, y, _ = group[0]
+                        state, metrics = engine.train_step(state, to_device(x), to_device(y),
+                                                           step_gen)
+                        marks.append(clock.mark())
+                        rows = [metrics]
+                    else:
+                        state, metrics = engine.fused_train_step(
+                            state, [g[0] for g in group], [g[1] for g in group], step_gen,
+                            after_step=lambda: marks.append(clock.mark()))
+                        rows = [{key: v[i] for key, v in metrics.items()}
+                                for i in range(len(group))]
                     torn = False
-                    step_count += 1
-                    epoch_steps += 1
-                    marks.append(clock.mark())
-                    pending.append((step_count, metrics, wait_ms))
-                    if print_freq and step_count % print_freq == 0:
+                    first = step_count
+                    for (_, _, wait_ms), row in zip(group, rows):
+                        step_count += 1
+                        epoch_steps += 1
+                        epoch_waits.append(wait_ms)
+                        pending.append((step_count, row, wait_ms))
+                    if print_freq and step_count // print_freq > first // print_freq:
                         drain(pending, marks, epoch_ivals)
-                    if max_steps and step_count >= max_steps:
+                    if len(group) < want or (max_steps and step_count >= max_steps):
                         break
             drain(pending, marks, epoch_ivals)
             rec.end_epoch(epoch, n_images=epoch_steps * batch)
@@ -487,6 +535,10 @@ def run_training(
     summary["step_ms"] = step_ms
     summary["steady_steps"] = len(intervals)
     summary["epoch_step_ms"] = epoch_step_ms
+    graph = engine.graph
+    summary["captured"] = graph is not None and graph.replays > 0
+    summary["graph"] = ({"captures": graph.captures, "replays": graph.replays}
+                        if graph is not None else None)
     if ckpt_dir and rank == 0:
         summary["checkpoints"] = sorted(
             [dict(r, mode="sync") for r in saves]
@@ -498,11 +550,12 @@ def run_training(
     own = {"step_ms": step_ms, "kernel_launches": launch_counts(),
            "feed_wait_ms": sum(recent_waits) / len(recent_waits) if recent_waits else None,
            "native_calls": dict(native.LOADER.calls)}
+    # what each rank holds at the end: the replicas must agree bit for
+    # bit (and a run with its steps grouped must equal one without)
+    own["replica_digest"] = _digest(tree_leaves((state.params, state.opt_state)))
     per_rank = [own]
     if devices > 1:
-        # what each rank holds at the end: the replicas must agree bit
-        # for bit; the error-feedback residuals are each rank's own
-        own["replica_digest"] = _digest(tree_leaves((state.params, state.opt_state)))
+        # the error-feedback residuals are each rank's own
         own["ef_digest"] = _digest(tree_leaves(state.ef))
         own["ef_norm"] = float(sum(torch.sum(e.double() ** 2) for e in tree_leaves(state.ef))) ** 0.5
         per_rank = [None] * devices

@@ -83,6 +83,14 @@ def reset_launch_counts() -> None:
         c.reset()
 
 
+def add_launch_counts(delta: dict) -> None:
+    """Add ``{counter name: launches}`` (negative to take some back) to
+    the counters: a replayed CUDA graph runs its kernels without calling
+    their wrappers (``graphs.py``)."""
+    for name, n in delta.items():
+        _COUNTERS[name].launches += n
+
+
 def nvcc_path() -> str:
     """``$CUDA_HOME/bin/nvcc``, else ``nvcc`` on PATH, else the toolkit's
     default location; raises when none exists."""

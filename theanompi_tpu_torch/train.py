@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from theanompi_tpu_torch.device import resolve_device
+from theanompi_tpu_torch.graphs import StepGraph, eager_steps
 from theanompi_tpu_torch.models.contract import Model
 from theanompi_tpu_torch.ops.optimizers import apply_updates
 from theanompi_tpu_torch.tree import tree_leaves, tree_map
@@ -195,6 +196,49 @@ def make_train_step(
         return new_state, metrics
 
     return train_step
+
+
+def make_multi_step(step_fn: Callable, k: int, stacked: bool = False, *, device=None,
+                    capture: bool = True):
+    """Fuse ``k`` successive train steps into one call (port of the
+    reference's ``make_multi_step``, a ``lax.scan`` of k steps).
+
+    Returns ``run(state, images, labels, gen, after_step=None) ->
+    (state, metrics)``, ``metrics`` a dict of fp32 tensors stacked over
+    the k steps. ``stacked=True``: ``images`` and ``labels`` hold k
+    batches along their first dimension (a tensor, or a sequence of k
+    tensors); ``stacked=False``: the one batch is reused by every step
+    (the benchmark's mode). The mode is explicit, as in the reference.
+    ``gen`` draws every step's dropout masks in turn, as k sequential
+    steps would. ``after_step()`` runs after each step is enqueued.
+
+    On the card (``device``: ``None`` is the current CUDA device) the
+    steps replay one captured CUDA graph (``graphs.StepGraph``; its first
+    call runs the first step eagerly, then captures), and nothing waits
+    for the device inside a call. ``capture=False``, and the CPU
+    (``device="cpu"``, which must be asked for), run the plain loop of k
+    eager steps: the benchmark's eager baseline. ``run.graph`` is the
+    ``StepGraph``, or ``None``."""
+    k = int(k)
+    if k < 1:
+        raise ValueError(f"k must be >= 1, got {k}")
+    device = resolve_device(device)
+    graph = StepGraph(step_fn, device) if capture and device.type == "cuda" else None
+
+    def run(state: TrainState, images, labels, gen, after_step=None):
+        if stacked:
+            if len(images) != k or len(labels) != k:
+                raise ValueError(f"stacked=True expects {k} batches, got {len(images)} "
+                                 f"images and {len(labels)} labels")
+            xs, ys = images, labels
+        else:
+            xs, ys = [images] * k, [labels] * k
+        if graph is not None:
+            return graph.run(state, xs, ys, gen, after_step)
+        return eager_steps(step_fn, state, xs, ys, gen, device, after_step)
+
+    run.graph = graph
+    return run
 
 
 def view_mean(logits: torch.Tensor, views: int) -> torch.Tensor:
