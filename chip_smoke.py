@@ -12,7 +12,9 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                 ``flash_fwd_sm90_kernel``, ``flash_dq_sm90_kernel`` and
                 ``flash_dkv_sm90_kernel`` (``cuobjdump -sass`` of the
                 built library) must hold HGMMA
-                (wgmma) and UTMALDG (TMA loads); their registers, shared
+                (wgmma) and UTMALDG (TMA loads), and that of
+                ``flash_fwd_mma_kernel`` HMMA (mma.sync) and LDGSTS
+                (cp.async); their registers, shared
                 memory and spills are printed (``cuobjdump
                 --dump-resource-usage``). ptxas's registers, stack and
                 spills of each instantiation of the fused update's
@@ -54,18 +56,20 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                 rows and elements that must not move. A misaligned leaf
                 is refused. Counters move by one a list (two for the
                 split).
-   flash      — each flash attention kernel (#7-11: flash_fwd_sm90 and
-                flash_fwd, flash_dq_sm90 and flash_dq, flash_dkv_sm90 and
-                flash_dkv) against its plain version on
+   flash      — each flash attention kernel (#7-11: flash_fwd_sm90,
+                flash_fwd_mma and flash_fwd, flash_dq_sm90 and flash_dq,
+                flash_dkv_sm90 and flash_dkv) against its plain version on
                 the card: the 136M LM's shape (BH 96, T 1024, D 64) in bf16
                 and fp32, ragged T and D, Tq != Tk, causal and not, nonzero
                 offsets with rows that see no key (o = 0, lse ~ -1e30), Tq
                 200 and 1000 at D 64 (not multiples of the 128-row Q tile),
                 q_off 160 over Tq 200 / Tk 360, a bf16 head of 60 (no whole
-                16-byte rows), and T = 8192 (BH 2, bf16). The counters show
+                16-byte rows), an fp32 head of 30 (4-byte copies), and T =
+                8192 (BH 2, bf16). The counters show
                 each case's forward, dq and dk/dv routes: bf16 with D % 8 ==
                 0 runs flash_fwd_sm90, flash_dq_sm90 and flash_dkv_sm90,
-                fp32 and the other bf16 heads flash_fwd, flash_dq and
+                fp32 flash_fwd_mma (3xTF32), flash_dq and flash_dkv, the
+                other bf16 heads flash_fwd, flash_dq and
                 flash_dkv. Tolerances: fp32 o rtol
                 1e-5 + 1e-6 max|o|, dq/dk/dv
                 rtol 1e-4 + 1e-5 of the largest value; bf16 o within 1 bf16
@@ -140,7 +144,8 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                 random weights from a seed) through the CLI for 6 steps
                 and one validation batch: exactly 12 x 7 flash_fwd_sm90,
                 12 x 6 flash_dq_sm90 and flash_dkv_sm90 launches, no
-                flash_fwd, flash_dq or flash_dkv, no other kernel;
+                flash_fwd, flash_fwd_mma, flash_dq or flash_dkv, no other
+                kernel;
                 losses finite; step ms and tokens/s.
    googlenet-main — full-width GoogLeNet (224x224x3, 1000 classes, both
                 aux heads, bf16 compute, fp32 params, momentum 0.9, wd
@@ -206,7 +211,8 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                 card and on the CPU from the same weights and batches:
                 losses within rtol 1e-4, params within atol 1e-6 + rtol
                 1e-4, every leaf changed, 4 launches of each fp32 flash
-                kernel (flash_fwd, flash_dq, flash_dkv), none of an sm90 one.
+                kernel (flash_fwd_mma, flash_dq, flash_dkv), none of
+                another.
    googlenet-parity — full-width GoogLeNet (224x224x3, 1000 classes, fp32,
                 dropout 0, pool kernel on, lr 0.001) trained 2 momentum
                 steps on the card and on the CPU from the same weights and
@@ -303,10 +309,11 @@ import time
 REPO = os.path.dirname(os.path.abspath(__file__))
 
 # card name -> (memory rate B/s, fp32 peak outside the tensor cores FLOP/s,
-# bf16 dense tensor-core peak FLOP/s), from NVIDIA's data sheet: the H100
+# bf16 dense tensor-core peak FLOP/s, tf32 dense tensor-core peak FLOP/s:
+# half the sheet's 989 with sparsity), from NVIDIA's data sheet: the H100
 # SXM5 80 GB. Another card has other rates, so the script refuses it
 # rather than compute its bounds wrongly.
-CARD_RATES = {"NVIDIA H100 80GB HBM3": (3.35e12, 67e12, 989e12)}
+CARD_RATES = {"NVIDIA H100 80GB HBM3": (3.35e12, 67e12, 989e12, 494.7e12)}
 
 MAIN_STEPS = 10
 SGD_STEPS = 3
@@ -769,7 +776,40 @@ def phase_quant(shapes, dev):
     want = {"quant_block": 2 * k, "dequant_block": 3 * k, "quant": k, "dequant": k}
     got = {c.name: c.launches for c in (tq.QUANT_BLOCK, tq.DEQUANT_BLOCK, tq.QUANT, tq.DEQUANT)}
     check(got == want, f"quant counters moved {got}, expected {want}")
-    return worst, k + phase_quant_leaves(shapes, dev)
+    return worst, k + phase_dequant_scales(dev) + phase_quant_leaves(shapes, dev)
+
+
+def phase_dequant_scales(dev) -> int:
+    """#6 at scales the quantizer does not make: random int8 values with
+    +-127 at the floor's scale, 1, -1.5, the largest scale whose products
+    stay finite, the largest f32 (products overflow to inf), inf and NaN,
+    bit for bit against the plain version; a vals view off a 16-byte
+    boundary is refused. Returns the cases run."""
+    import torch
+    from theanompi_tpu_torch.ops import quant as tq
+
+    g = torch.Generator(device=dev).manual_seed(15)
+    vals = torch.randint(-127, 128, (37, 128), generator=g, device=dev, dtype=torch.int8)
+    vals[0, :4] = torch.tensor([127, -127, 1, -1], dtype=torch.int8)
+    f32 = torch.finfo(torch.float32)
+    scales = [1e-30 / 127, 1.0, -1.5, f32.max / 127, f32.max, math.inf, math.nan]
+    before = tq.DEQUANT.launches
+    for sc in scales:
+        scale = torch.tensor([[sc]], dtype=torch.float32, device=dev)
+        check(bits_equal(tq.dequantize_int8(vals, scale), tq.dequantize_int8_plain(vals, scale)),
+              f"#6 dequantize differs at scale {sc}")
+    torch.cuda.synchronize()
+    check(tq.DEQUANT.launches - before == len(scales),
+          f"#6 launched {tq.DEQUANT.launches - before} times for {len(scales)} scales")
+    buf = torch.zeros(37 * 128 + 16, dtype=torch.int8, device=dev)
+    try:
+        tq.dequantize_int8(buf[4:4 + 37 * 128].view(37, 128), scale)
+    except ValueError as e:
+        check("16-byte aligned" in str(e), f"misaligned vals refused for another reason: {e}")
+    else:
+        raise Failed("#6 took a vals view 4 bytes off a 16-byte boundary")
+    print(f"  #6 at scales {scales}: bit-identical; a misaligned vals view refused", flush=True)
+    return len(scales)
 
 
 def phase_main():
@@ -1167,8 +1207,10 @@ def phase_quant_times(dev, mem_rate, fp32_peak):
     the yardstick, and per leaf as a second reading. The host's
     microseconds per round, the wrapper and the per-leaf calls in turns.
     #5-6 per round as before (one three-pass / one launch per padded
-    leaf), #6 in turns with ``torch.mul`` per leaf. Each against the
-    bytes bound and its plain version."""
+    leaf), #6 in turns with ``torch.mul`` per leaf; then #6 over ONE
+    buffer of the round's 60,965,376 elements, one launch, in turns with
+    one ``torch.mul(vals, scale)`` (the card's own time). Each against
+    the bytes bound and its plain version."""
     import torch
     from theanompi_tpu_torch.ops import quant as tq
     from theanompi_tpu_torch.tools import quant_variants as qv
@@ -1251,6 +1293,30 @@ def phase_quant_times(dev, mem_rate, fp32_peak):
                      " | library none")
         print(line + f" | turns {turns}", flush=True)
         results[name] = res
+    # #6 over ONE buffer of the round's elements (the card's own time,
+    # one launch) in turns with one torch.mul(vals, scale), the same
+    # function, bit for bit
+    v_one, s_one = tq.quantize_int8(torch.cat(x2ds))
+    check(bits_equal(tq.dequantize_int8(v_one, s_one), torch.mul(v_one, s_one)),
+          "dequant over one buffer differs from torch.mul(vals, scale)")
+    ways = {"kernel": lambda: tq.dequantize_int8(v_one, s_one),
+            "library": lambda: torch.mul(v_one, s_one)}
+    turns = {k: [] for k in ways}
+    for k in ("kernel", "library", "library", "kernel"):
+        turns[k].append(cuda_ms(ways[k], reps=20))
+    mean = {k: sum(v) / len(v) for k, v in turns.items()}
+    one_bytes = elems * 5 + 4  # int8 in, f32 out, the scale
+    bound_ms = one_bytes / mem_rate * 1e3
+    plain_ms = cuda_ms(lambda: tq.dequantize_int8_plain(v_one, s_one), reps=5)
+    results["dequant_one_buffer"] = dict(
+        step_ms=mean["kernel"], library_ms=mean["library"], plain_ms=plain_ms, bound_ms=bound_ms,
+        bytes=one_bytes, bound_by="bytes", turns_ms=turns, rows=rows, elements=elems)
+    print(f"[times] dequant over one ({rows}, 128) buffer ({elems} elements, one launch): "
+          f"{mean['kernel']:.4f} ms | bound {bound_ms:.4f} ms ({one_bytes / 1e6:.1f} MB; bytes) | "
+          f"{bound_ms / mean['kernel'] * 100:.1f}% of bound | torch.mul(vals, scale) "
+          f"{mean['library']:.4f} ms, {mean['kernel'] / mean['library']:.3f}x | plain "
+          f"{plain_ms:.4f} ms | turns (kernel, library, library, kernel) {turns}", flush=True)
+    del v_one, s_one
     torch.cuda.synchronize()
     return results
 
@@ -1260,8 +1326,9 @@ def flash_cases():
     shape in bf16 and fp32, ragged T and D, Tq != Tk, causal and not,
     nonzero offsets with rows that see no key, Tq 200 and 1000 (ragged
     128-row Q tiles of flash_fwd_sm90), a bf16 head of 60 (the generic
-    forward), and T = 8192 (where the reference's backward switches to
-    its 2-D kernels #10 and #11)."""
+    forward), an fp32 head of 30 (flash_fwd_mma's 4-byte copies), and T =
+    8192 (where the reference's backward switches to its 2-D kernels #10
+    and #11)."""
     import torch
 
     bh = LM_SHAPE["B"] * LM_SHAPE["H"]
@@ -1275,6 +1342,7 @@ def flash_cases():
         out.append((f"offsets q 0 k 100, rows 0-99 blind {str(dt)[6:]}", 4, 192, 192, 64, True,
                     0, 100, dt))
         out.append((f"offsets q 160 k 0 {str(dt)[6:]}", 4, 96, 200, 64, True, 160, 0, dt))
+    out.append(("ragged T 200 D 30 float32", 6, 200, 200, 30, True, 0, 0, torch.float32))
     bf = torch.bfloat16
     for causal in (True, False):
         out.append(("Tq 200 D 64 bfloat16", 6, 200, 200, 64, causal, 0, 0, bf))
@@ -1332,14 +1400,15 @@ def phase_flash(dev):
     rtol 1e-4 + 1e-5 of the largest value. At the 136M shape a control,
     dv with p rounded to bf16 (``bf16_dv_control``), must fail that dv
     check. The counters must show each case's routes: bf16 with D % 8 ==
-    0 on flash_fwd_sm90, flash_dq_sm90 and flash_dkv_sm90, the rest on
+    0 on flash_fwd_sm90, flash_dq_sm90 and flash_dkv_sm90; fp32 on
+    flash_fwd_mma, flash_dq and flash_dkv; the other bf16 heads on
     flash_fwd, flash_dq and flash_dkv."""
     import torch
     from theanompi_tpu_torch.ops import flash_attention as fa
 
     g = torch.Generator(device=dev).manual_seed(8)
-    counters = (fa.FLASH_FWD, fa.FLASH_FWD_SM90, fa.FLASH_DQ, fa.FLASH_DQ_SM90, fa.FLASH_DKV,
-                fa.FLASH_DKV_SM90)
+    counters = (fa.FLASH_FWD, fa.FLASH_FWD_SM90, fa.FLASH_FWD_MMA, fa.FLASH_DQ,
+                fa.FLASH_DQ_SM90, fa.FLASH_DKV, fa.FLASH_DKV_SM90)
     names = tuple(c.name for c in counters)
     worst = dict.fromkeys(names, 0.0)
     routes = dict.fromkeys(names, 0)
@@ -1366,6 +1435,8 @@ def phase_flash(dev):
         sm90 = dt == torch.bfloat16 and D % 8 == 0
         fwd, dqk, dkv = (n_ + "_sm90" if sm90 else n_ for n_ in ("flash_fwd", "flash_dq",
                                                                   "flash_dkv"))
+        if dt == torch.float32:
+            fwd = "flash_fwd_mma"
         want = tuple(int(n_ in (fwd, dqk, dkv)) for n_ in names)
         if tuple(b - a for a, b in zip(before, after)) != want:
             bad.append(f"counters {names} moved {before} -> {after}, expected + {want}")
@@ -1458,6 +1529,7 @@ def phase_lm_main():
           f"lm run: bad val metrics {summary.get('val')}")
     val_batches = 1
     want = {"flash_fwd_sm90": LM_LAYERS * (LM_STEPS + val_batches), "flash_fwd": 0,
+            "flash_fwd_mma": 0,
             "flash_dq_sm90": LM_LAYERS * LM_STEPS, "flash_dq": 0,
             "flash_dkv_sm90": LM_LAYERS * LM_STEPS, "flash_dkv": 0}
     got = {k: counts[k] for k in want}
@@ -1501,10 +1573,11 @@ def phase_lm_parity(dev):
                        launch_counts())
     (lc, bc, pc, kc), (lg, bg, pg, kg) = out["cpu"], out[str(dev)]
     check(not any(kc.values()), f"the CPU run launched kernels: {kc}")
-    flash = ("flash_fwd", "flash_fwd_sm90", "flash_dq", "flash_dq_sm90", "flash_dkv",
-             "flash_dkv_sm90")
-    check(tuple(kg[n] for n in flash) == (4, 0, 4, 0, 4, 0),
-          f"the card run launched {kg}, expected 4 of each fp32 flash kernel and no sm90 one")
+    flash = ("flash_fwd_mma", "flash_fwd", "flash_fwd_sm90", "flash_dq", "flash_dq_sm90",
+             "flash_dkv", "flash_dkv_sm90")
+    check(tuple(kg[n] for n in flash) == (4, 0, 0, 4, 0, 4, 0),
+          f"the card run launched {kg}, expected 4 of each fp32 flash kernel (flash_fwd_mma, "
+          "flash_dq, flash_dkv) and no other flash kernel")
     check(all(math.isclose(a, b, rel_tol=1e-4) for a, b in zip(lc, lg)),
           f"card losses {lg} vs CPU {lc}")
     worst = 0.0
@@ -1516,6 +1589,7 @@ def phase_lm_parity(dev):
                       f"(x{x:.3g})")
     print(f"[lm-parity] losses card {lg} vs CPU {lc}; params within atol 1e-6 + rtol 1e-4 "
           f"(worst at {worst:.3g} of the tolerance); every leaf changed", flush=True)
+    return {n: kg[n] for n in flash}
 
 
 def phase_flash_times(dev, mem_rate, fp32_peak, bf16_peak):
@@ -1609,6 +1683,132 @@ def phase_flash_times(dev, mem_rate, fp32_peak, bf16_peak):
               f"{'forward' if name.startswith('flash_fwd') else 'backward (dq, dk, dv)'} "
               f"{lib:.4f} ms",
               flush=True)
+    del q4, k4, v4, out4
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return results
+
+
+def sdpa_backend(q4, k4, v4) -> str:
+    """The backend PyTorch's dispatcher picks for a causal SDPA call on
+    these inputs (``torch._fused_sdp_choice``)."""
+    import torch
+    from torch.nn.attention import SDPBackend
+
+    names = {int(b): n for n, b in SDPBackend.__members__.items()}
+    return names.get(int(torch._fused_sdp_choice(q4, k4, v4, None, 0.0, True)), "unknown")
+
+
+def device_kernel_names(fn) -> list:
+    """The device kernels one call of ``fn`` launches, by name, from
+    torch.profiler; a one-item list saying why when the profiler sees no
+    device activity or fails (a reading, not a check)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = sorted({e.key for e in prof.key_averages()
+                        if e.device_type == torch.autograd.DeviceType.CUDA})
+    except Exception as e:  # the profiler is untried on this card's machine
+        return [f"not measured: torch.profiler failed ({type(e).__name__}: {e})"]
+    return names or ["not measured: the profiler saw no device kernel"]
+
+
+def phase_flash_times_fp32(dev, mem_rate, fp32_peak, tf32_peak):
+    """The fp32 flash kernels at the 136M LM's attention shape (BH 96, T
+    1024, D 64, causal), random fp32 inputs: flash_fwd_mma (3xTF32 on
+    mma.sync) against the generic kernel's fp32 instantiation (fp32 FMAs,
+    through ``fa._launch_fwd_generic``) in turns, old, new, new, old; the
+    fp32 flash_dq and flash_dkv (the generic kernels, which the fp32
+    backward runs); SDPA's fp32 forward and backward as the yardstick,
+    with the backend PyTorch's dispatcher picks, the device kernels its
+    forward launches, and each forward's largest error against a float64
+    forward of the same inputs (a single tf32 product would leave about
+    1e-3). Bounds: bytes over the memory rate against the products, fp32
+    FMAs at the fp32 peak, flash_fwd_mma's three tf32 products at the
+    tf32 tensor-core peak."""
+    import torch
+    import torch.nn.functional as F
+    from theanompi_tpu_torch.ops import flash_attention as fa
+
+    B, T, H, D = LM_SHAPE["B"], LM_SHAPE["T"], LM_SHAPE["H"], LM_SHAPE["D"]
+    BH = B * H
+    g = torch.Generator(device=dev).manual_seed(12)
+    q, k, v, do = (torch.randn(BH, T, D, generator=g, device=dev) for _ in range(4))
+    kw = dict(causal=True, scale=1.0 / math.sqrt(D))
+    fkw = dict(kw, q_off=0, k_off=0)
+    o, lse = fa.flash_fwd(q, k, v, **kw)
+    dsum = torch.sum(do * o, dim=-1)
+    pairs = BH * T * (T + 1) // 2
+    tile = 4 * BH * T * D  # bytes of one fp32 [BH, T, D] tensor
+    rows = 4 * BH * T
+    fwd_plain = lambda: fa.flash_fwd_plain(q, k, v, **kw)  # noqa: E731
+    specs = {
+        # name: (kernel, plain, bytes, fp32 FLOPs, tf32 FLOPs)
+        "flash_fwd_mma": (lambda: fa._launch_fwd_mma(q, k, v, **fkw), fwd_plain,
+                          4 * tile + rows, 0, 3 * 4 * D * pairs),
+        "flash_fwd_fp32": (lambda: fa._launch_fwd_generic(q, k, v, **fkw), fwd_plain,
+                           4 * tile + rows, 4 * D * pairs, 0),
+        "flash_dq_fp32": (lambda: fa._launch_dq_generic(q, k, v, do, lse, dsum, **fkw),
+                          lambda: fa.flash_dq_plain(q, k, v, do, lse, dsum, **kw),
+                          5 * tile + 2 * rows, 6 * D * pairs, 0),
+        "flash_dkv_fp32": (lambda: fa._launch_dkv_generic(q, k, v, do, lse, dsum, **fkw),
+                           lambda: fa.flash_dkv_plain(q, k, v, do, lse, dsum, **kw),
+                           6 * tile + 2 * rows, 8 * D * pairs, 0),
+    }
+    q4, k4, v4 = (t.view(B, H, T, D).detach().clone().requires_grad_(True) for t in (q, k, v))
+    backend = sdpa_backend(q4, k4, v4)
+    out4 = F.scaled_dot_product_attention(q4, k4, v4, is_causal=True)
+    with torch.no_grad():
+        sdpa_call = lambda: F.scaled_dot_product_attention(q4, k4, v4, is_causal=True)  # noqa: E731
+        sdpa_fwd = cuda_ms(sdpa_call, reps=20)
+        kernels = device_kernel_names(sdpa_call)
+        # float64 forward of the same inputs: each forward's largest error
+        s64 = torch.matmul(q.double(), k.double().transpose(1, 2)) * kw["scale"]
+        s64.masked_fill_(~torch.ones(T, T, dtype=torch.bool, device=dev).tril(), -math.inf)
+        o64 = torch.matmul(torch.softmax(s64, dim=-1), v.double())
+        del s64
+        f64_err = {name: (out.reshape(BH, T, D).double() - o64).abs().max().item() for name, out in (
+            ("sdpa", sdpa_call()), ("flash_fwd_mma", fa._launch_fwd_mma(q, k, v, **fkw)[0]),
+            ("flash_fwd_fp32", fa._launch_fwd_generic(q, k, v, **fkw)[0]),
+            ("plain", fwd_plain()[0]))}
+        del o64
+    sdpa_bwd = cuda_ms(lambda: torch.autograd.grad(out4, (q4, k4, v4), do.view(B, H, T, D),
+                                                   retain_graph=True), reps=20)
+    print(f"[times] fp32 SDPA at the 136M shape: backend {backend}; forward kernels {kernels}; "
+          f"torch.backends.cuda.matmul.allow_tf32 {torch.backends.cuda.matmul.allow_tf32}; "
+          f"max |o - o_float64|: {f64_err}", flush=True)
+    turns = {"flash_fwd_fp32": [], "flash_fwd_mma": []}
+    for name in ("flash_fwd_fp32", "flash_fwd_mma", "flash_fwd_mma", "flash_fwd_fp32"):
+        turns[name].append(cuda_ms(specs[name][0], reps=20))
+    print(f"[times] fp32 in turns (old, new, new, old): flash_fwd {turns['flash_fwd_fp32']} ms, "
+          f"flash_fwd_mma {turns['flash_fwd_mma']} ms", flush=True)
+    plain_ms_of = {}
+    results = {}
+    for name, (kern, plain, byts, fp32_ops, tf32_ops) in specs.items():
+        ms = (sum(turns[name]) / len(turns[name]) if name in turns else cuda_ms(kern, reps=10))
+        if plain not in plain_ms_of:
+            plain_ms_of[plain] = cuda_ms(plain, reps=3, warmup=1)
+        bytes_ms = byts / mem_rate * 1e3
+        ops_ms = (fp32_ops / fp32_peak + tf32_ops / tf32_peak) * 1e3
+        bound_ms = max(bytes_ms, ops_ms)
+        lib = sdpa_fwd if name.startswith("flash_fwd") else sdpa_bwd
+        results[name] = dict(ms=ms, plain_ms=plain_ms_of[plain], bound_ms=bound_ms, bytes=byts,
+                             fp32_flop=fp32_ops, tf32_flop=tf32_ops, library_ms=lib,
+                             bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                             turns_ms=turns.get(name), sdpa_backend=backend,
+                             sdpa_kernels=kernels, float64_max_abs_err=f64_err)
+        print(f"[times] {name}: {ms:.4f} ms/launch | bound {bound_ms:.4f} ms ({byts / 1e6:.2f} MB "
+              f"-> {bytes_ms * 1e3:.1f} us; {fp32_ops / 1e9:.2f} GFLOP fp32 + {tf32_ops / 1e9:.2f} "
+              f"GFLOP tf32 -> {ops_ms * 1e3:.1f} us; {results[name]['bound_by']}) | "
+              f"{bound_ms / ms * 100:.1f}% of bound | plain {plain_ms_of[plain]:.4f} ms | SDPA fp32 "
+              f"{'forward' if name.startswith('flash_fwd') else 'backward (dq, dk, dv)'} "
+              f"{lib:.4f} ms ({backend})", flush=True)
     del q4, k4, v4, out4
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -2234,14 +2434,20 @@ def find_cuobjdump() -> str:
     raise Failed(f"cuobjdump not found (looked at {[c for c in cands if c]})")
 
 
-SASS_KERNELS = ("flash_fwd_sm90_kernel", "flash_dq_sm90_kernel", "flash_dkv_sm90_kernel")
+# kernel -> the SASS instructions its design must compile to: wgmma
+# (HGMMA) and TMA loads (UTMALDG) in the sm90 kernels; mma.sync (HMMA) and
+# cp.async (LDGSTS) in the fp32 forward
+SASS_KERNELS = {"flash_fwd_sm90_kernel": ("HGMMA", "UTMALDG"),
+                "flash_dq_sm90_kernel": ("HGMMA", "UTMALDG"),
+                "flash_dkv_sm90_kernel": ("HGMMA", "UTMALDG"),
+                "flash_fwd_mma_kernel": ("HMMA", "LDGSTS")}
+SASS_OPS = ("HGMMA", "UTMALDG", "UTMASTG", "HMMA", "LDGSTS")
 
 
 def phase_sass():
-    """Proof of design: the SASS of each sm90 flash kernel
-    (``SASS_KERNELS``), in the library the build phase made, holds HGMMA
-    (wgmma) and UTMALDG (TMA loads). Prints each one's registers, shared
-    memory and spills."""
+    """Proof of design: the SASS of each kernel of ``SASS_KERNELS``, in
+    the library the build phase made, holds the instructions listed
+    there. Prints each one's registers, shared memory and spills."""
     from theanompi_tpu_torch.ops.kernels import library_path
 
     lib = str(library_path("flash_attention.cu"))
@@ -2257,18 +2463,18 @@ def phase_sass():
     check(res.returncode == 0, f"cuobjdump --dump-resource-usage failed: {res.stderr[-2000:]}")
     lines = res.stdout.splitlines()
     proof = {}
-    for kernel in SASS_KERNELS:
+    for kernel, needed in SASS_KERNELS.items():
         mine = [n for n in funcs if kernel in n]
         check(len(mine) == 1, f"{kernel} not found once in the SASS: {sorted(funcs)}")
         body = funcs[mine[0]]
-        ops = {op: len(re.findall(rf"\b{op}\b", body)) for op in ("HGMMA", "UTMALDG", "UTMASTG")}
-        check(ops["HGMMA"] > 0 and ops["UTMALDG"] > 0,
-              f"{kernel}'s SASS lacks wgmma or TMA loads: {ops}")
+        ops = {op: len(re.findall(rf"\b{op}\b", body)) for op in SASS_OPS}
+        check(all(ops[op] > 0 for op in needed), f"{kernel}'s SASS lacks one of {needed}: {ops}")
         usage = next((lines[i + 1].strip() for i, line in enumerate(lines)
                       if kernel in line and i + 1 < len(lines)), "")
         check(usage, f"no resource usage line for {kernel}")
-        print(f"[build] {os.path.basename(tool)} -sass: {kernel} has {ops['HGMMA']} HGMMA, "
-              f"{ops['UTMALDG']} UTMALDG, {ops['UTMASTG']} UTMASTG; resources: {usage}", flush=True)
+        print(f"[build] {os.path.basename(tool)} -sass: {kernel} has "
+              + ", ".join(f"{n} {op}" for op, n in ops.items() if n)
+              + f"; resources: {usage}", flush=True)
         proof[kernel] = {"sass_ops": ops, "resource_usage": usage, "function": mine[0]}
     return proof
 
@@ -2595,8 +2801,8 @@ def main() -> int:
         smi = nvidia_smi_line()
         kind = torch.cuda.get_device_name(0)
         check(kind in CARD_RATES, f"no data-sheet rates for {kind!r} (known: {sorted(CARD_RATES)}); "
-                                  "add the card's memory rate and fp32 peak to CARD_RATES")
-        mem_rate, fp32_peak, bf16_peak = CARD_RATES[kind]
+                                  "add the card's memory rate and peaks to CARD_RATES")
+        mem_rate, fp32_peak, bf16_peak, tf32_peak = CARD_RATES[kind]
         print(f"card: {smi} | {kind} | memory rate for bounds {mem_rate / 1e12:.2f} TB/s", flush=True)
         dev = torch.device("cuda", 0)
         torch.cuda.set_device(dev)
@@ -2685,7 +2891,7 @@ def main() -> int:
         print(f"[parity] done ({time.perf_counter() - t0:.1f} s)", flush=True)
 
         t0 = time.perf_counter()
-        phase_lm_parity(dev)
+        lm_parity_launches = phase_lm_parity(dev)
         print(f"[lm-parity] done ({time.perf_counter() - t0:.1f} s)", flush=True)
 
         t0 = time.perf_counter()
@@ -2700,6 +2906,7 @@ def main() -> int:
         times = phase_times(leaf_sets, dev, mem_rate, fp32_peak)
         times.update(phase_quant_times(dev, mem_rate, fp32_peak))
         times.update(phase_flash_times(dev, mem_rate, fp32_peak, bf16_peak))
+        times.update(phase_flash_times_fp32(dev, mem_rate, fp32_peak, tf32_peak))
         times.update(phase_pool_times(dev, mem_rate, fp32_peak))
         print(f"[times] done ({time.perf_counter() - t0:.1f} s)", flush=True)
         torch.cuda.synchronize()
@@ -2794,6 +3001,18 @@ def main() -> int:
                                       if (k == "quantize") == (name == "quant_block")})
         if "library_per_leaf_ms" in t:
             kernels[-1]["library_per_leaf_ms"] = t["library_per_leaf_ms"]
+        if name == "dequant":
+            # the card's own time: one launch over one buffer of the round's
+            # elements against one torch.mul (the 16-call round beside it)
+            one = times["dequant_one_buffer"]
+            kernels[-1].update(
+                {k_: one[k_] for k_ in ("plain_ms", "bound_ms", "bound_by", "library_ms",
+                                        "turns_ms")},
+                ms=one["step_ms"], work=(f"one launch over one ({one['rows']}, 128) buffer, the "
+                                         f"codec round's {one['elements']} elements"),
+                library_note="torch.mul(int8 vals, f32 (1, 1) scale): the same function",
+                round_of_16_calls={k_: t[k_] for k_ in ("step_ms", "plain_ms", "bound_ms",
+                                                        "library_ms", "turns_ms")})
     src_fa = "theanompi_tpu_torch/csrc/flash_attention.cu"
     generic_flash = ("flash_fwd", "flash_dq", "flash_dkv")
     lm = lm_run["summary"]
@@ -2833,14 +3052,19 @@ def main() -> int:
                 "yardstick only, the port never calls it"),
             "launches_in": (f"the {LM_STEPS}-step TransformerLM_136M run through the CLI "
                             f"({LM_LAYERS} layers; the forward also in 1 validation batch)" +
-                            (f"; bf16 heads with D % 8 == 0 go to {name}_sm90, so this kernel "
-                             "takes fp32 (4 launches in phase lm-parity) and other bf16 heads"
-                             if name in generic_flash else "")),
+                            ("; bf16 heads with D % 8 == 0 go to flash_fwd_sm90 and fp32 to "
+                             "flash_fwd_mma, so this kernel takes only the other bf16 heads"
+                             if name == "flash_fwd" else
+                             f"; bf16 heads with D % 8 == 0 go to {name}_sm90, so this kernel "
+                             f"takes fp32 ({lm_parity_launches[name]} launches in phase "
+                             "lm-parity) and other bf16 heads" if name in generic_flash else "")),
             "main_path_step_ms": lm["step_ms"],
             "main_path_tokens_per_sec": lm_run["tokens_per_sec"],
         })
         if t.get("turns_ms"):
             kernels[-1]["turns_ms"] = t["turns_ms"]
+        if name in generic_flash:  # its fp32 instantiation at the same shape
+            kernels[-1]["fp32"] = times[f"{name}_fp32"]
         if name == "flash_fwd_sm90":
             kernels[-1].update(design="TMA-fed 2-stage K/V ring, wgmma for QK^T "
                                "and PV (P from registers), 128-row Q tiles heaviest first",
@@ -2857,6 +3081,34 @@ def main() -> int:
                                "P^T dO with p split into three exact bf16 parts (P and dS "
                                "from registers), key tiles heaviest first",
                                sass=sass["flash_dkv_sm90_kernel"])
+    t = times["flash_fwd_mma"]
+    kernels.append({
+        "name": "flash_fwd_mma", "route": "cuda", "source": src_fa,
+        "replaces": "theanompi_tpu/ops/pallas_attention.py:131",
+        "launches": lm_run["launches"]["flash_fwd_mma"], "max_abs_err": worst_f["flash_fwd_mma"],
+        "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+        "bound_by": t["bound_by"], "library_ms": t["library_ms"], "turns_ms": t["turns_ms"],
+        "old_kernel_turns_ms": times["flash_fwd_fp32"]["turns_ms"],
+        "matched": True,
+        "tolerance": "fp32: o rtol 1e-5 + 1e-6 max|o|, lse atol 1e-5 (phase flash's fp32 limits)",
+        "work": ("one launch at the 136M LM's attention shape in fp32: BH 96, T 1024, D 64, "
+                 "causal; products as three tf32 products each (38.69 GFLOP at the tf32 peak)"),
+        "library_note": (
+            f"torch.nn.functional.scaled_dot_product_attention(is_causal=True) forward in fp32 "
+            f"(backend {t['sdpa_backend']}, kernels {t['sdpa_kernels']}); max |o - o_float64| "
+            f"{t['float64_max_abs_err']}: a yardstick only, the port never calls it"),
+        "launches_in": (f"fp32 attention: {lm_parity_launches['flash_fwd_mma']} launches in "
+                        "phase lm-parity (a 2-layer fp32 LM, 2 steps); the main path's LM is "
+                        "bf16 (flash_fwd_sm90)"),
+        "lm_parity_launches": lm_parity_launches["flash_fwd_mma"],
+        "design": ("a CTA of 8 warps a (128-row Q tile, b*h), heaviest first; Q once into "
+                   "registers as tf32 hi/lo fragments; a 2-stage cp.async K/V ring, each tile "
+                   "split into tf32 hi/lo once by the CTA (V transposed); S = Q K^T and P V as "
+                   "mma.sync m16n8k8 tf32, each product three (3xTF32); S, P, acc, m, l in "
+                   "registers (permuted columns make P's C fragment the A fragment); masks "
+                   "only on diagonal and ragged tiles"),
+        "sass": sass["flash_fwd_mma_kernel"],
+    })
     src_pool = "theanompi_tpu_torch/csrc/pool.cu"
     gk = gnet_runs["pool-kernel"]
     gl = gnet_runs["library-pool"]

@@ -12,8 +12,10 @@ K/V shard included); dq and dk/dv at offsets through the 1-D and the
 ``jax.grad`` of the reference entry point, with the 1-D dispatch and
 with ``_BWD_2D_MIN_T`` monkeypatched to 1. Beside them: the routes
 (``_fwd_route``, ``_dq_route``, ``_dkv_route``), the exact three-part
-bf16 split of p that ``flash_dkv_sm90`` runs dv through, and the variant
-tools' anchors.
+bf16 split of p that ``flash_dkv_sm90`` runs dv through, the tf32 split
+that ``flash_fwd_mma`` runs the fp32 forward's products through (its
+rounding, and the three-product forward against the Pallas kernel), and
+the variant tools' anchors.
 
 Tolerances. fp32: o atol 3e-6 rtol 1e-5, lse atol 1e-5, dq/dk/dv atol
 2e-5 rtol 1e-4 (the reference's own tests'): the sums run in another
@@ -209,14 +211,14 @@ def test_highest_precision_and_the_oracle(causal):
 
 
 def test_cpu_path_counts_no_launch_and_other_devices_need_cuda():
-    counters = (tfa.FLASH_FWD, tfa.FLASH_FWD_SM90, tfa.FLASH_DQ, tfa.FLASH_DQ_SM90,
-                tfa.FLASH_DKV, tfa.FLASH_DKV_SM90)
+    counters = (tfa.FLASH_FWD, tfa.FLASH_FWD_SM90, tfa.FLASH_FWD_MMA, tfa.FLASH_DQ,
+                tfa.FLASH_DQ_SM90, tfa.FLASH_DKV, tfa.FLASH_DKV_SM90)
     for c in counters:
         c.reset()
     for dt in (torch.float32, torch.bfloat16):
         q = torch.randn(2, 16, 2, 8).to(dt).requires_grad_(True)
         tfa.flash_attention(q, q, q, causal=True).sum().backward()
-    assert [c.launches for c in counters] == [0, 0, 0, 0, 0, 0]
+    assert [c.launches for c in counters] == [0] * 7
     meta = torch.empty(4, 16, 8, device="meta")
     with pytest.raises(ValueError, match="CUDA"):
         tfa.flash_fwd(meta, meta, meta, causal=True, scale=1.0)
@@ -235,13 +237,16 @@ def test_cpu_path_counts_no_launch_and_other_devices_need_cuda():
 @pytest.mark.parametrize("dtype,D,route", [
     (torch.bfloat16, 8, "sm90"), (torch.bfloat16, 40, "sm90"), (torch.bfloat16, 48, "sm90"),
     (torch.bfloat16, 64, "sm90"), (torch.bfloat16, 36, "generic"), (torch.bfloat16, 60, "generic"),
-    (torch.float32, 64, "generic"), (torch.float32, 40, "generic"),
+    (torch.float32, 64, "mma"), (torch.float32, 40, "mma"), (torch.float32, 48, "mma"),
+    (torch.float32, 30, "mma"), (torch.float32, 1, "mma"),
 ])
 def test_forward_route_is_chosen_from_dtype_and_head_dim(dtype, D, route):
     """bf16 heads whose rows are whole 16-byte units go to the TMA/wgmma
-    kernel; fp32 and other bf16 heads to the generic one. The route is a
-    function of (dtype, D) alone, decided before any launch."""
+    kernel, fp32 at any head dim to the 3xTF32 mma.sync kernel, and other
+    bf16 heads to the generic one. The route is a function of (dtype, D)
+    alone, decided before any launch."""
     assert tfa._fwd_route(dtype, D) == route
+    assert tfa._FWD_LAUNCH[route].__name__ == f"_launch_fwd_{route}"
 
 
 @pytest.mark.parametrize("dtype,D,route", [
@@ -289,6 +294,89 @@ def test_three_part_bf16_split_is_exact_and_two_parts_are_not():
     assert (two != p).float().mean().item() > 0.9
     rel = ((two - p).abs() / p.clamp_min(1e-38)).max().item()
     assert 2.0 ** -20 < rel <= 2.0 ** -17
+
+
+def test_tf32_split_rounds_to_nearest_ties_away_as_cvt_rna():
+    """``split_tf32x2``'s hi is ``cvt.rna.tf32.f32``: 10 stored bits (the
+    low 13 cleared), to nearest, ties away from zero (where round to even
+    would go the other way); lo is the remainder rounded the same way, and
+    hi + lo is x within 2^-22 of |x| (2^-11 for hi alone). inf and NaN
+    pass through."""
+    one = 1.0
+    ties = torch.tensor([one + 2.0 ** -11, -(one + 2.0 ** -11), one + 3 * 2.0 ** -11,
+                         one + 2.0 ** -11 - 2.0 ** -23], dtype=torch.float32)
+    hi, lo = tfa.split_tf32x2(ties)
+    want = torch.tensor([one + 2.0 ** -10, -(one + 2.0 ** -10), one + 2 * 2.0 ** -10, one],
+                        dtype=torch.float32)
+    assert torch.equal(hi, want)
+    assert torch.equal((hi + lo)[:3], ties[:3])  # a remainder of one bit is exact
+    # against float64 arithmetic: round |x| / ulp + 1/2 down, ulp = 2^(e - 10)
+    x = torch.from_numpy(np.random.RandomState(3).randn(100_000).astype(np.float32)
+                         * np.float32(2.0) ** np.random.RandomState(4).randint(-60, 60, 100_000))
+    hi, lo = tfa.split_tf32x2(x)
+    x64 = x.double()
+    ulp = torch.exp2(torch.floor(torch.log2(x64.abs())) - 10)
+    ref = torch.sign(x64) * torch.floor(x64.abs() / ulp + 0.5) * ulp
+    assert torch.equal(hi.double(), ref)
+    for part in (hi, lo):
+        assert not (part.view(torch.int32) & 0x1FFF).any()
+    assert ((x64 - hi.double() - lo.double()).abs() <= 2.0 ** -22 * x64.abs()).all()
+    assert ((x64 - hi.double()).abs() / x64.abs()).max().item() > 2.0 ** -12
+    special = torch.tensor([float("inf"), -float("inf"), float("nan"), 0.0])
+    hi, _ = tfa.split_tf32x2(special)
+    assert torch.equal(hi[:2], special[:2]) and hi[2].isnan() and hi[3] == 0
+
+
+def _dot_tf32x3(a, b):
+    """A product as ``flash_fwd_mma`` forms it: lo_a hi_b + hi_a lo_b +
+    hi_a hi_b, the small terms first (fp32 sums of exact tf32 products)."""
+    ah, al = tfa.split_tf32x2(a)
+    bh, bl = tfa.split_tf32x2(b)
+    return (torch.matmul(al, bh) + torch.matmul(ah, bl)) + torch.matmul(ah, bh)
+
+
+def _dot_tf32(a, b):
+    """One tf32 product: what a kernel that rounds to tf32 once computes."""
+    return torch.matmul(tfa.split_tf32x2(a)[0], tfa.split_tf32x2(b)[0])
+
+
+def _fwd_limit_shares(o, lse, want_o, want_lse):
+    """chip_smoke's fp32 forward limits as shares (<= 1 passes): o rtol
+    1e-5 + 1e-6 of max|o|, lse atol 1e-5."""
+    o_x = ((np.abs(o - want_o) - 1e-5 * np.abs(want_o)).max()
+           / (1e-6 * np.abs(want_o).max()))
+    return o_x, np.abs(lse - want_lse).max() / 1e-5
+
+
+@pytest.mark.parametrize("Tq,Tk,D,q_off,k_off", [
+    (96, 200, 64, 160, 0),   # chip_smoke's "offsets q 160 k 0", at 2 heads
+    (192, 192, 64, 0, 100),  # "offsets q 0 k 100": rows 0-99 see no key
+    (200, 200, 40, 0, 0),    # a ragged T and head
+])
+def test_forward_from_three_tf32_products_meets_the_fp32_limits_and_one_does_not(
+        Tq, Tk, D, q_off, k_off, monkeypatch):
+    """The fp32 forward with every product taken as ``flash_fwd_mma``
+    takes it (``split_tf32x2``, three tf32 products) meets the fp32 limits
+    phase flash holds the kernel to, against the Pallas forward at a
+    causal shape with offsets; with one tf32 product it misses the o
+    limit many times over. The plain forward's own ``_dot`` is swapped
+    for each (the tiling and the softmax are the kernel's)."""
+    B, H = 1, 2
+    q, k, v = _qkv(B, Tq, Tk, H, D, seed=Tq + k_off)
+    want_o, want_lse = _reference_fwd(q, k, v, True, 64, 64, q_off, k_off)
+    args = [_t(_heads_major(x)) for x in (q, k, v)]
+    kw = dict(causal=True, scale=1.0 / math.sqrt(D), q_off=q_off, k_off=k_off)
+    shares = {}
+    for name, dot in (("tf32x3", _dot_tf32x3), ("tf32", _dot_tf32)):
+        monkeypatch.setattr(tfa, "_dot", dot)
+        o, lse = tfa.flash_fwd_plain(*args, **kw)
+        shares[name] = _fwd_limit_shares(o.numpy(), lse.numpy(), want_o, want_lse)
+    assert max(shares["tf32x3"]) <= 1, shares
+    assert shares["tf32"][0] > 10, shares
+    if k_off > q_off:  # the blind rows: o = 0 and the sentinel lse, as the kernel writes them
+        monkeypatch.setattr(tfa, "_dot", _dot_tf32x3)
+        o, lse = tfa.flash_fwd_plain(*args, **kw)
+        assert not o[:, :k_off - q_off].any() and bool((lse[:, :k_off - q_off] <= -1e29).all())
 
 
 def _dv_excess(got, want):
@@ -352,6 +440,20 @@ def test_dq_variants_find_their_anchors_in_the_source():
 
     src = (CSRC_DIR / "flash_attention.cu").read_text()
     variants = dq_variants._variants(src)
+    assert variants["base"] == [] and len(variants) == 5
+    for name, edits in variants.items():
+        for old, new in edits:
+            assert src.count(old) == 1 and old != new, name
+
+
+def test_fwd_mma_variants_find_their_anchors_in_the_source():
+    """``tools/fwd_mma_variants.py`` edits the same source for
+    flash_fwd_mma: each edit's anchor must be there once."""
+    from theanompi_tpu_torch.ops.kernels import CSRC_DIR
+    from theanompi_tpu_torch.tools import fwd_mma_variants
+
+    src = (CSRC_DIR / "flash_attention.cu").read_text()
+    variants = fwd_mma_variants._variants(src)
     assert variants["base"] == [] and len(variants) == 5
     for name, edits in variants.items():
         for old, new in edits:

@@ -10,6 +10,8 @@ and each package decodes the other's."""
 
 import numpy as np
 import pytest
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
 import jax.numpy as jnp
 import torch
@@ -114,6 +116,54 @@ def test_whole_buffer_quantizer_bit_identical_to_reference(data):
     _same(tq.dequantize_int8(tv, ts), jq.dequantize_int8(jv, js))
 
 
+_F32 = np.float32
+# the quantizer's smallest scale (the 1e-30 floor times fl(1/127)), the
+# smallest normal f32, the largest, and scales whose products overflow
+_SCALES = [_F32(1e-30) * _F32(1 / 127), _F32(2.0 ** -126), _F32(1.0), _F32(2.0 ** 127),
+           np.finfo(_F32).max / _F32(127), np.finfo(_F32).max, _F32(np.inf), _F32(np.nan),
+           _F32(0.0)]
+
+
+@settings(max_examples=60, deadline=None)
+@given(st.integers(1, 6), st.integers(0, 2 ** 31 - 1),
+       st.one_of(st.sampled_from(_SCALES),
+                 st.floats(min_value=2.0 ** -126, max_value=float(np.finfo(_F32).max),
+                           width=32)),
+       st.booleans())
+def test_whole_buffer_dequantize_bit_identical_to_reference(rows, seed, scale, negative):
+    """``dequantize_int8_plain`` (what the wrapper runs on CPU tensors, and
+    what the card's kernel is held to bit for bit in chip_smoke's phase
+    quant) against the reference's ``dequantize_int8`` over random int8
+    values with +-127, +-1 and 0 in every buffer, at tiny, large,
+    overflowing, inf, NaN and zero scales of either sign: one multiply,
+    one rounding (a NaN matches a NaN)."""
+    r = np.random.RandomState(seed)
+    vals = r.randint(-127, 128, size=(rows, 128)).astype(np.int8)
+    vals[0, :5] = [127, -127, 1, -1, 0]
+    s = np.array([[-scale if negative else scale]], dtype=_F32)
+    want = np.asarray(jq.dequantize_int8(jnp.asarray(vals), jnp.asarray(s)))
+    got = tq.dequantize_int8(_torch(vals), _torch(s)).numpy()
+    assert got.dtype == np.float32 and got.shape == (rows, 128)
+    nan = np.isnan(want)
+    np.testing.assert_array_equal(np.isnan(got), nan)
+    np.testing.assert_array_equal(got[~nan].view(np.int32), want[~nan].view(np.int32))
+
+
+def test_a_subnormal_scale_is_flushed_by_the_reference_and_not_by_the_port():
+    """A property of the reference, not held as a fault: its compiled
+    dequantize reads a subnormal scale as zero (XLA on the CPU, like the
+    TPU, flushes subnormal inputs), while the port multiplies in IEEE
+    arithmetic, on the CPU and on the card (built without flushing). No
+    scale the quantizer makes is subnormal: its floor gives 7.9e-33."""
+    vals = np.full((1, 128), 100, dtype=np.int8)
+    s = np.array([[1e-40]], dtype=_F32)
+    want = np.asarray(jq.dequantize_int8(jnp.asarray(vals), jnp.asarray(s)))
+    got = tq.dequantize_int8(_torch(vals), _torch(s)).numpy()
+    assert not want.any()
+    assert (got == _F32(100) * s[0, 0]).all() and got.all()
+    assert tq.quantize_int8(torch.zeros(1, 128))[1].item() >= 2.0 ** -126
+
+
 @pytest.mark.parametrize("length", [1, 127, 128, 129, 4097])
 def test_wire_bytes_identical_and_decode_across_packages(length):
     r = np.random.RandomState(length)
@@ -164,3 +214,21 @@ def test_wrappers_take_the_plain_version_on_the_cpu_and_check_shapes():
         tq.wire_encode(torch.zeros(10, dtype=torch.float64))
     with pytest.raises(ValueError, match="implies"):
         tq.wire_decode(tq.wire_encode(torch.zeros(300)), length=5000)
+
+
+def test_whole_buffer_dequantize_checks_its_arguments_off_the_cpu():
+    """Off the CPU ``dequantize_int8`` checks in one pass and, when that
+    fails, ``_check`` names the argument (meta tensors stand in for the
+    card's: the checks run before any launch)."""
+    vals = torch.empty(3, 128, dtype=torch.int8, device="meta")
+    scale = torch.empty(1, 1, device="meta")
+    with pytest.raises(ValueError, match="scale is on cpu, expected meta"):
+        tq.dequantize_int8(vals, torch.ones(1, 1))
+    with pytest.raises(ValueError, match=r"scale has shape \(1,\), expected \(1, 1\)"):
+        tq.dequantize_int8(vals, scale.view(1))
+    with pytest.raises(TypeError, match="vals has dtype torch.uint8"):
+        tq.dequantize_int8(vals.view(torch.uint8), scale)
+    with pytest.raises(ValueError, match="vals must be contiguous"):
+        tq.dequantize_int8(torch.empty(128, 3, dtype=torch.int8, device="meta").t(), scale)
+    with pytest.raises(TypeError, match="scale has dtype torch.float64"):
+        tq.dequantize_int8(vals, scale.double())

@@ -4,7 +4,8 @@
 //
 // Replaces the TPU kernels
 //   theanompi_tpu/ops/pallas_attention.py:131  _fwd_kernel     (#7)  -> flash_fwd_sm90 (bf16,
-//                                                                   D % 8 == 0), flash_fwd
+//                                                                   D % 8 == 0), flash_fwd_mma
+//                                                                   (fp32), flash_fwd
 //   theanompi_tpu/ops/pallas_attention.py:174  _dq_kernel      (#8)  -> flash_dq_sm90 (bf16,
 //                                                                   D % 8 == 0), flash_dq
 //   theanompi_tpu/ops/pallas_attention.py:264  _dq_kernel_2d   (#10) -> the same two
@@ -39,8 +40,11 @@
 //
 // Products: bf16 tiles go through the tensor cores (nvcuda::wmma
 // 16x16x16 in the generic kernels, wgmma in the sm90 kernels; fp32
-// accumulators); fp32 tiles through fp32 FMAs on the CUDA cores, never
-// TF32. The fp32 x fp32 dv product runs as fp32 FMAs in flash_dkv and,
+// accumulators); fp32 tiles through fp32 FMAs on the CUDA cores in the
+// generic kernels, never one TF32 product, and in flash_fwd_mma (the fp32
+// forward) as three tf32 products on the tensor cores, each operand split
+// into a tf32 hi and lo part (its section below). The fp32 x fp32 dv
+// product runs as fp32 FMAs in flash_dkv and,
 // in flash_dkv_sm90, as three exact bf16 products of p's hi, mid and lo
 // parts on the tensor cores (its section below). Softmax
 // statistics, probabilities and all accumulators are fp32. expf / logf,
@@ -50,8 +54,9 @@
 // tolerance, not to bit identity.
 //
 // Design of the generic kernels (flash_fwd_sm90, flash_dkv_sm90 and
-// flash_dq_sm90, the bf16 forward, dk/dv and dq on TMA and wgmma, have
-// their own sections below): one block of 256 threads (8 warps) per
+// flash_dq_sm90, the bf16 forward, dk/dv and dq on TMA and wgmma, and
+// flash_fwd_mma, the fp32 forward on mma.sync, have their own sections
+// below): one block of 256 threads (8 warps) per
 // (64-row tile, b*h). The block keeps its own tile (Q, or K and V) in
 // shared memory and loops over
 // the other side's 64-row tiles, staging each in shared memory; products
@@ -71,7 +76,8 @@
 // The generic kernels are simple: synchronous 16-byte loads into shared
 // memory (no cp.async/TMA), wmma (not wgmma), a block per tile with no
 // pipelining; on the LM's bf16 route all three run on the sm90 kernels,
-// and the generic ones take fp32 and the other bf16 heads.
+// the fp32 forward runs on flash_fwd_mma, and the generic ones take the
+// fp32 backward and the other bf16 heads.
 
 #include <cuda.h>  // CUtensorMap and its enums: types only, libcuda is not linked
 #include <cuda_runtime.h>
@@ -1525,6 +1531,390 @@ int dq(const void* q, const void* k, const void* v, const void* d_o, const void*
 
 }  // namespace sm90
 
+// ---------------------------------------------------------------------------
+// flash_fwd_mma: the fp32 forward for Hopper, on mma.sync tf32 (3xTF32)
+// ---------------------------------------------------------------------------
+//
+// The same function as flash_fwd_kernel<float> and flash_fwd_plain (block_k
+// 64): s = dot(q, k) * scale, the online softmax over 64-key tiles at the
+// same points (sm90::tile_softmax, expf/logf, -fmad=false), acc = acc * c +
+// dot(p, v), o = acc / max(l, 1e-37), lse = m + log(max(l, 1e-37)). Only
+// the products differ: each runs on the tensor cores as three tf32
+// products, so the kernel is held to phase flash's fp32 limits, not to bits.
+//
+// Products (3xTF32): an fp32 operand x is split into hi = tf32(x) and lo =
+// tf32(x - hi) (cvt.rna, round to nearest, ties away; x - hi is exact), and
+// a b ~ lo_a hi_b + hi_a lo_b + hi_a hi_b, the two small terms first. What
+// is left out (lo_a lo_b and the remainders below lo) is about 2^-22 of
+// |a b|, against 2^-11 for one tf32 product. mma.sync.m16n8k8 (tf32 in,
+// fp32 accumulators), not wgmma: wgmma's tf32 form takes only K-major
+// operands, and V in P V is MN-major, so it would need V transposed in
+// shared memory on every tile.
+//
+// Block: one CTA of 256 threads (8 warps) per (128-row Q tile, b*h); a
+// warp owns 16 query rows, one M of the mma. The Q tiles of a causal launch
+// go heaviest first (blockIdx.y reversed; b*h is blockIdx.x). Q is read
+// once from device memory into registers as tf32 hi and lo A fragments (64
+// registers at D 64). Registers bound the occupancy: 255 a thread (Q's
+// fragments, S, the tile's P V and acc take 32 each beyond them), so one
+// CTA, 8 warps, an SM; 128 rows share each K/V tile and its split (64-row
+// CTAs, two an SM, split each tile twice as often and measured slower).
+//
+// Loads: K and V tiles of 64 keys go through a two-stage shared-memory ring
+// by cp.async (16-byte copies when D % 4 == 0 and k and v are 16-byte
+// aligned, else 4-byte ones; rows past Tk are zero-filled by the copy, the
+// columns from D to 64 zeroed once). Tile j + 1 is in flight while tile j
+// is computed. Once tile j lands, the CTA splits it: K's tf32 hi in place
+// and lo beside the ring, V's hi and lo transposed into V^T arrays (a row
+// per head column). Each warp reads every K and V value, so splitting
+// where it is read would do it 8 times. Three barriers a tile: landed,
+// split, read.
+//
+// Fragments: S, P, the tile's P V, acc, m and l stay in registers. The
+// tf32 A fragment of m16n8k8 (a thread holds columns t and t + 4) is not
+// laid out like the C fragment (columns 2t and 2t + 1), so S = Q K^T is
+// computed with its D columns permuted: logical column t is d = 2t, t + 4
+// is d = 2t + 1 (a sum over d does not care). P's C fragment then is P V's
+// A fragment as it stands, with the keys of each 8-key step permuted the
+// same way in V's B fragment. Neither needs a shuffle or a shared stage.
+// V^T turns V's (key 2t, key 2t + 1) pair into adjacent floats. Banks: K
+// and V^T rows are 72 floats apart, so a half-warp's 8-byte (d, d + 1) or
+// (key, key + 1) loads hit 32 distinct banks; the ring's V rows are 68
+// apart, so the split pass's transposed stores, a lane a row, do too.
+//
+// Issue order: in each 8-column (or 8-key) step a warp issues the 8 column
+// groups' products back to back, one of the three terms at a time, so 8
+// independent accumulators separate each dependent pair of mma.sync (a
+// group's three terms in a row stall on each other's results).
+//
+// Accumulation: each tile's P V goes into a zeroed fragment and is added
+// to acc in fp32 (acc * c + tile, as the plain version orders it), so the
+// tensor cores' own accumulation spans 8 key steps, not the whole row.
+// Masks are computed only on tiles across the causal diagonal or the
+// ragged key edge (per warp); a warp skips the tiles its rows cannot see.
+//
+// Bound, at the 136M LM's shape in fp32 (BH 96, T 1024, D 64, causal):
+// 101 MB (30 us at 3.35 TB/s); 12.9 GFLOP as fp32 products (193 us at 67
+// TFLOP/s on the CUDA cores), 38.7 GFLOP as 3xTF32 (78 us at the 495
+// TFLOP/s dense tf32 rate), so the tensor cores' share bounds it.
+//
+// Not yet: wgmma (V transposed in shared memory), a producer warp, the
+// softmax of one tile overlapped with the products of the next.
+
+namespace mma {
+
+constexpr int kRows = 128;      // query rows of a CTA
+constexpr int kWarpRows = 16;   // query rows of a warp: one mma M
+constexpr int kMmaThreads = 256;
+constexpr int kRing = 2;        // K/V tiles in the shared-memory ring
+// floats between rows: K's and V^T's 72, so a half-warp's (d, d + 1) pairs
+// are conflict-free; the ring's V rows 68, so the split's transposed reads are
+constexpr int kLdK = kD + 8;
+constexpr int kLdV = kD + 4;
+static_assert(kRows == (kMmaThreads / 32) * kWarpRows, "a warp owns 16 rows");
+
+struct Smem {
+  float k[kRing][kTile * kLdK];
+  float v[kRing][kTile * kLdV];
+  // the tile being computed, split: K's lo parts (its hi parts in place),
+  // V's hi and lo parts as V^T (a row per head column), so P V reads (key
+  // 2t, 2t + 1) pairs
+  float k_lo[kTile * kLdK];
+  float vt_hi[kD * kLdK];
+  float vt_lo[kD * kLdK];
+};
+
+// hi = tf32(x), lo = tf32(x - hi), both as the mma reads them (round to
+// nearest, ties away from zero); the format leaves hi's low 13 bits
+// unspecified, so they are cleared before hi is subtracted
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  uint32_t h;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(h) : "f"(x));
+  h &= 0xffffe000u;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(lo) : "f"(x - __uint_as_float(h)));
+  hi = h;
+}
+
+// d += A B over m16 n8 k8, tf32 in, fp32 accumulators
+__device__ __forceinline__ void mma_tf32(float* d, const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// a B fragment's (b0, b1) pair, adjacent at `at`, as its tf32 hi and lo
+// parts: one float2 from each of the split tile's arrays
+__device__ __forceinline__ void b_parts(const float* hi, const float* lo, int at,
+                                        uint32_t (&bh)[2], uint32_t (&bl)[2]) {
+  const float2 x = *reinterpret_cast<const float2*>(hi + at);
+  const float2 y = *reinterpret_cast<const float2*>(lo + at);
+  bh[0] = __float_as_uint(x.x);
+  bh[1] = __float_as_uint(x.y);
+  bl[0] = __float_as_uint(y.x);
+  bl[1] = __float_as_uint(y.y);
+}
+
+// cp.async of kBytes (4 or 16) from src, or zeros when !fill (src is then
+// not read)
+template <int kBytes>
+__device__ __forceinline__ void cp_async(float* dst, const float* src, bool fill) {
+  if constexpr (kBytes == 16) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(sm90::smem_addr(dst)),
+                 "l"(src), "r"(fill ? 16 : 0)
+                 : "memory");
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(sm90::smem_addr(dst)),
+                 "l"(src), "r"(fill ? 4 : 0)
+                 : "memory");
+  }
+}
+
+// rows [k0, k0 + 64) of src ([Tk, D] fp32) into dst (kLd floats a row):
+// columns below D only, rows past Tk as zeros
+template <int kLd>
+__device__ __forceinline__ void tile_async(float* dst, const float* __restrict__ src, int k0,
+                                           int Tk, int D, bool vec) {
+  const int per = vec ? D / 4 : D;  // copies a row
+  for (int i = threadIdx.x; i < kTile * per; i += kMmaThreads) {
+    const int r = i / per;
+    const int c = (i - r * per) * (vec ? 4 : 1);
+    const bool in = k0 + r < Tk;
+    const float* s = src + (int64_t)(in ? k0 + r : 0) * D + c;
+    if (vec) {
+      cp_async<16>(dst + r * kLd + c, s, in);
+    } else {
+      cp_async<4>(dst + r * kLd + c, s, in);
+    }
+  }
+}
+
+__device__ __forceinline__ void load_kv_async(Smem& sm, const float* kb, const float* vb, int j,
+                                              int Tk, int D, bool vec) {
+  const int s = j % kRing;
+  tile_async<kLdK>(sm.k[s], kb, j * kTile, Tk, D, vec);
+  tile_async<kLdV>(sm.v[s], vb, j * kTile, Tk, D, vec);
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+// the K tile ks -> its hi parts in place and lo parts in sm.k_lo; the V
+// tile vs -> sm.vt_hi and sm.vt_lo, transposed. A thread loads all its
+// float4s before it splits and stores any. K: consecutive lanes take
+// consecutive float4s of a row; V: consecutive rows of one column group,
+// so the transposed 4-byte stores of a warp hit 32 distinct banks.
+__device__ __forceinline__ void split_kv(Smem& sm, float* ks, const float* vs) {
+  constexpr int kPer = kTile * kD / 4 / kMmaThreads;  // float4s a thread, each of K and V
+  float4 xk[kPer], xv[kPer];
+#pragma unroll
+  for (int j = 0; j < kPer; ++j) {
+    const int i = threadIdx.x + j * kMmaThreads;
+    xk[j] = *reinterpret_cast<const float4*>(ks + (i / (kD / 4)) * kLdK + (i % (kD / 4)) * 4);
+    xv[j] = *reinterpret_cast<const float4*>(vs + (i % kTile) * kLdV + (i / kTile) * 4);
+  }
+#pragma unroll
+  for (int j = 0; j < kPer; ++j) {
+    const int i = threadIdx.x + j * kMmaThreads;
+    const int at = (i / (kD / 4)) * kLdK + (i % (kD / 4)) * 4;
+    uint32_t h[4], l[4];
+    split_tf32(xk[j].x, h[0], l[0]);
+    split_tf32(xk[j].y, h[1], l[1]);
+    split_tf32(xk[j].z, h[2], l[2]);
+    split_tf32(xk[j].w, h[3], l[3]);
+    *reinterpret_cast<uint4*>(ks + at) = make_uint4(h[0], h[1], h[2], h[3]);
+    *reinterpret_cast<uint4*>(sm.k_lo + at) = make_uint4(l[0], l[1], l[2], l[3]);
+    const int r = i % kTile, c = (i / kTile) * 4;
+    const float x[4] = {xv[j].x, xv[j].y, xv[j].z, xv[j].w};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      split_tf32(x[e], h[e], l[e]);
+      sm.vt_hi[(c + e) * kLdK + r] = __uint_as_float(h[e]);
+      sm.vt_lo[(c + e) * kLdK + r] = __uint_as_float(l[e]);
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kMmaThreads, 1)
+flash_fwd_mma_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, float* __restrict__ o,
+                     float* __restrict__ lse, int Tq, int Tk, int D, int q_off, int k_off,
+                     int causal, float scale) {
+  extern __shared__ __align__(16) unsigned char dyn_smem[];
+  Smem& sm = *reinterpret_cast<Smem*>(dyn_smem);
+  const int bh = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kRows;  // heaviest causal tiles first
+  const int tid = threadIdx.x;
+  const int lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;  // the mma fragments' group and thread in group
+  const int wq0 = q0 + (tid / 32) * kWarpRows;  // the warp's first query row
+  const int qr0 = wq0 + g, qr1 = qr0 + 8;      // this thread's two rows
+  const float* kb = k + (int64_t)bh * Tk * D;
+  const float* vb = v + (int64_t)bh * Tk * D;
+  const bool vec = D % 4 == 0 && ((reinterpret_cast<uintptr_t>(k) |
+                                   reinterpret_cast<uintptr_t>(v)) & 15) == 0;
+  const int nk = (Tk + kTile - 1) / kTile;
+  const int n_tiles = sm90::k_tiles_seen(causal, min(q0 + kRows, Tq), q_off, k_off, nk);
+  // the warp's own last tile (exclusive): it skips the CTA's later ones
+  const int n_mine =
+      wq0 < Tq ? sm90::k_tiles_seen(causal, min(wq0 + kWarpRows, Tq), q_off, k_off, nk) : 0;
+  const int steps = (D + 7) / 8;  // 8-column steps of the head that hold data
+
+  if (n_tiles > 0) load_kv_async(sm, kb, vb, 0, Tk, D, vec);
+  // the head's zero padding, never written by the copies
+  const int pad = kD - D;
+  for (int i = tid; i < kRing * kTile * pad; i += kMmaThreads) {
+    const int s = i / (kTile * pad);
+    const int r = (i / pad) % kTile, c = D + i % pad;
+    sm.k[s][r * kLdK + c] = 0.0f;
+    sm.v[s][r * kLdV + c] = 0.0f;
+  }
+
+  // Q's A fragments, hi and lo: element e of step kk is row e & 1 ? qr1 :
+  // qr0, head column 8kk + 2t + (e >> 1) (the permuted columns)
+  uint32_t qh[kD / 8][4], ql[kD / 8][4];
+  const float* qb = q + (int64_t)bh * Tq * D;
+#pragma unroll
+  for (int kk = 0; kk < kD / 8; ++kk) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = e & 1 ? qr1 : qr0;
+      const int c = 8 * kk + 2 * t + (e >> 1);
+      split_tf32(r < Tq && c < D ? qb[(int64_t)r * D + c] : 0.0f, qh[kk][e], ql[kk][e]);
+    }
+  }
+
+  float acc[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i] = 0.0f;
+  float m0 = kNeg, m1 = kNeg, l0 = 0.0f, l1 = 0.0f;
+
+  for (int j = 0; j < n_tiles; ++j) {
+    if (j + 1 < n_tiles) {
+      load_kv_async(sm, kb, vb, j + 1, Tk, D, vec);
+      asm volatile("cp.async.wait_group 1;" ::: "memory");
+    } else {
+      asm volatile("cp.async.wait_group 0;" ::: "memory");
+    }
+    __syncthreads();  // tile j has landed for every thread
+    float* ks = sm.k[j % kRing];
+    const float* vs = sm.v[j % kRing];
+    split_kv(sm, ks, vs);
+    __syncthreads();  // the split tile is whole
+    if (j < n_mine) {
+      // s = q k^T: sc[4n + e] is row e < 2 ? qr0 : qr1, key 8n + 2t + e % 2.
+      // Each 8-column step runs the 8 key groups' independent products
+      // back to back, one of the three terms at a time.
+      float sc[32];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) sc[i] = 0.0f;
+#pragma unroll
+      for (int kk = 0; kk < kD / 8; ++kk) {
+        if (kk < steps) {
+          uint32_t kh[kTile / 8][2], kl[kTile / 8][2];
+#pragma unroll
+          for (int n = 0; n < kTile / 8; ++n)
+            b_parts(ks, sm.k_lo, (8 * n + g) * kLdK + 8 * kk + 2 * t, kh[n], kl[n]);
+#pragma unroll
+          for (int n = 0; n < kTile / 8; ++n) mma_tf32(sc + 4 * n, ql[kk], kh[n][0], kh[n][1]);
+#pragma unroll
+          for (int n = 0; n < kTile / 8; ++n) mma_tf32(sc + 4 * n, qh[kk], kl[n][0], kl[n][1]);
+#pragma unroll
+          for (int n = 0; n < kTile / 8; ++n) mma_tf32(sc + 4 * n, qh[kk], kh[n][0], kh[n][1]);
+        }
+      }
+
+      const int k0 = j * kTile;
+      const bool edge = k0 + kTile > Tk || (causal && k_off + k0 + kTile - 1 > q_off + wq0);
+      float corr0, corr1;
+      if (edge) {
+        sm90::tile_softmax<true>(sc, m0, m1, l0, l1, corr0, corr1, scale, causal, q_off, k_off,
+                                 qr0, qr1, k0 + 2 * t, Tk);
+      } else {
+        sm90::tile_softmax<false>(sc, m0, m1, l0, l1, corr0, corr1, scale, causal, q_off, k_off,
+                                  qr0, qr1, k0 + 2 * t, Tk);
+      }
+
+      // the tile's p v: key step kk's A fragment is P's C fragment of keys
+      // 8kk..8kk+7 (a0 = sc[4kk], a1 = sc[4kk + 2], a2 = sc[4kk + 1], a3 =
+      // sc[4kk + 3]); B takes V's keys 8kk + 2t and + 1, column 8n + g
+      float pv[32];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) pv[i] = 0.0f;
+#pragma unroll
+      for (int kk = 0; kk < kTile / 8; ++kk) {
+        uint32_t ph[4], pl[4];
+        split_tf32(sc[4 * kk], ph[0], pl[0]);
+        split_tf32(sc[4 * kk + 2], ph[1], pl[1]);
+        split_tf32(sc[4 * kk + 1], ph[2], pl[2]);
+        split_tf32(sc[4 * kk + 3], ph[3], pl[3]);
+        uint32_t vh[kD / 8][2], vl[kD / 8][2];
+#pragma unroll
+        for (int n = 0; n < kD / 8; ++n) {
+          if (n < steps)
+            b_parts(sm.vt_hi, sm.vt_lo, (8 * n + g) * kLdK + 8 * kk + 2 * t, vh[n], vl[n]);
+        }
+#pragma unroll
+        for (int n = 0; n < kD / 8; ++n) {
+          if (n < steps) mma_tf32(pv + 4 * n, pl, vh[n][0], vh[n][1]);
+        }
+#pragma unroll
+        for (int n = 0; n < kD / 8; ++n) {
+          if (n < steps) mma_tf32(pv + 4 * n, ph, vl[n][0], vl[n][1]);
+        }
+#pragma unroll
+        for (int n = 0; n < kD / 8; ++n) {
+          if (n < steps) mma_tf32(pv + 4 * n, ph, vh[n][0], vh[n][1]);
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[i] = acc[i] * ((i % 4) < 2 ? corr0 : corr1) + pv[i];
+    }
+    __syncthreads();  // every thread is done with the stage tile j + 2 will fill
+  }
+
+  // epilogue: o = acc / l_safe for rows qr0, qr1, columns 8n + 2t and + 1;
+  // lse from each quad's first lane
+  const float ls0 = fmaxf(l0, kTiny), ls1 = fmaxf(l1, kTiny);
+  float* ob = o + (int64_t)bh * Tq * D;
+#pragma unroll
+  for (int n = 0; n < kD / 8; ++n) {
+    const int c = 8 * n + 2 * t;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = h ? qr1 : qr0;
+      const float ls = h ? ls1 : ls0;
+      if (r >= Tq || c >= D) continue;
+      const float x0 = acc[4 * n + 2 * h] / ls, x1 = acc[4 * n + 2 * h + 1] / ls;
+      float* dst = ob + (int64_t)r * D + c;
+      if (D % 2 == 0) {
+        *reinterpret_cast<float2*>(dst) = make_float2(x0, x1);
+      } else {
+        dst[0] = x0;
+        if (c + 1 < D) dst[1] = x1;
+      }
+    }
+  }
+  if (t == 0) {
+    if (qr0 < Tq) lse[(int64_t)bh * Tq + qr0] = m0 + logf(ls0);
+    if (qr1 < Tq) lse[(int64_t)bh * Tq + qr1] = m1 + logf(ls1);
+  }
+}
+
+int fwd(const void* q, const void* k, const void* v, void* o, void* lse, int BH, int Tq, int Tk,
+        int D, int q_off, int k_off, int causal, float scale, cudaStream_t stream) {
+  if (D < 1 || D > kD) return (int)cudaErrorInvalidValue;
+  const size_t smem = sizeof(Smem);
+  cudaError_t err = prepare(flash_fwd_mma_kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(BH, (Tq + kRows - 1) / kRows);
+  flash_fwd_mma_kernel<<<grid, kMmaThreads, smem, stream>>>(
+      (const float*)q, (const float*)k, (const float*)v, (float*)o, (float*)lse, Tq, Tk, D, q_off,
+      k_off, causal, scale);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace mma
+
 }  // namespace
 
 extern "C" {
@@ -1551,6 +1941,17 @@ int tmpi_flash_fwd(int device, const void* q, const void* k, const void* v, void
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 1) return fwd<bf16>(q, k, v, o, lse, BH, Tq, Tk, D, q_off, k_off, causal, scale, s);
   return fwd<float>(q, k, v, o, lse, BH, Tq, Tk, D, q_off, k_off, causal, scale, s);
+}
+
+// fp32 only (3xTF32 on mma.sync), any 1 <= D <= 64; o 8-byte aligned
+// when D is even.
+int tmpi_flash_fwd_mma(int device, const void* q, const void* k, const void* v, void* o,
+                       void* lse, int BH, int Tq, int Tk, int D, int q_off, int k_off, int causal,
+                       float scale, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  return mma::fwd(q, k, v, o, lse, BH, Tq, Tk, D, q_off, k_off, causal, scale,
+                  (cudaStream_t)stream);
 }
 
 // bf16 only, 8 <= D <= 64 with D % 8 == 0, and q, k, v, o 16-byte aligned

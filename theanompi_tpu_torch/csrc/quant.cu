@@ -71,7 +71,12 @@
 // blocks cannot carry between them as the TPU's sequential grid can: pass
 // 1 writes each block's absmax to scratch, pass 2 (one block) reduces
 // those and writes the scale to device memory, pass 3 quantizes with it.
-// No host sync. #5 and #6 are grid-stride loops with float4 loads.
+// No host sync. #5 is three grid-stride loops with float4 loads. #6
+// (dequant_scalar_kernel) moves 16 int8 a thread in one 16-byte load and
+// writes them as four float4 stores with the evict-first hint, through a
+// per-warp staging in shared memory that keeps every warp-wide store on
+// 512 contiguous bytes; kScalarDequantBlocksPerSm CTAs an SM (or fewer, for
+// a small buffer).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -94,6 +99,9 @@ constexpr float kInv127 = 1.0f / 127.0f;
 constexpr int kRowThreads = 8;
 constexpr int kQuantBlocksPerSm = 4;
 constexpr int kDequantBlocksPerSm = 2;
+// CTAs an SM of the whole-buffer dequantize (#6): 1,024 threads with a
+// 16-byte load each in flight
+constexpr int kScalarDequantBlocksPerSm = 4;
 constexpr int kSlots = kLanes / 4 / kRowThreads;      // float4 slots of a row a thread
 constexpr int kRowsPerPass = kThreads / kRowThreads;  // rows a CTA takes at once
 static_assert(kRowThreads >= 8 && kRowThreads <= 32 && kLanes % (4 * kRowThreads) == 0,
@@ -321,14 +329,30 @@ __global__ void quant_scalar_kernel(const float4* __restrict__ x, const float* _
   }
 }
 
-// #6
-__global__ void dequant_scalar_kernel(const char4* __restrict__ vals,
-                                      const float* __restrict__ scale,
-                                      float4* __restrict__ out, int64_t n4) {
+// #6: a warp takes 32 consecutive 16-byte chunks of int8 (512 values) a
+// pass, one 16-byte load a thread. The chunks are staged in the warp's 512
+// bytes of shared memory, and the warp writes them back as four float4
+// stores, each covering 512 contiguous bytes (lane i's store k holds values
+// 128k + 4i..+3 of the pass); a thread's own 16 values would put its float4s
+// 64 bytes apart across the warp. n16: 16-value chunks, a multiple of 8 (a
+// row of 128 lanes is 8 chunks), so a store is whole for the warp or absent.
+__global__ void __launch_bounds__(kThreads)
+dequant_scalar_kernel(const int4* __restrict__ vals, const float* __restrict__ scale,
+                      float4* __restrict__ out, int64_t n16) {
+  __shared__ int4 stage[kWarps][32];
   const float s = scale[0];
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n4; i += stride) {
-    out[i] = dequant4(vals[i], s);
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const char4* words = reinterpret_cast<const char4*>(stage[w]);
+  const int64_t stride = (int64_t)gridDim.x * kWarps * 32;
+  for (int64_t c0 = ((int64_t)blockIdx.x * kWarps + w) * 32; c0 < n16; c0 += stride) {
+    const int64_t left = n16 - c0;
+    if (lane < left) stage[w][lane] = vals[c0 + lane];
+    __syncwarp();
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      if (8 * k < left) __stcs(out + c0 * 4 + 32 * k + lane, dequant4(words[32 * k + lane], s));
+    }
+    __syncwarp();  // the stage is read before the next pass writes it
   }
 }
 
@@ -400,13 +424,17 @@ int tmpi_quant(int device, const void* x, void* vals, void* scale, void* partial
   return (int)cudaGetLastError();
 }
 
+// vals and out 16-byte aligned, scale 4-byte (checked by ops/quant.py)
 int tmpi_dequant(int device, const void* vals, const void* scale, void* out, int64_t rows,
-                 int max_blocks, void* stream) {
+                 void* stream) {
+  if (rows < 1) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  const int64_t n4 = rows * (kLanes / 4);
-  dequant_scalar_kernel<<<grid_for(n4, kThreads, max_blocks), kThreads, 0, (cudaStream_t)stream>>>(
-      (const char4*)vals, (const float*)scale, (float4*)out, n4);
+  const int64_t n16 = rows * (kLanes / 16);
+  const int cap = work_table::sm_count(device) * kScalarDequantBlocksPerSm;
+  const int grid = grid_for(n16, 32 * kWarps, cap);  // a warp a pass of 32 chunks
+  dequant_scalar_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+      (const int4*)vals, (const float*)scale, (float4*)out, n16);
   return (int)cudaGetLastError();
 }
 

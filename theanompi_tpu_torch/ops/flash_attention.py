@@ -5,8 +5,9 @@ Port of ``theanompi_tpu/ops/pallas_attention.py`` (the local kernel and
 its custom VJP; ``ring_flash_attention`` comes with the
 sequence-parallel slice). The kernels are hand-written CUDA for Hopper
 (``csrc/flash_attention.cu``): the forward (TPU kernel #7) as
-``flash_fwd_sm90`` (TMA + wgmma) for bf16 with D % 8 == 0, and as
-``flash_fwd`` for fp32 and other bf16 heads (``_fwd_route``); dq (#8
+``flash_fwd_sm90`` (TMA + wgmma) for bf16 with D % 8 == 0, as
+``flash_fwd_mma`` (mma.sync, 3xTF32: ``split_tf32x2``) for fp32, and as
+``flash_fwd`` for the other bf16 heads (``_fwd_route``); dq (#8
 and its long-sequence twin #10) as ``flash_dq_sm90`` (TMA + wgmma, dS
 from registers) for bf16 with D % 8 == 0, and as ``flash_dq`` for the
 rest (``_dq_route``); dk/dv (#9 and #11) as ``flash_dkv_sm90`` (TMA +
@@ -28,7 +29,9 @@ Numerics, at the reference's cast points (see the kernel's header): the
 products run in the input dtype with fp32 accumulation, softmax
 statistics and every accumulator are fp32, and ``dv += p^T dO`` is an
 fp32 x fp32 product with p not rounded (``flash_dkv_sm90`` runs it as
-three exact bf16 products, ``split_bf16x3``). The plain versions beside
+three exact bf16 products, ``split_bf16x3``); the fp32 forward's products
+run as three tf32 products each (``split_tf32x2``), held to a tolerance
+like every fp32 sum here. The plain versions beside
 the wrappers compute the same functions in PyTorch; the forward walks K
 in tiles of ``block_k`` as the kernel does, so that bf16 rounds the same
 probabilities relative to the same running maxima. The wrappers run the
@@ -71,6 +74,9 @@ _LIB = KernelLibrary(
         # device, q, k, v, o, lse, BH, Tq, Tk, D, q_off, k_off, causal, scale, stream
         "tmpi_flash_fwd_sm90": (_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                                 ctypes.c_float, _P),
+        # device, q, k, v, o, lse, BH, Tq, Tk, D, q_off, k_off, causal, scale, stream
+        "tmpi_flash_fwd_mma": (_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                               ctypes.c_float, _P),
         # device, q, k, v, dO, lse, dsum, dq, BH, Tq, Tk, D, q_off, k_off, causal, scale,
         # dtype, stream
         "tmpi_flash_dq": (_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
@@ -92,6 +98,7 @@ _LIB = KernelLibrary(
 
 FLASH_FWD = LaunchCounter("flash_fwd")
 FLASH_FWD_SM90 = LaunchCounter("flash_fwd_sm90")
+FLASH_FWD_MMA = LaunchCounter("flash_fwd_mma")
 FLASH_DQ = LaunchCounter("flash_dq")
 FLASH_DQ_SM90 = LaunchCounter("flash_dq_sm90")
 FLASH_DKV = LaunchCounter("flash_dkv")
@@ -136,6 +143,26 @@ def split_bf16x3(p: torch.Tensor):
     r = p - hi.float()
     mid = r.to(torch.bfloat16)
     return hi, mid, (r - mid.float()).to(torch.bfloat16)
+
+
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """fp32 -> tf32 (10 stored significand bits) as ``cvt.rna.tf32.f32``
+    rounds: to nearest, ties away from zero (adding half of the dropped
+    13 bits to the magnitude's bits carries into the kept ones), the low
+    13 bits cleared. inf and NaN pass through."""
+    bits = x.contiguous().view(torch.int32)
+    rounded = ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+    return torch.where(torch.isfinite(x), rounded, x)
+
+
+def split_tf32x2(x: torch.Tensor):
+    """fp32 ``x`` -> fp32 ``(hi, lo)`` holding tf32 values: ``hi =
+    tf32(x)``, ``lo = tf32(x - hi)`` (``x - hi`` is exact). ``flash_fwd_mma``
+    forms the same parts in registers and takes each product ``a b`` as
+    ``lo_a hi_b + hi_a lo_b + hi_a hi_b`` (3xTF32): what is left out is
+    about 2^-22 of ``|a b|``, against 2^-11 for ``hi_a hi_b`` alone."""
+    hi = _tf32(x.float())
+    return hi, _tf32(x.float() - hi)
 
 
 def flash_fwd_plain(q3, k3, v3, *, causal: bool, scale: float, q_off: int = 0, k_off: int = 0,
@@ -236,13 +263,18 @@ def _check_tma_aligned(**tensors):
 def _fwd_route(dtype: torch.dtype, D: int) -> str:
     """Which forward kernel takes a CUDA input, from its dtype and head
     dim alone: ``"sm90"`` (``flash_fwd_sm90``: TMA + wgmma, bf16, and
-    the tensor maps need a row of D bf16 to be whole 16-byte units) or
-    ``"generic"`` (``flash_fwd``: fp32, and bf16 with another D)."""
+    the tensor maps need a row of D bf16 to be whole 16-byte units),
+    ``"mma"`` (``flash_fwd_mma``: fp32, 3xTF32 on mma.sync, any D) or
+    ``"generic"`` (``flash_fwd``: bf16 with another D)."""
+    if dtype == torch.float32:
+        return "mma"
     return "sm90" if dtype == torch.bfloat16 and D % 8 == 0 else "generic"
 
 
 def _launch_fwd_generic(q3, k3, v3, *, causal, scale, q_off, k_off):
-    """``flash_fwd_kernel`` (wmma, synchronous loads), fp32 or bf16."""
+    """``flash_fwd_kernel`` (wmma, synchronous loads), fp32 or bf16: the
+    route of bf16 heads with D % 8 != 0; its fp32 instantiation is
+    reached only from here (chip_smoke times it against ``flash_fwd_mma``)."""
     BH, Tq, D = q3.shape
     dev = q3.device
     o = torch.empty_like(q3)
@@ -272,6 +304,24 @@ def _launch_fwd_sm90(q3, k3, v3, *, causal, scale, q_off, k_off):
     return o, lse
 
 
+def _launch_fwd_mma(q3, k3, v3, *, causal, scale, q_off, k_off):
+    """``flash_fwd_mma_kernel`` (cp.async ring, 3xTF32 on mma.sync), fp32."""
+    BH, Tq, D = q3.shape
+    dev = q3.device
+    o = torch.empty_like(q3)
+    lse = torch.empty((BH, Tq), dtype=torch.float32, device=dev)
+    rc = _LIB.get().tmpi_flash_fwd_mma(dev.index, q3.data_ptr(), k3.data_ptr(), v3.data_ptr(),
+                                       o.data_ptr(), lse.data_ptr(), BH, Tq, k3.shape[1], D,
+                                       int(q_off), int(k_off), int(causal), float(scale),
+                                       stream_handle(dev))
+    _LIB.check(rc, "flash attention forward kernel (mma)")
+    FLASH_FWD_MMA.launches += 1
+    return o, lse
+
+
+_FWD_LAUNCH = {"sm90": _launch_fwd_sm90, "mma": _launch_fwd_mma, "generic": _launch_fwd_generic}
+
+
 def flash_fwd(q3, k3, v3, *, causal: bool, scale: float, q_off: int = 0, k_off: int = 0,
               block_k: int = BLOCK):
     """Flash forward -> ``(o [BH, Tq, D] in q3's dtype, lse [BH, Tq] f32)``.
@@ -281,8 +331,8 @@ def flash_fwd(q3, k3, v3, *, causal: bool, scale: float, q_off: int = 0, k_off: 
     if q3.device.type == "cpu":
         return flash_fwd_plain(q3, k3, v3, causal=causal, scale=scale, q_off=q_off,
                                k_off=k_off, block_k=block_k)
-    launch = _launch_fwd_sm90 if _fwd_route(q3.dtype, D) == "sm90" else _launch_fwd_generic
-    return launch(q3, k3, v3, causal=causal, scale=scale, q_off=q_off, k_off=k_off)
+    return _FWD_LAUNCH[_fwd_route(q3.dtype, D)](q3, k3, v3, causal=causal, scale=scale,
+                                                q_off=q_off, k_off=k_off)
 
 
 def _dq_route(dtype: torch.dtype, D: int) -> str:

@@ -77,8 +77,8 @@ _LIB = KernelLibrary(
         # device, x, vals, scale, partial, rows, n_partial, max_blocks, stream
         "tmpi_quant": (ctypes.c_int, _P, _P, _P, _P, ctypes.c_int64, ctypes.c_int,
                        ctypes.c_int, _P),
-        # device, vals, scale, out, rows, max_blocks, stream
-        "tmpi_dequant": (ctypes.c_int, _P, _P, _P, ctypes.c_int64, ctypes.c_int, _P),
+        # device, vals, scale, out, rows, stream
+        "tmpi_dequant": (ctypes.c_int, _P, _P, _P, ctypes.c_int64, _P),
     },
 )
 
@@ -401,15 +401,23 @@ def quantize_int8(x2d: torch.Tensor):
 
 
 def dequantize_int8(vals: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
-    """Inverse of :func:`quantize_int8`."""
+    """Inverse of :func:`quantize_int8`: ``float(vals) * scale``, one
+    rounding. On the card ``vals`` must be contiguous and 16-byte aligned
+    (the kernel loads 16 values a thread) and ``scale`` a contiguous
+    ``(1, 1)`` f32 on the same card; the checks run in one pass, and
+    ``_check`` words a failure."""
     rows, dev = _rows_of(vals), vals.device
     if dev.type == "cpu":
         return dequantize_int8_plain(vals, scale)
-    _check(vals, "vals", torch.int8, (rows, LANES), 4, dev)
-    _check(scale, "scale", torch.float32, (1, 1), 4, dev)
-    out = torch.empty((rows, LANES), dtype=torch.float32, device=dev)
+    if not (vals.dtype is _I8 and vals.is_contiguous() and vals.data_ptr() % 16 == 0
+            and isinstance(scale, torch.Tensor) and scale.dtype is _F32
+            and scale.shape == (1, 1) and scale.device == dev and scale.is_contiguous()
+            and scale.data_ptr() % 4 == 0):
+        _check(vals, "vals", _I8, (rows, LANES), 16, dev)
+        _check(scale, "scale", _F32, (1, 1), 4, dev)
+    out = torch.empty((rows, LANES), dtype=_F32, device=dev)
     rc = _LIB.get().tmpi_dequant(dev.index, vals.data_ptr(), scale.data_ptr(), out.data_ptr(),
-                                 rows, max_blocks(dev), stream_handle(dev))
+                                 rows, stream_handle(dev))
     _LIB.check(rc, "int8 dequantize kernel")
     DEQUANT.launches += 1
     return out
