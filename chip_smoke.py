@@ -23,9 +23,10 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                 static shared memory (``nvcc -Xptxas -v``).
 2. kernels    — the fused update's multi-tensor kernel (#1-2, one launch
                 over a whole leaf list per dtype group) against its plain
-                PyTorch version, one call over each list: AlexNet's 16 and
-                GoogLeNet's 128 parameter leaves (from the port's models),
-                each in fp32 params with fp32 grads, bf16 params with bf16
+                PyTorch version, one call over each list: AlexNet's 16,
+                GoogLeNet's 128, WRN-28-10's 80, ResNet-50's 161 and
+                VGG16's 32 parameter leaves (from the port's models, the
+                leaf sets every main path gives the kernel), each in fp32 params with fp32 grads, bf16 params with bf16
                 and with fp32 grads, conv leaves in the default layout and
                 in channels_last (the main path's); and an edge list of 12
                 leaves mixing the three dtype pairs, with views 4 bytes off
@@ -245,7 +246,46 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                 Last, full-width AlexNet with every leaf of its state
                 replaced between two groups must be captured again (2
                 captures, 3 replays) and equal 4 eager steps bit for bit.
-6. times      — #1-2 per optimizer step over AlexNet's 16 and GoogLeNet's
+   zoo-main   — the rest of the CNN zoo through the CLI, counters zeroed
+                just before each run and read just after, with finite
+                losses and validation, step ms (CUDA events, 2 warm-up
+                steps left out), img/s and peak memory: WRN-28-10
+                (BASELINE config #1: 32x32x3, 10 classes, fp32, Nesterov,
+                batch 128, ``--synthetic --fused-update``) over 14 steps
+                of 8 an epoch eagerly and with ``--steps-per-dispatch 4``,
+                bit-identical (losses, val, digest, and the 50 BN
+                statistics of each run's final checkpoint), with equal
+                counts: fused_momentum (nesterov=1)
+                ``update_launches(80)`` a step and no other kernel; then 3
+                steps and ``--resume`` to 6, whose final checkpoint must
+                equal an uninterrupted 6-step run's entry for entry, BN
+                statistics included. ResNet-50 at 256 and VGG16 at 128
+                (224x224x3, 1000 classes, bf16) on uint8
+                ``imagenet_synthetic`` with ``--fused-update``, 6 steps
+                each; the cifar10 CNN and the MLP, 3 steps each. Last,
+                WRN-28-10 and AlexNet at their ``zoo_entry`` batch (1024
+                each), 2 steps with the batch resident: their peak
+                memory.
+   zoo-parity — WRN-28-10 at full width (fp32, batch 8, Nesterov at lr
+                0.01) 2 steps on the card (cuDNN, kernel #1) and on the
+                CPU (the plain versions) from the same weights and
+                batches: the first training forward's logits and BN
+                statistics within rtol 1e-4 + 1e-4 of their largest
+                value, losses rtol 1e-4, and after 2 steps the param
+                changes and velocities per leaf in relative norm 1e-1
+                (phase googlenet-parity's limit; the kernel itself is held
+                bit for bit at WRN-28-10's leaves in phase kernels), the
+                BN statistics in 1e-3. ResNet-50 at full width in bf16
+                (batch 4): each top-level layer fed the CPU's own input
+                within 2^-5 of the largest value of its output and
+                statistics; the whole training forward's logits within
+                the CPU's own spread under a one-ulp input change (the
+                worst of 3 seeded draws), and its loss rtol 2e-2.
+   zoo-bench  — ``tools/bench.py`` (``--fused-update``) of WRN-28-10 at
+                128, ResNet-50 at 256 and VGG16 at 128, eager and
+                captured, printed as ``[zoo] bench {...}`` lines; the
+                pair's last losses must agree.
+6. times     — #1-2 per optimizer step over AlexNet's 16 and GoogLeNet's
                 128 fp32 leaves, in turns (A B C D, twice): the wrapper,
                 the same launch with its table built once (the device's
                 time alone), the per-leaf launches it replaced
@@ -2763,6 +2803,358 @@ def phase_feed_main(shard_dir):
     return runs
 
 
+# phase zoo-main: WRN-28-10 (BASELINE config #1) through the CLI at its
+# recipe's batch, eagerly and in groups of GRAPH_K, over ZOO_STEPS steps of
+# ZOO_EPOCH an epoch; its resume over ZOO_RESUME steps; ResNet-50 and
+# VGG16 at their zoo batches for ZOO_IMNET_STEPS steps; cifar10 and the
+# MLP for ZOO_SMALL_STEPS
+ZOO_STEPS = 14
+ZOO_EPOCH = 8
+ZOO_RESUME = 6
+ZOO_IMNET_STEPS = 6
+ZOO_SMALL_STEPS = 3
+
+
+def zoo_leaves(zoo_name: str) -> int:
+    """Parameter leaves of a zoo model at its recipe's shapes (meta device)."""
+    from theanompi_tpu_torch.tools.update_variants import leaf_specs
+
+    return len(leaf_specs(zoo_name))
+
+
+def bn_entries(path: str) -> dict:
+    """The BN statistics (``.model_state/...`` entries) of a checkpoint file."""
+    from theanompi_tpu_torch.utils.checkpoint import load_checkpoint
+
+    return {k: v for k, v in load_checkpoint(path).items() if k.startswith(".model_state/")}
+
+
+def zoo_cli(label: str, argv: list, want: dict) -> dict:
+    """One CLI run of phase zoo-main: counters zeroed just before it and
+    read just after, peak memory, finite losses and validation, and the
+    launches ``want`` (every other counter 0)."""
+    import gc
+
+    import torch
+    from theanompi_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+
+    print(f"[zoo-main] {label}: python -m theanompi_tpu_torch.cli {' '.join(argv)}", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    summary = run_cli(argv)
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    losses = summary["losses"]
+    ran = summary["steps"] - (summary["resumed_from_step"] or 0)
+    check(len(losses) == ran and all(math.isfinite(v) for v in losses)
+          and summary["nonfinite_steps"] == 0, f"zoo {label}: losses {losses}")
+    check("val" in summary and all(math.isfinite(v) for v in summary["val"].values()),
+          f"zoo {label}: bad val metrics {summary.get('val')}")
+    got = {k: counts[k] for k in want}
+    check(got == want, f"zoo {label} launched {got}, expected {want}")
+    stray = {k: v for k, v in counts.items() if k not in want and v}
+    check(not stray, f"zoo {label} launched other kernels: {stray}")
+    print(f"[zoo-main] {label}: losses {losses}; val {summary['val']}; step "
+          f"{summary['step_ms']:.3f} ms over {summary['steady_steps']} steps (CUDA events, 2 "
+          f"warm-up steps excluded), {summary['images_per_sec']:.1f} img/s; peak memory "
+          f"{peak / 2**30:.2f} GiB; launches {got}", flush=True)
+    return {"summary": summary, "launches": counts, "peak_bytes": peak}
+
+
+def zoo_resident_peak(zoo_name: str, steps: int = 2) -> dict:
+    """A model at its ``zoo_entry`` batch: ``steps`` training steps
+    (--fused-update) with a float32 batch resident on the card -> the step
+    ms (CUDA events, one warm-up step) and the peak memory: the batch fits
+    one card."""
+    import gc
+
+    import torch
+    from theanompi_tpu_torch.models.zoo import zoo_entry
+    from theanompi_tpu_torch.parallel.bsp import BSPEngine
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    cls, batch = zoo_entry(zoo_name)
+    model = cls(cls.default_recipe().replace(batch_size=batch))
+    r = model.recipe
+    engine = BSPEngine(model, 1, dev, steps_per_epoch=10_000, fused_update=True)
+    box = {"state": engine.init_state(torch.Generator().manual_seed(0))}
+    gen = torch.Generator(device=dev).manual_seed(1)
+    x = torch.randn(batch, *r.input_shape, generator=gen, device=dev)
+    y = torch.randint(0, r.num_classes, (batch,), generator=gen, device=dev)
+
+    def step():
+        box["state"], m = engine.train_step(box["state"], x, y, gen)
+        box["loss"] = m["loss"]
+
+    ms = cuda_ms(step, reps=steps, warmup=1)
+    loss = float(box["loss"])
+    peak = torch.cuda.max_memory_allocated()
+    check(math.isfinite(loss), f"zoo {zoo_name} at {batch}: loss {loss}")
+    del box, x, y, engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[zoo-main] {zoo_name} at its zoo_entry batch {batch}: step {ms:.3f} ms, peak memory "
+          f"{peak / 2**30:.2f} GiB", flush=True)
+    return {"batch": batch, "step_ms": ms, "peak_bytes": peak}
+
+
+def phase_zoo_main():
+    """The rest of the CNN zoo through the CLI on one card (module
+    docstring, phase zoo-main)."""
+    from theanompi_tpu_torch.models.zoo import zoo_entry
+    from theanompi_tpu_torch.utils.checkpoint import load_checkpoint
+
+    root = tempfile.mkdtemp(prefix="tmpi-zoo-")
+    out = {}
+    try:
+        wrn_leaves = zoo_leaves("wrn")
+        per_step = update_launches(wrn_leaves)
+        wrn = ["BSP", "1", "wrn", "WRN", "--synthetic", "--fused-update", "--seed", "0",
+               "--dataset-arg", f"n_train={128 * ZOO_EPOCH}", "--dataset-arg", "n_val=128"]
+        pair = {}
+        for mode, k in (("eager", 1), ("captured", GRAPH_K)):
+            d = os.path.join(root, f"wrn-{mode}")
+            pair[mode] = zoo_cli(f"wrn {mode}", [
+                *wrn, "--epochs", "2", "--max-steps", str(ZOO_STEPS), "--print-freq", "1",
+                "--steps-per-dispatch", str(k), "--ckpt-dir", d, "--sync-ckpt"],
+                {"fused_momentum": per_step * ZOO_STEPS})
+            pair[mode]["bn"] = bn_entries(pair[mode]["summary"]["checkpoints"][-1]["path"])
+        eager, cap = pair["eager"]["summary"], pair["captured"]["summary"]
+        check(eager["captured"] is False and cap["captured"] is True
+              and cap["graph"] == {"captures": 1, "replays": ZOO_STEPS - 1},
+              f"zoo wrn: eager captured {eager['captured']}, grouped {cap['captured']} with "
+              f"{cap['graph']} (expected 1 capture and {ZOO_STEPS - 1} replays)")
+        check(cap["losses"] == eager["losses"] and cap["val"] == eager["val"],
+              f"zoo wrn: captured losses {cap['losses']} / val {cap['val']} != eager "
+              f"{eager['losses']} / {eager['val']}")
+        check(cap["replica_digest_per_rank"] == eager["replica_digest_per_rank"],
+              f"zoo wrn: final params/velocities differ ({cap['replica_digest_per_rank']} vs "
+              f"{eager['replica_digest_per_rank']})")
+        bn_e, bn_c = pair["eager"]["bn"], pair["captured"]["bn"]
+        check(len(bn_e) == 50 and sorted(bn_e) == sorted(bn_c)
+              and all(bn_e[k].tobytes() == bn_c[k].tobytes() for k in bn_e),
+              f"zoo wrn: the final BN statistics differ between eager and captured runs "
+              f"({len(bn_e)} / {len(bn_c)} entries)")
+        check(pair["captured"]["launches"] == pair["eager"]["launches"],
+              f"zoo wrn: launch counts differ: {pair['captured']['launches']} vs "
+              f"{pair['eager']['launches']}")
+        print(f"[zoo-main] wrn: eager and {GRAPH_K}-step groups bit-identical (losses, val, "
+              f"digest {cap['replica_digest_per_rank'][0]}, the {len(bn_e)} BN statistics of the "
+              f"final checkpoint), fused_momentum {per_step} a step over {wrn_leaves} leaves "
+              f"(Nesterov); step {eager['step_ms']:.3f} ms eager, {cap['step_ms']:.3f} ms captured",
+              flush=True)
+        out["wrn"] = pair
+
+        # resume: 3 steps, then --resume to ZOO_RESUME, against an uninterrupted run
+        res = {}
+        for name, steps, flags in (("control", ZOO_RESUME, []), ("resumed", ZOO_RESUME // 2, []),
+                                   ("resumed", ZOO_RESUME, ["--resume"])):
+            d = os.path.join(root, f"wrn-{name}")
+            n = steps - (ZOO_RESUME // 2 if flags else 0)
+            res[f"{name}{'+' if flags else ''}"] = zoo_cli(f"wrn {name} {' '.join(flags)}", [
+                *wrn, "--max-steps", str(steps), "--print-freq", "1", "--ckpt-dir", d,
+                "--sync-ckpt", *flags], {"fused_momentum": per_step * n})
+        ctrl, first, resumed = res["control"], res["resumed"], res["resumed+"]
+        r = resumed["summary"]
+        check(r["resumed_from_step"] == ZOO_RESUME // 2
+              and r["resume"]["digest"] == first["summary"]["checkpoints"][-1]["digest"],
+              f"zoo wrn resume: from {r.get('resumed_from_step')}, digest {r.get('resume')}")
+        check(first["summary"]["losses"] + r["losses"] == ctrl["summary"]["losses"],
+              f"zoo wrn resume: losses {first['summary']['losses']} + {r['losses']} != "
+              f"{ctrl['summary']['losses']}")
+        a = load_checkpoint(ctrl["summary"]["checkpoints"][-1]["path"])
+        b = load_checkpoint(r["checkpoints"][-1]["path"])
+        check(sorted(a) == sorted(b) and all(a[k].tobytes() == b[k].tobytes() for k in a),
+              "zoo wrn resume: the resumed run's final checkpoint differs from the "
+              "uninterrupted run's: " + str([k for k in a if k not in b or
+                                             a[k].tobytes() != b[k].tobytes()][:5]))
+        n_bn = sum(k.startswith(".model_state/") for k in a)
+        print(f"[zoo-main] wrn resume: {ZOO_RESUME // 2} steps + --resume to {ZOO_RESUME} equal "
+              f"to the uninterrupted run, all {len(a)} checkpoint entries bit for bit ({n_bn} BN "
+              f"statistics)", flush=True)
+        out["wrn_resume"] = res
+
+        for zoo in ("resnet50", "vgg16"):
+            cls, batch = zoo_entry(zoo)
+            out[zoo] = zoo_cli(zoo, [
+                "BSP", "1", zoo, cls.__name__, "--dataset", "imagenet_synthetic", "--fused-update",
+                "--batch-size", str(batch), "--max-steps", str(ZOO_IMNET_STEPS),
+                "--print-freq", "1", "--seed", "0",
+                "--dataset-arg", f"n_train={batch * ZOO_IMNET_STEPS}",
+                "--dataset-arg", f"n_val={batch}"],
+                {"fused_momentum": update_launches(zoo_leaves(zoo)) * ZOO_IMNET_STEPS})
+        for label, module, cls in (("cifar10", "cifar10", "Cifar10_model"),
+                                   ("mlp", "theanompi_tpu_torch.models.mlp", "MLP")):
+            batch = 128 if label == "cifar10" else 64
+            out[label] = zoo_cli(label, [
+                "BSP", "1", module, cls, "--synthetic", "--fused-update",
+                "--max-steps", str(ZOO_SMALL_STEPS), "--print-freq", "1", "--seed", "0",
+                "--dataset-arg", f"n_train={batch * ZOO_SMALL_STEPS}",
+                "--dataset-arg", f"n_val={batch}"],
+                {"fused_momentum": update_launches(zoo_leaves(label)) * ZOO_SMALL_STEPS})
+        for zoo in ("wrn", "alexnet"):  # the zoo_entry batches that zoo-main runs nowhere else
+            out[f"{zoo}_zoo_batch"] = zoo_resident_peak(zoo)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print("[zoo-main] " + json.dumps({
+        k: {"step_ms": v["summary"]["step_ms"], "images_per_sec": v["summary"]["images_per_sec"],
+            "peak_bytes": v["peak_bytes"]}
+        for k, v in (("wrn-eager", out["wrn"]["eager"]), ("wrn-captured", out["wrn"]["captured"]),
+                     ("resnet50", out["resnet50"]), ("vgg16", out["vgg16"]),
+                     ("cifar10", out["cifar10"]), ("mlp", out["mlp"]))}), flush=True)
+    return out
+
+
+def phase_zoo_parity(dev):
+    """WRN-28-10 at full width (fp32, batch 8, Nesterov) 2 steps on the card
+    and on the CPU from the same weights and batches; ResNet-50 at full
+    width in bf16 (batch 4): the training forward and its loss on both."""
+    import torch
+    from theanompi_tpu_torch import bridge
+    from theanompi_tpu_torch.models.model_zoo.resnet50 import ResNet50
+    from theanompi_tpu_torch.models.model_zoo.wrn import WRN
+    from theanompi_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from theanompi_tpu_torch.train import init_train_state, make_train_step
+    from theanompi_tpu_torch.tree import tree_leaves, tree_map
+
+    recipe = WRN.default_recipe().replace(
+        batch_size=8, sched_kwargs={"lr": 0.01, "boundaries": [60, 120, 160], "factor": 0.2})
+    model = WRN(recipe)
+    rng = torch.Generator().manual_seed(3)
+    xs = [torch.randn(8, 32, 32, 3, generator=rng) for _ in range(2)]
+    ys = [torch.randint(0, 10, (8,), generator=rng) for _ in range(2)]
+    out = {}
+    for d in ("cpu", dev):
+        state = init_train_state(model, torch.Generator().manual_seed(7), d)
+        before = [p.detach().cpu().clone() for p in tree_leaves(state.params)]
+        reset_launch_counts()
+        with torch.no_grad():
+            logits, stats0 = model.apply(state.params, state.model_state, xs[0].to(d),
+                                         train=True)
+        stats0 = [s.cpu() for s in tree_leaves(stats0)]
+        step = make_train_step(model, fused_update=True)
+        losses = []
+        for x, y in zip(xs, ys):
+            state, m = step(state, x.to(d), y.to(d), None)
+            losses.append(float(m["loss"]))
+        after = [p.detach().cpu() for p in tree_leaves(state.params)]
+        out[str(d)] = (losses, logits.cpu(), stats0, [a - b for a, b in zip(after, before)],
+                       [v.detach().cpu() for v in tree_leaves(state.opt_state["vel"])],
+                       [s.cpu() for s in tree_leaves(state.model_state)], launch_counts())
+    (lc, oc, s0c, dc, vc, sc, kc), (lg, og, s0g, dg, vg, sg, kg) = out["cpu"], out[str(dev)]
+    check(not any(kc.values()), f"the CPU run launched kernels: {kc}")
+    n_leaves = len(dc)
+    check({k: v for k, v in kg.items() if v} == {"fused_momentum": update_launches(n_leaves) * 2},
+          f"the card run launched {kg}")
+    logit_x = _rel_excess(og, oc, 1e-4, 1e-4 * oc.abs().max().item())
+    stats_x = max(_rel_excess(a, b, 1e-4, 1e-4 * b.abs().max().item()) for a, b in zip(s0g, s0c))
+    paths = [k[1:] for k, _ in bridge._paths(state.params, "")]
+
+    def worst(cpu, card):
+        r = [((a - b).norm() / a.norm()).item() for a, b in zip(cpu, card)]
+        return max(r), r.index(max(r))
+
+    (rp, ip), (rv, iv), (rs, _) = worst(dc, dg), worst(vc, vg), worst(sc, sg)
+    rel = {"parameter change": rp, "velocity": rv, "BN statistics": rs}
+    limits = {"parameter change": 1e-1, "velocity": 1e-1, "BN statistics": 1e-3}
+    print(f"[zoo-parity] wrn-28-10 fp32: logits x{logit_x:.3g} of rtol 1e-4 + 1e-4 max, the BN "
+          f"statistics of that forward x{stats_x:.3g}; losses card {lg} vs CPU {lc}; after 2 "
+          f"steps, worst leaf ||card - CPU|| / ||CPU|| {rel} (limits {limits}; worst change "
+          f"{paths[ip]}, worst velocity {paths[iv]})", flush=True)
+    check(logit_x <= 1, f"wrn card logits differ from the CPU's (x{logit_x:.3g})")
+    check(stats_x <= 1, f"wrn card BN statistics differ from the CPU's (x{stats_x:.3g})")
+    check(all(math.isclose(a, b, rel_tol=1e-4) for a, b in zip(lc, lg)),
+          f"wrn card losses {lg} vs CPU {lc}")
+    check(all(rel[k] <= limits[k] for k in rel), f"wrn card trajectory differs: {rel}")
+    result = {"wrn": {"logit_excess": logit_x, "stats_excess": stats_x, "rel_norm": rel,
+                      "losses": {"card": lg, "cpu": lc}, "launches": kg}}
+
+    # ResNet-50, bf16: each top-level layer fed the CPU's own input of that
+    # layer (bf16 limit), then the whole forward, whose rounding the
+    # network amplifies, against the CPU's own spread under a one-ulp
+    # (2^-8) change of its input (the worst of 3 seeded draws)
+    model = ResNet50(ResNet50.default_recipe().replace(batch_size=4))
+    rng = torch.Generator().manual_seed(5)
+    x = torch.randn(4, *model.recipe.input_shape, generator=rng)
+    y = torch.randint(0, model.recipe.num_classes, (4,), generator=rng)
+    params, st = model.init_tree(torch.Generator().manual_seed(7))
+    on_card = tree_map(lambda t: t.to(dev), params), tree_map(lambda t: t.to(dev), st)
+    net = model.net
+    worst_layer, worst_name = 0.0, None
+    with torch.no_grad():
+        h = x.to(torch.bfloat16)
+        for key, layer in zip(net._keys, net.layers):
+            out_c, st_c = layer.apply(params.get(key, {}), st.get(key, {}), h, train=True)
+            out_g, st_g = layer.apply(on_card[0].get(key, {}), on_card[1].get(key, {}),
+                                      h.to(dev), train=True)
+            for a, b in zip([out_g, *tree_leaves(st_g)], [out_c, *tree_leaves(st_c)]):
+                d = ((a.float().cpu() - b.float()).abs().max() / b.float().abs().max()).item()
+                if d > worst_layer:
+                    worst_layer, worst_name = d, key
+            h = out_c
+        res = {}
+        ulp = [("cpu-ulp", x * (1 + 2.0 ** -8 * (2 * torch.randint(
+            0, 2, x.shape, generator=torch.Generator().manual_seed(s)) - 1)), "cpu")
+            for s in (11, 12, 13)]
+        for label, xx, d in (("cpu", x, "cpu"), ("card", x, dev), *ulp):
+            p_, s_ = (params, st) if d == "cpu" else on_card
+            logits, _ = model.apply(p_, s_, xx.to(d), train=True)
+            res.setdefault(label, []).append((logits.float().cpu(),
+                                              float(model.loss(logits, y.to(d)))))
+    [(oc, lc)], [(og, lg)] = res["cpu"], res["card"]
+    share = ((og - oc).abs().max() / oc.abs().max()).item()
+    draws = [((ou - oc).abs().max() / oc.abs().max()).item() for ou, _ in res["cpu-ulp"]]
+    control = max(draws)
+    print(f"[zoo-parity] resnet50 bf16, batch 4: each layer fed the CPU's input, card - CPU "
+          f"at most {worst_layer:.4g} of the output's or statistics' largest value ({worst_name}; "
+          f"limit 2^-5); the whole forward's logits card - CPU {share:.4g} of their largest "
+          f"value, the CPU's own under a one-ulp input change {draws} (limit 1x the worst); "
+          f"loss card {lg} vs CPU {lc} (rtol 2e-2)", flush=True)
+    check(worst_layer <= 2.0 ** -5, f"resnet50 bf16 layer {worst_name} differs by "
+                                    f"{worst_layer:.4g} of max")
+    check(0 < control and share <= control,
+          f"resnet50 bf16 logits differ by {share:.4g} of max, beyond the CPU's own "
+          f"{control:.4g} (worst of {draws})")
+    check(math.isclose(lg, lc, rel_tol=2e-2), f"resnet50 bf16 loss {lg} vs {lc}")
+    result["resnet50"] = {"layer_share": worst_layer, "logit_share": share,
+                          "logit_control": control, "loss": {"card": lg, "cpu": lc}}
+    return result
+
+
+# tools/bench.py of the new models (--fused-update): steps a call; 3 timed calls each
+ZOO_BENCH = {"wrn": 5, "resnet50": 5, "vgg16": 5}
+
+
+def phase_zoo_bench():
+    """``tools/bench.py`` of WRN-28-10, ResNet-50 and VGG16 (--fused-update),
+    eager and captured; their last losses must agree."""
+    import gc
+
+    import torch
+    from theanompi_tpu_torch.tools.bench import bench_compute
+
+    out = {}
+    for name, steps in ZOO_BENCH.items():
+        pair = {}
+        for mode in ("eager", "captured"):
+            gc.collect()
+            torch.cuda.empty_cache()
+            pair[mode] = bench_compute(name, steps=steps, trials=3, eager=mode == "eager",
+                                       fused_update=True)
+            print(f"[zoo] bench {json.dumps(pair[mode])}", flush=True)
+        check(pair["captured"]["captured"] and not pair["eager"]["captured"]
+              and pair["captured"]["last_losses"] == pair["eager"]["last_losses"],
+              f"zoo bench {name}: captured {pair['captured']['last_losses']} vs eager "
+              f"{pair['eager']['last_losses']}")
+        out[name] = pair
+    return out
+
+
 def build_all():
     """Build every kernel library at once (one nvcc per source, started
     together); returns {source: nvcc seconds}."""
@@ -2829,8 +3221,12 @@ def main() -> int:
         leaf_sets = [("alexnet", leaf_specs("alexnet")), ("googlenet", leaf_specs("googlenet"))]
         check([s for s, _ in leaf_sets[0][1]] == shapes and len(leaf_sets[1][1]) == 128,
               f"unexpected leaves: AlexNet {leaf_sets[0][1]}, GoogLeNet {len(leaf_sets[1][1])}")
+        # the zoo's main paths give the kernel these leaf sets too (WRN-28-10 Nesterov)
+        zoo_sets = [(name, leaf_specs(name)) for name in ("wrn", "resnet50", "vgg16")]
+        check([len(specs) for _, specs in zoo_sets] == [80, 161, 32],
+              f"unexpected zoo leaves: {[(n, len(s)) for n, s in zoo_sets]}")
         t0 = time.perf_counter()
-        worst, worst_ulp, update_plans = phase_kernels(leaf_sets, dev)
+        worst, worst_ulp, update_plans = phase_kernels(leaf_sets + zoo_sets, dev)
         print(f"[kernels] all cases match ({time.perf_counter() - t0:.1f} s)", flush=True)
 
         t0 = time.perf_counter()
@@ -2903,6 +3299,18 @@ def main() -> int:
         print(f"[graph] done ({time.perf_counter() - t0:.1f} s)", flush=True)
 
         t0 = time.perf_counter()
+        zoo_runs = phase_zoo_main()
+        print(f"[zoo-main] done ({time.perf_counter() - t0:.1f} s)", flush=True)
+
+        t0 = time.perf_counter()
+        zoo_parity = phase_zoo_parity(dev)
+        print(f"[zoo-parity] done ({time.perf_counter() - t0:.1f} s)", flush=True)
+
+        t0 = time.perf_counter()
+        zoo_bench = phase_zoo_bench()
+        print(f"[zoo-bench] done ({time.perf_counter() - t0:.1f} s)", flush=True)
+
+        t0 = time.perf_counter()
         times = phase_times(leaf_sets, dev, mem_rate, fp32_peak)
         times.update(phase_quant_times(dev, mem_rate, fp32_peak))
         times.update(phase_flash_times(dev, mem_rate, fp32_peak, bf16_peak))
@@ -2962,6 +3370,19 @@ def main() -> int:
                                             "step_ms": r["summary"]["step_ms"],
                                             "resident_step_ms": r["resident_step_ms"]}
                                         for k, r in feed_runs.items()}
+            # the zoo's runs through the CLI (WRN-28-10 with nesterov=1)
+            zoo_cli_runs = {"wrn-eager": zoo_runs["wrn"]["eager"],
+                            "wrn-captured": zoo_runs["wrn"]["captured"],
+                            **{f"wrn-{k}": v for k, v in zoo_runs["wrn_resume"].items()},
+                            **{k: zoo_runs[k] for k in ("resnet50", "vgg16", "cifar10", "mlp")}}
+            kernels[-1]["zoo_main"] = {k: {"launches": r["launches"][name],
+                                           "step_ms": r["summary"]["step_ms"],
+                                           "images_per_sec": r["summary"]["images_per_sec"],
+                                           "peak_memory_bytes": r["peak_bytes"]}
+                                       for k, r in zoo_cli_runs.items()}
+            kernels[-1]["zoo_parity_launches"] = zoo_parity["wrn"]["launches"][name]
+            kernels[-1]["zoo_bench"] = {k: {m: {f: b[m][f] for f in ("step_ms", "value", "mfu")}
+                                            for m in b} for k, b in zoo_bench.items()}
     no_library = ("no single PyTorch call computes an absmax-scaled int8 quantize: "
                   "torch.quantize_per_tensor takes the scale as an input and multiplies by "
                   "its reciprocal")

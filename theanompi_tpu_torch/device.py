@@ -13,6 +13,13 @@ which would silently change every fp32 recipe and the fp32 parity runs
 against the reference. Recipes that want low precision say so with
 ``Recipe.compute_dtype`` (AlexNet computes in bfloat16), where TF32
 does not apply.
+
+Determinism: ``torch.backends.cudnn.deterministic`` is set to True
+here. Left to itself, cuDNN may pick a float32 convolution algorithm
+that sums with atomics (WRN-28-10's fp32 weight gradients), so two runs
+of one step differ in their last bits, and a resumed or a captured run
+would not equal the uninterrupted eager one, which the port promises (as
+the reference's compiled steps give).
 """
 
 from __future__ import annotations
@@ -23,9 +30,11 @@ import torch
 
 
 def set_precision_policy() -> None:
-    """float32 means float32 on the card (see the module docstring)."""
+    """float32 means float32 on the card, and cuDNN's algorithms are
+    deterministic (see the module docstring)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
 
 
 def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.device:

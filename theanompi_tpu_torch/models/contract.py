@@ -49,6 +49,9 @@ class Recipe:
     input_shape: tuple = (32, 32, 3)  # (H, W, C)
     num_classes: int = 10
     compute_dtype: Any = torch.float32  # bfloat16 for the big ImageNet models
+    # cross-replica BN over the data axis (None = per-replica stats; the
+    # only value the port takes so far, nn.BatchNorm refuses others)
+    bn_axis_name: Optional[str] = None
     dataset: str = "synthetic"
     val_batch_size: Optional[int] = None
 

@@ -361,11 +361,23 @@ class Dropout(Layer):
 
 
 class BatchNorm(Layer):
-    """Batch normalization with running-stat state (per-replica stats;
-    the reference's cross-replica ``axis_name`` arrives with the
-    multi-rank slice)."""
+    """Batch normalization with running-stat state (per-replica stats).
 
-    def __init__(self, momentum: float = 0.9, eps: float = 1e-5, name: str = "bn"):
+    ``axis_name``: the reference's cross-replica BN (batch stats averaged
+    over the named mesh axis inside the step). The port takes only
+    ``None``, per-replica stats, which a BSP step averages across ranks
+    after the step (``parallel/bsp.py``, as the reference's ``pmean``);
+    any other value is refused, not ignored, until cross-replica BN is
+    ported (ROADMAP queue 1 item 2)."""
+
+    def __init__(self, momentum: float = 0.9, eps: float = 1e-5,
+                 axis_name: Optional[str] = None, name: str = "bn"):
+        if axis_name is not None:
+            raise ValueError(
+                f"BatchNorm(axis_name={axis_name!r}): cross-replica BatchNorm is not "
+                "ported yet (it comes with ROADMAP queue 1 item 2); pass axis_name=None "
+                "(per-replica stats, averaged across ranks after each BSP step)")
+        self.axis_name = axis_name
         self.momentum = momentum
         self.eps = eps
         self.name = name

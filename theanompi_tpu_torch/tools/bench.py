@@ -4,6 +4,7 @@ the batch resident on the card, the input pipeline left out.
     python -m theanompi_tpu_torch.tools.bench --model alexnet --fused-update
     python -m theanompi_tpu_torch.tools.bench --model googlenet --fused-update --pool-kernel
     python -m theanompi_tpu_torch.tools.bench --model lm_136m
+    python -m theanompi_tpu_torch.tools.bench --model wrn|resnet50|vgg16 --fused-update
         [--steps 20] [--trials 5] [--eager] [--seed 0] [--recipe-arg K=V ...]
         [--device cpu]
 
@@ -28,8 +29,10 @@ raises when the measured rate beats 100% of the card's data-sheet peak.
 The models and their batches are the port's recipes: AlexNet at 128
 (227x227x3, 1000 classes, bf16 compute), GoogLeNet at the repo's
 single-card batch 512 (224x224x3, bf16), TransformerLM_136M at 8 windows
-of 1024 tokens (bf16, Adam). The last stdout line is one JSON object:
-``metric`` (``{model}_{dataset}_bsp_images_per_sec_1chip``; ``_cpu`` in
+of 1024 tokens (bf16, Adam), WRN-28-10 at config #1's 128 (32x32x3, 10
+classes, fp32, Nesterov), ResNet-50 at 256 and VGG16 at 128 (224x224x3,
+1000 classes, bf16; the batches of ``models/zoo.py::zoo_entry``). The
+last stdout line is one JSON object: ``metric`` (``{model}_{dataset}_bsp_images_per_sec_1chip``; ``_cpu`` in
 place of ``_1chip`` on the CPU), ``value``, ``unit``, ``tokens_per_sec``
 for the LM, ``mfu``, ``timing``, ``captured``, ``device_kind`` and
 ``power_limit_w`` (``nvidia-smi``; ``null`` where it cannot be read).
@@ -50,16 +53,20 @@ import torch
 
 from theanompi_tpu_torch.device import resolve_device
 from theanompi_tpu_torch.launch.session import resolve_model
+from theanompi_tpu_torch.models import MODEL_REGISTRY
 from theanompi_tpu_torch.models.contract import as_dtype
 from theanompi_tpu_torch.parallel.bsp import BSPEngine
 from theanompi_tpu_torch.train import make_multi_step
 from theanompi_tpu_torch.utils.flops import CostModel, count_step_flops, peak_flops
 
-# bench name -> (zoo module, class, batch)
+# bench name -> (MODEL_REGISTRY name, batch)
 MODELS = {
-    "alexnet": ("alexnet", "AlexNet", 128),
-    "googlenet": ("googlenet", "GoogLeNet", 512),
-    "lm_136m": ("transformer_lm", "TransformerLM_136M", 8),
+    "alexnet": ("alexnet", 128),
+    "googlenet": ("googlenet", 512),
+    "lm_136m": ("transformer_lm_136m", 8),
+    "wrn": ("wrn", 128),
+    "resnet50": ("resnet50", 256),
+    "vgg16": ("vgg16", 128),
 }
 
 
@@ -108,8 +115,8 @@ def bench_compute(model_name: str = "alexnet", steps: int = 20, trials: int = 5,
         raise ValueError(f"unknown bench model {model_name!r}; available: {sorted(MODELS)}")
     if steps < 1 or trials < 1:
         raise ValueError(f"steps ({steps}) and trials ({trials}) must be >= 1")
-    zoo, cls_name, default_batch = MODELS[model_name]
-    model_cls = resolve_model(zoo, cls_name)
+    zoo, default_batch = MODELS[model_name]
+    model_cls = resolve_model(zoo, MODEL_REGISTRY[zoo][1])
     recipe = model_cls.default_recipe().replace(
         **{"batch_size": default_batch, **(recipe_overrides or {})})
     model = model_cls(recipe, pool_kernel=pool_kernel)

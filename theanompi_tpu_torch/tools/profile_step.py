@@ -1,6 +1,7 @@
 """Where a full-width training step's time goes on the card.
 
-    python -m theanompi_tpu_torch.tools.profile_step [--model alexnet|lm|googlenet]
+    python -m theanompi_tpu_torch.tools.profile_step
+        [--model alexnet|lm|googlenet|wrn|resnet50|vgg16]
         [--no-pool-kernel] [--dataset synthetic|imagenet_synthetic|imagenet]
         [--root SHARD_DIR] [--steps 10] [--out PATH]
 
@@ -11,7 +12,10 @@ recipe (``BSPEngine`` with ``--fused-update``, batch 128, 227x227x3,
 flash kernels), or with ``--model googlenet`` full-width GoogLeNet's at
 the repo's single-card batch 512 (224x224x3, 1000 classes, bf16 compute,
 ``--fused-update``, the inception pools on the pool kernels unless
-``--no-pool-kernel``), and measures, on the card:
+``--no-pool-kernel``), or with ``--model wrn|resnet50|vgg16`` the zoo's
+WRN-28-10 at config #1's batch 128 (32x32x3, 10 classes, fp32, Nesterov),
+ResNet-50 at 256 or VGG16 at 128 (224x224x3, 1000 classes, bf16), all
+``--fused-update``, and measures, on the card:
 
 - ``device_step_ms``: one training step with the batch already on the
   card (CUDA events over ``--steps`` steps, after warm-up) — the step
@@ -22,11 +26,15 @@ the repo's single-card batch 512 (224x224x3, 1000 classes, bf16 compute,
   sum is the busy time) against the step's wall time;
 - ``kernels``: device time per kernel name per step, largest first, with
   the fused optimizer kernel's share;
+- ``pad_ms_per_step``: the device time of ``aten::constant_pad_nd`` (the
+  ``F.pad`` copies of SAME convolutions with asymmetric padding and of
+  padded max pools) per step, and ``pad_calls_per_step``;
 - ``heads_major_ms_per_step`` (LM): the copies of q, k and v into the
   flash kernels' heads-major layout, three a layer, timed alone;
 - ``h2d_ms``: the pinned, non-blocking copy of one input batch;
 - ``categories``: the same device time summed by kind of kernel
-  (flash attention, the pool kernels, convolution/GEMM, cuDNN layout
+  (flash attention, the pool kernels, convolution/GEMM (cuDNN's FFT
+  convolutions included), cuDNN layout
   transforms, dtype casts and copies, elementwise, pooling, reductions,
   the fused optimizer update, other);
 - ``feed``: the host side of one train batch of ``--dataset`` as the
@@ -72,7 +80,10 @@ from theanompi_tpu_torch.data.loader import host_tensors, pinned_array
 from theanompi_tpu_torch.models.alex_net import AlexNet
 from theanompi_tpu_torch.models.googlenet import GoogLeNet
 from theanompi_tpu_torch.models.lm import TransformerLM_136M
+from theanompi_tpu_torch.launch.session import resolve_model
+from theanompi_tpu_torch.models import MODEL_REGISTRY
 from theanompi_tpu_torch.parallel.bsp import BSPEngine
+from theanompi_tpu_torch.tools.bench import MODELS
 from theanompi_tpu_torch.train import make_input_transform
 
 
@@ -87,8 +98,10 @@ def _events_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def _device_us(evt) -> float:
-    for name in ("self_device_time_total", "self_cuda_time_total"):
+def _device_us(evt, own: bool = True) -> float:
+    """An event's device time; ``own=False``: with that of the ops it calls."""
+    prefix = "self_" if own else ""
+    for name in (f"{prefix}device_time_total", f"{prefix}cuda_time_total"):
         if hasattr(evt, name):
             return float(getattr(evt, name))
     return 0.0
@@ -102,7 +115,8 @@ CATEGORIES = (
     ("fused_update", ("fused_update_multi_kernel", "momentum_kernel", "sgd_kernel")),
     ("layout_transform", ("tensorTransform", "nhwcSlice", "nchwToNhwc", "nhwcToNchw")),
     ("copy_cast", ("direct_copy",)),
-    ("conv_gemm", ("conv", "gemm", "xmma", "cutlass", "wgrad", "dgrad", "fprop", "nvjet")),
+    ("conv_gemm", ("conv", "gemm", "xmma", "cutlass", "wgrad", "dgrad", "fprop", "nvjet",
+                   "fft", "pointwise_mult_and_sum_complex")),
     ("pooling", ("pool",)),
     ("reduction", ("reduce",)),
     ("elementwise", ("elementwise",)),
@@ -118,6 +132,8 @@ def _category(name: str) -> str:
 
 # GoogLeNet's single-card batch (the reference's zoo row, models/zoo.py)
 GOOGLENET_BATCH = 512
+# the zoo's models, built as the benchmark builds them (tools/bench.py)
+ZOO_MODELS = ("wrn", "resnet50", "vgg16")
 # the side of the ImageNet shards' images (the reference's 256x256 file-batches)
 SHARD_SIDE = 256
 CROP_FUNCTIONS = ("tmpi_crop_mirror_u8", "tmpi_crop_mirror_normalize")
@@ -217,6 +233,10 @@ def profile(steps: int = 10, warmup: int = 3, top: int = 15, host_batches: int =
     elif model_name == "googlenet":
         model = GoogLeNet(GoogLeNet.default_recipe().replace(batch_size=GOOGLENET_BATCH),
                           pool_kernel=pool_kernel)
+    elif model_name in ZOO_MODELS:
+        zoo, batch = MODELS[model_name]
+        cls = resolve_model(zoo, MODEL_REGISTRY[zoo][1])
+        model = cls(cls.default_recipe().replace(batch_size=batch))
     else:
         model = AlexNet()
     r = model.recipe
@@ -278,6 +298,9 @@ def profile(steps: int = 10, warmup: int = 3, top: int = 15, host_batches: int =
     per_kernel = sorted(((e.key, _device_us(e) / 1e3 / steps, e.count // steps) for e in kernels),
                         key=lambda r: -r[1])
     fused_ms = sum(ms for name, ms, _ in per_kernel if _category(name) == "fused_update")
+    pads = [e for e in prof.key_averages() if e.key == "aten::constant_pad_nd"]
+    pad_ms = sum(_device_us(e, own=False) for e in pads) / 1e3 / steps
+    pad_calls = sum(e.count for e in pads) // steps
     categories: dict = {}
     for name, ms, _ in per_kernel:
         cat = _category(name)
@@ -310,6 +333,8 @@ def profile(steps: int = 10, warmup: int = 3, top: int = 15, host_batches: int =
         "fused_update_share": fused_ms / busy_ms if kernels and busy_ms else None,
         "flash_ms_per_step": categories.get("flash_attention") if kernels else None,
         "pool_kernel_ms_per_step": categories.get("pool_kernel") if kernels else None,
+        "pad_ms_per_step": pad_ms if kernels else None,
+        "pad_calls_per_step": pad_calls,
         "heads_major_ms_per_step": heads_major_ms,
         "peak_memory_bytes": peak_bytes,
         "categories": categories if kernels else None,
@@ -327,9 +352,11 @@ def profile(steps: int = 10, warmup: int = 3, top: int = 15, host_batches: int =
 
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    p.add_argument("--model", choices=["alexnet", "lm", "googlenet"], default="alexnet",
-                   help="AlexNet (fused update), TransformerLM_136M (Adam, flash kernels) or "
-                        "GoogLeNet (fused update, pool kernels)")
+    p.add_argument("--model", choices=["alexnet", "lm", "googlenet", *ZOO_MODELS],
+                   default="alexnet",
+                   help="AlexNet (fused update), TransformerLM_136M (Adam, flash kernels), "
+                        "GoogLeNet (fused update, pool kernels), or WRN-28-10, ResNet-50 or "
+                        "VGG16 (fused update)")
     p.add_argument("--no-pool-kernel", action="store_true",
                    help="GoogLeNet's inception pools on F.max_pool2d instead of the pool kernels")
     p.add_argument("--dataset", choices=["synthetic", "imagenet_synthetic", "imagenet"],

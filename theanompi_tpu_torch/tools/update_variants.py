@@ -160,13 +160,19 @@ def prepare(entry, rule, ps, gs, sc, vs=None, *, chunk=fu.CHUNK, momentum=0.0,
 
 
 def leaf_specs(model: str) -> list:
-    """``[(shape, channels_last)]`` of a model's parameter leaves, in
-    ``tree_leaves`` order (AlexNet 16, GoogLeNet 128)."""
-    if model == "alexnet":
-        from theanompi_tpu_torch.models.alex_net import AlexNet as cls
-    else:
-        from theanompi_tpu_torch.models.googlenet import GoogLeNet as cls
-    params, _ = cls().init(torch.Generator().manual_seed(0), "cpu")
+    """``[(shape, channels_last)]`` of a model's parameter leaves at its
+    recipe's shapes, in ``tree_leaves`` order (AlexNet 16, GoogLeNet 128,
+    WRN-28-10 80, ResNet-50 161, VGG16 32): a ``MODEL_REGISTRY`` name or a
+    ``models/zoo.py::zoo_entry`` one, drawn on the meta device."""
+    from theanompi_tpu_torch.launch.session import resolve_model
+    from theanompi_tpu_torch.models import MODEL_REGISTRY
+    from theanompi_tpu_torch.models.zoo import zoo_entry
+
+    cls = (resolve_model(model, MODEL_REGISTRY[model][1]) if model in MODEL_REGISTRY
+           else zoo_entry(model)[0])
+    m = cls()
+    with torch.device("meta"):
+        params, _ = m.init_tree(None)
     return [(tuple(p.shape), p.dim() == 4 and not p.is_contiguous()
              and p.is_contiguous(memory_format=torch.channels_last))
             for p in tree_leaves(params)]
