@@ -140,6 +140,36 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                 leaves; under ring_int8 at n ranks n and 2n-1. Losses finite; params and velocities
                 bit-identical across ranks (digests); each rank's
                 error-feedback residual nonzero and its own.
+   bsp-exchange — the rest of the BSP exchange, one spawn of the ranks,
+                every run through ``run_training`` (the CLI's per-rank
+                entry point) with the counters zeroed just before it: (a)
+                full-width ResNet-50, global batch 64 a rank of uint8
+                ``imagenet_synthetic``, ``--fused-update``, psum in 25 MB
+                buckets, with ``bn_axis_name=data`` (cross-replica BN) and
+                without it; (b) full-width AlexNet (128) over 2 slices:
+                flat psum, hier, hier with int8:ef; (c) AlexNet under
+                psum + int8:ef, ring_int8, 25 MB buckets and buckets +
+                int8:ef. With 4 cards (NCCL, one a rank): 8 steps, (a)
+                and (c) also in captured groups of 4, which must equal
+                the eager runs bit for bit (losses, replica, residual and
+                BN digests; (a)'s last checkpoint's 106 BN entries), and
+                (d) where the step goes under psum, buckets and hier, in
+                turns: eager and captured step ms per rank (CUDA events)
+                and the NCCL kernels' device ms (``torch.profiler``; the
+                rank that arrives last reads the exchange's own time). With one card: 2 ranks on
+                cuda:0 over gloo, 4 steps, eager only; a captured group
+                of gloo ranks must be refused; what could not run is
+                printed. Every run: finite losses, params, velocities
+                and BN statistics equal on every rank; per step one
+                fused_momentum, quant_block and dequant_block one each
+                under hier + int8:ef and psum + int8:ef, one each a
+                bucket under buckets + int8:ef, n and 2n-1 under
+                ring_int8, none otherwise; residuals nonzero and each
+                rank's own. (a)'s trajectory differs from per-replica
+                BN's; (b)'s hier is within 1e-2 of psum (losses
+                relative, the params' change in relative norm).
+                ``python3 chip_smoke.py --only bsp-exchange`` builds the
+                two kernels it needs and runs this phase alone.
    lm-main    — full-width TransformerLM_136M (12 layers, d 768, 12 heads
                 of 64, T 1024, vocab 32768, batch 8, bf16 compute, Adam,
                 random weights from a seed) through the CLI for 6 steps
@@ -945,6 +975,328 @@ def phase_bsp_ranks(n_cards):
                        "launches": {k: sum(c[k] for c in summary["kernel_launches_per_rank"])
                                     for k in ("quant_block", "dequant_block")}}
     return runs
+
+
+# phase bsp-exchange: (steps, group) of each run; one card runs fewer steps
+EXCHANGE_STEPS = {4: 8, 1: 4}
+EXCHANGE_K = 4
+EXCHANGE_BUCKET_MB = 25.0
+EXCHANGE_PROFILE_STEPS = 5
+
+
+def exchange_runs(n: int, steps: int, ckpt_root: str) -> list:
+    """``[(label, modelfile, modelclass, run_training kwargs)]`` of phase
+    bsp-exchange over ``n`` ranks: (a) ResNet-50 with cross-replica BN,
+    eager and in captured groups, and without the BN axis; (b) AlexNet
+    under hier over 2 slices, with and without int8:ef, and flat psum;
+    (c) AlexNet's exchanges, eager and (NCCL ranks only) in captured
+    groups."""
+    imnet = lambda batch: dict(dataset="imagenet_synthetic",  # noqa: E731
+                               dataset_kwargs={"n_train": batch * steps, "n_val": batch})
+    common = dict(max_steps=steps, print_freq=0, seed=0, fused_update=True)
+    rn_batch = 64 * n
+    resnet = dict(common, **imnet(rn_batch), recipe_overrides={"batch_size": rn_batch},
+                  strategy="psum", allreduce_buckets=EXCHANGE_BUCKET_MB)
+    bn = dict(resnet, recipe_overrides={"batch_size": rn_batch, "bn_axis_name": "data"})
+    alex = dict(common, **imnet(128))
+    modes = [("eager", 1)] + ([("captured", EXCHANGE_K)] if n >= 4 else [])
+    runs = [("a/resnet50-bn-eager", "resnet50", "ResNet50",
+             dict(bn, ckpt_dir=os.path.join(ckpt_root, "bn-eager"), async_checkpoint=False))]
+    if n >= 4:
+        runs.append(("a/resnet50-bn-captured", "resnet50", "ResNet50",
+                     dict(bn, steps_per_dispatch=EXCHANGE_K, async_checkpoint=False,
+                          ckpt_dir=os.path.join(ckpt_root, "bn-captured"))))
+    runs.append(("a/resnet50-per-replica", "resnet50", "ResNet50", resnet))
+    for label, kw in (("b/psum", {"ckpt_dir": os.path.join(ckpt_root, "psum")}),
+                      ("b/hier", {"strategy": "hier", "ckpt_dir": os.path.join(ckpt_root, "hier")}),
+                      ("b/hier+int8:ef", {"strategy": "hier", "wire_codec": "int8:ef"})):
+        runs.append((label, "alexnet", "AlexNet",
+                     dict(alex, n_slices=2, async_checkpoint=False, **kw)))
+    for label, kw in (("psum+int8:ef", {"wire_codec": "int8:ef"}),
+                      ("ring_int8", {"strategy": "ring_int8"}),
+                      ("buckets", {"allreduce_buckets": EXCHANGE_BUCKET_MB}),
+                      ("buckets+int8:ef", {"allreduce_buckets": EXCHANGE_BUCKET_MB,
+                                           "wire_codec": "int8:ef"})):
+        for mode, k in modes:
+            runs.append((f"c/{label}-{mode}", "alexnet", "AlexNet",
+                         dict(alex, steps_per_dispatch=k, **kw)))
+    return runs
+
+
+EXCHANGE_PROFILE_TURNS = ("psum", "buckets", "hier", "hier", "buckets", "psum")
+
+
+def exchange_profile(rank: int, n: int, device) -> dict:
+    """(d) Where the step of n NCCL ranks goes: full-width AlexNet (global
+    batch 128, float32 batches resident on the card) under flat psum,
+    25 MB buckets and hier over 2 slices, in turns (EXCHANGE_PROFILE_TURNS):
+    the eager step ms (CUDA events over EXCHANGE_PROFILE_STEPS steps
+    after 3 warm-up steps), under ``torch.profiler`` the device ms a step
+    of the NCCL kernels (``ncclDevKernel*``: their time includes waiting
+    for the peers, so the rank that arrives last reads the exchange's
+    own time) and of every other kernel, and the captured step ms (CUDA
+    events over a group of EXCHANGE_PROFILE_STEPS replays, after the
+    group that captures) -> ``{config: [one dict a turn]}``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from theanompi_tpu_torch.models.alex_net import AlexNet
+    from theanompi_tpu_torch.parallel.bsp import BSPEngine
+    from theanompi_tpu_torch.tools.profile_step import _device_us
+
+    configs = {"psum": {}, "buckets": {"allreduce_buckets": EXCHANGE_BUCKET_MB},
+               "hier": {"strategy": "hier", "n_slices": 2}}
+    out = {label: [] for label in configs}
+    gen = torch.Generator(device=device).manual_seed(rank)
+    x = torch.randn(128 // n, 227, 227, 3, generator=gen, device=device)
+    y = torch.randint(0, 1000, (128 // n,), generator=gen, device=device, dtype=torch.int32)
+    k = EXCHANGE_PROFILE_STEPS
+
+    def events_ms(fn) -> float:
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / k
+
+    for label in EXCHANGE_PROFILE_TURNS:
+        engine = BSPEngine(AlexNet(), n, device, fused_update=True, **configs[label])
+        state = engine.init_state(torch.Generator().manual_seed(0))
+        step_gen = torch.Generator(device=device).manual_seed(1)
+
+        def steps():
+            nonlocal state
+            for _ in range(k):
+                state, _ = engine.train_step(state, x, y, step_gen)
+
+        for _ in range(3):
+            state, _ = engine.train_step(state, x, y, step_gen)
+        torch.cuda.synchronize(device)
+        step_ms = events_ms(steps)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            steps()
+            torch.cuda.synchronize(device)
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA and _device_us(e) > 0
+                   and not e.key.startswith("nccl:")]  # the collectives' own annotations
+        nccl = sum(_device_us(e) for e in kernels if e.key.startswith("ncclDevKernel"))
+        other = sum(_device_us(e) for e in kernels if not e.key.startswith("ncclDevKernel"))
+        state, _ = engine.fused_train_step(state, [x] * k, [y] * k, step_gen)  # captures
+        captured_ms = events_ms(lambda: engine.fused_train_step(state, [x] * k, [y] * k,
+                                                                step_gen))
+        out[label].append({
+            "step_ms": step_ms, "captured_step_ms": captured_ms,
+            "nccl_kernel_ms_per_step": nccl / 1e3 / k,
+            "other_kernel_ms_per_step": other / 1e3 / k,
+            "nccl_kernels": sorted({e.key[:60] for e in kernels
+                                    if e.key.startswith("ncclDevKernel")}),
+            "n_buckets": (len(engine.grad_sync.buckets_for(state.params))
+                          if hasattr(engine.grad_sync, "buckets_for") else None)})
+        del engine, state
+        torch.cuda.empty_cache()
+    return out
+
+
+def exchange_rank(rank, n, device, runs, profile_too):
+    """One rank of phase bsp-exchange: every run of ``runs`` through
+    ``run_training`` (the CLI's per-rank entry point), the counters zeroed
+    just before each and read just after (each summary carries every
+    rank's), and a refused captured group for gloo ranks on the card;
+    then (NCCL ranks) the profile of (d). Rank 0 returns the summaries."""
+    import torch
+
+    from theanompi_tpu_torch.launch.session import resolve_model
+    from theanompi_tpu_torch.launch.worker import run_training
+    from theanompi_tpu_torch.ops.kernels import reset_launch_counts
+
+    out = {}
+    for label, modelfile, modelclass, kw in runs:
+        torch.cuda.empty_cache()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        out[label] = run_training("bsp", resolve_model(modelfile, modelclass), n,
+                                  device=device, **kw)
+        out[label]["wall_s"] = time.perf_counter() - t0
+        if rank == 0:
+            print(f"[bsp-exchange] {label}: {out[label]['wall_s']:.1f} s", flush=True)
+    if profile_too:
+        out["d"] = exchange_profile(rank, n, device)
+    elif torch.device(device).type == "cuda":  # gloo ranks on the card
+        try:
+            run_training("bsp", resolve_model("alexnet", "AlexNet"), n, device=device,
+                         max_steps=2, steps_per_dispatch=2)
+            out["gloo_capture_refusal"] = None
+        except ValueError as e:
+            out["gloo_capture_refusal"] = str(e)
+    if profile_too:
+        gathered = [None] * n
+        torch.distributed.all_gather_object(gathered, out["d"])
+        out["d"] = gathered
+    return out if rank == 0 else None
+
+
+def _params_change_rel(path_a: str, path_b: str, p0: dict) -> float:
+    """‖(a - p0) - (b - p0)‖ / ‖b - p0‖ over every param entry of two
+    checkpoints: how far two runs' parameter changes part."""
+    from theanompi_tpu_torch.utils.checkpoint import load_checkpoint
+
+    a, b = load_checkpoint(path_a), load_checkpoint(path_b)
+    num = den = 0.0
+    for k, v0 in p0.items():
+        da = a[k].astype("float64") - v0
+        db = b[k].astype("float64") - v0
+        num += float(((da - db) ** 2).sum())
+        den += float((db ** 2).sum())
+    return (num / den) ** 0.5
+
+
+def _initial_params(modelfile: str, modelclass: str) -> dict:
+    """The ``.params/...`` entries a run with seed 0 starts from."""
+    import torch
+
+    from theanompi_tpu_torch import bridge
+    from theanompi_tpu_torch.launch.session import resolve_model
+    from theanompi_tpu_torch.train import init_train_state
+    from theanompi_tpu_torch.utils.checkpoint import to_numpy
+
+    model = resolve_model(modelfile, modelclass)()
+    state = init_train_state(model, torch.Generator().manual_seed(0), "cpu")
+    entries = bridge.state_entries(state, model.param_layouts(state.params))
+    return {k: to_numpy(v).astype("float64") for k, v in entries.items()
+            if k.startswith(".params/")}
+
+
+def _newest(ckpt_dir: str) -> str:
+    files = sorted(os.listdir(ckpt_dir), key=lambda f: int(re.search(r"(\d+)", f).group(1)))
+    return os.path.join(ckpt_dir, [f for f in files if f.endswith(".npz")][-1])
+
+
+def phase_bsp_exchange(n_cards: int) -> dict:
+    """The rest of the BSP exchange (module docstring, phase bsp-exchange)."""
+    import torch
+
+    from theanompi_tpu_torch.launch.session import spawn_ranks
+    from theanompi_tpu_torch.parallel.strategies import assign_buckets
+    from theanompi_tpu_torch.tools.update_variants import leaf_specs
+
+    nccl = n_cards >= 4
+    n = 4 if nccl else 2
+    steps = EXCHANGE_STEPS[4 if nccl else 1]
+    if not nccl:
+        print("[bsp-exchange] one card: 2 ranks on cuda:0 over gloo, every run eager. Not run "
+              "here: NCCL; captured groups of several ranks (gloo refuses them); hier's "
+              "in-slice reduce-scatter and all-gather (2 ranks in 2 slices have one rank a "
+              "slice); the 4-card split (d)", flush=True)
+    root = tempfile.mkdtemp(prefix="tmpi-exchange-")
+    try:
+        runs = exchange_runs(n, steps, root)
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        res = spawn_ranks(exchange_rank, n, (runs, nccl),
+                          device=None if nccl else "cuda:0",
+                          backend="nccl" if nccl else "gloo", timeout=900)[0]
+        wall = time.perf_counter() - t0
+        alex_buckets = len(assign_buckets([torch.empty(s, device="meta")
+                                           for s, _ in leaf_specs("alexnet")],
+                                          int(EXCHANGE_BUCKET_MB * 2 ** 20)))
+        update = {"alexnet": update_launches(16), "resnet50": update_launches(161)}
+        codec_per_step = {"a/resnet50-bn-eager": 0, "a/resnet50-bn-captured": 0,
+                          "a/resnet50-per-replica": 0, "b/psum": 0, "b/hier": 0,
+                          "b/hier+int8:ef": 1}
+        for label, modelfile, _, kw in runs:
+            s = res[label]
+            losses = s["losses"]
+            check(s["steps"] == steps and len(losses) == steps and s["nonfinite_steps"] == 0
+                  and all(math.isfinite(v) for v in losses), f"{label}: losses {losses}")
+            check(len(set(s["replica_digest_per_rank"])) == 1,
+                  f"{label}: params/velocities differ across ranks {s['replica_digest_per_rank']}")
+            check(len(set(s["model_state_digest_per_rank"])) == 1,
+                  f"{label}: BN statistics differ across ranks")
+            key = label[2:].rsplit("-", 1)[0]
+            if label.startswith("c/"):
+                per = ({"quant_block": 1, "dequant_block": 1} if key == "psum+int8:ef" else
+                       {"quant_block": n, "dequant_block": 2 * n - 1} if key == "ring_int8" else
+                       {"quant_block": alex_buckets, "dequant_block": alex_buckets}
+                       if key == "buckets+int8:ef" else {"quant_block": 0, "dequant_block": 0})
+            else:
+                c = codec_per_step[label]
+                per = {"quant_block": c, "dequant_block": c}
+            per["fused_momentum"] = update[modelfile]
+            for r, counts in enumerate(s["kernel_launches_per_rank"]):
+                for k, v in per.items():
+                    check(counts[k] == v * steps, f"{label}: rank {r} launched {k} {counts[k]} "
+                                                  f"times, expected {v} x {steps} steps")
+            if kw.get("wire_codec") == "int8:ef":
+                norms, efd = s["ef_norm_per_rank"], s["ef_digest_per_rank"]
+                check(all(x > 0 for x in norms) and len(set(efd)) == n,
+                      f"{label}: error-feedback residuals not per rank: {norms}, {efd}")
+            if kw.get("steps_per_dispatch", 1) > 1:
+                check(s["captured"] and s["graph"]["captures"] == 1,
+                      f"{label}: not captured once: {s['graph']}")
+            print(f"[bsp-exchange] {label} over {n} ranks ({s['device']}): losses {losses}; "
+                  f"step_ms per rank {s['step_ms_per_rank']}; {s['images_per_sec']:.1f} img/s; "
+                  f"launches per rank {s['kernel_launches_per_rank']}; graph {s['graph']}",
+                  flush=True)
+        # (a) the BN axis is on: another trajectory than per-replica BN
+        bn, per_replica = res["a/resnet50-bn-eager"], res["a/resnet50-per-replica"]
+        check(bn["losses"][1:] != per_replica["losses"][1:]
+              and bn["model_state_digest_per_rank"] != per_replica["model_state_digest_per_rank"],
+              "(a) cross-replica BN ran the per-replica trajectory")
+        pairs = []
+        if nccl:
+            pairs = [(f"c/{k}-eager", f"c/{k}-captured")
+                     for k in ("psum+int8:ef", "ring_int8", "buckets", "buckets+int8:ef")]
+            pairs.append(("a/resnet50-bn-eager", "a/resnet50-bn-captured"))
+            ca, cb = (_newest(os.path.join(root, d)) for d in ("bn-eager", "bn-captured"))
+            ea, eb = bn_entries(ca), bn_entries(cb)
+            check(sorted(ea) == sorted(eb) and len(ea) == 2 * 53
+                  and all(ea[k].tobytes() == eb[k].tobytes() for k in ea),
+                  "(a) the captured run's BN statistics are not the eager run's bit for bit")
+        for a, b in pairs:
+            for key in ("losses", "replica_digest_per_rank", "ef_digest_per_rank",
+                        "model_state_digest_per_rank"):
+                check(res[a][key] == res[b][key],
+                      f"{b} differs from {a} in {key}: {res[a][key]} vs {res[b][key]}")
+        # (b) hier against flat psum: the same mean associated otherwise
+        hier, flat = res["b/hier"], res["b/psum"]
+        loss_rel = max(abs(x - y) / abs(y) for x, y in zip(hier["losses"], flat["losses"]))
+        change_rel = _params_change_rel(_newest(os.path.join(root, "hier")),
+                                        _newest(os.path.join(root, "psum")),
+                                        _initial_params("alexnet", "AlexNet"))
+        print(f"[bsp-exchange] (b) hier against psum: losses {loss_rel:.3g} apart at most "
+              f"(relative), the params' change {change_rel:.3g} in relative norm", flush=True)
+        check(loss_rel < 1e-2 and change_rel < 1e-2,
+              f"(b) hier against psum: losses {hier['losses']} vs {flat['losses']}, the params' "
+              f"change {change_rel} apart in relative norm (limits 1e-2)")
+        summary = {"ranks": n, "backend": "nccl" if nccl else "gloo", "steps": steps,
+                   "wall_s": wall, "alexnet_buckets": alex_buckets,
+                   "hier_vs_psum_loss_rel": loss_rel, "hier_vs_psum_change_rel": change_rel,
+                   "runs": {label: {k: res[label][k] for k in (
+                       "losses", "step_ms_per_rank", "images_per_sec", "kernel_launches_per_rank",
+                       "graph", "wall_s")} for label, *_ in runs}}
+        if nccl:
+            summary["captured_bit_identical"] = [b for _, b in pairs]
+            summary["d"] = res["d"]
+            for label in ("psum", "buckets", "hier"):
+                for turn in range(len(res["d"][0][label])):
+                    ranks = [r[label][turn] for r in res["d"]]
+                    nccl = [p["nccl_kernel_ms_per_step"] for p in ranks]
+                    print(f"[bsp-exchange] (d) {label}, turn {turn}: eager step ms per rank "
+                          f"{[round(p['step_ms'], 3) for p in ranks]}, captured "
+                          f"{[round(p['captured_step_ms'], 3) for p in ranks]}; NCCL kernels "
+                          f"ms a step per rank {[round(v, 3) for v in nccl]} (the exchange's "
+                          f"own: {min(nccl):.3f}, the last rank to arrive); other kernels "
+                          f"{[round(p['other_kernel_ms_per_step'], 3) for p in ranks]}",
+                          flush=True)
+        else:
+            check(res["gloo_capture_refusal"] and "cannot be captured" in
+                  res["gloo_capture_refusal"],
+                  f"gloo ranks grouped steps on the card: {res['gloo_capture_refusal']}")
+        print("[bsp-exchange] " + json.dumps(summary), flush=True)
+        return summary
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
 
 
 def _keep_newest(ckpt_dir: str) -> None:
@@ -3155,6 +3507,34 @@ def phase_zoo_bench():
     return out
 
 
+def only_bsp_exchange(smi: str, kind: str, t_start: float) -> int:
+    """``--only bsp-exchange``: build the phase's kernels (the fused
+    update and the quantizer) and run phase bsp-exchange alone, on every
+    card there is; its JSON, the card line and the result line last."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+
+    from theanompi_tpu_torch.ops import fused_update as fu
+    from theanompi_tpu_torch.ops import quant as tq
+
+    try:
+        with ThreadPoolExecutor(max_workers=2) as pool:
+            for src, f in (("fused_update.cu", pool.submit(fu.build)),
+                           ("quant.cu", pool.submit(tq.build))):
+                print(f"[build] csrc/{src}: nvcc {f.result():.2f} s", flush=True)
+        exchange = phase_bsp_exchange(torch.cuda.device_count())
+    except Failed as e:
+        print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
+        return 1
+    print(f"chip_smoke: wall {time.perf_counter() - t_start:.1f} s", flush=True)
+    print(json.dumps({"bsp_exchange": exchange}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
 def build_all():
     """Build every kernel library at once (one nvcc per source, started
     together); returns {source: nvcc seconds}."""
@@ -3171,8 +3551,15 @@ def build_all():
         return {src: f.result() for src, f in futs.items()}
 
 
-def main() -> int:
+def main(argv=None) -> int:
     t_start = time.perf_counter()
+    args = sys.argv[1:] if argv is None else list(argv)
+    only = None
+    if args:
+        if args != ["--only", "bsp-exchange"]:
+            print("usage: python3 chip_smoke.py [--only bsp-exchange]", file=sys.stderr)
+            return 2
+        only = args[1]
     try:
         import torch
     except ImportError:
@@ -3203,6 +3590,8 @@ def main() -> int:
 
         from theanompi_tpu_torch.ops.kernels import library_path
 
+        if only == "bsp-exchange":
+            return only_bsp_exchange(smi, kind, t_start)
         t0 = time.perf_counter()
         builds = build_all()
         for src, secs in builds.items():
@@ -3277,6 +3666,10 @@ def main() -> int:
         t0 = time.perf_counter()
         rank_runs = phase_bsp_ranks(torch.cuda.device_count())
         print(f"[bsp-ranks] done ({time.perf_counter() - t0:.1f} s)", flush=True)
+
+        t0 = time.perf_counter()
+        exchange = phase_bsp_exchange(torch.cuda.device_count())
+        print(f"[bsp-exchange] done ({time.perf_counter() - t0:.1f} s)", flush=True)
 
         t0 = time.perf_counter()
         resume_runs = phase_resume()
@@ -3590,6 +3983,12 @@ def main() -> int:
                         for mode, counts in r["resumed_launches"].items()}
                 for label, r in resume_runs.items() if r["ranks"] > 1 or k["name"] ==
                 "fused_momentum"}
+    for k in kernels:
+        if k["name"] in ("fused_momentum", "quant_block", "dequant_block"):
+            # phase bsp-exchange's runs, each rank's count
+            k["bsp_exchange_launches"] = {
+                label: [c[k["name"]] for c in r["kernel_launches_per_rank"]]
+                for label, r in exchange["runs"].items()}
     for k in kernels:
         # each model's pair of phase-graph runs: launches eager and in
         # captured groups (equal, or the phase failed)

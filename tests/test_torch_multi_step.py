@@ -281,14 +281,17 @@ def test_grouped_steps_refuse_bad_arguments():
 
 
 def test_several_ranks_with_groups_on_the_card_are_refused():
+    """Several gloo ranks on the card are refused (gloo's CUDA
+    collectives cannot be captured); NCCL ranks capture their exchange."""
     card = torch.device("cuda", 0)  # an argument check: no card needed
-    with pytest.raises(ValueError, match="ROADMAP queue 1 item 3"):
-        check_fused_ranks(2, 4, card)
-    with pytest.raises(ValueError, match="ROADMAP queue 1 item 3"):
-        check_fused_ranks(4, 2, "cuda:1")
+    with pytest.raises(ValueError, match="gloo's collectives of CUDA tensors"):
+        check_fused_ranks(2, 4, card, "gloo")
+    with pytest.raises(ValueError, match="gloo's collectives of CUDA tensors"):
+        check_fused_ranks(4, 2, "cuda:1", "gloo")
+    check_fused_ranks(4, 2, card, "nccl")  # NCCL ranks group
     check_fused_ranks(1, 4, card)  # one rank groups
-    check_fused_ranks(2, 1, card)  # ranks step one at a time
-    check_fused_ranks(2, 4, "cpu")  # the CPU groups eagerly
+    check_fused_ranks(2, 1, card, "gloo")  # ranks step one at a time
+    check_fused_ranks(2, 4, "cpu", "gloo")  # the CPU groups eagerly
 
 
 def test_launch_counts_take_back_and_add_deltas():

@@ -206,8 +206,12 @@ def test_initialize_distributed_from_the_reference_env_names(tmp_path, monkeypat
 
 
 def test_hier_is_refused_until_ported():
-    with pytest.raises(ValueError, match="not ported yet"):
+    """hier is ported (tests/test_torch_hier.py); outside a multi-slice
+    run it is refused, as the reference refuses it on a 1-D mesh."""
+    with pytest.raises(ValueError, match="needs a multi-slice run"):
         tst.get_strategy("hier", 4, layouts=default_layouts)
+    with pytest.raises(ValueError, match="needs a 2-axis"):
+        jst.get_strategy("hier", "data", 4)
 
 
 def _lm_grads(n, seed=2):

@@ -264,13 +264,21 @@ def test_zoo_entry_and_the_registry_resolve_every_name():
 
 
 def test_batchnorm_with_an_axis_name_is_refused():
-    with pytest.raises(ValueError, match="queue 1 item 2"):
-        tnn.BatchNorm(axis_name="data")
-    recipe = TWRN_16_4.default_recipe().replace(bn_axis_name="data")
-    with pytest.raises(ValueError, match="cross-replica BatchNorm is not ported"):
-        TWRN_16_4(recipe)
-    with pytest.raises(ValueError, match="cross-replica BatchNorm is not ported"):
-        TResNet50(TResNet50.default_recipe().replace(bn_axis_name="data"))
+    """Cross-replica BN is ported (``tests/test_torch_cross_bn.py``):
+    outside a run of several ranks its axis is unbound, so a training
+    step is refused with ``NameError``, as the reference's unbound
+    ``pmean`` is; evaluation reads the running statistics and runs."""
+    bn = tnn.BatchNorm(axis_name="data")
+    params, state = bn.init(None, (2, 3))
+    with pytest.raises(NameError, match="unbound axis name"):
+        bn.apply(params, state, torch.randn(2, 3), train=True)
+    assert bn.apply(params, state, torch.randn(2, 3), train=False)[0].shape == (2, 3)
+    model = TWRN_16_4(TWRN_16_4.default_recipe().replace(bn_axis_name="data"))
+    params, state = model.init_tree(torch.Generator().manual_seed(0))
+    with pytest.raises(NameError, match="unbound axis name: 'data'"):
+        model.apply(params, state, torch.randn(2, 32, 32, 3), train=True)
+    assert TResNet50(TResNet50.default_recipe().replace(
+        bn_axis_name="data")).recipe.bn_axis_name == "data"
     assert tnn.BatchNorm().axis_name is None
     assert TWRN_16_4.default_recipe().bn_axis_name is None
 

@@ -28,7 +28,8 @@ entry names are the reference's tree paths (``.params/00_conv1/w``,
 ``.opt_state/vel/...``, ``.step``), every parameter-shaped leaf (a
 param, its velocity or Adam moment, its residual) follows the model's
 layout tag, and ``.ef/<leaf>`` is the ``[n, ...]`` stack of every rank's
-residual, as the reference keeps its residuals.
+residual, as the reference keeps its residuals (hier's ``:ef``: ``.ef``,
+the ``[n, seg]`` stack of the ranks' shard rows, or ``.ef/<bucket>``).
 """
 
 from __future__ import annotations
@@ -159,6 +160,15 @@ def _state_pairs(state, layouts: Tree) -> list:
     return out
 
 
+def _ef_layouts(ef: Tree, layouts: Tree) -> list:
+    """Layout tags of the residual leaves: a param-shaped tree (a dict,
+    the codec's one residual a leaf) takes the params' tags; hier's shard
+    rows (a tensor, or a tuple of one a bucket) are ``PLAIN``."""
+    if isinstance(ef, dict):
+        return tree_leaves(layouts)
+    return [PLAIN] * len(tree_leaves(ef))
+
+
 def state_entries(state, layouts: Tree, ef_ranks: list = None) -> dict:
     """The checkpoint entries of a TrainState, as tensors in the
     reference's layout (views where no copy is needed): params, model
@@ -171,7 +181,7 @@ def state_entries(state, layouts: Tree, ef_ranks: list = None) -> dict:
         if not ef_ranks:
             raise ValueError("state.ef has residuals: the .ef stack needs every rank's "
                              "residual tree (ef_ranks)")
-        lays = tree_leaves(layouts)
+        lays = _ef_layouts(state.ef, layouts)
         for i, (k, _) in enumerate(_paths(state.ef, ".ef")):
             rows = [to_reference_layout(tree_leaves(r)[i].detach(), lays[i]) for r in ef_ranks]
             entries[k] = torch.stack([r.to(rows[0].device) for r in rows])
@@ -218,7 +228,7 @@ def state_from_flat(flat: dict, template, layouts: Tree, rank: int = 0, world: i
     ignores them."""
     pairs = _state_pairs(template, layouts)
     vals = {k: _restored(_entry(flat, k), t, lay, k) for k, t, lay in pairs}
-    stacks = sorted(k for k in flat if k.startswith(".ef/"))
+    stacks = sorted(k for k in flat if k == ".ef" or k.startswith(".ef/"))
     for k in stacks:
         n = np.shape(flat[k])[0] if np.ndim(flat[k]) else None
         if n != world:
@@ -226,7 +236,7 @@ def state_from_flat(flat: dict, template, layouts: Tree, rank: int = 0, world: i
                              f"run has {world} (resharding is not ported)")
     ef = template.ef
     if tree_leaves(template.ef):
-        lays = tree_leaves(layouts)
+        lays = _ef_layouts(template.ef, layouts)
         ef_pairs = _paths(template.ef, ".ef")
         rows = [_restored(_entry(flat, k)[rank], t, lays[i], k)
                 for i, (k, t) in enumerate(ef_pairs)]

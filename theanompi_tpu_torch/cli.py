@@ -41,8 +41,18 @@ the JAX package resumes from these files and the port from its::
     python -m theanompi_tpu_torch.cli BSP 1 alexnet AlexNet --synthetic \
         --fused-update --max-steps 6 --ckpt-dir CKPT --save-dir LOGS --resume
 
+The rest of the reference's BSP exchange: cross-replica BatchNorm, the
+exchange in buckets posted from the backward, and the two-hop ``hier``
+exchange over 2 slices of 2 cards (its codec on the cross-slice hop)::
+
+    python -m theanompi_tpu_torch.cli BSP 4 resnet50 ResNet50 \
+        --dataset imagenet_synthetic --fused-update --recipe-arg bn_axis_name=data \
+        --allreduce-buckets 25 --max-steps 6 --dataset-arg n_train=1536 --dataset-arg n_val=256
+    python -m theanompi_tpu_torch.cli BSP 4 alexnet AlexNet --synthetic \
+        --fused-update --slices 2 --strategy hier --wire-codec int8:ef ...
+
 Steps in groups of 4, each step a replay of one captured CUDA graph of
-the train step (one card)::
+the train step (one card, or NCCL ranks on several)::
 
     python -m theanompi_tpu_torch.cli BSP 1 alexnet AlexNet \
         --dataset imagenet_synthetic --fused-update --max-steps 22 \
@@ -84,11 +94,23 @@ def build_parser() -> argparse.ArgumentParser:
                         "all-maxima backward (ops/pool.py); the reference's "
                         "TMPI_PALLAS_POOL=1")
     p.add_argument("--strategy", default="psum",
-                   help="gradient exchange: psum, psum_bf16, ring, ring_bf16, ring_int8 "
-                        "(aliases ar, nccl32, nccl16, asa32, asa16, ...)")
+                   help="gradient exchange: psum, psum_bf16, ring, ring_bf16, ring_int8, "
+                        "hier (aliases ar, nccl32, nccl16, asa32, asa16, ...). 'hier' is the "
+                        "two-hop exchange of --slices N runs: reduce-scatter inside a "
+                        "slice, all_reduce of the shard across slices (the only hop "
+                        "--wire-codec compresses), all-gather inside the slice")
     p.add_argument("--wire-codec", default="none",
                    help="compress the exchange: none, bf16, int8, with ':ef' for error "
                         "feedback (psum only), e.g. int8:ef")
+    p.add_argument("--slices", type=int, default=None,
+                   help="the ranks form this many slices (rows of the (dcn, data) mesh: "
+                        "ranks s*i .. s*i+s-1 are slice i); BatchNorm's 'data' axis is then "
+                        "the slice, 'dcn' the ranks across slices")
+    p.add_argument("--allreduce-buckets", type=float, default=0.0, metavar="MB",
+                   help="cut the gradient exchange (psum or hier) into buckets of about MB "
+                        "fp32 megabytes in reverse layer order, each posted from the "
+                        "backward as soon as its gradients are made (with an ':ef' codec, "
+                        "after the backward); 0: one exchange")
     p.add_argument("--backend", default=None, choices=["nccl", "gloo"],
                    help="process-group backend of several ranks (default: nccl on the "
                         "cards, gloo on the CPU)")
@@ -123,8 +145,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="run the steps in groups of this many: on the card each step of a "
                         "group replays one captured CUDA graph of the train step (one host "
                         "call a step, no wait for the card inside a group); groups never "
-                        "cross an epoch and the last one stops at --max-steps. One rank "
-                        "only on the card for now")
+                        "cross an epoch and the last one stops at --max-steps. Several "
+                        "ranks on the cards need the nccl backend")
     p.add_argument("--accum-steps", type=int, default=1,
                    help="gradient accumulation: split each rank's batch into this many "
                         "microbatches inside the step, their fp32 gradients averaged before "
@@ -192,6 +214,8 @@ def main(argv=None) -> int:
         print_freq=args.print_freq,
         steps_per_dispatch=args.steps_per_dispatch,
         accum_steps=args.accum_steps,
+        n_slices=args.slices,
+        allreduce_buckets=args.allreduce_buckets,
     )
     print(json.dumps(summary, default=str))
     return 0

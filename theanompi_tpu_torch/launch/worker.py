@@ -34,9 +34,10 @@ in the reference, ``recipe.batch_size`` is the GLOBAL batch: every rank
 walks the same shuffled global batches and gathers only its rows
 ``[r·B/n, (r+1)·B/n)``; its dropout stream is seeded from ``(seed,
 rank)``. Rank 0 prints; every rank returns the summary, which carries
-each rank's step time and kernel launch counts and, with several ranks,
-a digest of each rank's params and optimizer state (equal on every rank
-when the replicas agree) and of its error-feedback residuals.
+each rank's step time and kernel launch counts, a digest of each rank's
+params and optimizer state and one of its model state (BN statistics),
+equal on every rank when the replicas agree, and with several ranks one
+of its error-feedback residuals.
 
 Hot loop. A ``PrefetchLoader`` thread (``tmpi-prefetch``, pinned to
 ``TMPI_LOADER_CPUS`` when set) gathers each host batch (uint8 datasets
@@ -188,6 +189,8 @@ def run_training(
     print_freq: int = 40,
     steps_per_dispatch: int = 1,
     accum_steps: int = 1,
+    n_slices: Optional[int] = None,
+    allreduce_buckets: float = 0.0,
 ) -> dict:
     """Train ``model_cls`` under a sync rule; returns a summary dict.
 
@@ -201,20 +204,30 @@ def run_training(
     (``ops/pool.py``; a model with no such pool refuses). ``save_dir``:
     the recorder's JSONL log and pickled history. ``ckpt_dir``,
     ``async_checkpoint``, ``resume``: checkpoints (module docstring).
-    ``steps_per_dispatch``: steps a group (module docstring; several
-    ranks on the card are refused, ``bsp.check_fused_ranks``).
+    ``steps_per_dispatch``: steps a group (module docstring; gloo ranks
+    on the card are refused, ``bsp.check_fused_ranks``).
     ``accum_steps``: microbatches a step, their gradients averaged
-    before the one update (each rank's batch must divide by it)."""
+    before the one update (each rank's batch must divide by it).
+    ``n_slices``: the ranks in that many slices (``--slices``; the
+    ``hier`` strategy's two hops run over them). ``allreduce_buckets``:
+    the exchange in buckets of about that many MB, posted from the
+    backward (``--allreduce-buckets``; ``psum`` and ``hier``)."""
     device = resolve_device(device)
     k = int(steps_per_dispatch)
     if k < 1:
         raise ValueError(f"steps_per_dispatch must be >= 1, got {steps_per_dispatch}")
     if int(accum_steps) < 1:
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
-    check_fused_ranks(devices, k, device)
+    check_fused_ranks(devices, k, device,
+                      dist.get_backend() if devices > 1 and dist.is_initialized() else None)
     if model_cls is None:
         raise ValueError("model_cls is required")
     rule = rule.lower()
+    if allreduce_buckets and rule != "bsp":
+        raise ValueError(
+            "--allreduce-buckets buckets the BSP in-step gradient allreduce only "
+            "(EASGD/GoSGD exchange periodically — there is no every-step allreduce to "
+            "bucket)")
     if rule != "bsp":
         raise ValueError(f"rule {rule!r} is not ported yet; available: bsp")
 
@@ -281,7 +294,8 @@ def run_training(
     engine = BSPEngine(model, devices, device, steps_per_epoch=steps_per_epoch,
                        fused_update=fused_update, strategy=strategy, wire_codec=wire_codec,
                        input_transform=input_transform, eval_views=eval_views,
-                       accum_steps=accum_steps)
+                       accum_steps=accum_steps, n_slices=n_slices,
+                       allreduce_buckets=allreduce_buckets)
     rank = dist.get_rank() if devices > 1 else 0
     shard = host_local_batch_slice(batch, rank, devices)
     vshard = host_local_batch_slice(vbatch, rank, devices)
@@ -305,7 +319,8 @@ def run_training(
                      "wire_codec": get_codec(wire_codec).spec, "dataset": dataset,
                      "device_normalize": input_transform is not None, "eval_views": eval_views,
                      "steps_per_dispatch": k, "accum_steps": engine.accum_steps,
-                     "resumed_from_step": None}
+                     "slices": engine.axis_sizes[0], "allreduce_buckets": engine.allreduce_buckets,
+                     "bn_axis_name": recipe.bn_axis_name, "resumed_from_step": None}
 
     start_epoch = 0
     if resume and ckpt_dir:
@@ -553,6 +568,7 @@ def run_training(
     # what each rank holds at the end: the replicas must agree bit for
     # bit (and a run with its steps grouped must equal one without)
     own["replica_digest"] = _digest(tree_leaves((state.params, state.opt_state)))
+    own["model_state_digest"] = _digest(tree_leaves(state.model_state))
     per_rank = [own]
     if devices > 1:
         # the error-feedback residuals are each rank's own

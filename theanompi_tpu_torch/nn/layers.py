@@ -361,22 +361,23 @@ class Dropout(Layer):
 
 
 class BatchNorm(Layer):
-    """Batch normalization with running-stat state (per-replica stats).
+    """Batch normalization with running-stat state.
 
-    ``axis_name``: the reference's cross-replica BN (batch stats averaged
-    over the named mesh axis inside the step). The port takes only
-    ``None``, per-replica stats, which a BSP step averages across ranks
-    after the step (``parallel/bsp.py``, as the reference's ``pmean``);
-    any other value is refused, not ignored, until cross-replica BN is
-    ported (ROADMAP queue 1 item 2)."""
+    ``axis_name``: ``None`` keeps per-replica statistics, which a BSP step
+    averages across ranks after the step (``parallel/bsp.py``, as the
+    reference's ``pmean``). A mesh axis name (``"data"``, and under
+    ``--slices`` also ``"dcn"`` or ``("dcn", "data")``) is the
+    reference's cross-replica BN: in training the batch mean and E[x²]
+    are averaged over the ranks along that axis inside the step, in one
+    ``all_reduce`` of the two concatenated, and the gradient flows back
+    across the ranks (``parallel/mesh.py::pmean``). The name is looked
+    up at the first training step: outside a BSP run of several ranks it
+    is unbound and raises ``NameError`` (the reference's one-device step
+    raises the same for its unbound ``pmean``), and so does a name the
+    run's mesh does not have."""
 
     def __init__(self, momentum: float = 0.9, eps: float = 1e-5,
-                 axis_name: Optional[str] = None, name: str = "bn"):
-        if axis_name is not None:
-            raise ValueError(
-                f"BatchNorm(axis_name={axis_name!r}): cross-replica BatchNorm is not "
-                "ported yet (it comes with ROADMAP queue 1 item 2); pass axis_name=None "
-                "(per-replica stats, averaged across ranks after each BSP step)")
+                 axis_name=None, name: str = "bn"):
         self.axis_name = axis_name
         self.momentum = momentum
         self.eps = eps
@@ -394,6 +395,12 @@ class BatchNorm(Layer):
             xf = x.float()
             mean = xf.mean(dim=reduce_dims)
             mean_sq = torch.square(xf).mean(dim=reduce_dims)
+            if self.axis_name is not None:
+                from theanompi_tpu_torch.parallel.mesh import pmean
+
+                # two-moment form: both statistics in one collective
+                both = pmean(torch.cat([mean, mean_sq]), self.axis_name)
+                mean, mean_sq = both[:mean.numel()], both[mean.numel():]
             var = torch.clamp(mean_sq - torch.square(mean), min=0.0)
             m = self.momentum
             new_state = {

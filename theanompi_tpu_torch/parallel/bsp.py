@@ -1,24 +1,30 @@
 """BSP data-parallel training engine (port of ``theanompi_tpu/parallel/bsp.py``).
 
 The reference compiles forward, backward, the gradient exchange and the
-update into one SPMD program over a ``("data",)`` mesh. Here every rank
-is a process on its own card (``launch/session.py`` spawns them), in a
-``torch.distributed`` process group: each rank runs forward and backward
-on its shard of the global batch, the exchange strategy
-(``parallel/strategies.py``, optionally through a wire codec) turns its
-gradients into the mean over ranks, and every rank applies the same
-update, so the replicas stay identical. Metrics and model state (BN
-statistics) are averaged across ranks after the step, as the
-reference's ``pmean``.
+update into one SPMD program over a ``("data",)`` mesh, or a ``("dcn",
+"data")`` mesh under ``--slices``. Here every rank is a process on its
+own card (``launch/session.py`` spawns them), in a ``torch.distributed``
+process group whose mesh axes ``parallel/mesh.py`` binds: each rank runs
+forward and backward on its shard of the global batch, the exchange
+(``parallel/strategies.py``: ``psum``, the rings, ``hier`` over the
+slices, optionally through a wire codec and in buckets posted from the
+backward with ``allreduce_buckets``) turns its gradients into the mean
+over ranks, and every rank applies the same update, so the replicas
+stay identical. BatchNorm with an ``axis_name`` (``Recipe.bn_axis_name``)
+averages its batch statistics across the ranks of that axis inside the
+step. Metrics and model state (BN statistics) are averaged across all
+ranks after the step, as the reference's ``pmean``.
 
 ``n_devices == 1`` keeps the reference's shortcut: no collective and no
-codec — the step is exactly ``train.make_train_step`` (the strategy and
-codec names are still validated).
+codec — the step is exactly ``train.make_train_step`` (the strategy,
+codec and bucket arguments are still validated).
 
 Step fusion (``fused_train_step``, the CLI's ``--steps-per-dispatch``):
 a group of steps replays one captured CUDA graph of the step on the card
-(``graphs.StepGraph``), or runs eagerly on the CPU. Several ranks on the
-card are refused for now (``check_fused_ranks``).
+(``graphs.StepGraph``), the ranks' NCCL collectives inside it (every
+communicator meets its first collective in the graph's eager warm-up
+step), or runs eagerly on the CPU. gloo ranks on the card are refused
+(``check_fused_ranks``): gloo's CUDA collectives cannot be captured.
 """
 
 from __future__ import annotations
@@ -30,7 +36,13 @@ from theanompi_tpu_torch.device import resolve_device
 from theanompi_tpu_torch.graphs import StepGraph, eager_steps
 from theanompi_tpu_torch.models.contract import Model
 from theanompi_tpu_torch.parallel.codec import get_codec
-from theanompi_tpu_torch.parallel.strategies import get_strategy, mean_across_ranks
+from theanompi_tpu_torch.parallel.mesh import bind_axes, slice_topology
+from theanompi_tpu_torch.parallel.strategies import (
+    bucketed,
+    get_strategy,
+    hier_ef_template,
+    mean_across_ranks,
+)
 from theanompi_tpu_torch.train import (
     TrainState,
     _optimizer_for,
@@ -41,17 +53,18 @@ from theanompi_tpu_torch.train import (
 from theanompi_tpu_torch.tree import tree_leaves
 
 
-def check_fused_ranks(n_devices: int, steps_per_dispatch: int, device) -> None:
-    """Refuse captured groups of steps over several ranks on the card:
-    gloo's CUDA collectives cannot be captured, and a capture of NCCL's
-    psum and ring exchanges (codec included) needs a 4-card check of its
-    own (ROADMAP queue 1 item 3). One rank, or the CPU, may group."""
-    if n_devices > 1 and steps_per_dispatch > 1 and torch.device(device).type == "cuda":
+def check_fused_ranks(n_devices: int, steps_per_dispatch: int, device, backend=None) -> None:
+    """Refuse captured groups of steps over several gloo ranks on the
+    card: gloo runs a CUDA tensor's collective through host copies on
+    its own threads, which a CUDA graph cannot capture. NCCL ranks, one
+    rank, and the CPU (eager groups) may group."""
+    if n_devices > 1 and steps_per_dispatch > 1 and torch.device(device).type == "cuda" \
+            and backend == "gloo":
         raise ValueError(
-            f"steps_per_dispatch={steps_per_dispatch} with {n_devices} ranks on the card is "
-            "not ported yet: a group of steps replays a captured CUDA graph, and the "
-            "capture of the ranks' exchange is still to come (ROADMAP queue 1 item 3); "
-            "run several ranks with steps_per_dispatch=1, or one rank")
+            f"steps_per_dispatch={steps_per_dispatch} with {n_devices} gloo ranks on the "
+            "card: a group of steps replays a captured CUDA graph, and gloo's collectives "
+            "of CUDA tensors cannot be captured; use the nccl backend (one card a rank), "
+            "or steps_per_dispatch=1")
 
 
 class BSPEngine:
@@ -66,7 +79,11 @@ class BSPEngine:
     images first in both steps (``train.make_input_transform``);
     ``eval_views`` is the validation batches' views per image;
     ``accum_steps`` splits each rank's batch into that many microbatches
-    whose gradients average before the one update."""
+    whose gradients average before the one update. ``n_slices``: the
+    ranks form that many slices of ``n / n_slices`` (``parallel/mesh.py``;
+    the ``hier`` strategy needs more than one, the rings refuse it).
+    ``allreduce_buckets``: the exchange in buckets of about that many
+    MB (``strategies.bucketed``; ``psum`` and ``hier`` only)."""
 
     name = "bsp"
     exchange_every = 0  # the allreduce is inside every step
@@ -83,6 +100,8 @@ class BSPEngine:
         input_transform=None,
         eval_views: int = 1,
         accum_steps: int = 1,
+        n_slices=None,
+        allreduce_buckets: float = 0.0,
     ):
         self.device = resolve_device(device)
         self.model = model
@@ -90,13 +109,18 @@ class BSPEngine:
         self.fused_update = bool(fused_update)
         self.strategy = strategy
         self.codec = get_codec(wire_codec)
+        self.allreduce_buckets = float(allreduce_buckets or 0.0)
         if self.n < 1:
             raise ValueError(f"n_devices must be >= 1, got {n_devices}")
-        if self.n == 1:
-            get_strategy(strategy, 1, codec=self.codec,  # validate the names only
-                         layouts=model.param_layouts)
-            grad_sync = None
-        else:
+        self.axis_sizes = slice_topology(self.n, n_slices)
+        if strategy == "hier" and self.axis_sizes[0] < 2:
+            raise ValueError(
+                "strategy 'hier' is the cross-slice hierarchical exchange — it needs a "
+                "multislice mesh (--slices N with N > 1); on a single slice the flat "
+                "'psum' is already optimal")
+        sync_kw = dict(layouts=model.param_layouts,
+                       axis_sizes=self.axis_sizes if n_slices else None)
+        if self.n > 1:
             if not dist.is_initialized() or dist.get_world_size() != self.n:
                 have = dist.get_world_size() if dist.is_initialized() else "no process group"
                 raise RuntimeError(
@@ -104,10 +128,16 @@ class BSPEngine:
                     f"process group of {self.n} ranks ({have} here): launch it "
                     "through theanompi_tpu_torch.launch.session or the CLI"
                 )
-            # the exchange and the codec flatten each leaf in the
-            # reference's order, which the model's layout tags decide
-            grad_sync = get_strategy(strategy, self.n, codec=self.codec,
-                                     layouts=model.param_layouts)
+            bind_axes(self.n, n_slices)
+        # the exchange and the codec flatten each leaf in the reference's
+        # order, which the model's layout tags decide
+        if self.allreduce_buckets:
+            grad_sync = bucketed(strategy, self.n, self.allreduce_buckets, self.codec, **sync_kw)
+        else:
+            grad_sync = get_strategy(strategy, self.n, codec=self.codec, **sync_kw)
+        if self.n == 1:
+            grad_sync = None  # validated only: one rank has no collective
+        self.grad_sync = grad_sync
         self.accum_steps = int(accum_steps)
         self._step = make_train_step(model, steps_per_epoch, accum_steps=self.accum_steps,
                                      fused_update=fused_update, grad_sync=grad_sync,
@@ -121,7 +151,13 @@ class BSPEngine:
         residuals."""
         state = init_train_state(self.model, gen, self.device,
                                  optimizer=_optimizer_for(self.model, self.fused_update))
-        if self.n > 1:
+        if self.n > 1 and self.strategy == "hier" and self.codec.error_feedback:
+            # hier feeds the error back on its cross-slice shard: one row
+            # a rank (a bucket), not one residual a leaf
+            bucket_bytes = getattr(self.grad_sync, "bucket_bytes", None)
+            state = state._replace(ef=hier_ef_template(state.params, self.axis_sizes,
+                                                       bucket_bytes))
+        elif self.n > 1:
             state = state._replace(ef=self.codec.init_ef(state.params))
         return state
 
@@ -146,7 +182,8 @@ class BSPEngine:
         they run eagerly. ``after_step()`` runs after each step is
         enqueued."""
         # a fused call is a group, however short its trimmed last one
-        check_fused_ranks(self.n, max(2, len(images)), self.device)
+        check_fused_ranks(self.n, max(2, len(images)), self.device,
+                          dist.get_backend() if self.n > 1 else None)
         if self.device.type == "cuda":
             if self.graph is None:
                 self.graph = StepGraph(self.train_step, self.device)

@@ -1,20 +1,51 @@
-"""Rank and world helpers of data-parallel BSP (port of the parts of
-``theanompi_tpu/parallel/mesh.py`` the one-process-per-card model needs).
+"""Rank, world and mesh-axis helpers of data-parallel BSP (port of the
+parts of ``theanompi_tpu/parallel/mesh.py`` the one-process-per-card
+model needs).
 
-The reference runs one SPMD program over a ``("data",)`` mesh; here each
-rank is a process on its own card, so a mesh position is the rank.
+The reference runs one SPMD program over a ``("data",)`` mesh, or over a
+``("dcn", "data")`` mesh under ``--slices r`` (``make_multislice_mesh``:
+rows are slices, so ranks ``s·i … s·i+s−1`` form slice ``i``). Here each
+rank is a process on its own card, so a mesh position is the rank, and a
+mesh axis is a ``torch.distributed`` process group: :class:`AxisGroups`
+maps each axis name to the group of this rank along it.
+
+- flat run: ``"data"`` is the whole world;
+- ``--slices r`` over ``n = r·s`` ranks: ``"data"`` is this rank's slice
+  (``s`` ranks), ``"dcn"`` the ranks at its position in every slice
+  (``r`` ranks), ``("dcn", "data")`` the world.
+
+The groups of a run are bound to the process (:func:`bind_axes`, which
+``BSPEngine`` calls), as ``torch.distributed``'s default group is:
+a collective inside a layer (cross-replica BatchNorm) finds its group by
+the axis name (:func:`axis_group`). Outside a bound run, on one rank, an
+axis name is unbound and raises ``NameError``, as the reference's
+``lax.pmean`` does outside ``shard_map`` (its one-device BSP step runs
+without one).
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
+import numpy as np
 import torch
+import torch.distributed as dist
 
 DATA_AXIS = "data"
+DCN_AXIS = "dcn"
+
+
+def inv_f32(n: int) -> float:
+    """fl(1/n) in f32, exactly representable as a Python float: the
+    reference divides by the constant n, which XLA compiles into a
+    multiply by this (exact for n a power of two)."""
+    return float(np.float32(1.0 / n))
 
 
 def host_local_batch_slice(global_batch: int, rank: int, world: int) -> slice:
     """The rows ``[r·B/n, (r+1)·B/n)`` of the global batch that rank
-    ``r`` of ``n`` reads — the reference's shard of the ``data`` axis."""
+    ``r`` of ``n`` reads — the reference's shard of the ``data`` axis
+    (of both axes, slice-major, under ``--slices``)."""
     if global_batch % world:
         raise ValueError(
             f"global batch {global_batch} does not split evenly over {world} ranks"
@@ -29,3 +60,112 @@ def rank_generator(seed: int, rank: int, device) -> torch.Generator:
     ``fold_linear_index``, which folds the device's mesh index into the
     key. Its bits cannot match ``jax.random``'s."""
     return torch.Generator(device=device).manual_seed(seed * 1_000_003 + rank)
+
+
+def slice_topology(world: int, n_slices: Optional[int]) -> tuple:
+    """``(n_slices, per_slice)`` of ``world`` ranks (one slice without
+    ``n_slices``); raises unless the slices divide the world."""
+    r = int(n_slices or 1)
+    if r < 1 or world % r:
+        raise ValueError(f"{world} ranks do not divide into {r} slices")
+    return r, world // r
+
+
+def _axis_key(name):
+    if isinstance(name, (tuple, list)):
+        name = tuple(name)
+        return name[0] if len(name) == 1 else name
+    return name
+
+
+class AxisGroups:
+    """This rank's process group and size along each mesh axis of a run
+    of ``world`` ranks in ``n_slices`` slices. Every rank must build it,
+    in the same order (``dist.new_group`` is collective over the world)."""
+
+    def __init__(self, world: int, n_slices: Optional[int] = None):
+        if not dist.is_initialized() or dist.get_world_size() != world:
+            have = dist.get_world_size() if dist.is_initialized() else "no process group"
+            raise RuntimeError(f"mesh axes over {world} ranks need a process group of "
+                               f"{world} ranks ({have} here)")
+        self.world_group = dist.group.WORLD
+        self.topology = r, s = slice_topology(world, n_slices)
+        rank = dist.get_rank()
+        if r == 1:
+            self.groups = {DATA_AXIS: (self.world_group, world)}
+            return
+        ici = dcn = None
+        for i in range(r):  # every rank creates every group, in one order
+            g = dist.new_group(list(range(s * i, s * i + s)))
+            ici = g if rank // s == i else ici
+        for j in range(s):
+            g = dist.new_group(list(range(j, world, s)))
+            dcn = g if rank % s == j else dcn
+        self.groups = {DATA_AXIS: (ici, s), DCN_AXIS: (dcn, r),
+                       (DCN_AXIS, DATA_AXIS): (self.world_group, world)}
+
+    def __getitem__(self, name) -> tuple:
+        key = _axis_key(name)
+        try:
+            return self.groups[key]
+        except (KeyError, TypeError):
+            raise NameError(
+                f"unknown mesh axis name {name!r}; this run's axes are "
+                f"{sorted(map(str, self.groups))}") from None
+
+
+_GROUPS: dict = {}  # (n_slices, per_slice) -> this process's AxisGroups
+_BOUND: Optional[AxisGroups] = None  # the run's, which axis_group reads
+
+
+def bind_axes(world: int, n_slices: Optional[int] = None) -> AxisGroups:
+    """Bind the mesh axes of a run of ``world`` ranks in ``n_slices``
+    slices to this process, building its groups the first time (every
+    rank calls it, in the same order); returns them."""
+    global _BOUND
+    topology = slice_topology(world, n_slices)
+    axes = _GROUPS.get(topology)
+    if axes is None or axes.world_group is not dist.group.WORLD:
+        axes = _GROUPS[topology] = AxisGroups(world, n_slices)
+    _BOUND = axes
+    return axes
+
+
+def axis_group(name) -> tuple:
+    """``(group, size)`` of this rank along the mesh axis ``name`` (or a
+    tuple of names) of the bound run; ``NameError`` when no run of
+    several ranks is bound (one rank, as the reference's unbound
+    ``pmean``) or the run has no such axis."""
+    if _BOUND is None or not dist.is_initialized() or _BOUND.world_group is not dist.group.WORLD:
+        raise NameError(
+            f"unbound axis name: {name!r} — a cross-replica collective needs a BSP run of "
+            "several ranks (the reference's one-device step has no mapped axis either)")
+    return _BOUND[name]
+
+
+class _AllReduceMean(torch.autograd.Function):
+    """``pmean`` over a group, whose transpose is a ``pmean`` of the
+    cotangent: each rank's backward then carries the other ranks'
+    dependence on its input, as the reference's ``psum`` transpose does
+    (``theanompi_tpu/train.py``: classic pmap AD), and the exchange's
+    mean of the ranks' gradients is the gradient of the mean loss."""
+
+    @staticmethod
+    def forward(ctx, x, group, n):
+        ctx.group, ctx.n = group, n
+        y = x.detach().clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(y, group=group)
+        return y * inv_f32(n)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(g, group=ctx.group)
+        return g * inv_f32(ctx.n), None, None
+
+
+def pmean(x: torch.Tensor, axis_name) -> torch.Tensor:
+    """The mean of ``x`` over the ranks of the mesh axis ``axis_name``
+    (one ``all_reduce``), differentiable (:class:`_AllReduceMean`)."""
+    group, n = axis_group(axis_name)
+    return _AllReduceMean.apply(x, group, n)

@@ -66,18 +66,31 @@ def make_schedule_fn(model: Model, steps_per_epoch: int = 1):
     return schedule_lr
 
 
-def loss_and_grads(model: Model, params, model_state, images, labels, gen):
+def loss_and_grads(model: Model, params, model_state, images, labels, gen, param_sync=None):
     """Forward + backward -> ``(loss, logits, new_model_state, grads)``.
     ``grads`` is a tree shaped like ``params`` (from ``torch.autograd.grad``,
     so nothing accumulates into ``.grad``). ``logits`` is what the model's
     training forward returns, detached: a tensor, or a tuple of them
-    (GoogLeNet's main and auxiliary logits), which ``model.metrics`` takes."""
+    (GoogLeNet's main and auxiliary logits), which ``model.metrics`` takes.
+
+    ``param_sync``: an exchange that runs inside the backward (the
+    bucketed one's ``begin``, ``parallel/strategies.py``): it takes the
+    params before the forward and its round turns the local gradients
+    into the mean ones after the backward, its buckets posted as the
+    backward makes their gradients."""
     leaves = tree_leaves(params)
-    logits, new_model_state = model.apply(params, model_state, images, train=True, gen=gen)
-    loss = model.loss(logits, labels)
-    flat = torch.autograd.grad(loss, leaves)
+    pending = param_sync(params) if param_sync is not None else None
+    try:
+        logits, new_model_state = model.apply(params, model_state, images, train=True, gen=gen)
+        loss = model.loss(logits, labels)
+        flat = torch.autograd.grad(loss, leaves)
+    finally:
+        if pending is not None:
+            pending.close()
     it = iter(flat)
     grads = tree_map(lambda _: next(it), params)
+    if pending is not None:
+        grads = pending.finish(grads)
     return loss.detach(), tree_map(torch.Tensor.detach, logits), new_model_state, grads
 
 
@@ -131,7 +144,11 @@ def make_train_step(
     ``grad_sync``: the exchanger hook (``parallel/strategies.py``), run on
     the (accumulated) gradients before the update; ``None`` means a
     single replica. A ``stateful`` sync runs as ``grads, ef =
-    sync(grads, state.ef)``, threading the codec's residuals.
+    sync(grads, state.ef)``, threading the codec's residuals. One with
+    ``in_backward`` (the bucketed exchange without error feedback) runs
+    inside the backward instead (``loss_and_grads``'s ``param_sync``),
+    which one exchange on the accumulated gradients of ``accum_steps >
+    1`` cannot, so that pair is refused.
 
     ``input_transform``: applied to the images first, on the card (e.g.
     ``make_input_transform``: uint8 batches normalized in the step, so
@@ -140,13 +157,21 @@ def make_train_step(
     optimizer = _optimizer_for(model, fused_update)
     schedule_lr = make_schedule_fn(model, steps_per_epoch)
     accum_steps = max(1, int(accum_steps))
+    in_backward = bool(getattr(grad_sync, "in_backward", False))
+    if in_backward and accum_steps > 1:
+        raise ValueError(
+            "--allreduce-buckets syncs inside backward, but "
+            f"accum_steps={accum_steps} needs ONE sync on the accumulated grads — "
+            "per-microbatch bucket collectives would multiply the wire volume; drop one of "
+            "the two (or use --wire-codec ...:ef, whose buckets sync after the backward)")
+    param_sync = grad_sync.begin if in_backward else None
 
     def train_step(state: TrainState, images, labels, gen):
         if input_transform is not None:
             images = input_transform(images)
         if accum_steps == 1:
             loss, logits, new_model_state, grads = loss_and_grads(
-                model, state.params, state.model_state, images, labels, gen,
+                model, state.params, state.model_state, images, labels, gen, param_sync,
             )
             with torch.no_grad():
                 metrics = {"loss": loss, **model.metrics(logits, labels)}
@@ -174,7 +199,7 @@ def make_train_step(
                 metrics = {k: torch.stack([m[k] for m in ms]).mean() for k in ms[0]}
 
         new_ef = state.ef
-        if grad_sync is not None:
+        if grad_sync is not None and not in_backward:
             with torch.no_grad():
                 if getattr(grad_sync, "stateful", False):
                     grads, new_ef = grad_sync(grads, state.ef)
