@@ -170,6 +170,34 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                 relative, the params' change in relative norm).
                 ``python3 chip_smoke.py --only bsp-exchange`` builds the
                 two kernels it needs and runs this phase alone.
+   rules      — Theano-MPI's other two rules (``parallel/easgd.py``,
+                ``parallel/gosgd.py``), one spawn of the ranks, every run
+                through ``run_training`` with the counters zeroed just
+                before it, ``--fused-update``, uint8
+                ``imagenet_synthetic``, each worker its recipe's batch.
+                With one card: 2 ranks on cuda:0 over gloo, eager, 4
+                steps of full-width AlexNet under EASGD (``--avg-freq 2
+                --wire-codec int8:ef``: 2 exchanges) and GoSGD
+                (``--wire-codec int8 --p-push 1``: a round a step). With
+                4 cards (NCCL, ``--only rules``): ResNet-50 under EASGD
+                (config #4's shape: 4 workers of 256, ``--avg-freq 8``,
+                16 steps, 8 an epoch) eager and in captured groups of 4,
+                which must be equal bit for bit (losses, validation,
+                worker, center and BN digests), the same in 2 workers of 2
+                cards (``--group-size 2``, BN over the group), and VGG16
+                under GoSGD (config #5's shape: 4 workers of 256, p 0.25)
+                with no codec and int8. Every run, on every rank: finite
+                losses; one fused_momentum a step; under int8 one
+                quant_block and one dequant_block an exchange or round
+                (none without a codec); the exchanges or rounds counted;
+                the workers' digests distinct and a group's equal; after
+                EASGD's last exchange one center on every rank; GoSGD's
+                shares summing to 1; the local step's and the exchange's
+                or round's median ms per rank and the slowest round (the
+                device's timeline), printed with the card's name and
+                power limit. The one-card GoSGD run and the 4-card
+                grouped eager ResNet-50 run write their checkpoint, which
+                must hold every worker's distinct row at the run's step.
    lm-main    — full-width TransformerLM_136M (12 layers, d 768, 12 heads
                 of 64, T 1024, vocab 32768, batch 8, bf16 compute, Adam,
                 random weights from a seed) through the CLI for 6 steps
@@ -1297,6 +1325,200 @@ def phase_bsp_exchange(n_cards: int) -> dict:
         return summary
     finally:
         shutil.rmtree(root, ignore_errors=True)
+
+
+# phase rules: steps a run with one card (2 gloo ranks) and with 4 cards
+RULES_STEPS = {1: 4, 4: 16}
+RULES_EPOCH = 8  # steps an epoch of the 4-card runs (a validation pass after each)
+RULES_K = 4
+# runs of phase rules that also write their checkpoints (the workers'
+# rows gathered to rank 0 one at a time: gloo through the host, NCCL by
+# point-to-point ops)
+RULES_CKPT = ("gosgd/alexnet", "easgd/resnet50-g2-eager")
+
+
+def rules_runs(n: int, steps: int) -> list:
+    """``[(label, modelfile, modelclass, run_training kwargs)]`` of phase
+    rules over ``n`` ranks. Two ranks (one card): full-width AlexNet
+    under EASGD (``--avg-freq 2 --wire-codec int8:ef``) and GoSGD
+    (``--wire-codec int8 --p-push 1``). Four cards: ResNet-50 under EASGD
+    (config #4's shape: 4 workers at the recipe's per-worker batch,
+    ``--avg-freq 8``) eager and in captured groups of 4, the same in
+    workers of 2 cards (cross-replica BN), and VGG16 under GoSGD (config
+    #5's shape: 4 workers) with no codec and with int8."""
+    common = dict(max_steps=steps, print_freq=0, seed=0, fused_update=True)
+
+    def imnet(model_cls, workers, epoch_steps):
+        batch = model_cls.default_recipe().batch_size
+        return dict(dataset="imagenet_synthetic",
+                    dataset_kwargs={"n_train": workers * batch * epoch_steps,
+                                    "n_val": workers * batch})
+
+    from theanompi_tpu_torch.models.alex_net import AlexNet
+    from theanompi_tpu_torch.models.model_zoo.resnet50 import ResNet50
+    from theanompi_tpu_torch.models.model_zoo.vgg import VGG16
+
+    if n == 2:
+        alex = dict(common, **imnet(AlexNet, 2, steps))
+        return [("easgd/alexnet", "alexnet", "AlexNet",
+                 dict(alex, rule="easgd", avg_freq=2, wire_codec="int8:ef")),
+                ("gosgd/alexnet", "alexnet", "AlexNet",
+                 dict(alex, rule="gosgd", wire_codec="int8", p_push=1.0))]
+    runs = []
+    for g in (1, 2):
+        rn = dict(common, **imnet(ResNet50, n // g, RULES_EPOCH), rule="easgd", avg_freq=8,
+                  group_size=g)
+        for mode, k in (("eager", 1), ("captured", RULES_K)):
+            runs.append((f"easgd/resnet50-g{g}-{mode}", "resnet50", "ResNet50",
+                         dict(rn, steps_per_dispatch=k)))
+    vgg = dict(common, **imnet(VGG16, n, RULES_EPOCH), rule="gosgd", p_push=0.25)
+    for codec in ("none", "int8"):
+        runs.append((f"gosgd/vgg16-{codec}", "vgg16", "VGG16", dict(vgg, wire_codec=codec)))
+    return runs
+
+
+def rules_rank(rank, n, device, runs):
+    """One rank of phase rules: every run through ``run_training`` (the
+    CLI's per-rank entry point), the counters zeroed just before each and
+    read just after (each summary carries every rank's). Rank 0 returns
+    the summaries."""
+    import torch
+
+    from theanompi_tpu_torch.launch.session import resolve_model
+    from theanompi_tpu_torch.launch.worker import run_training
+    from theanompi_tpu_torch.ops.kernels import reset_launch_counts
+
+    out = {}
+    for label, modelfile, modelclass, kw in runs:
+        kw = dict(kw)
+        torch.cuda.empty_cache()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        out[label] = run_training(kw.pop("rule"), resolve_model(modelfile, modelclass), n,
+                                  device=device, **kw)
+        out[label]["wall_s"] = time.perf_counter() - t0
+        if rank == 0:
+            print(f"[rules] {label}: {out[label]['wall_s']:.1f} s", flush=True)
+    return out if rank == 0 else None
+
+
+def rules_launches(rules: dict, name: str) -> dict:
+    """``{run: [launches of kernel name on each rank]}`` of phase rules."""
+    return {label: [c[name] for c in run["kernel_launches_per_rank"]]
+            for label, run in rules["runs"].items()}
+
+
+def _check_worker_file(label: str, path: str, s: dict) -> None:
+    """A rule's checkpoint holds every worker's row, the workers as the
+    run's digests say (distinct rows), each at the run's step."""
+    import numpy as np
+
+    f = np.load(path)
+    stacks = [k for k in f.files if k.startswith(".workers/")]
+    n_workers = s["n_workers"]
+    check(stacks and all(f[k].shape[0] == n_workers for k in stacks),
+          f"{label}: {path} stacks {sorted({f[k].shape[0] for k in stacks})} workers, "
+          f"expected {n_workers}")
+    check(all(int(v) == s["steps"] for v in f[".workers/.step"]),
+          f"{label}: the file's worker steps {f['.workers/.step']}, expected {s['steps']}")
+    check(any(not np.array_equal(f[k][0], f[k][1]) for k in stacks
+              if k.startswith(".workers/.params/")),
+          f"{label}: the file's workers are all equal")
+    print(f"[rules] {label}: {path} holds {n_workers} workers' rows "
+          f"({os.path.getsize(path) / 2 ** 20:.1f} MiB)", flush=True)
+
+
+def phase_rules(n_cards: int, smi: str) -> dict:
+    """EASGD and GoSGD on the card (module docstring, phase rules)."""
+    import torch
+
+    from theanompi_tpu_torch.launch.session import spawn_ranks
+
+    nccl = n_cards >= 4
+    n = 4 if nccl else 2
+    steps = RULES_STEPS[4 if nccl else 1]
+    if not nccl:
+        print("[rules] one card: 2 ranks on cuda:0 over gloo, eager (gloo refuses captured "
+              "groups of several ranks); the exchange and the gossip hop go through the "
+              "host. Not run here: NCCL, ResNet-50 and VGG16 on 4 workers, worker groups",
+              flush=True)
+    root = tempfile.mkdtemp(prefix="tmpi-rules-")
+    try:
+        runs = [(label, mf, mc, dict(kw, ckpt_dir=os.path.join(root, label.replace("/", "_")))
+                 if label in RULES_CKPT else kw) for label, mf, mc, kw in rules_runs(n, steps)]
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        res = spawn_ranks(rules_rank, n, (runs,), device=None if nccl else "cuda:0",
+                          backend="nccl" if nccl else "gloo", timeout=900)[0]
+        wall = time.perf_counter() - t0
+        for label, _, _, kw in runs:
+            if "ckpt_dir" in kw:
+                _check_worker_file(label, _newest(kw["ckpt_dir"]), res[label])
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    update = {"alexnet": update_launches(16), "resnet50": update_launches(161),
+              "vgg16": update_launches(32)}
+    for label, modelfile, _, kw in runs:
+        s = res[label]
+        losses = s["losses"]
+        check(s["steps"] == steps and len(losses) == steps and s["nonfinite_steps"] == 0
+              and all(math.isfinite(v) for v in losses), f"{label}: losses {losses}")
+        g = kw.get("group_size", 1)
+        workers = n // g
+        check(s["n_workers"] == workers and s["global_batch"] == workers * s["per_worker_batch"],
+              f"{label}: {s['n_workers']} workers, global batch {s['global_batch']}")
+        rounds = steps // kw["avg_freq"] if kw["rule"] == "easgd" else steps
+        check(all(c == rounds for c in s["comm_rounds_per_rank"]),
+              f"{label}: exchanges per rank {s['comm_rounds_per_rank']}, expected {rounds}")
+        codec = kw.get("wire_codec", "none")
+        per_round = ({"quant_block": 1, "dequant_block": 1} if codec.startswith("int8")
+                     else {"quant_block": 0, "dequant_block": 0})
+        want = {k: v * rounds for k, v in per_round.items()}
+        want["fused_momentum"] = update[modelfile] * steps
+        for r, counts in enumerate(s["kernel_launches_per_rank"]):
+            for k, v in want.items():
+                check(counts[k] == v, f"{label}: rank {r} launched {k} {counts[k]} times, "
+                                      f"expected {v}")
+        digests = s["worker_digest_per_rank"]
+        check(len(set(digests)) == workers and all(
+            digests[i] == digests[i - i % g] for i in range(n)),
+            f"{label}: worker digests {digests} (workers must differ, a group agree)")
+        if kw["rule"] == "easgd":
+            check(len(set(s["center_digest_per_rank"])) == 1,
+                  f"{label}: the center differs across ranks {s['center_digest_per_rank']}")
+        else:
+            share = sum(s["alpha_per_rank"][::g])
+            check(abs(share - 1.0) < 1e-6, f"{label}: shares {s['alpha_per_rank']} sum to {share}")
+        if codec.endswith(":ef"):
+            check(all(v > 0 for v in s["ef_norm_per_rank"]),
+                  f"{label}: error-feedback residuals {s['ef_norm_per_rank']}")
+        if kw.get("steps_per_dispatch", 1) > 1:
+            check(s["captured"] and s["graph"]["captures"] == 1,
+                  f"{label}: not captured once: {s['graph']}")
+        print(f"[rules] {label} over {n} ranks ({s['device']}, {smi}): losses {losses}; "
+              f"local step ms per rank {s['local_step_ms_per_rank']}; "
+              f"{'exchange' if kw['rule'] == 'easgd' else 'gossip round'} ms per rank "
+              f"{s['comm_ms_per_rank']} (median; the slowest {s['comm_ms_max_per_rank']}); "
+              f"step ms per rank {s['step_ms_per_rank']}; "
+              f"{s['images_per_sec']:.1f} img/s; launches per rank "
+              f"{s['kernel_launches_per_rank']}; graph {s['graph']}", flush=True)
+    # the 4-card runs' eager and captured ResNet-50 pairs (rules_runs)
+    pairs = [(f"easgd/resnet50-g{g}-eager", f"easgd/resnet50-g{g}-captured")
+             for g in (1, 2)] if nccl else []
+    for a, b in pairs:
+        for key in ("losses", "worker_digest_per_rank", "center_digest_per_rank",
+                    "model_state_digest_per_rank", "val"):
+            check(res[a][key] == res[b][key],
+                  f"{b} differs from {a} in {key}: {res[a][key]} vs {res[b][key]}")
+    summary = {"ranks": n, "backend": "nccl" if nccl else "gloo", "steps": steps,
+               "wall_s": wall, "card": smi, "captured_bit_identical": [b for _, b in pairs],
+               "runs": {label: {k: res[label][k] for k in (
+                   "losses", "local_step_ms_per_rank", "comm_ms_per_rank",
+                   "comm_ms_max_per_rank", "step_ms_per_rank",
+                   "images_per_sec", "kernel_launches_per_rank", "comm_rounds_per_rank",
+                   "graph", "wall_s")} for label, *_ in runs}}
+    print("[rules] " + json.dumps(summary), flush=True)
+    return summary
 
 
 def _keep_newest(ckpt_dir: str) -> None:
@@ -3535,6 +3757,34 @@ def only_bsp_exchange(smi: str, kind: str, t_start: float) -> int:
     return 0
 
 
+def only_rules(smi: str, kind: str, t_start: float) -> int:
+    """``--only rules``: build the phase's kernels (the fused update and
+    the quantizer) and run phase rules alone, on every card there is; its
+    JSON, the card line and the result line last."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+
+    from theanompi_tpu_torch.ops import fused_update as fu
+    from theanompi_tpu_torch.ops import quant as tq
+
+    try:
+        with ThreadPoolExecutor(max_workers=2) as pool:
+            for src, f in (("fused_update.cu", pool.submit(fu.build)),
+                           ("quant.cu", pool.submit(tq.build))):
+                print(f"[build] csrc/{src}: nvcc {f.result():.2f} s", flush=True)
+        rules = phase_rules(torch.cuda.device_count(), smi)
+    except Failed as e:
+        print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
+        return 1
+    print(f"chip_smoke: wall {time.perf_counter() - t_start:.1f} s", flush=True)
+    print(json.dumps({"rules": rules}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
 def build_all():
     """Build every kernel library at once (one nvcc per source, started
     together); returns {source: nvcc seconds}."""
@@ -3556,8 +3806,8 @@ def main(argv=None) -> int:
     args = sys.argv[1:] if argv is None else list(argv)
     only = None
     if args:
-        if args != ["--only", "bsp-exchange"]:
-            print("usage: python3 chip_smoke.py [--only bsp-exchange]", file=sys.stderr)
+        if len(args) != 2 or args[0] != "--only" or args[1] not in ("bsp-exchange", "rules"):
+            print("usage: python3 chip_smoke.py [--only bsp-exchange|rules]", file=sys.stderr)
             return 2
         only = args[1]
     try:
@@ -3592,6 +3842,8 @@ def main(argv=None) -> int:
 
         if only == "bsp-exchange":
             return only_bsp_exchange(smi, kind, t_start)
+        if only == "rules":
+            return only_rules(smi, kind, t_start)
         t0 = time.perf_counter()
         builds = build_all()
         for src, secs in builds.items():
@@ -3670,6 +3922,10 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         exchange = phase_bsp_exchange(torch.cuda.device_count())
         print(f"[bsp-exchange] done ({time.perf_counter() - t0:.1f} s)", flush=True)
+
+        t0 = time.perf_counter()
+        rules = phase_rules(torch.cuda.device_count(), smi)
+        print(f"[rules] done ({time.perf_counter() - t0:.1f} s)", flush=True)
 
         t0 = time.perf_counter()
         resume_runs = phase_resume()
@@ -3774,6 +4030,7 @@ def main(argv=None) -> int:
                                            "peak_memory_bytes": r["peak_bytes"]}
                                        for k, r in zoo_cli_runs.items()}
             kernels[-1]["zoo_parity_launches"] = zoo_parity["wrn"]["launches"][name]
+            kernels[-1]["rules_launches_per_rank"] = rules_launches(rules, name)
             kernels[-1]["zoo_bench"] = {k: {m: {f: b[m][f] for f in ("step_ms", "value", "mfu")}
                                             for m in b} for k, b in zoo_bench.items()}
     no_library = ("no single PyTorch call computes an absmax-scaled int8 quantize: "
@@ -3807,6 +4064,8 @@ def main(argv=None) -> int:
                             f"{RANK_STEPS} steps" if launches else
                             "not on the main path (whole-buffer scale; tests only)"),
         })
+        if launches:
+            kernels[-1]["rules_launches_per_rank"] = rules_launches(rules, name)
         if "per_leaf_ms" in t:
             kernels[-1].update(table_built_ms=t["table_built_ms"],
                                one_leaf_calls_ms=t["per_leaf_ms"],

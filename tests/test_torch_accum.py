@@ -36,10 +36,11 @@ from theanompi_tpu_torch import bridge, cli
 from theanompi_tpu_torch import nn as tnn
 from theanompi_tpu_torch.data import get_dataset
 from theanompi_tpu_torch.launch import worker
-from theanompi_tpu_torch.launch.worker import _digest, run_training
+from theanompi_tpu_torch.launch.worker import run_training
 from theanompi_tpu_torch.models.alex_net import AlexNet as TAlexNet
 from theanompi_tpu_torch.parallel.bsp import BSPEngine
 from theanompi_tpu_torch.train import TrainState
+from theanompi_tpu_torch.tree import digest as _digest
 from theanompi_tpu_torch.tree import tree_leaves
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

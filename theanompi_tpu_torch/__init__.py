@@ -34,6 +34,6 @@ This package never imports ``jax`` or ``theanompi_tpu``.
 
 __version__ = "0.1.0"
 
-from theanompi_tpu_torch.launch.session import BSP, SyncRule  # noqa: E402,F401
+from theanompi_tpu_torch.launch.session import BSP, EASGD, GOSGD, SyncRule  # noqa: E402,F401
 
-__all__ = ["BSP", "SyncRule", "__version__"]
+__all__ = ["BSP", "EASGD", "GOSGD", "SyncRule", "__version__"]

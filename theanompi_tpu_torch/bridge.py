@@ -246,3 +246,75 @@ def state_from_flat(flat: dict, template, layouts: Tree, rank: int = 0, world: i
     rebuilt = {f: tree_map(lambda _: next(it), getattr(template, f))
                for f in ("params", "model_state", "opt_state")}
     return template._replace(**rebuilt, step=next(it), ef=ef)
+
+
+# --------------------------------------------------------------------------
+# per-worker rules (EASGD, GoSGD): the reference's stacked state
+# --------------------------------------------------------------------------
+
+WORKERS = ".workers/"
+
+
+def tree_entries(tree: Tree, prefix: str, layouts: Tree = None) -> dict:
+    """``{prefix/<path>: tensor}`` of ``tree`` in the reference's layout
+    (``layouts``: the tree's tags; ``None``: every leaf ``PLAIN``)."""
+    pairs = _paths(tree, prefix)
+    tags = tree_leaves(layouts) if layouts is not None else [PLAIN] * len(pairs)
+    return {k: to_reference_layout(t.detach(), lay) for (k, t), lay in zip(pairs, tags)}
+
+
+def tree_from_entries(flat: dict, prefix: str, template: Tree, layouts: Tree = None) -> Tree:
+    """Inverse of :func:`tree_entries`: a tree shaped like ``template``."""
+    pairs = _paths(template, prefix)
+    tags = tree_leaves(layouts) if layouts is not None else [PLAIN] * len(pairs)
+    it = iter(_restored(_entry(flat, k), t, lay, k) for (k, t), lay in zip(pairs, tags))
+    return tree_map(lambda _: next(it), template)
+
+
+def stacked_entries(rows: list, prefix: str, layouts: Tree = None) -> dict:
+    """Every worker's ``tree`` (``rows``, in worker order) as the
+    reference's stack: ``{prefix/<path>: [n_workers, ...]}``."""
+    per = [tree_entries(r, prefix, layouts) for r in rows]
+    return {k: torch.stack([p[k].to(per[0][k].device) for p in per]) for k in per[0]}
+
+
+def _worker_row(flat: dict, key: str, row: int, n_workers: int) -> np.ndarray:
+    arr = _entry(flat, key)
+    n = arr.shape[0] if arr.ndim else None
+    if n != n_workers:
+        raise ValueError(f"checkpoint leaf {key!r} stacks {n} workers; this run has "
+                         f"{n_workers} (a resume onto another worker count, elastic resume, "
+                         "is not ported)")
+    return arr[row]
+
+
+def stacked_row(flat: dict, prefix: str, template: Tree, row: int, n_workers: int,
+                layouts: Tree = None) -> Tree:
+    """Row ``row`` of a stack of :func:`stacked_entries`, shaped like
+    ``template``; raises naming the entry when the stack holds another
+    number of workers."""
+    pairs = _paths(template, prefix)
+    sub = {k: _worker_row(flat, k, row, n_workers) for k, _ in pairs}
+    return tree_from_entries(sub, prefix, template, layouts)
+
+
+def worker_entries(rows: list, layouts: Tree) -> dict:
+    """Every worker's TrainState (``rows``, in worker order, their ``ef``
+    left out) as the reference's ``.workers/.params/…``,
+    ``.workers/.model_state/…``, ``.workers/.opt_state/…`` and
+    ``.workers/.step`` stacks ``[n_workers, ...]``."""
+    per = [{k: to_reference_layout(t.detach(), lay) for k, t, lay in _state_pairs(r, layouts)}
+           for r in rows]
+    return {WORKERS + k: torch.stack([p[k].to(per[0][k].device) for p in per])
+            for k in per[0]}
+
+
+def worker_from_flat(flat: dict, template, layouts: Tree, row: int, n_workers: int):
+    """Worker ``row``'s TrainState (shaped like ``template``, whose ``ef``
+    it keeps) from the ``.workers/`` stacks of a checkpoint of
+    ``n_workers`` workers; raises naming the entry when a stack holds
+    another number of workers (ValueError) or is missing (KeyError)."""
+    sub = {}
+    for k, _, _ in _state_pairs(template, layouts):
+        sub[k] = _worker_row(flat, WORKERS + k, row, n_workers)
+    return state_from_flat(sub, template._replace(ef=()), layouts)._replace(ef=template.ef)

@@ -58,6 +58,20 @@ the train step (one card, or NCCL ranks on several)::
         --dataset imagenet_synthetic --fused-update --max-steps 22 \
         --steps-per-dispatch 4 --dataset-arg n_train=2816 --dataset-arg n_val=128
 
+Theano-MPI's other two rules, each rank its own worker and
+``--batch-size`` the per-worker batch: EASGD (elastic averaging with a
+center, config #4's shape) and GoSGD (peer gossip, config #5's), with
+worker groups of ``--group-size`` cards (BSP and cross-replica BN inside
+a group)::
+
+    python -m theanompi_tpu_torch.cli EASGD 4 resnet50 ResNet50 \
+        --dataset imagenet_synthetic --fused-update --avg-freq 8 --max-steps 16 \
+        --dataset-arg n_train=4096 --dataset-arg n_val=1024
+    python -m theanompi_tpu_torch.cli EASGD 4 resnet50 ResNet50 ... --group-size 2
+    python -m theanompi_tpu_torch.cli GOSGD 4 vgg16 VGG16 \
+        --dataset imagenet_synthetic --fused-update --wire-codec int8 --max-steps 16 \
+        --dataset-arg n_train=2048 --dataset-arg n_val=512
+
 Runs on the CUDA card(s); ``--device cpu`` runs on the CPU instead
 (ranks over gloo), ``--device cuda:0 --backend gloo`` puts every rank on
 one card. Without a card and without ``--device cpu`` it fails. The
@@ -78,9 +92,10 @@ def build_parser() -> argparse.ArgumentParser:
         description="Theano-MPI on PyTorch/CUDA: distributed training launcher",
         allow_abbrev=False,
     )
-    p.add_argument("rule", choices=["BSP", "bsp"])
+    p.add_argument("rule", choices=["BSP", "bsp", "EASGD", "easgd", "GOSGD", "gosgd"])
     p.add_argument("n_devices", type=int,
-                   help="number of ranks: one process per card, the global batch split across them")
+                   help="number of ranks: one process per card; BSP splits the global batch "
+                        "across them, EASGD/GoSGD give each worker its own batch")
     p.add_argument("modelfile", help="zoo short name, module path or .py file")
     p.add_argument("modelclass", help="model class name (e.g. AlexNet)")
     p.add_argument("--fused-update", action="store_true",
@@ -111,6 +126,14 @@ def build_parser() -> argparse.ArgumentParser:
                         "fp32 megabytes in reverse layer order, each posted from the "
                         "backward as soon as its gradients are made (with an ':ef' codec, "
                         "after the backward); 0: one exchange")
+    p.add_argument("--avg-freq", type=int, default=None,
+                   help="EASGD/GoSGD: steps between exchanges (reference avg_freq)")
+    p.add_argument("--group-size", type=int, default=None,
+                   help="EASGD/GoSGD: chips per worker — each async worker is "
+                        "a data-parallel group (16 workers on 256 chips = "
+                        "--group-size 16)")
+    p.add_argument("--alpha", type=float, default=None, help="EASGD elastic rate")
+    p.add_argument("--p-push", type=float, default=None, help="GoSGD push probability")
     p.add_argument("--backend", default=None, choices=["nccl", "gloo"],
                    help="process-group backend of several ranks (default: nccl on the "
                         "cards, gloo on the CPU)")
@@ -181,6 +204,9 @@ def main(argv=None) -> int:
 
     from theanompi_tpu_torch.launch.session import launch_training
 
+    rule_kwargs = {k: getattr(args, k) for k in ("avg_freq", "group_size", "alpha", "p_push")
+                   if getattr(args, k) is not None}
+
     overrides = {}
     if args.batch_size:
         overrides["batch_size"] = args.batch_size
@@ -216,6 +242,7 @@ def main(argv=None) -> int:
         accum_steps=args.accum_steps,
         n_slices=args.slices,
         allreduce_buckets=args.allreduce_buckets,
+        **rule_kwargs,
     )
     print(json.dumps(summary, default=str))
     return 0

@@ -230,3 +230,18 @@ class BSP(SyncRule):
     """Bulk-synchronous data parallelism over one or more ranks."""
 
     rule_name = "bsp"
+
+
+class EASGD(SyncRule):
+    """Elastic-averaging SGD: a worker a rank (or a group of ranks) and a
+    replicated center, the elastic exchange every ``avg_freq`` steps
+    (``parallel/easgd.py``)."""
+
+    rule_name = "easgd"
+
+
+class GOSGD(SyncRule):
+    """Gossip SGD: randomized peer-to-peer share-weighted averaging
+    between the workers (``parallel/gosgd.py``)."""
+
+    rule_name = "gosgd"

@@ -1,10 +1,11 @@
 """The training loop: epochs, validation, summary.
 
-Port of ``theanompi_tpu/launch/worker.py::run_training`` for rule
-``bsp``, with the reference's dataset/recipe checks, the epoch loop with
-``max_steps``, a validation pass per epoch, ``print_freq`` logging, and
-a summary dict whose keys match the reference's where they exist
-(``steps``, ``epochs``, ``val``, ``images_per_sec``, ``train_loop_s``).
+Port of ``theanompi_tpu/launch/worker.py::run_training`` for the rules
+``bsp``, ``easgd`` and ``gosgd``, with the reference's dataset/recipe
+checks, the epoch loop with ``max_steps``, a validation pass per epoch,
+``print_freq`` logging, and a summary dict whose keys match the
+reference's where they exist (``steps``, ``epochs``, ``val``,
+``images_per_sec``, ``train_loop_s``).
 For an LM (``model.is_lm``) ``--synthetic`` means the ``lm_synthetic``
 token dataset, a batch row is one token window, and ``images_per_sec``
 counts sequences.
@@ -12,7 +13,7 @@ Checkpoints and resume (``ckpt_dir``, ``resume``): after validation at
 each epoch end, and after a ``max_steps`` cut, every rank gathers its
 error-feedback residuals and dropout generator state to rank 0, which
 writes ``ckpt_<step>.npz`` in the reference's format
-(``utils/checkpoint.py``; ``bridge.state_entries``), on the writer
+(``utils/checkpoint.py``; the engine's ``state_entries``), on the writer
 thread of an ``AsyncCheckpointer`` unless ``async_checkpoint=False``.
 ``resume=True`` loads the newest verified checkpoint on every rank (all
 ranks must resolve the same step), restores each rank's residual row and
@@ -27,6 +28,23 @@ The recorder (``utils/recorder.py``; files on rank 0 under
 ``save_dir``) gets one ``train`` row a step from the loop's drains,
 ``val`` and ``epoch`` rows, and prints the reference's console lines.
 The supervisor and elastic resume come in later slices.
+
+Rules ``easgd`` and ``gosgd`` (``parallel/easgd.py``, ``parallel/gosgd.py``,
+the reference's ``rule_kwargs``: ``avg_freq``, ``alpha``, ``p_push``,
+``gossip_every``, ``group_size``; ``bsp`` refuses them). Every rank holds
+its own worker; with ``group_size = g`` the ranks form ``n / g`` workers
+of ``g`` (BSP inside a group, and with ``g > 1`` BatchNorm over the
+group's ``"data"`` axis unless the recipe names another axis or
+``bn_axis_name=None`` is given). ``recipe.batch_size`` is then the
+PER-WORKER batch: the global batch is ``n_workers × batch_size``, of
+which each rank reads its ``host_local_batch_slice`` (a worker's group
+reads its worker's rows). The loop calls ``engine.exchange`` after every
+``avg_freq``-th step (EASGD; GoSGD gossips inside its step), bracketed
+as the recorder's ``comm`` with a sync on the card; a group of steps
+runs its exchanges itself. A checkpoint holds the reference's stacked
+``EASGDState`` / ``GOSGDState`` (the engines' ``state_entries``); on
+resume each rank takes its worker's row, and a file of another worker
+count is refused by name.
 
 Ranks. With ``devices=n > 1`` this function runs in each of n rank
 processes of one process group (``launch/session.py`` spawns them). As
@@ -71,7 +89,6 @@ are what bound how far the host runs ahead.
 
 from __future__ import annotations
 
-import hashlib
 import itertools
 import math
 import sys
@@ -83,7 +100,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from theanompi_tpu_torch import bridge, native
+from theanompi_tpu_torch import native
 from theanompi_tpu_torch.data import get_dataset
 from theanompi_tpu_torch.data.loader import PrefetchLoader, host_tensors, pinned_array
 from theanompi_tpu_torch.device import resolve_device
@@ -91,10 +108,16 @@ from theanompi_tpu_torch.models.contract import Model
 from theanompi_tpu_torch.ops.kernels import launch_counts
 from theanompi_tpu_torch.parallel.bsp import BSPEngine, check_fused_ranks
 from theanompi_tpu_torch.parallel.codec import get_codec
-from theanompi_tpu_torch.parallel.distributed import agree_on_step, all_gather_objects, gather_tree
-from theanompi_tpu_torch.parallel.mesh import host_local_batch_slice, rank_generator
+from theanompi_tpu_torch.parallel.distributed import agree_on_step, all_gather_objects
+from theanompi_tpu_torch.parallel.mesh import (
+    DATA_AXIS,
+    host_local_batch_slice,
+    rank_generator,
+    worker_groups,
+)
+from theanompi_tpu_torch.parallel.workers import Clock
 from theanompi_tpu_torch.train import make_input_transform
-from theanompi_tpu_torch.tree import tree_leaves
+from theanompi_tpu_torch.tree import digest, tree_leaves
 from theanompi_tpu_torch.utils.checkpoint import (
     TORCH_RNG_KEY,
     AsyncCheckpointer,
@@ -118,50 +141,22 @@ PREFETCH_DEPTH = 2
 WARMUP_STEPS = 2
 
 
-def _digest(tensors) -> str:
-    """SHA-256 (hex, 16 digits) of the tensors' bytes, in order."""
-    h = hashlib.sha256()
-    for t in tensors:
-        h.update(t.detach().contiguous().view(-1).view(torch.uint8).cpu().numpy().tobytes())
-    return h.hexdigest()[:16]
+# the reference's rule options; BSP takes none of them
+RULE_KWARGS = {"easgd": ("avg_freq", "alpha", "group_size"),
+               "gosgd": ("p_push", "avg_freq", "gossip_every", "group_size")}
 
 
-class _StepClock:
-    """Marks after each step: CUDA events on the card, host time on the CPU."""
-
-    def __init__(self, device: torch.device):
-        self.cuda = device.type == "cuda"
-
-    def mark(self):
-        if self.cuda:
-            ev = torch.cuda.Event(enable_timing=True)
-            ev.record()
-            return ev
-        return time.perf_counter()
-
-    def intervals_ms(self, marks) -> list:
-        """Milliseconds between consecutive marks (syncs on the last)."""
-        if len(marks) < 2:
-            return []
-        if self.cuda:
-            marks[-1].synchronize()
-            return [a.elapsed_time(b) for a, b in zip(marks, marks[1:])]
-        return [(b - a) * 1e3 for a, b in zip(marks, marks[1:])]
-
-
-
-
-def _checkpoint_entries(state, layouts, step_gen, devices: int, rank: int):
+def _checkpoint_entries(engine, state, layouts, step_gen, devices: int, rank: int):
     """The entries of a checkpoint of ``state`` on rank 0 (None on the
-    others): the state in the reference's layout, every rank's residuals
-    as ``.ef`` stacks and every rank's dropout generator state as
-    ``__torch_rng__`` (``[n, L]`` uint8). Collective: every rank calls it,
-    on the training thread."""
-    ef_ranks = gather_tree(state.ef, devices) if tree_leaves(state.ef) else None
+    others): the state in the reference's layout (the engine's
+    ``state_entries``: BSP's every rank's residuals as ``.ef`` stacks,
+    EASGD's / GoSGD's every worker stacked) and every rank's dropout
+    generator state as ``__torch_rng__`` (``[n, L]`` uint8). Collective:
+    every rank calls it, on the training thread."""
+    entries = engine.state_entries(state, layouts)
     gens = all_gather_objects(step_gen.get_state().numpy(), devices)
     if rank != 0:
         return None
-    entries = bridge.state_entries(state, layouts, ef_ranks)
     entries[TORCH_RNG_KEY] = np.stack(gens)
     return entries
 
@@ -191,8 +186,10 @@ def run_training(
     accum_steps: int = 1,
     n_slices: Optional[int] = None,
     allreduce_buckets: float = 0.0,
+    **rule_kwargs,
 ) -> dict:
-    """Train ``model_cls`` under a sync rule; returns a summary dict.
+    """Train ``model_cls`` under a sync rule (``bsp``, ``easgd``,
+    ``gosgd``); returns a summary dict.
 
     ``device``: ``None`` runs on the current CUDA device and raises when
     there is none; ``"cpu"`` runs on the CPU because it was asked for.
@@ -211,7 +208,10 @@ def run_training(
     ``n_slices``: the ranks in that many slices (``--slices``; the
     ``hier`` strategy's two hops run over them). ``allreduce_buckets``:
     the exchange in buckets of about that many MB, posted from the
-    backward (``--allreduce-buckets``; ``psum`` and ``hier``)."""
+    backward (``--allreduce-buckets``; ``psum`` and ``hier``).
+    ``rule_kwargs``: EASGD's ``avg_freq``, ``alpha``, ``group_size``;
+    GoSGD's ``p_push``, ``avg_freq``, ``gossip_every``, ``group_size``
+    (module docstring)."""
     device = resolve_device(device)
     k = int(steps_per_dispatch)
     if k < 1:
@@ -228,12 +228,32 @@ def run_training(
             "--allreduce-buckets buckets the BSP in-step gradient allreduce only "
             "(EASGD/GoSGD exchange periodically — there is no every-step allreduce to "
             "bucket)")
+    if rule not in ("bsp", *RULE_KWARGS):
+        raise ValueError(f"unknown rule {rule!r}; available: bsp, easgd, gosgd")
+    if rule == "bsp" and rule_kwargs:
+        raise ValueError(
+            f"rule 'bsp' got unexpected options {sorted(rule_kwargs)} "
+            "(avg_freq/alpha/p_push/group_size apply to EASGD/GoSGD only)")
     if rule != "bsp":
-        raise ValueError(f"rule {rule!r} is not ported yet; available: bsp")
+        extra = sorted(set(rule_kwargs) - set(RULE_KWARGS[rule]))
+        if extra:
+            raise ValueError(f"rule {rule!r} got unexpected options {extra} (it takes "
+                             f"{', '.join(RULE_KWARGS[rule])})")
+        if strategy != "psum":
+            raise ValueError("strategy applies to the BSP rule only")
+    rule_kwargs = {k: v for k, v in rule_kwargs.items() if v is not None}
+    group_size = int(rule_kwargs.get("group_size", 1))
+    # the ranks' worker layout (raises when the groups or slices do not fit)
+    n_workers = worker_groups(devices, group_size, n_slices)[0] if rule != "bsp" else devices
 
     recipe = model_cls.default_recipe()
     if recipe_overrides:
         recipe = recipe.replace(**recipe_overrides)
+    if (group_size > 1 and recipe.bn_axis_name is None
+            and "bn_axis_name" not in (recipe_overrides or {})):
+        # a worker group is statistically one worker: BN statistics over
+        # its data axis (an explicit bn_axis_name=None keeps them per rank)
+        recipe = recipe.replace(bn_axis_name=DATA_AXIS)
     model: Model = model_cls(recipe, pool_kernel=pool_kernel)
 
     dataset = dataset or recipe.dataset
@@ -253,7 +273,9 @@ def run_training(
         dataset_kwargs.setdefault("seq_len", recipe.input_shape[0])
         if dataset == "lm_synthetic":
             dataset_kwargs.setdefault("vocab", recipe.num_classes)
-    batch = recipe.batch_size
+    # BSP: recipe.batch_size is the global batch; EASGD / GoSGD: the
+    # per-worker batch, so the global batch is n_workers of them
+    batch = recipe.batch_size * (n_workers if rule != "bsp" else 1)
     if (batch // max(1, devices)) % int(accum_steps):
         raise ValueError(f"each rank's batch ({batch} / {devices} ranks) must divide into "
                          f"accum_steps={accum_steps} microbatches")
@@ -275,11 +297,14 @@ def run_training(
     steps_per_epoch = data.n_train_batches(batch)
     if steps_per_epoch == 0:
         raise ValueError(
-            f"dataset has {data.n_train} train examples < the batch {batch} "
-            "(= recipe.batch_size)"
+            f"dataset has {data.n_train} train examples < the global batch {batch} "
+            f"({'= recipe.batch_size' if rule == 'bsp' else '= n_workers x recipe.batch_size'})"
         )
     n_epochs = n_epochs if n_epochs is not None else recipe.n_epochs
     vbatch = recipe.val_batch_size or batch
+    for what, b in (("global batch", batch), ("val batch", vbatch)):
+        if b % devices:
+            raise ValueError(f"{what} {b} not divisible by {devices} devices")
     if data.n_val and vbatch > data.n_val:
         raise ValueError(
             f"val batch {vbatch} exceeds the dataset's {data.n_val} val "
@@ -291,22 +316,31 @@ def run_training(
     # dataset's opt-ins (reference worker.py:604-616)
     input_transform = make_input_transform(getattr(data, "device_transform", None), device)
     eval_views = int(getattr(data, "val_views", 1))
-    engine = BSPEngine(model, devices, device, steps_per_epoch=steps_per_epoch,
-                       fused_update=fused_update, strategy=strategy, wire_codec=wire_codec,
-                       input_transform=input_transform, eval_views=eval_views,
-                       accum_steps=accum_steps, n_slices=n_slices,
-                       allreduce_buckets=allreduce_buckets)
+    common = dict(steps_per_epoch=steps_per_epoch, fused_update=fused_update,
+                  wire_codec=wire_codec, input_transform=input_transform,
+                  eval_views=eval_views, accum_steps=accum_steps, n_slices=n_slices)
+    if rule == "bsp":
+        engine = BSPEngine(model, devices, device, strategy=strategy,
+                           allreduce_buckets=allreduce_buckets, **common)
+    elif rule == "easgd":
+        from theanompi_tpu_torch.parallel.easgd import EASGDEngine
+
+        engine = EASGDEngine(model, devices, device, **common, **rule_kwargs)
+    else:
+        from theanompi_tpu_torch.parallel.gosgd import GOSGDEngine
+
+        engine = GOSGDEngine(model, devices, device, seed=seed, **common, **rule_kwargs)
     rank = dist.get_rank() if devices > 1 else 0
     shard = host_local_batch_slice(batch, rank, devices)
     vshard = host_local_batch_slice(vbatch, rank, devices)
     state = engine.init_state(torch.Generator().manual_seed(seed))
-    layouts = model.param_layouts(state.params)
+    layouts = model.param_layouts(engine.replica(state).params)
     # dropout masks: an explicit generator per rank on its card (the
     # global RNG is never touched)
     step_gen = (rank_generator(seed + 1, rank, device) if devices > 1
                 else torch.Generator(device=device).manual_seed(seed + 1))
     pin = device.type == "cuda"
-    clock = _StepClock(device)
+    clock = Clock(device)
 
     def sync():
         if device.type == "cuda":
@@ -319,8 +353,9 @@ def run_training(
                      "wire_codec": get_codec(wire_codec).spec, "dataset": dataset,
                      "device_normalize": input_transform is not None, "eval_views": eval_views,
                      "steps_per_dispatch": k, "accum_steps": engine.accum_steps,
-                     "slices": engine.axis_sizes[0], "allreduce_buckets": engine.allreduce_buckets,
-                     "bn_axis_name": recipe.bn_axis_name, "resumed_from_step": None}
+                     "allreduce_buckets": float(allreduce_buckets or 0.0),
+                     "bn_axis_name": recipe.bn_axis_name, "resumed_from_step": None,
+                     **engine.summary_fields(batch)}
 
     start_epoch = 0
     if resume and ckpt_dir:
@@ -333,7 +368,7 @@ def run_training(
         if path:
             t0 = time.perf_counter()
             flat = load_checkpoint(path)
-            state = bridge.state_from_flat(flat, state, layouts, rank=rank, world=devices)
+            state = engine.restore(flat, state, layouts)
             saved = flat.get(TORCH_RNG_KEY)
             own = step_gen.get_state()
             rng_restored = saved is not None and saved.shape == (devices, own.numel())
@@ -351,14 +386,14 @@ def run_training(
             summary["resumed_from_step"] = step0
             # what the resumed run holds, digested as a save would write
             # it: equal to the digest the writer recorded at that step
-            entries = _checkpoint_entries(state, layouts, step_gen, devices, rank)
+            entries = _checkpoint_entries(engine, state, layouts, step_gen, devices, rank)
             if rank == 0:
                 if not rng_restored:
                     entries.pop(TORCH_RNG_KEY)
-                digest = manifest_digest(integrity_manifest(
+                file_digest = manifest_digest(integrity_manifest(
                     {k: to_numpy(v) for k, v in entries.items()}))
                 summary["resume"] = {"path": path, "step": step0, "verify_ms": verify_ms,
-                                     "load_ms": load_ms, "digest": digest,
+                                     "load_ms": load_ms, "digest": file_digest,
                                      "torch_rng_restored": rng_restored}
                 print(f"resumed from {path} at step {step0}", flush=True)
 
@@ -377,7 +412,7 @@ def run_training(
         """Collective: every rank gathers, rank 0 writes (on the writer
         thread unless there is none or ``sync_write``)."""
         t0 = time.perf_counter()
-        entries = _checkpoint_entries(state, layouts, step_gen, devices, rank)
+        entries = _checkpoint_entries(engine, state, layouts, step_gen, devices, rank)
         if rank != 0:
             return
         if writer is not None and not sync_write:
@@ -467,13 +502,22 @@ def run_training(
                             after_step=lambda: marks.append(clock.mark()))
                         rows = [{key: v[i] for key, v in metrics.items()}
                                 for i in range(len(group))]
-                    torn = False
                     first = step_count
                     for (_, _, wait_ms), row in zip(group, rows):
                         step_count += 1
                         epoch_steps += 1
                         epoch_waits.append(wait_ms)
                         pending.append((step_count, row, wait_ms))
+                    every = engine.exchange_every
+                    if k == 1 and every and step_count % every == 0:
+                        # the periodic exchange (EASGD's avg_freq; the reference's
+                        # worker loop calls exchanger.exchange() as 'comm')
+                        sync()
+                        rec.start("comm")
+                        state = engine.exchange(state)
+                        sync()
+                        rec.end("comm")
+                    torn = False
                     if print_freq and step_count // print_freq > first // print_freq:
                         drain(pending, marks, epoch_ivals)
                     if len(group) < want or (max_steps and step_count >= max_steps):
@@ -567,12 +611,12 @@ def run_training(
            "native_calls": dict(native.LOADER.calls)}
     # what each rank holds at the end: the replicas must agree bit for
     # bit (and a run with its steps grouped must equal one without)
-    own["replica_digest"] = _digest(tree_leaves((state.params, state.opt_state)))
-    own["model_state_digest"] = _digest(tree_leaves(state.model_state))
+    own.update(engine.rank_summary(state))
+    own["model_state_digest"] = digest(tree_leaves(engine.replica(state).model_state))
     per_rank = [own]
     if devices > 1:
         # the error-feedback residuals are each rank's own
-        own["ef_digest"] = _digest(tree_leaves(state.ef))
+        own["ef_digest"] = digest(tree_leaves(state.ef))
         own["ef_norm"] = float(sum(torch.sum(e.double() ** 2) for e in tree_leaves(state.ef))) ** 0.5
         per_rank = [None] * devices
         dist.all_gather_object(per_rank, own)

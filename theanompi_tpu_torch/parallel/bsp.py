@@ -32,10 +32,12 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
+from theanompi_tpu_torch import bridge
 from theanompi_tpu_torch.device import resolve_device
 from theanompi_tpu_torch.graphs import StepGraph, eager_steps
 from theanompi_tpu_torch.models.contract import Model
 from theanompi_tpu_torch.parallel.codec import get_codec
+from theanompi_tpu_torch.parallel.distributed import gather_tree
 from theanompi_tpu_torch.parallel.mesh import bind_axes, slice_topology
 from theanompi_tpu_torch.parallel.strategies import (
     bucketed,
@@ -50,7 +52,7 @@ from theanompi_tpu_torch.train import (
     make_eval_step,
     make_train_step,
 )
-from theanompi_tpu_torch.tree import tree_leaves
+from theanompi_tpu_torch.tree import digest, tree_leaves
 
 
 def check_fused_ranks(n_devices: int, steps_per_dispatch: int, device, backend=None) -> None:
@@ -129,6 +131,7 @@ class BSPEngine:
                     "through theanompi_tpu_torch.launch.session or the CLI"
                 )
             bind_axes(self.n, n_slices)
+        self.rank = dist.get_rank() if self.n > 1 else 0
         # the exchange and the codec flatten each leaf in the reference's
         # order, which the model's layout tags decide
         if self.allreduce_buckets:
@@ -200,3 +203,30 @@ class BSPEngine:
     def get_step(self, state) -> int:
         """The device step counter, read back (a host sync)."""
         return int(state.step.item())
+
+    # -- what the training loop reads: the same protocol as the per-worker
+    # -- rules' engines (parallel/workers.py) -------------------------------
+
+    def replica(self, state):
+        """This rank's replica: the whole state."""
+        return state
+
+    def state_entries(self, state, layouts):
+        """Rank 0: the checkpoint's entries of ``state`` in the
+        reference's layout, every rank's residuals stacked as ``.ef``;
+        None on the other ranks. Collective."""
+        ef_ranks = gather_tree(state.ef, self.n) if tree_leaves(state.ef) else None
+        return bridge.state_entries(state, layouts, ef_ranks) if self.rank == 0 else None
+
+    def restore(self, flat: dict, template, layouts):
+        """This rank's state from checkpoint entries (its residual row)."""
+        return bridge.state_from_flat(flat, template, layouts, rank=self.rank, world=self.n)
+
+    def summary_fields(self, batch: int) -> dict:
+        """The run summary's fields of the rule."""
+        return {"slices": self.axis_sizes[0]}
+
+    def rank_summary(self, state) -> dict:
+        """This rank's summary fields: the digest of its replica, equal on
+        every rank when the replicas agree bit for bit."""
+        return {"replica_digest": digest(tree_leaves((state.params, state.opt_state)))}

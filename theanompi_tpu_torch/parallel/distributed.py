@@ -15,7 +15,7 @@ NCCL for CUDA and gloo for the CPU, unless the caller names one (gloo
 also reduces CUDA tensors, which is how two ranks can share one card).
 
 The collective part of a checkpoint save and a resume lives here too:
-:func:`gather_tree` brings every rank's residual tree to rank 0,
+:func:`gather_tree` brings the ranks' residual or worker trees to rank 0,
 :func:`all_gather_objects` the ranks' generator states, and
 :func:`agree_on_step` makes every rank raise together when the ranks
 resolved different checkpoints. Every rank calls them, on the training
@@ -96,31 +96,52 @@ def all_gather_objects(obj, n: int) -> list:
     return out
 
 
-def gather_tree(tree, n: int):
-    """Every rank's copy of ``tree`` (tensors of one dtype, the same
-    structure and shapes on every rank) -> the list of the ``n`` trees in
-    rank order on rank 0, None on the others. Collective. The leaves
-    travel packed in one buffer, in logical (contiguous) order; with
-    several ranks the trees rank 0 gets are new tensors, not views of
-    live state. An all-gather and not a gather: gloo gathers no CUDA
-    tensors."""
+def gather_tree(tree, n: int, ranks=None):
+    """The copies of ``tree`` (tensors of any dtypes, the same structure,
+    shapes and dtypes on every rank) held by ``ranks`` (default: every
+    rank) -> the list of those trees in the order of ``ranks`` on rank 0,
+    None on the others. Collective over the world: a rank outside
+    ``ranks`` only returns. With several ranks the trees rank 0 gets are
+    new tensors in host memory (pinned when the tree lies on the card),
+    not views of live state.
+
+    Each rank's leaves travel as their bytes packed in one buffer, each
+    in logical (contiguous) order, and rank 0 receives one rank's buffer
+    at a time and copies it to the host, so its card never holds more
+    than one other rank's tree: the checkpoint of many workers, each
+    with its own state, fits beside the model. Under gloo the buffers
+    travel from host memory (gloo's point-to-point ops of CUDA tensors
+    abort the rank, ``strategies._hop``)."""
     if n == 1:
         return [tree]
-    leaves = [t.detach() for t in tree_leaves(tree)]
-    dtypes = {t.dtype for t in leaves}
-    if len(dtypes) > 1:
-        raise ValueError(f"gather_tree packs one dtype; the tree holds {sorted(map(str, dtypes))}")
-    packed = torch.cat([t.reshape(-1) for t in leaves])
-    outs = [torch.empty_like(packed) for _ in range(n)]
-    dist.all_gather(outs, packed)
-    if dist.get_rank() != 0:
+    ranks = list(range(n)) if ranks is None else [int(r) for r in ranks]
+    leaves = [t.detach().contiguous() for t in tree_leaves(tree)]
+    # each leaf's bytes start 8-byte aligned, so every piece views as its dtype
+    size = [-(-t.numel() * t.element_size() // 8) * 8 for t in leaves]
+    packed = leaves[0].new_zeros(sum(size), dtype=torch.uint8)
+    off = 0
+    for t, nb in zip(leaves, size):
+        packed[off:off + t.numel() * t.element_size()] = t.reshape(-1).view(torch.uint8)
+        off += nb
+    on_card = packed.is_cuda
+    if dist.get_backend() == "gloo":
+        packed = packed.cpu()
+    me = dist.get_rank()
+    if me != 0:
+        if me in ranks:
+            dist.send(packed, 0)
         return None
+    buf = torch.empty_like(packed)
     trees = []
-    for buf in outs:
+    for r in ranks:
+        if r != 0:
+            dist.recv(buf, r)
+        host = torch.empty(packed.shape, dtype=torch.uint8, pin_memory=on_card)
+        host.copy_(packed if r == 0 else buf)
         parts, off = [], 0
-        for t in leaves:
-            parts.append(buf[off:off + t.numel()].view(t.shape))
-            off += t.numel()
+        for t, nb in zip(leaves, size):
+            parts.append(host[off:off + t.numel() * t.element_size()].view(t.dtype).view(t.shape))
+            off += nb
         it = iter(parts)
         trees.append(tree_map(lambda _: next(it), tree))
     return trees

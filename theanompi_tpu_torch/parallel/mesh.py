@@ -12,7 +12,13 @@ maps each axis name to the group of this rank along it.
 - flat run: ``"data"`` is the whole world;
 - ``--slices r`` over ``n = r·s`` ranks: ``"data"`` is this rank's slice
   (``s`` ranks), ``"dcn"`` the ranks at its position in every slice
-  (``r`` ranks), ``("dcn", "data")`` the world.
+  (``r`` ranks), ``("dcn", "data")`` the world;
+- EASGD / GoSGD worker groups of ``g`` ranks (``--group-size``, the
+  reference's ``make_worker_group_mesh``): ranks ``w·g … w·g+g−1`` are
+  worker ``w`` and its ``"data"`` axis, ``"worker"`` the ranks at the
+  same position in every group (one a worker), ``("worker", "data")``
+  the world. ``--slices`` only validates that no group straddles a
+  slice (:func:`worker_groups`); the rules' mesh has no ``"dcn"`` axis.
 
 The groups of a run are bound to the process (:func:`bind_axes`, which
 ``BSPEngine`` calls), as ``torch.distributed``'s default group is:
@@ -33,6 +39,7 @@ import torch.distributed as dist
 
 DATA_AXIS = "data"
 DCN_AXIS = "dcn"
+WORKER_AXIS = "worker"
 
 
 def inv_f32(n: int) -> float:
@@ -71,6 +78,27 @@ def slice_topology(world: int, n_slices: Optional[int]) -> tuple:
     return r, world // r
 
 
+def worker_groups(world: int, group_size: int = 1, n_slices: Optional[int] = None) -> tuple:
+    """``(n_workers, group_size)`` of an EASGD / GoSGD run of ``world``
+    ranks, with the reference's checks (``make_worker_group_mesh``): the
+    groups must divide the ranks, the slices too, and no group may
+    straddle a slice (its every-step gradient psum would cross it)."""
+    g = max(1, int(group_size or 1))
+    if world % g:
+        raise ValueError(f"{world} devices do not divide into groups of {g}")
+    if n_slices is not None and n_slices > 1 and world % n_slices:
+        raise ValueError(f"{world} devices do not divide into {n_slices} slices")
+    if g > 1 and n_slices is not None and n_slices > 1:
+        per = world // n_slices
+        for w in range(world // g):
+            row = {(w * g + i) // per for i in range(g)}
+            if len(row) > 1:
+                raise ValueError(
+                    f"worker group {w} would span slices {sorted(row)}: group_size {g} must "
+                    f"divide the per-slice chip count ({world} devices / {n_slices} slices)")
+    return world // g, g
+
+
 def _axis_key(name):
     if isinstance(name, (tuple, list)):
         name = tuple(name)
@@ -80,17 +108,31 @@ def _axis_key(name):
 
 class AxisGroups:
     """This rank's process group and size along each mesh axis of a run
-    of ``world`` ranks in ``n_slices`` slices. Every rank must build it,
-    in the same order (``dist.new_group`` is collective over the world)."""
+    of ``world`` ranks in ``n_slices`` slices, or in worker groups of
+    ``group_size`` ranks (EASGD / GoSGD). Every rank must build it, in
+    the same order (``dist.new_group`` is collective over the world)."""
 
-    def __init__(self, world: int, n_slices: Optional[int] = None):
+    def __init__(self, world: int, n_slices: Optional[int] = None, group_size: int = 1):
         if not dist.is_initialized() or dist.get_world_size() != world:
             have = dist.get_world_size() if dist.is_initialized() else "no process group"
             raise RuntimeError(f"mesh axes over {world} ranks need a process group of "
                                f"{world} ranks ({have} here)")
         self.world_group = dist.group.WORLD
-        self.topology = r, s = slice_topology(world, n_slices)
         rank = dist.get_rank()
+        g = int(group_size or 1)
+        if g > 1:
+            n_workers, g = worker_groups(world, g)
+            data = worker = None
+            for w in range(n_workers):  # every rank creates every group, in one order
+                grp = dist.new_group(list(range(w * g, w * g + g)))
+                data = grp if rank // g == w else data
+            for d in range(g):
+                grp = dist.new_group(list(range(d, world, g)))
+                worker = grp if rank % g == d else worker
+            self.groups = {DATA_AXIS: (data, g), WORKER_AXIS: (worker, n_workers),
+                           (WORKER_AXIS, DATA_AXIS): (self.world_group, world)}
+            return
+        self.topology = r, s = slice_topology(world, n_slices)
         if r == 1:
             self.groups = {DATA_AXIS: (self.world_group, world)}
             return
@@ -114,19 +156,21 @@ class AxisGroups:
                 f"{sorted(map(str, self.groups))}") from None
 
 
-_GROUPS: dict = {}  # (n_slices, per_slice) -> this process's AxisGroups
+_GROUPS: dict = {}  # (n_slices, per_slice, group_size) -> this process's AxisGroups
 _BOUND: Optional[AxisGroups] = None  # the run's, which axis_group reads
 
 
-def bind_axes(world: int, n_slices: Optional[int] = None) -> AxisGroups:
+def bind_axes(world: int, n_slices: Optional[int] = None, group_size: int = 1) -> AxisGroups:
     """Bind the mesh axes of a run of ``world`` ranks in ``n_slices``
-    slices to this process, building its groups the first time (every
-    rank calls it, in the same order); returns them."""
+    slices (or in worker groups of ``group_size``) to this process,
+    building its groups the first time (every rank calls it, in the same
+    order); returns them."""
     global _BOUND
-    topology = slice_topology(world, n_slices)
-    axes = _GROUPS.get(topology)
+    g = int(group_size or 1)
+    key = (*((1, world) if g > 1 else slice_topology(world, n_slices)), g)
+    axes = _GROUPS.get(key)
     if axes is None or axes.world_group is not dist.group.WORLD:
-        axes = _GROUPS[topology] = AxisGroups(world, n_slices)
+        axes = _GROUPS[key] = AxisGroups(world, None if g > 1 else n_slices, g)
     _BOUND = axes
     return axes
 

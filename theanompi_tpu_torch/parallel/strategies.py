@@ -94,19 +94,22 @@ def _packed(fn: Callable[[torch.Tensor], torch.Tensor], layouts: Layouts) -> Str
     return strategy
 
 
-def _all_reduce_mean(flat: torch.Tensor, n: int) -> torch.Tensor:
+def _all_reduce_mean(flat: torch.Tensor, n: int, group=None) -> torch.Tensor:
+    """The mean of ``flat`` over the ``n`` ranks of ``group`` (``None``:
+    the world), in place, times ``fl(1/n)``."""
     if n > 1:
-        dist.all_reduce(flat)
+        dist.all_reduce(flat, group=group)
     return flat * inv_f32(n)
 
 
-def mean_across_ranks(tensors: list, n: int) -> list:
-    """The mean over the ``n`` ranks of a list of tensors (metrics, BN
-    statistics), in one fp32 ``all_reduce``; each result in its input's
-    shape and dtype."""
+def mean_across_ranks(tensors: list, n: int, group=None) -> list:
+    """The mean over the ``n`` ranks of ``group`` (``None``: the world)
+    of a list of tensors (metrics, BN statistics), in one fp32
+    ``all_reduce``; each result in its input's shape and dtype."""
     if not tensors:
         return []
-    flat = _all_reduce_mean(torch.cat([t.detach().reshape(-1).float() for t in tensors]), n)
+    flat = _all_reduce_mean(torch.cat([t.detach().reshape(-1).float() for t in tensors]), n,
+                            group)
     out, off = [], 0
     for t in tensors:
         out.append(flat[off:off + t.numel()].view(t.shape).to(t.dtype))
@@ -119,8 +122,11 @@ def mean_across_ranks(tensors: list, n: int) -> list:
 # --------------------------------------------------------------------------
 
 
-def psum_mean(n: int, layouts: Layouts) -> Strategy:
-    return _packed(lambda flat: _all_reduce_mean(flat, n), layouts)
+def psum_mean(n: int, layouts: Layouts, group=None) -> Strategy:
+    """One fp32 ``all_reduce`` of the packed gradients over the ``n`` ranks
+    of ``group`` (``None``: the world; a worker group's ``"data"`` axis
+    under EASGD / GoSGD), times ``fl(1/n)``."""
+    return _packed(lambda flat: _all_reduce_mean(flat, n, group), layouts)
 
 
 def psum_bf16(n: int, layouts: Layouts) -> Strategy:
@@ -142,17 +148,24 @@ def psum_bf16(n: int, layouts: Layouts) -> Strategy:
 # --------------------------------------------------------------------------
 
 
-def _hop(send: torch.Tensor, n: int) -> torch.Tensor:
-    """Send ``send`` to rank+1 and receive the same-shaped tensor from
-    rank−1, in one batched point-to-point exchange. gloo's point-to-point
-    ops move host memory only (a CUDA tensor aborts the process in its
-    socket write), so under gloo a card's hop goes through the host."""
-    rank = dist.get_rank()
+def _hop(send: torch.Tensor, n: int, shift: int = 1, group=None) -> torch.Tensor:
+    """Send ``send`` to the rank ``shift`` ahead and receive the
+    same-shaped tensor from the rank ``shift`` behind, among the ``n``
+    ranks of ``group`` (``None``: the world; positions are ranks within
+    the group), in one batched point-to-point exchange. gloo's
+    point-to-point ops move host memory only (a CUDA tensor aborts the
+    process in its socket write), so under gloo a card's hop goes through
+    the host."""
+    me = dist.get_rank(group) if group is not None else dist.get_rank()
+
+    def peer(pos):  # a group position -> the global rank P2POp takes
+        return dist.get_global_rank(group, pos) if group is not None else pos
+
     staged = send.is_cuda and dist.get_backend() == "gloo"
     out = send.contiguous().cpu() if staged else send.contiguous()
     recv = torch.empty_like(out)
-    ops = [dist.P2POp(dist.isend, out, (rank + 1) % n),
-           dist.P2POp(dist.irecv, recv, (rank - 1) % n)]
+    ops = [dist.P2POp(dist.isend, out, peer((me + shift) % n), group=group),
+           dist.P2POp(dist.irecv, recv, peer((me - shift) % n), group=group)]
     for work in dist.batch_isend_irecv(ops):
         work.wait()
     return recv.to(send.device) if staged else recv

@@ -8,7 +8,10 @@ leaf in both packages.
 
 from __future__ import annotations
 
+import hashlib
 from typing import Any, Callable
+
+import torch
 
 Tree = Any
 
@@ -31,10 +34,19 @@ def tree_map(fn: Callable, tree: Tree, *rest: Tree) -> Tree:
         return {k: tree_map(fn, tree[k], *(r[k] for r in rest)) for k in sorted(tree)}
     if isinstance(tree, (list, tuple)):
         out = [tree_map(fn, t, *(r[i] for r in rest)) for i, t in enumerate(tree)]
-        return type(tree)(out)
+        return type(tree)(*out) if hasattr(tree, "_fields") else type(tree)(out)
     if tree is None:
         return None
     return fn(tree, *rest)
 
 
-__all__ = ["tree_leaves", "tree_map"]
+__all__ = ["digest", "tree_leaves", "tree_map"]
+
+
+def digest(tensors) -> str:
+    """SHA-256 (hex, 16 digits) of the tensors' bytes, in order: equal
+    digests mean bit-identical tensors (the summary's replica checks)."""
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().contiguous().view(-1).view(torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
