@@ -12,9 +12,11 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                 ``flash_fwd_sm90_kernel``, ``flash_dq_sm90_kernel`` and
                 ``flash_dkv_sm90_kernel`` (``cuobjdump -sass`` of the
                 built library) must hold HGMMA
-                (wgmma) and UTMALDG (TMA loads), and that of
-                ``flash_fwd_mma_kernel`` HMMA (mma.sync) and LDGSTS
-                (cp.async); their registers, shared
+                (wgmma) and UTMALDG (TMA loads), that of
+                ``flash_fwd_mma_kernel`` and ``flash_dkv_mma_kernel`` HMMA
+                (mma.sync) and LDGSTS (cp.async), and both instantiations
+                of ``flash_fwd_mma_bf16_kernel`` HMMA and LDSM (ldmatrix),
+                the cp.async one LDGSTS too; their registers, shared
                 memory and spills are printed (``cuobjdump
                 --dump-resource-usage``). ptxas's registers, stack and
                 spills of each instantiation of the fused update's
@@ -58,20 +60,24 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                 is refused. Counters move by one a list (two for the
                 split).
    flash      — each flash attention kernel (#7-11: flash_fwd_sm90,
-                flash_fwd_mma and flash_fwd, flash_dq_sm90 and flash_dq,
-                flash_dkv_sm90 and flash_dkv) against its plain version on
+                flash_fwd_mma, flash_fwd_mma_bf16 and flash_fwd,
+                flash_dq_sm90 and flash_dq, flash_dkv_sm90, flash_dkv_mma
+                and flash_dkv) against its plain version on
                 the card: the 136M LM's shape (BH 96, T 1024, D 64) in bf16
                 and fp32, ragged T and D, Tq != Tk, causal and not, nonzero
                 offsets with rows that see no key (o = 0, lse ~ -1e30), Tq
                 200 and 1000 at D 64 (not multiples of the 128-row Q tile),
-                q_off 160 over Tq 200 / Tk 360, a bf16 head of 60 (no whole
-                16-byte rows), an fp32 head of 30 (4-byte copies), and T =
-                8192 (BH 2, bf16). The counters show
+                q_off 160 over Tq 200 / Tk 360, bf16 heads of 60, 36 and 33
+                (no whole 16-byte rows; 33 odd: register-staged loads) with
+                ragged T and offsets, fp32 heads of 30 and 33 (4-byte
+                copies), and T = 8192 (BH 2, bf16). The counters show
                 each case's forward, dq and dk/dv routes: bf16 with D % 8 ==
                 0 runs flash_fwd_sm90, flash_dq_sm90 and flash_dkv_sm90,
-                fp32 flash_fwd_mma (3xTF32), flash_dq and flash_dkv, the
-                other bf16 heads flash_fwd, flash_dq and
-                flash_dkv. Tolerances: fp32 o rtol
+                fp32 flash_fwd_mma (3xTF32), flash_dq and flash_dkv_mma
+                (3xTF32), the other bf16 heads flash_fwd_mma_bf16,
+                flash_dq and flash_dkv. The generic flash_fwd, which no
+                route takes, is held to the same limits on those heads
+                through its own launcher. Tolerances: fp32 o rtol
                 1e-5 + 1e-6 max|o|, dq/dk/dv
                 rtol 1e-4 + 1e-5 of the largest value; bf16 o within 1 bf16
                 ulp plus 2^-9 of sum_i p_i |v_i| / l (the tensor cores sum
@@ -203,8 +209,8 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                 random weights from a seed) through the CLI for 6 steps
                 and one validation batch: exactly 12 x 7 flash_fwd_sm90,
                 12 x 6 flash_dq_sm90 and flash_dkv_sm90 launches, no
-                flash_fwd, flash_fwd_mma, flash_dq or flash_dkv, no other
-                kernel;
+                flash_fwd, flash_fwd_mma, flash_fwd_mma_bf16, flash_dq,
+                flash_dkv or flash_dkv_mma, no other kernel;
                 losses finite; step ms and tokens/s.
    googlenet-main — full-width GoogLeNet (224x224x3, 1000 classes, both
                 aux heads, bf16 compute, fp32 params, momentum 0.9, wd
@@ -270,8 +276,13 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                 card and on the CPU from the same weights and batches:
                 losses within rtol 1e-4, params within atol 1e-6 + rtol
                 1e-4, every leaf changed, 4 launches of each fp32 flash
-                kernel (flash_fwd_mma, flash_dq, flash_dkv), none of
-                another.
+                kernel (flash_fwd_mma, flash_dq, flash_dkv_mma), none of
+                another. Then the same in bf16 compute with heads of 60
+                (d 120, 2 heads): 4 launches each of flash_fwd_mma_bf16,
+                flash_dq and flash_dkv, none of another; losses within
+                rtol 2e-2 (bf16 products round in other places on the
+                two devices), every leaf changed, and the card's
+                parameter change within 0.1 of the CPU's in relative norm.
    googlenet-parity — full-width GoogLeNet (224x224x3, 1000 classes, fp32,
                 dropout 0, pool kernel on, lr 0.001) trained 2 momentum
                 steps on the card and on the CPU from the same weights and
@@ -367,7 +378,13 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                 and SDPA's causal forward / backward as the yardstick; the
                 generic bf16 flash_fwd, flash_dq and flash_dkv (through the
                 module's own launchers) and flash_fwd_sm90 / flash_dq_sm90
-                / flash_dkv_sm90 in turns (old, new, new, old). The
+                / flash_dkv_sm90 in turns (old, new, new, old). At D 60
+                (BH 96, T 1024, bf16, causal): the generic flash_fwd and
+                flash_fwd_mma_bf16 in turns, flash_dq and flash_dkv (the
+                route of those heads), SDPA at D 60. In fp32 at the 136M
+                shape: flash_fwd_mma and flash_dkv_mma each in turns with
+                the generic kernel's fp32 instantiation, flash_dq, and
+                SDPA's fp32 forward and backward. The
                 pool kernels over the nine inception pools at batch 512
                 in bf16 (one step's launches): bound 2 (forward) or 4
                 (backward) bf16 tensor passes at the data sheet's memory
@@ -1939,10 +1956,12 @@ def flash_cases():
     """(label, BH, Tq, Tk, D, causal, q_off, k_off, dtype): the 136M LM's
     shape in bf16 and fp32, ragged T and D, Tq != Tk, causal and not,
     nonzero offsets with rows that see no key, Tq 200 and 1000 (ragged
-    128-row Q tiles of flash_fwd_sm90), a bf16 head of 60 (the generic
-    forward), an fp32 head of 30 (flash_fwd_mma's 4-byte copies), and T =
-    8192 (where the reference's backward switches to its 2-D kernels #10
-    and #11)."""
+    128-row Q tiles of flash_fwd_sm90), bf16 heads of 60, 36 and 33
+    (flash_fwd_mma_bf16: 4-byte copies, and register-staged loads for the
+    odd head) with ragged T, Tq != Tk and offsets, fp32 heads of 30 and 33
+    (flash_fwd_mma's and flash_dkv_mma's 4-byte copies), and T = 8192
+    (where the reference's backward switches to its 2-D kernels #10 and
+    #11)."""
     import torch
 
     bh = LM_SHAPE["B"] * LM_SHAPE["H"]
@@ -1957,12 +1976,22 @@ def flash_cases():
                     0, 100, dt))
         out.append((f"offsets q 160 k 0 {str(dt)[6:]}", 4, 96, 200, 64, True, 160, 0, dt))
     out.append(("ragged T 200 D 30 float32", 6, 200, 200, 30, True, 0, 0, torch.float32))
+    out.append(("Tq 130 Tk 250 D 33 float32", 4, 130, 250, 33, True, 0, 0, torch.float32))
     bf = torch.bfloat16
     for causal in (True, False):
         out.append(("Tq 200 D 64 bfloat16", 6, 200, 200, 64, causal, 0, 0, bf))
     out.append(("Tq 1000 D 64 bfloat16", 8, 1000, 1000, 64, True, 0, 0, bf))
     out.append(("offsets q 160 k 0, Tq 200 Tk 360 bfloat16", 4, 200, 360, 64, True, 160, 0, bf))
     out.append(("ragged T 200 D 60 bfloat16", 6, 200, 200, 60, True, 0, 0, bf))
+    out.append(("Tq 130 Tk 250 D 60 bfloat16", 4, 130, 250, 60, False, 0, 0, bf))
+    out.append(("offsets q 160 k 0, Tq 200 Tk 360 D 60 bfloat16", 4, 200, 360, 60, True, 160, 0,
+                bf))
+    for causal in (True, False):
+        out.append(("ragged T 200 D 36 bfloat16", 6, 200, 200, 36, causal, 0, 0, bf))
+        out.append(("ragged T 200 D 33 bfloat16", 6, 200, 200, 33, causal, 0, 0, bf))
+    out.append(("offsets q 0 k 100, rows 0-99 blind D 33 bfloat16", 4, 192, 192, 33, True, 0, 100,
+                bf))
+    out.append(("offsets q 160 k 0 D 36 bfloat16", 4, 96, 200, 36, True, 160, 0, bf))
     out.append(("T 8192 bfloat16", 2, 8192, 8192, 64, True, 0, 0, bf))
     return out
 
@@ -2015,17 +2044,20 @@ def phase_flash(dev):
     dv with p rounded to bf16 (``bf16_dv_control``), must fail that dv
     check. The counters must show each case's routes: bf16 with D % 8 ==
     0 on flash_fwd_sm90, flash_dq_sm90 and flash_dkv_sm90; fp32 on
-    flash_fwd_mma, flash_dq and flash_dkv; the other bf16 heads on
-    flash_fwd, flash_dq and flash_dkv."""
+    flash_fwd_mma, flash_dq and flash_dkv_mma; the other bf16 heads on
+    flash_fwd_mma_bf16, flash_dq and flash_dkv. On those heads the generic
+    flash_fwd, which no route takes, is held to the same limits through
+    its own launcher (outside the counted calls)."""
     import torch
     from theanompi_tpu_torch.ops import flash_attention as fa
 
     g = torch.Generator(device=dev).manual_seed(8)
-    counters = (fa.FLASH_FWD, fa.FLASH_FWD_SM90, fa.FLASH_FWD_MMA, fa.FLASH_DQ,
-                fa.FLASH_DQ_SM90, fa.FLASH_DKV, fa.FLASH_DKV_SM90)
+    counters = (fa.FLASH_FWD, fa.FLASH_FWD_SM90, fa.FLASH_FWD_MMA, fa.FLASH_FWD_MMA_BF16,
+                fa.FLASH_DQ, fa.FLASH_DQ_SM90, fa.FLASH_DKV, fa.FLASH_DKV_SM90, fa.FLASH_DKV_MMA)
     names = tuple(c.name for c in counters)
     worst = dict.fromkeys(names, 0.0)
-    routes = dict.fromkeys(names, 0)
+    # every counter but the generic forward's is some case's route
+    routes = dict.fromkeys((n_ for n_ in names if n_ != "flash_fwd"), 0)
     # the bf16 cases' worst share of each tolerance, and the control's
     readings = {"o": 0.0, "dq": 0.0, "dk": 0.0, "dv": 0.0, "dv_control": None}
     failures = []
@@ -2046,11 +2078,12 @@ def phase_flash(dev):
         torch.cuda.synchronize()
         after = tuple(c.launches for c in counters)
         bad = []
-        sm90 = dt == torch.bfloat16 and D % 8 == 0
-        fwd, dqk, dkv = (n_ + "_sm90" if sm90 else n_ for n_ in ("flash_fwd", "flash_dq",
-                                                                  "flash_dkv"))
         if dt == torch.float32:
-            fwd = "flash_fwd_mma"
+            fwd, dqk, dkv = "flash_fwd_mma", "flash_dq", "flash_dkv_mma"
+        elif D % 8 == 0:
+            fwd, dqk, dkv = "flash_fwd_sm90", "flash_dq_sm90", "flash_dkv_sm90"
+        else:
+            fwd, dqk, dkv = "flash_fwd_mma_bf16", "flash_dq", "flash_dkv"
         want = tuple(int(n_ in (fwd, dqk, dkv)) for n_ in names)
         if tuple(b - a for a, b in zip(before, after)) != want:
             bad.append(f"counters {names} moved {before} -> {after}, expected + {want}")
@@ -2079,7 +2112,6 @@ def phase_flash(dev):
             # sum_i p_i |v_i| / l: the fp32 forward of |v|
             weight, _ = fa.flash_fwd_plain(q.float(), k.float(), v.float().abs(), **kw)
             o_x = bf16_o_excess(o, po, weight)
-            del weight
             x = {"o": o_x,
                  "dq": _rel_excess(dq, pdq, 1e-4, 2.0 ** -9 * pdq.abs().max().item()),
                  "dk": _rel_excess(dk, pdk, 1e-4, 2.0 ** -9 * pdk.abs().max().item()),
@@ -2094,6 +2126,19 @@ def phase_flash(dev):
             if x["dv"] > 1:
                 bad.append(f"dv beyond rtol 1e-4 + 1e-5 max (x{x['dv']:.3g})")
             tol = f"bf16 o at {o_x:.3g}, dq {x['dq']:.3g}, dk {x['dk']:.3g}, dv {x['dv']:.3g}"
+            if fwd == "flash_fwd_mma_bf16":
+                # the generic kernel these heads took before, held to the same limits
+                og, lseg = fa._launch_fwd_generic(q, k, v, **kw)
+                og_x = bf16_o_excess(og, po, weight)
+                lseg_err = (lseg - plse).abs().max().item()
+                worst["flash_fwd"] = max(worst["flash_fwd"],
+                                         (og.float() - po.float()).abs().max().item())
+                tol += f"; generic flash_fwd o at {og_x:.3g}, lse off by {lseg_err:.3g}"
+                if og_x > 1 or lseg_err > 1e-5:
+                    bad.append(f"generic flash_fwd beyond the bf16 limits (o x{og_x:.3g}, lse "
+                               f"{lseg_err:.3g})")
+                del og, lseg
+            del weight
             if label.startswith("136M shape"):
                 ctrl = bf16_dv_control(q, k, v, do, plse, dsum, kw)
                 readings["dv_control"] = _rel_excess(ctrl, pdv, 1e-4, 1e-5 * pdv.abs().max().item())
@@ -2143,9 +2188,9 @@ def phase_lm_main():
           f"lm run: bad val metrics {summary.get('val')}")
     val_batches = 1
     want = {"flash_fwd_sm90": LM_LAYERS * (LM_STEPS + val_batches), "flash_fwd": 0,
-            "flash_fwd_mma": 0,
+            "flash_fwd_mma": 0, "flash_fwd_mma_bf16": 0,
             "flash_dq_sm90": LM_LAYERS * LM_STEPS, "flash_dq": 0,
-            "flash_dkv_sm90": LM_LAYERS * LM_STEPS, "flash_dkv": 0}
+            "flash_dkv_sm90": LM_LAYERS * LM_STEPS, "flash_dkv": 0, "flash_dkv_mma": 0}
     got = {k: counts[k] for k in want}
     check(got == want, f"lm run launched {got}, expected {want}")
     stray = {k: v for k, v in counts.items() if k not in want and v}
@@ -2158,21 +2203,25 @@ def phase_lm_main():
     return {"launches": got, "summary": summary, "tokens_per_sec": tokens_per_sec}
 
 
-def phase_lm_parity(dev):
-    """A small fp32 LM trained 2 steps on the card (the flash kernels) and
-    on the CPU (their plain versions) from the same weights and batches."""
+LM_PARITY_FLASH = ("flash_fwd_mma", "flash_fwd_mma_bf16", "flash_fwd", "flash_fwd_sm90",
+                   "flash_dq", "flash_dq_sm90", "flash_dkv", "flash_dkv_sm90", "flash_dkv_mma")
+
+
+def _lm_two_steps(recipe, dev) -> dict:
+    """``recipe``'s LM trained 2 steps on the CPU and on ``dev`` from the
+    same weights and batches: {device: (losses, params before, params
+    after, launch counts)}."""
     import torch
     from theanompi_tpu_torch.models.lm import TransformerLMModel
     from theanompi_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
     from theanompi_tpu_torch.train import init_train_state, make_train_step
     from theanompi_tpu_torch.tree import tree_leaves
 
-    recipe = TransformerLMModel.default_recipe().replace(
-        input_shape=(256,), num_classes=512, d_model=128, n_heads=2, n_layers=2, d_ff=512,
-        batch_size=4, attn="flash", compute_dtype=torch.float32)
     model = TransformerLMModel(recipe)
+    vocab, T = recipe.num_classes, recipe.input_shape[0]
     rng = torch.Generator().manual_seed(9)
-    batches = [torch.randint(0, 512, (4, 256), generator=rng, dtype=torch.int32) for _ in range(2)]
+    batches = [torch.randint(0, vocab, (recipe.batch_size, T), generator=rng, dtype=torch.int32)
+               for _ in range(2)]
     out = {}
     for d in ("cpu", dev):
         state = init_train_state(model, torch.Generator().manual_seed(10), d)
@@ -2185,13 +2234,29 @@ def phase_lm_parity(dev):
             losses.append(float(m["loss"]))
         out[str(d)] = (losses, before, [p.detach().cpu() for p in tree_leaves(state.params)],
                        launch_counts())
+    return out
+
+
+def phase_lm_parity(dev):
+    """A small fp32 LM trained 2 steps on the card (the flash kernels) and
+    on the CPU (their plain versions) from the same weights and batches;
+    then a bf16 LM with heads of 60 (flash_fwd_mma_bf16's route) the same
+    way. Returns each run's flash launches on the card."""
+    import torch
+    from theanompi_tpu_torch.models.lm import TransformerLMModel
+
+    base = TransformerLMModel.default_recipe()
+    recipe = base.replace(input_shape=(256,), num_classes=512, d_model=128, n_heads=2,
+                          n_layers=2, d_ff=512, batch_size=4, attn="flash",
+                          compute_dtype=torch.float32)
+    out = _lm_two_steps(recipe, dev)
     (lc, bc, pc, kc), (lg, bg, pg, kg) = out["cpu"], out[str(dev)]
     check(not any(kc.values()), f"the CPU run launched kernels: {kc}")
-    flash = ("flash_fwd_mma", "flash_fwd", "flash_fwd_sm90", "flash_dq", "flash_dq_sm90",
-             "flash_dkv", "flash_dkv_sm90")
-    check(tuple(kg[n] for n in flash) == (4, 0, 0, 4, 0, 4, 0),
+    want = {n: 4 if n in ("flash_fwd_mma", "flash_dq", "flash_dkv_mma") else 0
+            for n in LM_PARITY_FLASH}
+    check({n: kg[n] for n in LM_PARITY_FLASH} == want,
           f"the card run launched {kg}, expected 4 of each fp32 flash kernel (flash_fwd_mma, "
-          "flash_dq, flash_dkv) and no other flash kernel")
+          "flash_dq, flash_dkv_mma) and no other flash kernel")
     check(all(math.isclose(a, b, rel_tol=1e-4) for a, b in zip(lc, lg)),
           f"card losses {lg} vs CPU {lc}")
     worst = 0.0
@@ -2201,9 +2266,39 @@ def phase_lm_parity(dev):
         worst = max(worst, x)
         check(x <= 1, f"leaf {i}: card params differ from CPU beyond atol 1e-6 + rtol 1e-4 "
                       f"(x{x:.3g})")
-    print(f"[lm-parity] losses card {lg} vs CPU {lc}; params within atol 1e-6 + rtol 1e-4 "
-          f"(worst at {worst:.3g} of the tolerance); every leaf changed", flush=True)
-    return {n: kg[n] for n in flash}
+    print(f"[lm-parity] fp32: losses card {lg} vs CPU {lc}; params within atol 1e-6 + rtol 1e-4 "
+          f"(worst at {worst:.3g} of the tolerance); every leaf changed; launches "
+          f"{ {n: kg[n] for n in LM_PARITY_FLASH if kg[n]} }", flush=True)
+    launches = {"fp32": {n: kg[n] for n in LM_PARITY_FLASH}}
+
+    # bf16 compute, heads of 60: rows of no whole 16-byte units
+    recipe = base.replace(input_shape=(256,), num_classes=512, d_model=120, n_heads=2,
+                          n_layers=2, d_ff=480, batch_size=4, attn="flash",
+                          compute_dtype=torch.bfloat16)
+    out = _lm_two_steps(recipe, dev)
+    (lc, bc, pc, kc), (lg, bg, pg, kg) = out["cpu"], out[str(dev)]
+    check(not any(kc.values()), f"the CPU run launched kernels: {kc}")
+    want = {n: 4 if n in ("flash_fwd_mma_bf16", "flash_dq", "flash_dkv") else 0
+            for n in LM_PARITY_FLASH}
+    check({n: kg[n] for n in LM_PARITY_FLASH} == want,
+          f"the bf16 D 60 card run launched {kg}, expected 4 each of flash_fwd_mma_bf16, "
+          "flash_dq and flash_dkv and no other flash kernel")
+    check(all(math.isfinite(x) for x in lg) and
+          all(math.isclose(a, b, rel_tol=2e-2) for a, b in zip(lc, lg)),
+          f"bf16 D 60: card losses {lg} vs CPU {lc} (rtol 2e-2)")
+    for i, (b0, b) in enumerate(zip(bc, pg)):
+        check(bool(torch.isfinite(b).all()) and bool((b != b0).any()),
+              f"bf16 D 60: leaf {i} did not change on the card, or is not finite")
+    d_cpu = torch.cat([(a - b0).flatten() for a, b0 in zip(pc, bc)])
+    d_card = torch.cat([(b - b0).flatten() for b, b0 in zip(pg, bg)])
+    rel = ((d_card - d_cpu).norm() / d_cpu.norm()).item()
+    check(rel <= 0.1, f"bf16 D 60: the card's parameter change is {rel:.3g} of the CPU's away "
+                      "from it in relative norm (> 0.1)")
+    print(f"[lm-parity] bf16 D 60: losses card {lg} vs CPU {lc}; parameter change "
+          f"{rel:.4g} of the CPU's from it (relative norm); every leaf changed; launches "
+          f"{ {n: kg[n] for n in LM_PARITY_FLASH if kg[n]} }", flush=True)
+    launches["bf16_d60"] = {n: kg[n] for n in LM_PARITY_FLASH}
+    return launches
 
 
 def phase_flash_times(dev, mem_rate, fp32_peak, bf16_peak):
@@ -2212,7 +2307,10 @@ def phase_flash_times(dev, mem_rate, fp32_peak, bf16_peak):
     The two forwards (the generic kernel's bf16 instantiation and
     flash_fwd_sm90) run in turns, old, new, new, old, and so do the two
     dq kernels and the two dk/dv kernels (flash_dq's and flash_dkv's bf16
-    instantiations against flash_dq_sm90 and flash_dkv_sm90)."""
+    instantiations against flash_dq_sm90 and flash_dkv_sm90). Then at D 60
+    (the same BH and T): the generic forward and flash_fwd_mma_bf16 in
+    turns, flash_dq and flash_dkv (the route of those heads), SDPA at D
+    60 as the yardstick (keys ``*_d60`` for the generic kernels)."""
     import torch
     import torch.nn.functional as F
     from theanompi_tpu_torch.ops import flash_attention as fa
@@ -2274,29 +2372,75 @@ def phase_flash_times(dev, mem_rate, fp32_peak, bf16_peak):
               f"{turns[new]} ms", flush=True)
     plain_ms_of = {}  # a pair shares its plain version: one function, one input, timed once
     results = {}
-    for name, (kern, plain, byts, bf16_ops, fp32_ops) in specs.items():
-        if name in turns:
-            ms = sum(turns[name]) / len(turns[name])
-        else:
-            ms = cuda_ms(kern, reps=10)
-        if plain not in plain_ms_of:
-            plain_ms_of[plain] = cuda_ms(plain, reps=3, warmup=1)
-        plain_ms = plain_ms_of[plain]
-        bytes_ms = byts / mem_rate * 1e3
-        ops_ms = (bf16_ops / bf16_peak + fp32_ops / fp32_peak) * 1e3
-        bound_ms = max(bytes_ms, ops_ms)
-        lib = sdpa_fwd if name.startswith("flash_fwd") else sdpa_bwd
-        results[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bytes=byts,
-                             bf16_flop=bf16_ops, fp32_flop=fp32_ops, library_ms=lib,
-                             bound_by="bytes" if bytes_ms >= ops_ms else "operations",
-                             turns_ms=turns.get(name))
-        print(f"[times] {name}: {ms:.4f} ms/launch | bound {bound_ms:.4f} ms ({byts / 1e6:.1f} MB "
-              f"-> {bytes_ms * 1e3:.1f} us; {bf16_ops / 1e9:.2f} GFLOP bf16 + {fp32_ops / 1e9:.2f} "
-              f"GFLOP fp32 -> {ops_ms * 1e3:.1f} us; {results[name]['bound_by']}) | "
-              f"{bound_ms / ms * 100:.1f}% of bound | plain {plain_ms:.4f} ms | SDPA "
-              f"{'forward' if name.startswith('flash_fwd') else 'backward (dq, dk, dv)'} "
-              f"{lib:.4f} ms",
-              flush=True)
+
+    def record(specs, lib_fwd, lib_bwd, label=""):
+        for name, (kern, plain, byts, bf16_ops, fp32_ops) in specs.items():
+            if name in turns:
+                ms = sum(turns[name]) / len(turns[name])
+            else:
+                ms = cuda_ms(kern, reps=10)
+            if plain not in plain_ms_of:
+                plain_ms_of[plain] = cuda_ms(plain, reps=3, warmup=1)
+            plain_ms = plain_ms_of[plain]
+            bytes_ms = byts / mem_rate * 1e3
+            ops_ms = (bf16_ops / bf16_peak + fp32_ops / fp32_peak) * 1e3
+            bound_ms = max(bytes_ms, ops_ms)
+            lib = lib_fwd if name.startswith("flash_fwd") else lib_bwd
+            results[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bytes=byts,
+                                 bf16_flop=bf16_ops, fp32_flop=fp32_ops, library_ms=lib,
+                                 bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                                 turns_ms=turns.get(name))
+            print(f"[times] {name}{label}: {ms:.4f} ms/launch | bound {bound_ms:.4f} ms "
+                  f"({byts / 1e6:.1f} MB -> {bytes_ms * 1e3:.1f} us; {bf16_ops / 1e9:.2f} GFLOP "
+                  f"bf16 + {fp32_ops / 1e9:.2f} GFLOP fp32 -> {ops_ms * 1e3:.1f} us; "
+                  f"{results[name]['bound_by']}) | {bound_ms / ms * 100:.1f}% of bound | plain "
+                  f"{plain_ms:.4f} ms | SDPA "
+                  f"{'forward' if name.startswith('flash_fwd') else 'backward (dq, dk, dv)'} "
+                  f"{lib:.4f} ms", flush=True)
+
+    record(specs, sdpa_fwd, sdpa_bwd)
+    del q4, k4, v4, out4
+
+    # D 60: the bf16 heads flash_fwd_mma_bf16 takes (rows of no whole
+    # 16-byte units), with the generic dq and dk/dv of their route
+    D6 = 60
+    q6, k6, v6, do6 = (torch.randn(BH, T, D6, generator=g, device=dev).to(torch.bfloat16)
+                       for _ in range(4))
+    kw6 = dict(causal=True, scale=1.0 / math.sqrt(D6))
+    fkw6 = dict(kw6, q_off=0, k_off=0)
+    o6, lse6 = fa.flash_fwd(q6, k6, v6, **kw6)
+    dsum6 = torch.sum(do6.float() * o6.float(), dim=-1)
+    tile6 = 2 * BH * T * D6
+    fwd6_plain = lambda: fa.flash_fwd_plain(q6, k6, v6, **kw6)  # noqa: E731
+    specs6 = {
+        "flash_fwd_mma_bf16": (lambda: fa._launch_fwd_mma_bf16(q6, k6, v6, **fkw6), fwd6_plain,
+                               4 * tile6 + rows, 4 * D6 * pairs, 0),
+        "flash_fwd_d60": (lambda: fa._launch_fwd_generic(q6, k6, v6, **fkw6), fwd6_plain,
+                          4 * tile6 + rows, 4 * D6 * pairs, 0),
+        "flash_dq_d60": (lambda: fa._launch_dq_generic(q6, k6, v6, do6, lse6, dsum6, **fkw6),
+                         lambda: fa.flash_dq_plain(q6, k6, v6, do6, lse6, dsum6, **kw6),
+                         4 * tile6 + 2 * rows + 2 * tile6, 6 * D6 * pairs, 0),
+        "flash_dkv_d60": (lambda: fa._launch_dkv_generic(q6, k6, v6, do6, lse6, dsum6, **fkw6),
+                          lambda: fa.flash_dkv_plain(q6, k6, v6, do6, lse6, dsum6, **kw6),
+                          4 * tile6 + 2 * rows + 4 * tile6, 6 * D6 * pairs, 2 * D6 * pairs),
+    }
+    q4, k4, v4 = (t.view(B, H, T, D6).detach().clone().requires_grad_(True) for t in (q6, k6, v6))
+    backend6 = sdpa_backend(q4, k4, v4)
+    out4 = F.scaled_dot_product_attention(q4, k4, v4, is_causal=True)
+    with torch.no_grad():
+        sdpa_fwd6 = cuda_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4, is_causal=True),
+                            reps=20)
+    sdpa_bwd6 = cuda_ms(lambda: torch.autograd.grad(out4, (q4, k4, v4), do6.view(B, H, T, D6),
+                                                    retain_graph=True), reps=20)
+    old, new = "flash_fwd_d60", "flash_fwd_mma_bf16"
+    turns[old], turns[new] = [], []
+    for name in (old, new, new, old):
+        turns[name].append(cuda_ms(specs6[name][0], reps=20))
+    print(f"[times] bf16 D 60 in turns (old, new, new, old): flash_fwd {turns[old]} ms, {new} "
+          f"{turns[new]} ms; SDPA at D 60: backend {backend6}", flush=True)
+    record(specs6, sdpa_fwd6, sdpa_bwd6, label=" (bf16, D 60)")
+    for name in specs6:
+        results[name]["sdpa_backend"] = backend6
     del q4, k4, v4, out4
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -2337,15 +2481,17 @@ def phase_flash_times_fp32(dev, mem_rate, fp32_peak, tf32_peak):
     """The fp32 flash kernels at the 136M LM's attention shape (BH 96, T
     1024, D 64, causal), random fp32 inputs: flash_fwd_mma (3xTF32 on
     mma.sync) against the generic kernel's fp32 instantiation (fp32 FMAs,
-    through ``fa._launch_fwd_generic``) in turns, old, new, new, old; the
-    fp32 flash_dq and flash_dkv (the generic kernels, which the fp32
-    backward runs); SDPA's fp32 forward and backward as the yardstick,
+    through ``fa._launch_fwd_generic``) in turns, old, new, new, old;
+    flash_dkv_mma (3xTF32 on mma.sync) against the generic flash_dkv's
+    fp32 instantiation the same way; the fp32 flash_dq (the generic
+    kernel, which the fp32 backward runs); SDPA's fp32 forward and
+    backward as the yardstick,
     with the backend PyTorch's dispatcher picks, the device kernels its
     forward launches, and each forward's largest error against a float64
     forward of the same inputs (a single tf32 product would leave about
     1e-3). Bounds: bytes over the memory rate against the products, fp32
-    FMAs at the fp32 peak, flash_fwd_mma's three tf32 products at the
-    tf32 tensor-core peak."""
+    FMAs at the fp32 peak, flash_fwd_mma's and flash_dkv_mma's three tf32
+    products at the tf32 tensor-core peak."""
     import torch
     import torch.nn.functional as F
     from theanompi_tpu_torch.ops import flash_attention as fa
@@ -2362,6 +2508,7 @@ def phase_flash_times_fp32(dev, mem_rate, fp32_peak, tf32_peak):
     tile = 4 * BH * T * D  # bytes of one fp32 [BH, T, D] tensor
     rows = 4 * BH * T
     fwd_plain = lambda: fa.flash_fwd_plain(q, k, v, **kw)  # noqa: E731
+    dkv_plain = lambda: fa.flash_dkv_plain(q, k, v, do, lse, dsum, **kw)  # noqa: E731
     specs = {
         # name: (kernel, plain, bytes, fp32 FLOPs, tf32 FLOPs)
         "flash_fwd_mma": (lambda: fa._launch_fwd_mma(q, k, v, **fkw), fwd_plain,
@@ -2372,8 +2519,10 @@ def phase_flash_times_fp32(dev, mem_rate, fp32_peak, tf32_peak):
                           lambda: fa.flash_dq_plain(q, k, v, do, lse, dsum, **kw),
                           5 * tile + 2 * rows, 6 * D * pairs, 0),
         "flash_dkv_fp32": (lambda: fa._launch_dkv_generic(q, k, v, do, lse, dsum, **fkw),
-                           lambda: fa.flash_dkv_plain(q, k, v, do, lse, dsum, **kw),
-                           6 * tile + 2 * rows, 8 * D * pairs, 0),
+                           dkv_plain, 6 * tile + 2 * rows, 8 * D * pairs, 0),
+        # four products (S, dP, dV, dK), each as three tf32 products
+        "flash_dkv_mma": (lambda: fa._launch_dkv_mma(q, k, v, do, lse, dsum, **fkw),
+                          dkv_plain, 6 * tile + 2 * rows, 0, 3 * 8 * D * pairs),
     }
     q4, k4, v4 = (t.view(B, H, T, D).detach().clone().requires_grad_(True) for t in (q, k, v))
     backend = sdpa_backend(q4, k4, v4)
@@ -2397,11 +2546,13 @@ def phase_flash_times_fp32(dev, mem_rate, fp32_peak, tf32_peak):
     print(f"[times] fp32 SDPA at the 136M shape: backend {backend}; forward kernels {kernels}; "
           f"torch.backends.cuda.matmul.allow_tf32 {torch.backends.cuda.matmul.allow_tf32}; "
           f"max |o - o_float64|: {f64_err}", flush=True)
-    turns = {"flash_fwd_fp32": [], "flash_fwd_mma": []}
-    for name in ("flash_fwd_fp32", "flash_fwd_mma", "flash_fwd_mma", "flash_fwd_fp32"):
-        turns[name].append(cuda_ms(specs[name][0], reps=20))
-    print(f"[times] fp32 in turns (old, new, new, old): flash_fwd {turns['flash_fwd_fp32']} ms, "
-          f"flash_fwd_mma {turns['flash_fwd_mma']} ms", flush=True)
+    turns = {}
+    for old, new in (("flash_fwd_fp32", "flash_fwd_mma"), ("flash_dkv_fp32", "flash_dkv_mma")):
+        turns[old], turns[new] = [], []
+        for name in (old, new, new, old):
+            turns[name].append(cuda_ms(specs[name][0], reps=20))
+        print(f"[times] fp32 in turns (old, new, new, old): {old[:-5]} {turns[old]} ms, {new} "
+              f"{turns[new]} ms", flush=True)
     plain_ms_of = {}
     results = {}
     for name, (kern, plain, byts, fp32_ops, tf32_ops) in specs.items():
@@ -3050,12 +3201,16 @@ def find_cuobjdump() -> str:
 
 # kernel -> the SASS instructions its design must compile to: wgmma
 # (HGMMA) and TMA loads (UTMALDG) in the sm90 kernels; mma.sync (HMMA) and
-# cp.async (LDGSTS) in the fp32 forward
+# cp.async (LDGSTS) in the mma.sync kernels, ldmatrix (LDSM) in the bf16 one
 SASS_KERNELS = {"flash_fwd_sm90_kernel": ("HGMMA", "UTMALDG"),
                 "flash_dq_sm90_kernel": ("HGMMA", "UTMALDG"),
                 "flash_dkv_sm90_kernel": ("HGMMA", "UTMALDG"),
-                "flash_fwd_mma_kernel": ("HMMA", "LDGSTS")}
-SASS_OPS = ("HGMMA", "UTMALDG", "UTMASTG", "HMMA", "LDGSTS")
+                "flash_fwd_mma_kernel": ("HMMA", "LDGSTS"),
+                # flash_fwd_mma_bf16's instantiations: cp.async loads, register-staged loads
+                "flash_fwd_mma_bf16_kernelILb0E": ("HMMA", "LDSM", "LDGSTS"),
+                "flash_fwd_mma_bf16_kernelILb1E": ("HMMA", "LDSM"),
+                "flash_dkv_mma_kernel": ("HMMA", "LDGSTS")}
+SASS_OPS = ("HGMMA", "UTMALDG", "UTMASTG", "HMMA", "LDSM", "LDGSTS")
 
 
 def phase_sass():
@@ -4125,19 +4280,27 @@ def main(argv=None) -> int:
                 "yardstick only, the port never calls it"),
             "launches_in": (f"the {LM_STEPS}-step TransformerLM_136M run through the CLI "
                             f"({LM_LAYERS} layers; the forward also in 1 validation batch)" +
-                            ("; bf16 heads with D % 8 == 0 go to flash_fwd_sm90 and fp32 to "
-                             "flash_fwd_mma, so this kernel takes only the other bf16 heads"
+                            ("; no route takes this kernel since flash_fwd_mma_bf16 (held to "
+                             "the same limits in phase flash through its own launcher)"
                              if name == "flash_fwd" else
-                             f"; bf16 heads with D % 8 == 0 go to {name}_sm90, so this kernel "
-                             f"takes fp32 ({lm_parity_launches[name]} launches in phase "
-                             "lm-parity) and other bf16 heads" if name in generic_flash else "")),
+                             "; bf16 heads with D % 8 == 0 go to flash_dq_sm90, so this kernel "
+                             "takes fp32 (4 launches in phase lm-parity's fp32 run) and the "
+                             f"other bf16 heads ({lm_parity_launches['bf16_d60'][name]} in its "
+                             "bf16 D 60 run)" if name == "flash_dq" else
+                             "; bf16 heads with D % 8 == 0 go to flash_dkv_sm90 and fp32 to "
+                             "flash_dkv_mma, so this kernel takes the other bf16 heads "
+                             f"({lm_parity_launches['bf16_d60'][name]} launches in phase "
+                             "lm-parity's bf16 D 60 run)" if name == "flash_dkv" else "")),
             "main_path_step_ms": lm["step_ms"],
             "main_path_tokens_per_sec": lm_run["tokens_per_sec"],
         })
         if t.get("turns_ms"):
             kernels[-1]["turns_ms"] = t["turns_ms"]
-        if name in generic_flash:  # its fp32 instantiation at the same shape
+        if name in generic_flash:  # its fp32 instantiation at the same shape, and bf16 at D 60
             kernels[-1]["fp32"] = times[f"{name}_fp32"]
+            kernels[-1]["bf16_d60"] = times[f"{name}_d60"]
+            kernels[-1]["lm_parity_launches"] = {run: c[name]
+                                                 for run, c in lm_parity_launches.items()}
         if name == "flash_fwd_sm90":
             kernels[-1].update(design="TMA-fed 2-stage K/V ring, wgmma for QK^T "
                                "and PV (P from registers), 128-row Q tiles heaviest first",
@@ -4170,10 +4333,10 @@ def main(argv=None) -> int:
             f"torch.nn.functional.scaled_dot_product_attention(is_causal=True) forward in fp32 "
             f"(backend {t['sdpa_backend']}, kernels {t['sdpa_kernels']}); max |o - o_float64| "
             f"{t['float64_max_abs_err']}: a yardstick only, the port never calls it"),
-        "launches_in": (f"fp32 attention: {lm_parity_launches['flash_fwd_mma']} launches in "
-                        "phase lm-parity (a 2-layer fp32 LM, 2 steps); the main path's LM is "
+        "launches_in": (f"fp32 attention: {lm_parity_launches['fp32']['flash_fwd_mma']} launches "
+                        "in phase lm-parity (a 2-layer fp32 LM, 2 steps); the main path's LM is "
                         "bf16 (flash_fwd_sm90)"),
-        "lm_parity_launches": lm_parity_launches["flash_fwd_mma"],
+        "lm_parity_launches": lm_parity_launches["fp32"]["flash_fwd_mma"],
         "design": ("a CTA of 8 warps a (128-row Q tile, b*h), heaviest first; Q once into "
                    "registers as tf32 hi/lo fragments; a 2-stage cp.async K/V ring, each tile "
                    "split into tf32 hi/lo once by the CTA (V transposed); S = Q K^T and P V as "
@@ -4181,6 +4344,67 @@ def main(argv=None) -> int:
                    "registers (permuted columns make P's C fragment the A fragment); masks "
                    "only on diagonal and ragged tiles"),
         "sass": sass["flash_fwd_mma_kernel"],
+    })
+    t = times["flash_fwd_mma_bf16"]
+    n_bf16 = lm_parity_launches["bf16_d60"]["flash_fwd_mma_bf16"]
+    kernels.append({
+        "name": "flash_fwd_mma_bf16", "route": "cuda", "source": src_fa,
+        "replaces": "theanompi_tpu/ops/pallas_attention.py:131",
+        "launches": n_bf16, "max_abs_err": worst_f["flash_fwd_mma_bf16"],
+        "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+        "bound_by": t["bound_by"], "library_ms": t["library_ms"], "turns_ms": t["turns_ms"],
+        "old_kernel_turns_ms": times["flash_fwd_d60"]["turns_ms"],
+        "matched": True,
+        "tolerance": ("bf16: o <= 1 bf16 ulp + 2^-9 sum_i p_i |v_i| / l, lse atol 1e-5 (phase "
+                      "flash's bf16 limits)"),
+        "bf16_worst_share_of_tolerance": {k_: v_ for k_, v_ in flash_readings.items()
+                                          if k_ != "dv_control"},
+        "work": ("one launch at BH 96, T 1024, D 60, bf16, causal (heads of no whole 16-byte "
+                 "rows, which the tensor maps of flash_fwd_sm90 refuse)"),
+        "library_note": (
+            f"torch.nn.functional.scaled_dot_product_attention(is_causal=True) forward at D 60 "
+            f"(backend {t['sdpa_backend']}): a yardstick only, the port never calls it"),
+        "launches_in": (f"phase lm-parity's bf16 LM with heads of 60 (d 120, 2 heads, 2 layers, "
+                        f"2 steps): {n_bf16} launches; the main path's LM has heads of 64 "
+                        "(flash_fwd_sm90)"),
+        "design": ("a CTA of 8 warps a (128-row Q tile, b*h), heaviest first; Q once into "
+                   "registers as bf16 A fragments; a 2-stage K/V ring by 4-byte cp.async (D "
+                   "even) or register-staged loads (D odd); S = Q K^T and P V as mma.sync "
+                   "m16n8k16 bf16 with K and V fragments by ldmatrix (V transposed by "
+                   ".trans); S's C fragments packed to bf16 are P V's A fragments; masks only "
+                   "on diagonal and ragged tiles"),
+        "sass": {"cp.async": sass["flash_fwd_mma_bf16_kernelILb0E"],
+                 "staged": sass["flash_fwd_mma_bf16_kernelILb1E"]},
+    })
+    t = times["flash_dkv_mma"]
+    n_dkv = lm_parity_launches["fp32"]["flash_dkv_mma"]
+    kernels.append({
+        "name": "flash_dkv_mma", "route": "cuda", "source": src_fa,
+        "replaces": "theanompi_tpu/ops/pallas_attention.py:207 + :302",
+        "launches": n_dkv, "max_abs_err": worst_f["flash_dkv_mma"],
+        "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+        "bound_by": t["bound_by"], "library_ms": t["library_ms"], "turns_ms": t["turns_ms"],
+        "old_kernel_turns_ms": times["flash_dkv_fp32"]["turns_ms"],
+        "matched": True,
+        "tolerance": "fp32: dk and dv rtol 1e-4 + 1e-5 of the largest value (phase flash)",
+        "work": ("one launch at the 136M LM's attention shape in fp32: BH 96, T 1024, D 64, "
+                 "causal; four products as three tf32 products each (77.38 GFLOP at the tf32 "
+                 "peak)"),
+        "library_note": (
+            f"torch.nn.functional.scaled_dot_product_attention(is_causal=True) backward in fp32 "
+            f"(dq, dk and dv in one call; backend {t['sdpa_backend']}): not the same function, "
+            "a yardstick only, the port never calls it"),
+        "launches_in": (f"fp32 attention: {n_dkv} launches in phase lm-parity (a 2-layer fp32 "
+                        "LM, 2 steps); the main path's LM is bf16 (flash_dkv_sm90)"),
+        "lm_parity_launches": n_dkv,
+        "design": ("a CTA of 8 warps a (64-key tile, b*h), heaviest first; a warp takes 16 "
+                   "keys x half of each 64-query tile; K and V split to tf32 hi/lo once into "
+                   "shared memory; a 2-stage cp.async Q/dO ring, each tile split once, "
+                   "transposed; S^T = K Q^T, dP^T = V dO^T, dV += P^T dO, dK += dS^T Q as "
+                   "mma.sync m16n8k8 tf32, each three products (3xTF32); permuted query steps "
+                   "make P^T's and dS^T's C fragments the A fragments; the two query halves' "
+                   "partials added through shared memory"),
+        "sass": sass["flash_dkv_mma_kernel"],
     })
     src_pool = "theanompi_tpu_torch/csrc/pool.cu"
     gk = gnet_runs["pool-kernel"]

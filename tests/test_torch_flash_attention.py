@@ -10,12 +10,14 @@ T below one block, Tq != Tk, and nonzero global offsets (a fully future
 K/V shard included); dq and dk/dv at offsets through the 1-D and the
 2-D kernels; and the gradients of the autograd.Function against
 ``jax.grad`` of the reference entry point, with the 1-D dispatch and
-with ``_BWD_2D_MIN_T`` monkeypatched to 1. Beside them: the routes
-(``_fwd_route``, ``_dq_route``, ``_dkv_route``), the exact three-part
-bf16 split of p that ``flash_dkv_sm90`` runs dv through, the tf32 split
-that ``flash_fwd_mma`` runs the fp32 forward's products through (its
-rounding, and the three-product forward against the Pallas kernel), and
-the variant tools' anchors.
+with ``_BWD_2D_MIN_T`` monkeypatched to 1; bf16 heads whose rows are no
+whole 16-byte units (D 36, 60 and the odd 33, ``flash_fwd_mma_bf16``'s
+route) forward and backward. Beside them: the routes (``_fwd_route``,
+``_dq_route``, ``_dkv_route``), the exact three-part bf16 split of p that
+``flash_dkv_sm90`` runs dv through, the tf32 split that ``flash_fwd_mma``
+and ``flash_dkv_mma`` run the fp32 products through (its rounding, and
+the three-product forward and dk/dv against the Pallas forward and the
+plain dk/dv), and the variant tools' anchors.
 
 Tolerances. fp32: o atol 3e-6 rtol 1e-5, lse atol 1e-5, dq/dk/dv atol
 2e-5 rtol 1e-4 (the reference's own tests'): the sums run in another
@@ -191,6 +193,82 @@ def test_bf16_forward_and_gradients():
                                    atol=2.0 ** -7 * np.abs(b).max(), err_msg=name)
 
 
+def _bf16(x):
+    """float32 numpy values rounded to bf16 (still float32 arrays)."""
+    return np.asarray(jnp.asarray(x, jnp.bfloat16), np.float32)
+
+
+def _assert_bf16_grads(got, want):
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert a.dtype == torch.bfloat16
+        b = np.asarray(b, np.float32)
+        np.testing.assert_allclose(a.float().numpy(), b, rtol=2.0 ** -6,
+                                   atol=2.0 ** -7 * np.abs(b).max(), err_msg=name)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("D", [36, 60, 33])
+def test_bf16_forward_and_gradients_for_heads_of_no_whole_16_byte_rows(D, causal):
+    """bf16 heads that ``flash_fwd_mma_bf16`` takes on the card (D % 8 !=
+    0, the odd 33 included): the forward and the gradients against the
+    Pallas kernels at ``test_bf16_forward_and_gradients``' tolerances,
+    ragged T (40 over K tiles of 16)."""
+    B, T, H = 2, 40, 2
+    q, k, v = (_bf16(x) for x in _qkv(B, T, T, H, D, seed=D + causal))
+    want_o, want_lse = _reference_fwd(q, k, v, causal, 16, 16, 0, 0, dtype=jnp.bfloat16)
+    got_o, got_lse = tfa.flash_fwd(*(_t(_heads_major(x), torch.bfloat16) for x in (q, k, v)),
+                                   causal=causal, scale=1.0 / math.sqrt(D), block_k=16)
+    assert got_o.dtype == torch.bfloat16
+    np.testing.assert_allclose(got_o.float().numpy(), want_o, rtol=2.0 ** -7, atol=1e-6)
+    np.testing.assert_allclose(got_lse.numpy(), want_lse, atol=1e-5, rtol=0)
+
+    w = _loss_weights(D)
+
+    def jloss(q, k, v):
+        out = pa.flash_attention(q, k, v, causal=causal, block_q=16, block_k=16)
+        return jnp.sum(jnp.sin(out.astype(jnp.float32)) * w)
+
+    want = jax.grad(jloss, argnums=(0, 1, 2))(*(jnp.asarray(x, jnp.bfloat16) for x in (q, k, v)))
+    tq, tk, tv = (_t(x, torch.bfloat16).requires_grad_(True) for x in (q, k, v))
+    out = tfa.flash_attention(tq, tk, tv, causal=causal, block_q=16, block_k=16)
+    torch.sum(torch.sin(out.float()) * torch.from_numpy(w)).backward()
+    _assert_bf16_grads((tq.grad, tk.grad, tv.grad), want)
+
+
+@pytest.mark.parametrize("D", [60, 33])
+def test_bf16_heads_of_no_whole_16_byte_rows_at_global_offsets(D):
+    """The same heads at a partly overlapping offset pair (q_off 32, k_off
+    48: the first 16 rows see no key): o and lse against the Pallas
+    forward, dq and dk/dv against the reference's 1-D kernels given the
+    same (lse, dsum)."""
+    B, T, H, q_off, k_off = 2, 48, 2, 32, 48
+    q, k, v = (_bf16(x) for x in _qkv(B, T, T, H, D, seed=D))
+    want_o, want_lse = _reference_fwd(q, k, v, True, 16, 16, q_off, k_off, dtype=jnp.bfloat16)
+    args = [_t(_heads_major(x), torch.bfloat16) for x in (q, k, v)]
+    kw = dict(causal=True, scale=1.0 / math.sqrt(D), q_off=q_off, k_off=k_off)
+    got_o, got_lse = tfa.flash_fwd(*args, block_k=16, **kw)
+    np.testing.assert_allclose(got_o.float().numpy(), want_o, rtol=2.0 ** -7, atol=1e-6)
+    np.testing.assert_allclose(got_lse.numpy(), want_lse, atol=1e-5, rtol=0)
+    blind = k_off - q_off
+    assert not got_o[:, :blind].float().any() and bool((got_lse[:, :blind] <= -1e29).all())
+
+    g = _bf16(np.random.RandomState(D).randn(B * H, T, D).astype(np.float32))
+    cfg, q3, k3, v3, _ = pa._prepare(*(jnp.asarray(x, jnp.bfloat16) for x in (q, k, v)), True,
+                                     None, None, 16, 16)
+    g3 = jnp.pad(jnp.asarray(g, jnp.bfloat16), ((0, 0), (0, q3.shape[1] - T), (0, 0)))
+    qo, ko = pa._as_off(q_off), pa._as_off(k_off)
+    o, lse = pa._fwd(cfg, q3, k3, v3, qo, ko)
+    dsum = pa._dsum_of(g3, o)
+    want_dq = np.asarray(pa._dq_call(cfg, q3, k3, v3, g3, lse, dsum, qo, ko), np.float32)[:, :T]
+    want_dk, want_dv = (np.asarray(a, np.float32)[:, :T]
+                        for a in pa._dkv_call(cfg, q3, g3, lse, dsum, k3, v3, qo, ko))
+    rows = [_t(np.asarray(lse)[:, :T, 0]), _t(np.asarray(dsum)[:, :T, 0])]
+    got_dq = tfa.flash_dq(*args, _t(g, torch.bfloat16), *rows, **kw)
+    got_dk, got_dv = tfa.flash_dkv(*args, _t(g, torch.bfloat16), *rows, **kw)
+    _assert_bf16_grads(tuple(x.to(torch.bfloat16) for x in (got_dq, got_dk, got_dv)),
+                       (want_dq, want_dk, want_dv))
+
+
 @pytest.mark.parametrize("causal", [False, True])
 def test_highest_precision_and_the_oracle(causal):
     """``precision="highest"`` upcasts bf16 inputs to fp32 and returns
@@ -211,14 +289,16 @@ def test_highest_precision_and_the_oracle(causal):
 
 
 def test_cpu_path_counts_no_launch_and_other_devices_need_cuda():
-    counters = (tfa.FLASH_FWD, tfa.FLASH_FWD_SM90, tfa.FLASH_FWD_MMA, tfa.FLASH_DQ,
-                tfa.FLASH_DQ_SM90, tfa.FLASH_DKV, tfa.FLASH_DKV_SM90)
+    counters = (tfa.FLASH_FWD, tfa.FLASH_FWD_SM90, tfa.FLASH_FWD_MMA, tfa.FLASH_FWD_MMA_BF16,
+                tfa.FLASH_DQ, tfa.FLASH_DQ_SM90, tfa.FLASH_DKV, tfa.FLASH_DKV_SM90,
+                tfa.FLASH_DKV_MMA)
     for c in counters:
         c.reset()
     for dt in (torch.float32, torch.bfloat16):
-        q = torch.randn(2, 16, 2, 8).to(dt).requires_grad_(True)
-        tfa.flash_attention(q, q, q, causal=True).sum().backward()
-    assert [c.launches for c in counters] == [0] * 7
+        for D in (8, 9):
+            q = torch.randn(2, 16, 2, D).to(dt).requires_grad_(True)
+            tfa.flash_attention(q, q, q, causal=True).sum().backward()
+    assert [c.launches for c in counters] == [0] * 9
     meta = torch.empty(4, 16, 8, device="meta")
     with pytest.raises(ValueError, match="CUDA"):
         tfa.flash_fwd(meta, meta, meta, causal=True, scale=1.0)
@@ -236,35 +316,43 @@ def test_cpu_path_counts_no_launch_and_other_devices_need_cuda():
 
 @pytest.mark.parametrize("dtype,D,route", [
     (torch.bfloat16, 8, "sm90"), (torch.bfloat16, 40, "sm90"), (torch.bfloat16, 48, "sm90"),
-    (torch.bfloat16, 64, "sm90"), (torch.bfloat16, 36, "generic"), (torch.bfloat16, 60, "generic"),
+    (torch.bfloat16, 64, "sm90"), (torch.bfloat16, 36, "mma_bf16"),
+    (torch.bfloat16, 60, "mma_bf16"), (torch.bfloat16, 33, "mma_bf16"),
+    (torch.bfloat16, 1, "mma_bf16"), (torch.bfloat16, 63, "mma_bf16"),
     (torch.float32, 64, "mma"), (torch.float32, 40, "mma"), (torch.float32, 48, "mma"),
-    (torch.float32, 30, "mma"), (torch.float32, 1, "mma"),
+    (torch.float32, 30, "mma"), (torch.float32, 1, "mma"), (torch.float32, 33, "mma"),
 ])
 def test_forward_route_is_chosen_from_dtype_and_head_dim(dtype, D, route):
     """bf16 heads whose rows are whole 16-byte units go to the TMA/wgmma
-    kernel, fp32 at any head dim to the 3xTF32 mma.sync kernel, and other
-    bf16 heads to the generic one. The route is a function of (dtype, D)
+    kernel, fp32 at any head dim to the 3xTF32 mma.sync kernel, and the
+    other bf16 heads, odd ones included, to the bf16 mma.sync kernel; the
+    generic kernel serves no route. The route is a function of (dtype, D)
     alone, decided before any launch."""
     assert tfa._fwd_route(dtype, D) == route
     assert tfa._FWD_LAUNCH[route].__name__ == f"_launch_fwd_{route}"
+    assert tfa._launch_fwd_generic not in tfa._FWD_LAUNCH.values()
 
 
 @pytest.mark.parametrize("dtype,D,route", [
     (torch.bfloat16, 8, "sm90"), (torch.bfloat16, 40, "sm90"), (torch.bfloat16, 48, "sm90"),
     (torch.bfloat16, 64, "sm90"), (torch.bfloat16, 36, "generic"), (torch.bfloat16, 60, "generic"),
-    (torch.float32, 64, "generic"), (torch.float32, 40, "generic"),
+    (torch.bfloat16, 33, "generic"), (torch.float32, 64, "mma"), (torch.float32, 40, "mma"),
+    (torch.float32, 33, "mma"), (torch.float32, 1, "mma"),
 ])
 def test_dkv_route_is_chosen_from_dtype_and_head_dim(dtype, D, route):
     """dk/dv routes as the forward does: bf16 heads of whole 16-byte rows
-    to ``flash_dkv_sm90``, fp32 (the LM's parity run) and other bf16
-    heads to ``flash_dkv``."""
+    to ``flash_dkv_sm90``, fp32 at any head dim (the LM's parity run) to
+    ``flash_dkv_mma`` (3xTF32 on mma.sync), and other bf16 heads, odd ones
+    included, to ``flash_dkv``."""
     assert tfa._dkv_route(dtype, D) == route
+    assert tfa._DKV_LAUNCH[route].__name__ == f"_launch_dkv_{route}"
 
 
 @pytest.mark.parametrize("dtype,D,route", [
     (torch.bfloat16, 8, "sm90"), (torch.bfloat16, 40, "sm90"), (torch.bfloat16, 48, "sm90"),
     (torch.bfloat16, 64, "sm90"), (torch.bfloat16, 36, "generic"), (torch.bfloat16, 60, "generic"),
     (torch.float32, 64, "generic"), (torch.float32, 40, "generic"),
+    (torch.bfloat16, 33, "generic"), (torch.float32, 33, "generic"),
 ])
 def test_dq_route_is_chosen_from_dtype_and_head_dim(dtype, D, route):
     """dq routes as the forward does: bf16 heads of whole 16-byte rows to
@@ -404,6 +492,39 @@ def test_dv_from_the_three_part_split_meets_the_dv_limit_and_bf16_p_does_not():
     assert _dv_excess(hi, want) > 10
 
 
+@pytest.mark.parametrize("Tq,Tk,D,q_off,k_off", [
+    (96, 200, 64, 160, 0),   # chip_smoke's "offsets q 160 k 0", at 2 heads
+    (192, 192, 64, 0, 100),  # "offsets q 0 k 100": rows 0-99 see no key
+    (200, 200, 40, 0, 0),    # a ragged T and head
+])
+def test_dkv_from_three_tf32_products_meets_the_fp32_limit_and_one_does_not(
+        Tq, Tk, D, q_off, k_off, monkeypatch):
+    """dk and dv with every product taken as ``flash_dkv_mma`` takes it
+    (S, dP, dV and dK each as three tf32 products) meet the fp32 dk/dv
+    limit phase flash holds the kernel to (rtol 1e-4 + 1e-5 of the largest
+    value) against ``flash_dkv_plain``, given the Pallas forward's lse at
+    a causal shape with offsets; with one tf32 product they miss it. The
+    plain version's own ``_dot`` is swapped for each."""
+    B, H = 1, 2
+    q, k, v = _qkv(B, Tq, Tk, H, D, seed=Tq + k_off + 1)
+    g = np.random.RandomState(D + q_off).randn(B * H, Tq, D).astype(np.float32)
+    o, lse = _reference_fwd(q, k, v, True, 64, 64, q_off, k_off)
+    args = [_t(_heads_major(x)) for x in (q, k, v)] + [
+        _t(g), _t(lse), _t(np.sum(g * o, axis=-1))]
+    kw = dict(causal=True, scale=1.0 / math.sqrt(D), q_off=q_off, k_off=k_off)
+    want = tfa.flash_dkv_plain(*args, **kw)
+    shares = {}
+    for name, dot in (("tf32x3", _dot_tf32x3), ("tf32", _dot_tf32)):
+        monkeypatch.setattr(tfa, "_dot", dot)
+        got = tfa.flash_dkv_plain(*args, **kw)
+        shares[name] = [_dv_excess(a, b) for a, b in zip(got, want)]
+    assert max(shares["tf32x3"]) <= 1, shares
+    assert min(shares["tf32"]) > 10, shares
+    if k_off > q_off:  # keys no query sees: dk = dv = 0
+        seen = q_off + Tq - k_off
+        assert not want[0][:, seen:].any() and not want[1][:, seen:].any()
+
+
 def test_fwd_variants_find_their_anchors_in_the_source():
     """``tools/fwd_variants.py`` builds its variants by text edits of
     ``csrc/flash_attention.cu``: each edit's anchor must be there once."""
@@ -455,6 +576,23 @@ def test_fwd_mma_variants_find_their_anchors_in_the_source():
     src = (CSRC_DIR / "flash_attention.cu").read_text()
     variants = fwd_mma_variants._variants(src)
     assert variants["base"] == [] and len(variants) == 5
+    for name, edits in variants.items():
+        for old, new in edits:
+            assert src.count(old) == 1 and old != new, name
+
+
+@pytest.mark.parametrize("tool,n", [("fwd_mma_bf16_variants", 4), ("dkv_mma_variants", 4)])
+def test_mma_variants_of_this_slice_find_their_anchors_in_the_source(tool, n):
+    """``tools/fwd_mma_bf16_variants.py`` and ``tools/dkv_mma_variants.py``
+    edit the same source for flash_fwd_mma_bf16 and flash_dkv_mma: each
+    edit's anchor must be there once."""
+    import importlib
+
+    from theanompi_tpu_torch.ops.kernels import CSRC_DIR
+
+    src = (CSRC_DIR / "flash_attention.cu").read_text()
+    variants = importlib.import_module(f"theanompi_tpu_torch.tools.{tool}")._variants(src)
+    assert variants["base"] == [] and len(variants) == n
     for name, edits in variants.items():
         for old, new in edits:
             assert src.count(old) == 1 and old != new, name

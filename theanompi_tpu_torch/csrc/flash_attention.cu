@@ -5,14 +5,19 @@
 // Replaces the TPU kernels
 //   theanompi_tpu/ops/pallas_attention.py:131  _fwd_kernel     (#7)  -> flash_fwd_sm90 (bf16,
 //                                                                   D % 8 == 0), flash_fwd_mma
-//                                                                   (fp32), flash_fwd
+//                                                                   (fp32), flash_fwd_mma_bf16
+//                                                                   (bf16, D % 8 != 0)
 //   theanompi_tpu/ops/pallas_attention.py:174  _dq_kernel      (#8)  -> flash_dq_sm90 (bf16,
 //                                                                   D % 8 == 0), flash_dq
 //   theanompi_tpu/ops/pallas_attention.py:264  _dq_kernel_2d   (#10) -> the same two
 //   theanompi_tpu/ops/pallas_attention.py:207  _dkv_kernel     (#9)  -> flash_dkv_sm90 (bf16,
-//                                                                   D % 8 == 0), flash_dkv
-//   theanompi_tpu/ops/pallas_attention.py:302  _dkv_kernel_2d  (#11) -> the same two
-// (wrappers and plain PyTorch versions in ops/flash_attention.py). The
+//                                                                   D % 8 == 0), flash_dkv_mma
+//                                                                   (fp32), flash_dkv (bf16,
+//                                                                   D % 8 != 0)
+//   theanompi_tpu/ops/pallas_attention.py:302  _dkv_kernel_2d  (#11) -> the same three
+// (wrappers, routes and plain PyTorch versions in ops/flash_attention.py).
+// flash_fwd, the generic forward, serves no route since flash_fwd_mma_bf16;
+// it stays reachable for timing in turns. The
 // TPU needs the 2-D kernels only because its 1-D ones keep the whole
 // opposite sequence in VMEM, which overflows at T >= 8192. Here every
 // kernel streams the opposite side through shared memory a tile at a
@@ -39,14 +44,15 @@
 // q_off + row >= k_off + col (global positions).
 //
 // Products: bf16 tiles go through the tensor cores (nvcuda::wmma
-// 16x16x16 in the generic kernels, wgmma in the sm90 kernels; fp32
-// accumulators); fp32 tiles through fp32 FMAs on the CUDA cores in the
-// generic kernels, never one TF32 product, and in flash_fwd_mma (the fp32
-// forward) as three tf32 products on the tensor cores, each operand split
-// into a tf32 hi and lo part (its section below). The fp32 x fp32 dv
-// product runs as fp32 FMAs in flash_dkv and,
-// in flash_dkv_sm90, as three exact bf16 products of p's hi, mid and lo
-// parts on the tensor cores (its section below). Softmax
+// 16x16x16 in the generic kernels, wgmma in the sm90 kernels, mma.sync
+// m16n8k16 in flash_fwd_mma_bf16; fp32 accumulators). fp32 tiles run as
+// three tf32 products on the tensor cores, each operand split into a tf32
+// hi and lo part, in flash_fwd_mma (the fp32 forward) and flash_dkv_mma
+// (the fp32 dk/dv); the fp32 dq still runs on fp32 FMAs on the CUDA cores
+// in the generic flash_dq, never one TF32 product. The fp32 x fp32 dv
+// product runs as fp32 FMAs in flash_dkv (bf16 heads with D % 8 != 0), as
+// three exact bf16 products of p's hi, mid and lo parts in flash_dkv_sm90,
+// and as 3xTF32 in flash_dkv_mma (their sections below). Softmax
 // statistics, probabilities and all accumulators are fp32. expf / logf,
 // not the __expf intrinsics. Built with -fmad=false, so the elementwise
 // steps round as PyTorch's separate ops do; sums inside the products run
@@ -55,8 +61,8 @@
 //
 // Design of the generic kernels (flash_fwd_sm90, flash_dkv_sm90 and
 // flash_dq_sm90, the bf16 forward, dk/dv and dq on TMA and wgmma, and
-// flash_fwd_mma, the fp32 forward on mma.sync, have their own sections
-// below): one block of 256 threads (8 warps) per
+// flash_fwd_mma, flash_fwd_mma_bf16 and flash_dkv_mma on mma.sync, have
+// their own sections below): one block of 256 threads (8 warps) per
 // (64-row tile, b*h). The block keeps its own tile (Q, or K and V) in
 // shared memory and loops over
 // the other side's 64-row tiles, staging each in shared memory; products
@@ -76,8 +82,9 @@
 // The generic kernels are simple: synchronous 16-byte loads into shared
 // memory (no cp.async/TMA), wmma (not wgmma), a block per tile with no
 // pipelining; on the LM's bf16 route all three run on the sm90 kernels,
-// the fp32 forward runs on flash_fwd_mma, and the generic ones take the
-// fp32 backward and the other bf16 heads.
+// the fp32 forward and dk/dv run on flash_fwd_mma and flash_dkv_mma, the
+// other bf16 heads' forward on flash_fwd_mma_bf16, and the generic ones
+// take the fp32 dq and the other bf16 heads' dq and dk/dv.
 
 #include <cuda.h>  // CUtensorMap and its enums: types only, libcuda is not linked
 #include <cuda_runtime.h>
@@ -1913,6 +1920,760 @@ int fwd(const void* q, const void* k, const void* v, void* o, void* lse, int BH,
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// flash_fwd_mma_bf16: the bf16 forward for heads with D % 8 != 0, on mma.sync bf16
+// ---------------------------------------------------------------------------
+//
+// The same function as flash_fwd_kernel<bf16> and flash_fwd_plain (block_k
+// 64): s = dot(q, k) * scale with bf16 x bf16 products summed in fp32, the
+// online softmax at the same points (sm90::tile_softmax, expf/logf,
+// -fmad=false), p rounded to bf16 before P V (pallas_attention.py:153-156),
+// o = bf16(acc / max(l, 1e-37)), lse = m + log(max(l, 1e-37)). Rows that
+// see no key get o = 0 and lse <= -1e29. Only the order of the sums inside
+// the two products differs. It takes any 1 <= D <= 64; the route sends it
+// the bf16 heads whose rows are not whole 16-byte units (D % 8 != 0), which
+// flash_fwd_sm90's tensor maps refuse.
+//
+// Products: mma.sync.m16n8k16 with bf16 operands and fp32 accumulators,
+// one product each for S = Q K^T and for P V (bf16 x bf16 is exact in
+// fp32). The head dim is zero-padded in shared memory to the next multiple
+// of 16 (the k of S = Q K^T), at most kD = 64.
+//
+// Block: flash_fwd_mma's. One CTA of 256 threads (8 warps) per (128-row Q
+// tile, b*h), heaviest causal tiles first; a warp owns 16 query rows (one
+// M). Q is read once from device memory into registers as A fragments (16
+// registers at D 64). S, P, acc, m and l stay in registers; the C fragments
+// of S's n8 tiles 2kk and 2kk + 1, packed to bf16 pairs, are P V's A
+// fragment of key step kk as they stand (the fragment layouts of the 16-bit
+// m16n8k16 agree), so P needs no shuffle, and acc is rescaled in place and
+// accumulated by the mma. K's B fragments come from the K/V stage by
+// ldmatrix.x4 (two key groups of 8 a call), V's by ldmatrix.x4.trans (V is
+// read MN-major: the transpose hands each thread its (key 2t, 2t + 1) pair).
+// Stage rows are 72 bf16 (144 bytes) apart, so the 8 row addresses of each
+// ldmatrix phase hit 8 distinct 16-byte bank groups. Two CTAs an SM with
+// cp.async loads (held to 128 registers, it spills ~120 bytes a thread and
+// still beats one CTA an SM without spills); one with staged loads.
+//
+// Loads: K and V tiles of 64 keys go through a two-stage shared-memory
+// ring. With D even (and k, v 4-byte aligned), by 4-byte cp.async copies
+// (a row of D bf16 is no whole number of 16-byte units): tile j + 1 is in
+// flight while tile j is computed, rows past Tk zero-filled by the copy.
+// With D odd a row is no whole number of 4-byte units and cp.async has no
+// 2-byte form, so the loads are staged in registers (kStaged): tile j + 1's
+// 16 + 16 bf16 a thread are loaded into registers before tile j is
+// computed and stored to the free stage after it. A thread walks its
+// elements by adds (Walk), not by a division by the run-time D each: with
+// the divisions the staged loads took 2.2x as long. The columns from D to
+// 64 are zeroed once. Two barriers a tile: landed, read.
+//
+// Bound, at BH 96, T 1024, D 60, bf16, causal: 47.6 MB (14 us at 3.35 TB/s)
+// against 12.1 GFLOP of bf16 products over the causal half (12 us at 989
+// TFLOP/s): the bytes bound it (chip_smoke.py phase times computes both).
+//
+// Not yet: wgmma (its bf16 tensor maps need whole 16-byte rows; a cp.async
+// ring with wgmma from shared memory would do), a producer warp.
+
+constexpr int kLdB = kD + 8;  // bf16 between the rows of a K/V stage
+constexpr int kStagedPer = kTile * kD / kMmaThreads;  // bf16 a thread, each of K and V
+
+struct SmemBf16 {
+  bf16 k[kRing][kTile * kLdB];
+  bf16 v[kRing][kTile * kLdB];
+};
+
+// d += A B over m16 n8 k16, bf16 in, fp32 accumulators
+__device__ __forceinline__ void mma_bf16(float* d, const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// four 8 x 8 bf16 matrices from shared memory: lane i gives the address of
+// row i % 8 of matrix i / 8. r[m] is matrix m's (row lane / 4; columns
+// 2 (lane % 4), + 1) pair, or with kTrans its (rows 2 (lane % 4), + 1;
+// column lane / 4) pair.
+template <bool kTrans>
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const bf16* row) {
+  if constexpr (kTrans) {
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+                 : "r"(sm90::smem_addr(row))
+                 : "memory");
+  } else {
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+                 : "r"(sm90::smem_addr(row))
+                 : "memory");
+  }
+}
+
+// Element threadIdx.x + 256 s of a row-major tile `width` units wide, as
+// (row, column): the first, and the step of 256 units, taken once, so a
+// loop over a tile adds instead of dividing by a width known at run time
+struct Walk {
+  int r0, c0, dr, dc, width;
+  __device__ explicit Walk(int w)
+      : r0(threadIdx.x / w), c0(threadIdx.x % w), dr(kMmaThreads / w), dc(kMmaThreads % w),
+        width(w) {}
+  __device__ __forceinline__ void next(int& r, int& c) const {
+    r += dr;
+    c += dc;
+    if (c >= width) {
+      c -= width;
+      ++r;
+    }
+  }
+};
+
+// K/V tile j into its stage by 4-byte cp.async (D even; `w` walks D / 2
+// words a row): columns below D, rows past Tk as zeros
+__device__ __forceinline__ void load_kv_bf16(SmemBf16& sm, const bf16* kb, const bf16* vb, int j,
+                                             int Tk, int D, const Walk& w) {
+  const int s = j % kRing, k0 = j * kTile;
+  for (int r = w.r0, c = w.c0; r < kTile; w.next(r, c)) {
+    const bool in = k0 + r < Tk;
+    const int64_t at = (int64_t)(in ? k0 + r : 0) * D + 2 * c;
+    cp_async<4>(reinterpret_cast<float*>(sm.k[s] + r * kLdB + 2 * c),
+                reinterpret_cast<const float*>(kb + at), in);
+    cp_async<4>(reinterpret_cast<float*>(sm.v[s] + r * kLdB + 2 * c),
+                reinterpret_cast<const float*>(vb + at), in);
+  }
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+// the register-staged loads (D odd; `w` walks D elements a row): element
+// i = tid + s * 256 of the tile's 64 x D, at row r and column c, is
+// element (k0 + r) * D + c = k0 * D + i of the [Tk, D] source
+struct Staged {
+  unsigned short k[kStagedPer];
+  unsigned short v[kStagedPer];
+};
+
+__device__ __forceinline__ void staged_load(Staged& st, const bf16* kb, const bf16* vb, int k0,
+                                            int Tk, int D, const Walk& w) {
+  const unsigned short* ks = reinterpret_cast<const unsigned short*>(kb);
+  const unsigned short* vs = reinterpret_cast<const unsigned short*>(vb);
+  int r = w.r0, c = w.c0;
+#pragma unroll
+  for (int s = 0; s < kStagedPer; ++s) {
+    const bool in = r < kTile && k0 + r < Tk;
+    const int64_t at = (int64_t)k0 * D + threadIdx.x + s * kMmaThreads;
+    st.k[s] = in ? __ldg(ks + at) : (unsigned short)0;
+    st.v[s] = in ? __ldg(vs + at) : (unsigned short)0;
+    w.next(r, c);
+  }
+}
+
+__device__ __forceinline__ void staged_store(const Staged& st, bf16* kd, bf16* vd,
+                                             const Walk& w) {
+  unsigned short* k = reinterpret_cast<unsigned short*>(kd);
+  unsigned short* v = reinterpret_cast<unsigned short*>(vd);
+  int r = w.r0, c = w.c0;
+#pragma unroll
+  for (int s = 0; s < kStagedPer; ++s) {
+    if (r < kTile) {
+      k[r * kLdB + c] = st.k[s];
+      v[r * kLdB + c] = st.v[s];
+    }
+    w.next(r, c);
+  }
+}
+
+template <bool kStaged>
+__global__ void __launch_bounds__(kMmaThreads, kStaged ? 1 : 2)
+flash_fwd_mma_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                          const bf16* __restrict__ v, bf16* __restrict__ o,
+                          float* __restrict__ lse, int Tq, int Tk, int D, int q_off, int k_off,
+                          int causal, float scale) {
+  extern __shared__ __align__(16) unsigned char dyn_smem[];
+  SmemBf16& sm = *reinterpret_cast<SmemBf16*>(dyn_smem);
+  const int bh = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kRows;  // heaviest causal tiles first
+  const int tid = threadIdx.x;
+  const int lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;  // the mma fragments' group and thread in group
+  const int wq0 = q0 + (tid / 32) * kWarpRows;  // the warp's first query row
+  const int qr0 = wq0 + g, qr1 = qr0 + 8;      // this thread's two rows
+  const bf16* kb = k + (int64_t)bh * Tk * D;
+  const bf16* vb = v + (int64_t)bh * Tk * D;
+  const int nk = (Tk + kTile - 1) / kTile;
+  const int n_tiles = sm90::k_tiles_seen(causal, min(q0 + kRows, Tq), q_off, k_off, nk);
+  const int n_mine =
+      wq0 < Tq ? sm90::k_tiles_seen(causal, min(wq0 + kWarpRows, Tq), q_off, k_off, nk) : 0;
+  const int steps = (D + 15) / 16;  // 16-column steps of the head that hold data
+
+  // the head's zero padding, never written by the loads
+  const int pad = kD - D;
+  for (int i = tid; i < kRing * kTile * pad; i += kMmaThreads) {
+    const int s = i / (kTile * pad);
+    const int r = (i / pad) % kTile, c = D + i % pad;
+    sm.k[s][r * kLdB + c] = __float2bfloat16_rn(0.0f);
+    sm.v[s][r * kLdB + c] = __float2bfloat16_rn(0.0f);
+  }
+  Staged stg;
+  const Walk walk(kStaged ? D : D / 2);  // elements (staged) or 4-byte words a row
+  if (n_tiles > 0) {
+    if constexpr (kStaged) {
+      staged_load(stg, kb, vb, 0, Tk, D, walk);
+      staged_store(stg, sm.k[0], sm.v[0], walk);
+    } else {
+      load_kv_bf16(sm, kb, vb, 0, Tk, D, walk);
+    }
+  }
+
+  // Q's A fragments: step kk's qa[kk][e] holds row e & 1 ? qr1 : qr0,
+  // columns 16kk + 8 (e >> 1) + 2t and + 1 (the lower column in the low half)
+  uint32_t qa[kD / 16][4];
+  const unsigned short* qb = reinterpret_cast<const unsigned short*>(q + (int64_t)bh * Tq * D);
+#pragma unroll
+  for (int kk = 0; kk < kD / 16; ++kk) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = e & 1 ? qr1 : qr0;
+      const int c = 16 * kk + 8 * (e >> 1) + 2 * t;
+      const uint32_t lo = r < Tq && c < D ? qb[(int64_t)r * D + c] : 0u;
+      const uint32_t hi = r < Tq && c + 1 < D ? qb[(int64_t)r * D + c + 1] : 0u;
+      qa[kk][e] = lo | (hi << 16);
+    }
+  }
+
+  float acc[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i] = 0.0f;
+  float m0 = kNeg, m1 = kNeg, l0 = 0.0f, l1 = 0.0f;
+
+  for (int j = 0; j < n_tiles; ++j) {
+    if constexpr (kStaged) {
+      if (j + 1 < n_tiles) staged_load(stg, kb, vb, (j + 1) * kTile, Tk, D, walk);
+    } else if (j + 1 < n_tiles) {
+      load_kv_bf16(sm, kb, vb, j + 1, Tk, D, walk);
+      asm volatile("cp.async.wait_group 1;" ::: "memory");
+    } else {
+      asm volatile("cp.async.wait_group 0;" ::: "memory");
+    }
+    __syncthreads();  // tile j has landed for every thread
+    const bf16* ks = sm.k[j % kRing];
+    const bf16* vs = sm.v[j % kRing];
+    if (j < n_mine) {
+      // s = q k^T: sc[4n + e] is row e < 2 ? qr0 : qr1, key 8n + 2t + e % 2.
+      // ldmatrix p of step kk: matrix m is keys 16p + 8 (m >> 1) + 0..7,
+      // head columns 16kk + 8 (m & 1) + 0..7, so r[0], r[1] are key group
+      // 2p's (b0, b1) and r[2], r[3] group 2p + 1's
+      float sc[32];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) sc[i] = 0.0f;
+#pragma unroll
+      for (int kk = 0; kk < kD / 16; ++kk) {
+        if (kk < steps) {
+          uint32_t kf[kTile / 16][4];
+#pragma unroll
+          for (int p = 0; p < kTile / 16; ++p)
+            ldmatrix_x4<false>(kf[p], ks + (16 * p + 8 * (lane >> 4) + (lane & 7)) * kLdB +
+                                          16 * kk + 8 * ((lane >> 3) & 1));
+#pragma unroll
+          for (int p = 0; p < kTile / 16; ++p) {
+            mma_bf16(sc + 8 * p, qa[kk], kf[p][0], kf[p][1]);
+            mma_bf16(sc + 8 * p + 4, qa[kk], kf[p][2], kf[p][3]);
+          }
+        }
+      }
+
+      const int k0 = j * kTile;
+      const bool masked = k0 + kTile > Tk || (causal && k_off + k0 + kTile - 1 > q_off + wq0);
+      float cr0, cr1;
+      if (masked) {
+        sm90::tile_softmax<true>(sc, m0, m1, l0, l1, cr0, cr1, scale, causal, q_off, k_off, qr0,
+                                 qr1, k0 + 2 * t, Tk);
+      } else {
+        sm90::tile_softmax<false>(sc, m0, m1, l0, l1, cr0, cr1, scale, causal, q_off, k_off, qr0,
+                                  qr1, k0 + 2 * t, Tk);
+      }
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[i] *= (i % 4) < 2 ? cr0 : cr1;
+
+      // acc += bf16(p) v: key step kk's A fragment is S's n8 tiles 2kk and
+      // 2kk + 1 packed; ldmatrix.trans p is keys 16kk + 8 (m & 1) + 0..7,
+      // head columns 16p + 8 (m >> 1) + 0..7: r[0], r[1] are head group
+      // 2p's (b0, b1) and r[2], r[3] group 2p + 1's
+#pragma unroll
+      for (int kk = 0; kk < kTile / 16; ++kk) {
+        const uint32_t pa[4] = {sm90::pack_bf16(sc[8 * kk], sc[8 * kk + 1]),
+                                sm90::pack_bf16(sc[8 * kk + 2], sc[8 * kk + 3]),
+                                sm90::pack_bf16(sc[8 * kk + 4], sc[8 * kk + 5]),
+                                sm90::pack_bf16(sc[8 * kk + 6], sc[8 * kk + 7])};
+        uint32_t vf[kD / 16][4];
+#pragma unroll
+        for (int p = 0; p < kD / 16; ++p) {
+          if (p < steps)
+            ldmatrix_x4<true>(vf[p], vs + (16 * kk + 8 * ((lane >> 3) & 1) + (lane & 7)) * kLdB +
+                                         16 * p + 8 * (lane >> 4));
+        }
+#pragma unroll
+        for (int p = 0; p < kD / 16; ++p) {
+          if (p < steps) {
+            mma_bf16(acc + 8 * p, pa, vf[p][0], vf[p][1]);
+            mma_bf16(acc + 8 * p + 4, pa, vf[p][2], vf[p][3]);
+          }
+        }
+      }
+    }
+    if constexpr (kStaged) {
+      // tile j + 1 into the stage tile j - 1 held, released at its barrier
+      if (j + 1 < n_tiles) staged_store(stg, sm.k[(j + 1) % kRing], sm.v[(j + 1) % kRing], walk);
+    }
+    __syncthreads();  // every thread is done with the stage the next load fills
+  }
+
+  // epilogue: o = bf16(acc / l_safe) for rows qr0, qr1, columns 8n + 2t
+  // and + 1 (a bf16 pair when D is even); lse from each quad's first lane
+  const float ls0 = fmaxf(l0, kTiny), ls1 = fmaxf(l1, kTiny);
+  bf16* ob = o + (int64_t)bh * Tq * D;
+  const bool pairs = D % 2 == 0 && (reinterpret_cast<uintptr_t>(o) & 3) == 0;
+#pragma unroll
+  for (int n = 0; n < kD / 8; ++n) {
+    const int c = 8 * n + 2 * t;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = h ? qr1 : qr0;
+      const float ls = h ? ls1 : ls0;
+      if (r >= Tq || c >= D) continue;
+      const float x0 = acc[4 * n + 2 * h] / ls, x1 = acc[4 * n + 2 * h + 1] / ls;
+      bf16* dst = ob + (int64_t)r * D + c;
+      if (pairs) {
+        *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(x0, x1);
+      } else {
+        dst[0] = __float2bfloat16_rn(x0);
+        if (c + 1 < D) dst[1] = __float2bfloat16_rn(x1);
+      }
+    }
+  }
+  if (t == 0) {
+    if (qr0 < Tq) lse[(int64_t)bh * Tq + qr0] = m0 + logf(ls0);
+    if (qr1 < Tq) lse[(int64_t)bh * Tq + qr1] = m1 + logf(ls1);
+  }
+}
+
+int fwd_bf16(const void* q, const void* k, const void* v, void* o, void* lse, int BH, int Tq,
+             int Tk, int D, int q_off, int k_off, int causal, float scale, cudaStream_t stream) {
+  if (D < 1 || D > kD) return (int)cudaErrorInvalidValue;
+  const bool staged = D % 2 != 0 || ((reinterpret_cast<uintptr_t>(k) |
+                                      reinterpret_cast<uintptr_t>(v)) & 3) != 0;
+  const size_t smem = sizeof(SmemBf16);
+  const dim3 grid(BH, (Tq + kRows - 1) / kRows);
+  cudaError_t err;
+  if (staged) {
+    err = prepare(flash_fwd_mma_bf16_kernel<true>, smem);
+    if (err != cudaSuccess) return (int)err;
+    flash_fwd_mma_bf16_kernel<true><<<grid, kMmaThreads, smem, stream>>>(
+        (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, (float*)lse, Tq, Tk, D, q_off,
+        k_off, causal, scale);
+  } else {
+    err = prepare(flash_fwd_mma_bf16_kernel<false>, smem);
+    if (err != cudaSuccess) return (int)err;
+    flash_fwd_mma_bf16_kernel<false><<<grid, kMmaThreads, smem, stream>>>(
+        (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, (float*)lse, Tq, Tk, D, q_off,
+        k_off, causal, scale);
+  }
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// flash_dkv_mma: the fp32 dk/dv backward for Hopper, on mma.sync tf32 (3xTF32)
+// ---------------------------------------------------------------------------
+//
+// The same function as flash_dkv_kernel<float> and flash_dkv_plain: p =
+// valid ? expf(s * scale - lse) : 0 with s = q.k; dp = dO.v; ds = p * (dp -
+// dsum) * scale in fp32; dv += p^T dO with p not rounded and dO fp32 (the
+// reference upcasts it, pallas_attention.py:218); dk += ds^T q. All four
+// products run as three tf32 products each on the tensor cores (3xTF32,
+// flash_fwd_mma's split_tf32: lo hi + hi lo + hi hi, the small terms
+// first), about 2^-22 of |a b| left out, so the kernel is held to phase
+// flash's fp32 dk/dv limit, not to bits. No rounding depends on the tiling.
+// It serves #9 and #11 (one kernel streams every T) for fp32 at any D <= 64.
+//
+// Block: one CTA of 256 threads (8 warps) per (64-key tile, b*h), key tiles
+// heaviest first (blockIdx.y; in a causal launch the lowest keys see the
+// most queries). Warp w owns keys 16 (w % 4) + 0..15 (one M of the mma) and
+// the query half w / 4 (32 queries) of each 64-query tile; the two warps of
+// a key row add their partial dk and dv through shared memory at the end,
+// in a fixed order. Registers: dk and dv accumulators (32 each), S^T and
+// dP^T of the warp's 16 x 32 (16 each). K's and V's tf32 splits (128
+// registers as A fragments) stay in shared memory: with them in registers a
+// thread would need more than its 255.
+//
+// Transposed products (flash_dkv_sm90's): S^T = K Q^T and dP^T = V dO^T put
+// keys on the C fragments' rows, so P^T and dS^T are the A operands of dV +=
+// P^T dO and dK += dS^T Q. With the queries of each 8-query step taken in
+// flash_fwd_mma's permuted order (logical t is query 2t, t + 4 is 2t + 1),
+// those C fragments are the A fragments as they stand (a0 = c0, a1 = c2, a2
+// = c1, a3 = c3), and the B fragments are (2t, 2t + 1) pairs of Q^T's and
+// dO^T's rows. S^T and dP^T contract over the head in its natural order:
+// A's (column t, t + 4) from K's and V's rows, B's (row t, t + 4) from Q^T
+// and dO^T.
+//
+// Loads and splits: K and V (64 keys) are read once, split into tf32 hi and
+// lo and kept as rows of 68 floats (A reads: banks 4g + t). Q and dO tiles
+// of 64 queries go through a two-stage cp.async ring (16-byte copies when D
+// % 4 == 0 and q, dO are 16-byte aligned, else 4-byte ones; rows past Tq
+// zero-filled, the columns from D to 64 zeroed once), tile j + 1 in flight
+// while tile j is computed. Once tile j lands the CTA splits it, transposed,
+// into Q^T and dO^T hi and lo (a row per head column, 72 floats: the B reads
+// hit 32 distinct banks). Three barriers a tile: landed, split, read. lse
+// and dsum are read per tile for the thread's 8 query columns before the
+// tile's wait.
+//
+// Masks: only on a warp's blocks that cross the causal diagonal or the
+// ragged query edge; a query past Tq is masked explicitly (zero-filled q and
+// dO would give p = exp(-lse), not 0). Keys past Tk compute garbage rows
+// that are never stored. Query tiles start at q_tile_start (_q_block_start);
+// a warp skips the products of a block wholly above its keys.
+//
+// Bound, at the 136M LM's shape in fp32 (BH 96, T 1024, D 64, causal):
+// 152.6 MB (46 us at 3.35 TB/s); 12.9 GFLOP of products as fp32 FMAs (193
+// us at 67 TFLOP/s), 77.4 GFLOP as 3xTF32 (156 us at the 494.7 TFLOP/s dense
+// tf32 rate): the tensor cores' share bounds it.
+//
+// Not yet: wgmma (tf32 wgmma takes K-major operands only), a producer warp,
+// the split of a Q/dO tile shared by the CTAs of neighbouring key tiles.
+
+constexpr int kKeyWarps = 4;    // warps across a CTA's 64 keys, 16 each
+constexpr int kHalfQ = 32;      // queries of a 64-query tile that one warp takes
+constexpr int kLdS = kD + 4;    // floats between K, V and ring rows
+constexpr int kLdT = kD + 8;    // floats between Q^T and dO^T rows (64 queries + 8)
+static_assert(kKeyWarps * 16 == kTile && (kMmaThreads / 32 / kKeyWarps) * kHalfQ == kTile,
+              "8 warps cover a 64-key x 64-query block");
+
+struct DkvSmem {
+  float k_hi[kTile * kLdS];
+  float k_lo[kTile * kLdS];
+  float v_hi[kTile * kLdS];
+  float v_lo[kTile * kLdS];
+  float q[kRing][kTile * kLdS];    // raw tiles; the partial dk, dv at the end
+  float d_o[kRing][kTile * kLdS];
+  float qt_hi[kD * kLdT];
+  float qt_lo[kD * kLdT];
+  float dot_hi[kD * kLdT];
+  float dot_lo[kD * kLdT];
+};
+static_assert(kKeyWarps * 64 * 32 <= kRing * kTile * kLdS, "the partials fit the ring's q");
+
+// Q/dO tile `row0` (64 queries) into ring stage s
+__device__ __forceinline__ void load_qdo_async(DkvSmem& sm, const float* qb, const float* dob,
+                                               int s, int row0, int Tq, int D, bool vec) {
+  tile_async<kLdS>(sm.q[s], qb, row0, Tq, D, vec);
+  tile_async<kLdS>(sm.d_o[s], dob, row0, Tq, D, vec);
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+// the ring's Q and dO tiles -> Q^T and dO^T, tf32 hi and lo. A thread
+// loads all its float4s before it splits and stores any; consecutive lanes
+// take consecutive rows of one column group (ring rows 68 floats apart:
+// conflict-free float4 reads; transposed 4-byte stores to 32 banks).
+__device__ __forceinline__ void split_qdo_t(DkvSmem& sm, const float* qs, const float* ds) {
+  constexpr int kPer = kTile * kD / 4 / kMmaThreads;  // float4s a thread, each of Q and dO
+  float4 xq[kPer], xd[kPer];
+#pragma unroll
+  for (int j = 0; j < kPer; ++j) {
+    const int i = threadIdx.x + j * kMmaThreads;
+    xq[j] = *reinterpret_cast<const float4*>(qs + (i % kTile) * kLdS + (i / kTile) * 4);
+    xd[j] = *reinterpret_cast<const float4*>(ds + (i % kTile) * kLdS + (i / kTile) * 4);
+  }
+#pragma unroll
+  for (int j = 0; j < kPer; ++j) {
+    const int i = threadIdx.x + j * kMmaThreads;
+    const int r = i % kTile, c = (i / kTile) * 4;
+    const float a[4] = {xq[j].x, xq[j].y, xq[j].z, xq[j].w};
+    const float b[4] = {xd[j].x, xd[j].y, xd[j].z, xd[j].w};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      uint32_t h, l;
+      split_tf32(a[e], h, l);
+      sm.qt_hi[(c + e) * kLdT + r] = __uint_as_float(h);
+      sm.qt_lo[(c + e) * kLdT + r] = __uint_as_float(l);
+      split_tf32(b[e], h, l);
+      sm.dot_hi[(c + e) * kLdT + r] = __uint_as_float(h);
+      sm.dot_lo[(c + e) * kLdT + r] = __uint_as_float(l);
+    }
+  }
+}
+
+// an A fragment's hi and lo parts at head columns (t, t + 4) of rows (g,
+// g + 8): `at` is row g's column t in the split rows
+__device__ __forceinline__ void a_parts(const float* hi, const float* lo, int at,
+                                        uint32_t (&ah)[4], uint32_t (&al)[4]) {
+  constexpr int kDown = 8 * kLdS;  // row g + 8
+  ah[0] = __float_as_uint(hi[at]);
+  ah[1] = __float_as_uint(hi[at + kDown]);
+  ah[2] = __float_as_uint(hi[at + 4]);
+  ah[3] = __float_as_uint(hi[at + kDown + 4]);
+  al[0] = __float_as_uint(lo[at]);
+  al[1] = __float_as_uint(lo[at + kDown]);
+  al[2] = __float_as_uint(lo[at + 4]);
+  al[3] = __float_as_uint(lo[at + kDown + 4]);
+}
+
+__global__ void __launch_bounds__(kMmaThreads, 1)
+flash_dkv_mma_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, const float* __restrict__ d_o,
+                     const float* __restrict__ lse, const float* __restrict__ dsum,
+                     float* __restrict__ dk_out, float* __restrict__ dv_out, int Tq, int Tk,
+                     int D, int q_off, int k_off, int causal, float scale) {
+  extern __shared__ __align__(16) unsigned char dyn_smem[];
+  DkvSmem& sm = *reinterpret_cast<DkvSmem*>(dyn_smem);
+  const int bh = blockIdx.x;
+  const int k0 = blockIdx.y * kTile;  // heaviest causal key tiles first
+  const int tid = threadIdx.x;
+  const int lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;  // the mma fragments' group and thread in group
+  const int wk = (tid / 32) % kKeyWarps;  // the warp's 16 keys
+  const int qh = (tid / 32) / kKeyWarps;  // and its half of each query tile
+  const int wk0 = k0 + 16 * wk;
+  const int kr0 = wk0 + g, kr1 = kr0 + 8;  // this thread's two keys
+  const float* qb = q + (int64_t)bh * Tq * D;
+  const float* dob = d_o + (int64_t)bh * Tq * D;
+  const float* lse_b = lse + (int64_t)bh * Tq;
+  const float* dsum_b = dsum + (int64_t)bh * Tq;
+  const bool vec = D % 4 == 0 && ((reinterpret_cast<uintptr_t>(q) |
+                                   reinterpret_cast<uintptr_t>(d_o)) & 15) == 0;
+  const int nq = (Tq + kTile - 1) / kTile;
+  const int i0 = q_tile_start(causal, k0, q_off, k_off);
+  const int n_tiles = max(nq - i0, 0);
+  const int steps = (D + 7) / 8;  // 8-column steps of the head that hold data
+
+  if (n_tiles > 0) load_qdo_async(sm, qb, dob, 0, i0 * kTile, Tq, D, vec);
+  // the ring's head padding, never written by the copies
+  const int pad = kD - D;
+  for (int i = tid; i < kRing * kTile * pad; i += kMmaThreads) {
+    const int s = i / (kTile * pad);
+    const int r = (i / pad) % kTile, c = D + i % pad;
+    sm.q[s][r * kLdS + c] = 0.0f;
+    sm.d_o[s][r * kLdS + c] = 0.0f;
+  }
+  // K and V of the CTA's keys, split once; zero past Tk and D
+  const float* kb = k + (int64_t)bh * Tk * D;
+  const float* vb = v + (int64_t)bh * Tk * D;
+  for (int i = tid; i < kTile * kD; i += kMmaThreads) {
+    const int r = i / kD, c = i % kD;
+    const bool in = k0 + r < Tk && c < D;
+    const int64_t at = (int64_t)(k0 + r) * D + c;
+    uint32_t h, l;
+    split_tf32(in ? kb[at] : 0.0f, h, l);
+    sm.k_hi[r * kLdS + c] = __uint_as_float(h);
+    sm.k_lo[r * kLdS + c] = __uint_as_float(l);
+    split_tf32(in ? vb[at] : 0.0f, h, l);
+    sm.v_hi[r * kLdS + c] = __uint_as_float(h);
+    sm.v_lo[r * kLdS + c] = __uint_as_float(l);
+  }
+
+  float dk[32], dv[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) dk[i] = dv[i] = 0.0f;
+  const int arow = 16 * wk * kLdS + g * kLdS + t;  // A's row g, column t in the split rows
+  const int qcol = kHalfQ * qh;  // the warp's first column of Q^T and dO^T
+
+  for (int j = 0; j < n_tiles; ++j) {
+    const int q0 = (i0 + j) * kTile;
+    if (j + 1 < n_tiles) {
+      load_qdo_async(sm, qb, dob, (j + 1) % kRing, q0 + kTile, Tq, D, vec);
+      asm volatile("cp.async.wait_group 1;" ::: "memory");
+    } else {
+      asm volatile("cp.async.wait_group 0;" ::: "memory");
+    }
+    const int qs = q0 + qcol;  // the warp's first query
+    // lse and dsum of this thread's query columns qs + 8n + 2t + e: [2n + e]
+    float lse_c[8], dsum_c[8];
+#pragma unroll
+    for (int n = 0; n < kHalfQ / 8; ++n) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int c = qs + 8 * n + 2 * t + e;
+        lse_c[2 * n + e] = c < Tq ? __ldg(lse_b + c) : 0.0f;
+        dsum_c[2 * n + e] = c < Tq ? __ldg(dsum_b + c) : 0.0f;
+      }
+    }
+    __syncthreads();  // tile j has landed for every thread (and K, V are split)
+    split_qdo_t(sm, sm.q[j % kRing], sm.d_o[j % kRing]);
+    __syncthreads();  // Q^T and dO^T are whole
+    const bool active = wk0 < Tk && qs < Tq && (!causal || q_off + qs + kHalfQ - 1 >= k_off + wk0);
+    if (active) {
+      // s^T = k q^T and dp^T = v dO^T: st[4n + e] is key e < 2 ? kr0 : kr1,
+      // query qs + 8n + 2t + e % 2. Each 8-column head step issues the 8
+      // independent products (4 query groups of each) back to back, one of
+      // the three terms at a time.
+      float st[16], dpt[16];
+#pragma unroll
+      for (int i = 0; i < 16; ++i) st[i] = dpt[i] = 0.0f;
+#pragma unroll
+      for (int hs = 0; hs < kD / 8; ++hs) {
+        if (hs < steps) {
+          uint32_t kah[4], kal[4], vah[4], val[4];
+          a_parts(sm.k_hi, sm.k_lo, arow + 8 * hs, kah, kal);
+          a_parts(sm.v_hi, sm.v_lo, arow + 8 * hs, vah, val);
+          uint32_t qbh[kHalfQ / 8][2], qbl[kHalfQ / 8][2], obh[kHalfQ / 8][2], obl[kHalfQ / 8][2];
+#pragma unroll
+          for (int n = 0; n < kHalfQ / 8; ++n) {
+            const int at = (8 * hs + t) * kLdT + qcol + 8 * n + g;
+            qbh[n][0] = __float_as_uint(sm.qt_hi[at]);
+            qbh[n][1] = __float_as_uint(sm.qt_hi[at + 4 * kLdT]);
+            qbl[n][0] = __float_as_uint(sm.qt_lo[at]);
+            qbl[n][1] = __float_as_uint(sm.qt_lo[at + 4 * kLdT]);
+            obh[n][0] = __float_as_uint(sm.dot_hi[at]);
+            obh[n][1] = __float_as_uint(sm.dot_hi[at + 4 * kLdT]);
+            obl[n][0] = __float_as_uint(sm.dot_lo[at]);
+            obl[n][1] = __float_as_uint(sm.dot_lo[at + 4 * kLdT]);
+          }
+#pragma unroll
+          for (int n = 0; n < kHalfQ / 8; ++n) {
+            mma_tf32(st + 4 * n, kal, qbh[n][0], qbh[n][1]);
+            mma_tf32(dpt + 4 * n, val, obh[n][0], obh[n][1]);
+          }
+#pragma unroll
+          for (int n = 0; n < kHalfQ / 8; ++n) {
+            mma_tf32(st + 4 * n, kah, qbl[n][0], qbl[n][1]);
+            mma_tf32(dpt + 4 * n, vah, obl[n][0], obl[n][1]);
+          }
+#pragma unroll
+          for (int n = 0; n < kHalfQ / 8; ++n) {
+            mma_tf32(st + 4 * n, kah, qbh[n][0], qbh[n][1]);
+            mma_tf32(dpt + 4 * n, vah, obh[n][0], obh[n][1]);
+          }
+        }
+      }
+
+      // p and ds on the accumulators, in place; masks only on a block
+      // across the diagonal or the ragged query edge
+      const bool edge = qs + kHalfQ > Tq || (causal && q_off + qs < k_off + wk0 + 15);
+#pragma unroll
+      for (int r = 0; r < 16; ++r) {
+        const int c = 2 * (r / 4) + r % 2;
+        float pr = expf(st[r] * scale - lse_c[c]);
+        if (edge) {
+          const int qc = qs + 8 * (r / 4) + 2 * t + r % 2;
+          if (!(qc < Tq && visible(causal, q_off, k_off, qc, (r % 4) < 2 ? kr0 : kr1, Tk)))
+            pr = 0.0f;
+        }
+        st[r] = pr;
+        dpt[r] = pr * (dpt[r] - dsum_c[c]) * scale;
+      }
+
+      // dv += p^T dO and dk += ds^T q over the warp's 4 query steps: step
+      // qs8's A fragment is the C fragment of its query group (a0 = c0, a1 =
+      // c2, a2 = c1, a3 = c3: query 2t is logical column t); B takes dO^T's
+      // and Q^T's row 8n + g at queries 8 qs8 + 2t and + 1
+#pragma unroll
+      for (int qs8 = 0; qs8 < kHalfQ / 8; ++qs8) {
+        uint32_t pah[4], pal[4], dah[4], dal[4];
+        split_tf32(st[4 * qs8], pah[0], pal[0]);
+        split_tf32(st[4 * qs8 + 2], pah[1], pal[1]);
+        split_tf32(st[4 * qs8 + 1], pah[2], pal[2]);
+        split_tf32(st[4 * qs8 + 3], pah[3], pal[3]);
+        split_tf32(dpt[4 * qs8], dah[0], dal[0]);
+        split_tf32(dpt[4 * qs8 + 2], dah[1], dal[1]);
+        split_tf32(dpt[4 * qs8 + 1], dah[2], dal[2]);
+        split_tf32(dpt[4 * qs8 + 3], dah[3], dal[3]);
+        uint32_t bfh[kD / 8][2], bfl[kD / 8][2];
+#pragma unroll
+        for (int n = 0; n < kD / 8; ++n) {
+          if (n < steps)
+            b_parts(sm.dot_hi, sm.dot_lo, (8 * n + g) * kLdT + qcol + 8 * qs8 + 2 * t, bfh[n],
+                    bfl[n]);
+        }
+#pragma unroll
+        for (int n = 0; n < kD / 8; ++n) {
+          if (n < steps) mma_tf32(dv + 4 * n, pal, bfh[n][0], bfh[n][1]);
+        }
+#pragma unroll
+        for (int n = 0; n < kD / 8; ++n) {
+          if (n < steps) mma_tf32(dv + 4 * n, pah, bfl[n][0], bfl[n][1]);
+        }
+#pragma unroll
+        for (int n = 0; n < kD / 8; ++n) {
+          if (n < steps) mma_tf32(dv + 4 * n, pah, bfh[n][0], bfh[n][1]);
+        }
+#pragma unroll
+        for (int n = 0; n < kD / 8; ++n) {
+          if (n < steps)
+            b_parts(sm.qt_hi, sm.qt_lo, (8 * n + g) * kLdT + qcol + 8 * qs8 + 2 * t, bfh[n],
+                    bfl[n]);
+        }
+#pragma unroll
+        for (int n = 0; n < kD / 8; ++n) {
+          if (n < steps) mma_tf32(dk + 4 * n, dal, bfh[n][0], bfh[n][1]);
+        }
+#pragma unroll
+        for (int n = 0; n < kD / 8; ++n) {
+          if (n < steps) mma_tf32(dk + 4 * n, dah, bfl[n][0], bfl[n][1]);
+        }
+#pragma unroll
+        for (int n = 0; n < kD / 8; ++n) {
+          if (n < steps) mma_tf32(dk + 4 * n, dah, bfh[n][0], bfh[n][1]);
+        }
+      }
+    }
+    __syncthreads();  // every thread is done with Q^T, dO^T and the stage tile j + 2 fills
+  }
+
+  // the second query half's warps hand their partial dk, dv to the first
+  // half's through the ring (free after the last tile's barrier), in
+  // fragment order; the first half adds them and stores rows kr0, kr1,
+  // columns 8n + 2t and + 1
+  float* part = sm.q[0] + wk * 64 * 32;
+  if (qh == 1) {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      part[i * 32 + lane] = dk[i];
+      part[(32 + i) * 32 + lane] = dv[i];
+    }
+  }
+  __syncthreads();
+  if (qh == 1) return;
+  float* dk_b = dk_out + (int64_t)bh * Tk * D;
+  float* dv_b = dv_out + (int64_t)bh * Tk * D;
+  const bool pairs = D % 2 == 0 && ((reinterpret_cast<uintptr_t>(dk_out) |
+                                     reinterpret_cast<uintptr_t>(dv_out)) & 7) == 0;
+#pragma unroll
+  for (int n = 0; n < kD / 8; ++n) {
+    const int c = 8 * n + 2 * t;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int kr = h ? kr1 : kr0;
+      const int i = 4 * n + 2 * h;
+      if (kr >= Tk || c >= D) continue;
+      const float k0v = dk[i] + part[i * 32 + lane], k1v = dk[i + 1] + part[(i + 1) * 32 + lane];
+      const float v0v = dv[i] + part[(32 + i) * 32 + lane];
+      const float v1v = dv[i + 1] + part[(33 + i) * 32 + lane];
+      const int64_t at = (int64_t)kr * D + c;
+      if (pairs) {
+        *reinterpret_cast<float2*>(dk_b + at) = make_float2(k0v, k1v);
+        *reinterpret_cast<float2*>(dv_b + at) = make_float2(v0v, v1v);
+      } else {
+        dk_b[at] = k0v;
+        dv_b[at] = v0v;
+        if (c + 1 < D) {
+          dk_b[at + 1] = k1v;
+          dv_b[at + 1] = v1v;
+        }
+      }
+    }
+  }
+}
+
+int dkv_fp32(const void* q, const void* k, const void* v, const void* d_o, const void* lse,
+             const void* dsum, void* dk_out, void* dv_out, int BH, int Tq, int Tk, int D,
+             int q_off, int k_off, int causal, float scale, cudaStream_t stream) {
+  if (D < 1 || D > kD) return (int)cudaErrorInvalidValue;
+  const size_t smem = sizeof(DkvSmem);
+  cudaError_t err = prepare(flash_dkv_mma_kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(BH, (Tk + kTile - 1) / kTile);
+  flash_dkv_mma_kernel<<<grid, kMmaThreads, smem, stream>>>(
+      (const float*)q, (const float*)k, (const float*)v, (const float*)d_o, (const float*)lse,
+      (const float*)dsum, (float*)dk_out, (float*)dv_out, Tq, Tk, D, q_off, k_off, causal, scale);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace mma
 
 }  // namespace
@@ -1952,6 +2713,18 @@ int tmpi_flash_fwd_mma(int device, const void* q, const void* k, const void* v, 
   if (err != cudaSuccess) return (int)err;
   return mma::fwd(q, k, v, o, lse, BH, Tq, Tk, D, q_off, k_off, causal, scale,
                   (cudaStream_t)stream);
+}
+
+// bf16 at any 1 <= D <= 64 (mma.sync bf16; the route sends it D % 8 != 0):
+// 4-byte cp.async copies when D is even and k, v 4-byte aligned, else
+// register-staged loads.
+int tmpi_flash_fwd_mma_bf16(int device, const void* q, const void* k, const void* v, void* o,
+                            void* lse, int BH, int Tq, int Tk, int D, int q_off, int k_off,
+                            int causal, float scale, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  return mma::fwd_bf16(q, k, v, o, lse, BH, Tq, Tk, D, q_off, k_off, causal, scale,
+                       (cudaStream_t)stream);
 }
 
 // bf16 only, 8 <= D <= 64 with D % 8 == 0, and q, k, v, o 16-byte aligned
@@ -2013,6 +2786,17 @@ int tmpi_flash_dkv_sm90(int device, const void* q, const void* k, const void* v,
   if (err != cudaSuccess) return (int)err;
   return sm90::dkv(q, k, v, d_o, lse, dsum, dk_out, dv_out, BH, Tq, Tk, D, q_off, k_off, causal,
                    scale, (cudaStream_t)stream);
+}
+
+// fp32 only (3xTF32 on mma.sync), any 1 <= D <= 64.
+int tmpi_flash_dkv_mma(int device, const void* q, const void* k, const void* v, const void* d_o,
+                       const void* lse, const void* dsum, void* dk_out, void* dv_out, int BH,
+                       int Tq, int Tk, int D, int q_off, int k_off, int causal, float scale,
+                       void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  return mma::dkv_fp32(q, k, v, d_o, lse, dsum, dk_out, dv_out, BH, Tq, Tk, D, q_off, k_off,
+                       causal, scale, (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -7,12 +7,15 @@ sequence-parallel slice). The kernels are hand-written CUDA for Hopper
 (``csrc/flash_attention.cu``): the forward (TPU kernel #7) as
 ``flash_fwd_sm90`` (TMA + wgmma) for bf16 with D % 8 == 0, as
 ``flash_fwd_mma`` (mma.sync, 3xTF32: ``split_tf32x2``) for fp32, and as
-``flash_fwd`` for the other bf16 heads (``_fwd_route``); dq (#8
+``flash_fwd_mma_bf16`` (mma.sync bf16, cp.async or register-staged
+loads) for the other bf16 heads (``_fwd_route``; the generic
+``flash_fwd`` serves no route and stays for timing in turns); dq (#8
 and its long-sequence twin #10) as ``flash_dq_sm90`` (TMA + wgmma, dS
 from registers) for bf16 with D % 8 == 0, and as ``flash_dq`` for the
 rest (``_dq_route``); dk/dv (#9 and #11) as ``flash_dkv_sm90`` (TMA +
 wgmma, dv exact on the tensor cores through a three-part bf16 split of
-p) for bf16 with D % 8 == 0, and as ``flash_dkv`` for the rest
+p) for bf16 with D % 8 == 0, as ``flash_dkv_mma`` (mma.sync, every
+product 3xTF32) for fp32, and as ``flash_dkv`` for the other bf16 heads
 (``_dkv_route``). The TPU needs the 2-D
 backward kernels only because its 1-D ones keep the whole opposite
 sequence in VMEM; the CUDA kernels stream it through shared memory a
@@ -29,9 +32,9 @@ Numerics, at the reference's cast points (see the kernel's header): the
 products run in the input dtype with fp32 accumulation, softmax
 statistics and every accumulator are fp32, and ``dv += p^T dO`` is an
 fp32 x fp32 product with p not rounded (``flash_dkv_sm90`` runs it as
-three exact bf16 products, ``split_bf16x3``); the fp32 forward's products
-run as three tf32 products each (``split_tf32x2``), held to a tolerance
-like every fp32 sum here. The plain versions beside
+three exact bf16 products, ``split_bf16x3``); the fp32 forward's and
+dk/dv's products run as three tf32 products each (``split_tf32x2``), held
+to a tolerance like every fp32 sum here. The plain versions beside
 the wrappers compute the same functions in PyTorch; the forward walks K
 in tiles of ``block_k`` as the kernel does, so that bf16 rounds the same
 probabilities relative to the same running maxima. The wrappers run the
@@ -77,6 +80,9 @@ _LIB = KernelLibrary(
         # device, q, k, v, o, lse, BH, Tq, Tk, D, q_off, k_off, causal, scale, stream
         "tmpi_flash_fwd_mma": (_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                                ctypes.c_float, _P),
+        # device, q, k, v, o, lse, BH, Tq, Tk, D, q_off, k_off, causal, scale, stream
+        "tmpi_flash_fwd_mma_bf16": (_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                                    ctypes.c_float, _P),
         # device, q, k, v, dO, lse, dsum, dq, BH, Tq, Tk, D, q_off, k_off, causal, scale,
         # dtype, stream
         "tmpi_flash_dq": (_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
@@ -93,16 +99,22 @@ _LIB = KernelLibrary(
         # stream
         "tmpi_flash_dkv_sm90": (_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                                 ctypes.c_float, _P),
+        # device, q, k, v, dO, lse, dsum, dk, dv, BH, Tq, Tk, D, q_off, k_off, causal, scale,
+        # stream
+        "tmpi_flash_dkv_mma": (_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                               ctypes.c_float, _P),
     },
 )
 
 FLASH_FWD = LaunchCounter("flash_fwd")
 FLASH_FWD_SM90 = LaunchCounter("flash_fwd_sm90")
 FLASH_FWD_MMA = LaunchCounter("flash_fwd_mma")
+FLASH_FWD_MMA_BF16 = LaunchCounter("flash_fwd_mma_bf16")
 FLASH_DQ = LaunchCounter("flash_dq")
 FLASH_DQ_SM90 = LaunchCounter("flash_dq_sm90")
 FLASH_DKV = LaunchCounter("flash_dkv")
 FLASH_DKV_SM90 = LaunchCounter("flash_dkv_sm90")
+FLASH_DKV_MMA = LaunchCounter("flash_dkv_mma")
 
 
 def build() -> float:
@@ -158,7 +170,8 @@ def _tf32(x: torch.Tensor) -> torch.Tensor:
 def split_tf32x2(x: torch.Tensor):
     """fp32 ``x`` -> fp32 ``(hi, lo)`` holding tf32 values: ``hi =
     tf32(x)``, ``lo = tf32(x - hi)`` (``x - hi`` is exact). ``flash_fwd_mma``
-    forms the same parts in registers and takes each product ``a b`` as
+    and ``flash_dkv_mma`` form the same parts in registers and take each
+    product ``a b`` as
     ``lo_a hi_b + hi_a lo_b + hi_a hi_b`` (3xTF32): what is left out is
     about 2^-22 of ``|a b|``, against 2^-11 for ``hi_a hi_b`` alone."""
     hi = _tf32(x.float())
@@ -212,7 +225,7 @@ def flash_dkv_plain(q3, k3, v3, do3, lse, dsum, *, causal: bool, scale: float, q
                     k_off: int = 0):
     """(dk, dv), f32 ``[BH, Tk, D]``: dv from the unrounded p and fp32 dO."""
     p, ds = _probs_and_ds(q3, k3, v3, do3, lse, dsum, causal, scale, q_off, k_off)
-    return _dot(ds.transpose(1, 2), q3), torch.matmul(p.transpose(1, 2), do3.float())
+    return _dot(ds.transpose(1, 2), q3), _dot(p.transpose(1, 2), do3)
 
 
 # --------------------------------------------------------------------------
@@ -265,16 +278,18 @@ def _fwd_route(dtype: torch.dtype, D: int) -> str:
     dim alone: ``"sm90"`` (``flash_fwd_sm90``: TMA + wgmma, bf16, and
     the tensor maps need a row of D bf16 to be whole 16-byte units),
     ``"mma"`` (``flash_fwd_mma``: fp32, 3xTF32 on mma.sync, any D) or
-    ``"generic"`` (``flash_fwd``: bf16 with another D)."""
+    ``"mma_bf16"`` (``flash_fwd_mma_bf16``: bf16 with another D, odd
+    included, on mma.sync)."""
     if dtype == torch.float32:
         return "mma"
-    return "sm90" if dtype == torch.bfloat16 and D % 8 == 0 else "generic"
+    return "sm90" if dtype == torch.bfloat16 and D % 8 == 0 else "mma_bf16"
 
 
 def _launch_fwd_generic(q3, k3, v3, *, causal, scale, q_off, k_off):
-    """``flash_fwd_kernel`` (wmma, synchronous loads), fp32 or bf16: the
-    route of bf16 heads with D % 8 != 0; its fp32 instantiation is
-    reached only from here (chip_smoke times it against ``flash_fwd_mma``)."""
+    """``flash_fwd_kernel`` (wmma, synchronous loads), fp32 or bf16. No
+    route reaches it: it is called only from here, so that chip_smoke can
+    time it in turns against the kernels that replaced it
+    (``flash_fwd_mma``, ``flash_fwd_mma_bf16``)."""
     BH, Tq, D = q3.shape
     dev = q3.device
     o = torch.empty_like(q3)
@@ -319,7 +334,24 @@ def _launch_fwd_mma(q3, k3, v3, *, causal, scale, q_off, k_off):
     return o, lse
 
 
-_FWD_LAUNCH = {"sm90": _launch_fwd_sm90, "mma": _launch_fwd_mma, "generic": _launch_fwd_generic}
+def _launch_fwd_mma_bf16(q3, k3, v3, *, causal, scale, q_off, k_off):
+    """``flash_fwd_mma_bf16_kernel`` (mma.sync bf16; 4-byte cp.async
+    copies, or register-staged loads for odd D), bf16 at any D."""
+    BH, Tq, D = q3.shape
+    dev = q3.device
+    o = torch.empty_like(q3)
+    lse = torch.empty((BH, Tq), dtype=torch.float32, device=dev)
+    rc = _LIB.get().tmpi_flash_fwd_mma_bf16(dev.index, q3.data_ptr(), k3.data_ptr(),
+                                            v3.data_ptr(), o.data_ptr(), lse.data_ptr(), BH, Tq,
+                                            k3.shape[1], D, int(q_off), int(k_off), int(causal),
+                                            float(scale), stream_handle(dev))
+    _LIB.check(rc, "flash attention forward kernel (mma, bf16)")
+    FLASH_FWD_MMA_BF16.launches += 1
+    return o, lse
+
+
+_FWD_LAUNCH = {"sm90": _launch_fwd_sm90, "mma": _launch_fwd_mma,
+               "mma_bf16": _launch_fwd_mma_bf16}
 
 
 def flash_fwd(q3, k3, v3, *, causal: bool, scale: float, q_off: int = 0, k_off: int = 0,
@@ -393,14 +425,19 @@ def flash_dq(q3, k3, v3, do3, lse, dsum, *, causal: bool, scale: float, q_off: i
 def _dkv_route(dtype: torch.dtype, D: int) -> str:
     """Which dk/dv kernel takes a CUDA input, from its dtype and head dim
     alone, as ``_fwd_route``: ``"sm90"`` (``flash_dkv_sm90``: TMA +
-    wgmma, bf16 with rows of whole 16-byte units) or ``"generic"``
-    (``flash_dkv``: fp32, and bf16 with another D)."""
+    wgmma, bf16 with rows of whole 16-byte units), ``"mma"``
+    (``flash_dkv_mma``: fp32, 3xTF32 on mma.sync, any D) or ``"generic"``
+    (``flash_dkv``: bf16 with another D)."""
+    if dtype == torch.float32:
+        return "mma"
     return "sm90" if dtype == torch.bfloat16 and D % 8 == 0 else "generic"
 
 
 def _launch_dkv_generic(q3, k3, v3, do3, lse, dsum, *, causal, scale, q_off, k_off):
     """``flash_dkv_kernel`` (wmma, synchronous loads, dv in fp32 FMAs),
-    fp32 or bf16."""
+    fp32 or bf16: the route of bf16 heads with D % 8 != 0; its fp32
+    instantiation is reached only from here (chip_smoke times it against
+    ``flash_dkv_mma``)."""
     BH, Tq, D = q3.shape
     Tk = k3.shape[1]
     dev = q3.device
@@ -435,6 +472,26 @@ def _launch_dkv_sm90(q3, k3, v3, do3, lse, dsum, *, causal, scale, q_off, k_off)
     return dk, dv
 
 
+def _launch_dkv_mma(q3, k3, v3, do3, lse, dsum, *, causal, scale, q_off, k_off):
+    """``flash_dkv_mma_kernel`` (cp.async Q/dO ring, every product
+    3xTF32 on mma.sync), fp32 at any D."""
+    BH, Tq, D = q3.shape
+    Tk = k3.shape[1]
+    dev = q3.device
+    dk = torch.empty((BH, Tk, D), dtype=torch.float32, device=dev)
+    dv = torch.empty((BH, Tk, D), dtype=torch.float32, device=dev)
+    rc = _LIB.get().tmpi_flash_dkv_mma(dev.index, q3.data_ptr(), k3.data_ptr(), v3.data_ptr(),
+                                       do3.data_ptr(), lse.data_ptr(), dsum.data_ptr(),
+                                       dk.data_ptr(), dv.data_ptr(), BH, Tq, Tk, D, int(q_off),
+                                       int(k_off), int(causal), float(scale), stream_handle(dev))
+    _LIB.check(rc, "flash attention dk/dv kernel (mma)")
+    FLASH_DKV_MMA.launches += 1
+    return dk, dv
+
+
+_DKV_LAUNCH = {"sm90": _launch_dkv_sm90, "mma": _launch_dkv_mma, "generic": _launch_dkv_generic}
+
+
 def flash_dkv(q3, k3, v3, do3, lse, dsum, *, causal: bool, scale: float, q_off: int = 0,
               k_off: int = 0):
     """(dk, dv) partials, f32 ``[BH, Tk, D]``. A CUDA input goes to the
@@ -447,9 +504,8 @@ def flash_dkv(q3, k3, v3, do3, lse, dsum, *, causal: bool, scale: float, q_off: 
     dev = q3.device
     _check_rows(lse, "lse", (BH, Tq), dev)
     _check_rows(dsum, "dsum", (BH, Tq), dev)
-    launch = _launch_dkv_sm90 if _dkv_route(q3.dtype, D) == "sm90" else _launch_dkv_generic
-    return launch(q3, k3, v3, do3, lse, dsum, causal=causal, scale=scale, q_off=q_off,
-                  k_off=k_off)
+    return _DKV_LAUNCH[_dkv_route(q3.dtype, D)](q3, k3, v3, do3, lse, dsum, causal=causal,
+                                                scale=scale, q_off=q_off, k_off=k_off)
 
 
 # --------------------------------------------------------------------------
