@@ -15,8 +15,10 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                 (wgmma) and UTMALDG (TMA loads), that of
                 ``flash_fwd_mma_kernel`` and ``flash_dkv_mma_kernel`` HMMA
                 (mma.sync) and LDGSTS (cp.async), and both instantiations
-                of ``flash_fwd_mma_bf16_kernel`` HMMA and LDSM (ldmatrix),
-                the cp.async one LDGSTS too; their registers, shared
+                of ``flash_fwd_mma_bf16_kernel``, ``flash_dq_mma_bf16_kernel``
+                and ``flash_dkv_mma_bf16_kernel`` HMMA and LDSM (ldmatrix),
+                the cp.async ones LDGSTS too (the staged dk/dv one as well:
+                its lse and dsum come by cp.async); their registers, shared
                 memory and spills are printed (``cuobjdump
                 --dump-resource-usage``). ptxas's registers, stack and
                 spills of each instantiation of the fused update's
@@ -61,23 +63,28 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                 split).
    flash      — each flash attention kernel (#7-11: flash_fwd_sm90,
                 flash_fwd_mma, flash_fwd_mma_bf16 and flash_fwd,
-                flash_dq_sm90 and flash_dq, flash_dkv_sm90, flash_dkv_mma
-                and flash_dkv) against its plain version on
+                flash_dq_sm90, flash_dq_mma_bf16 and flash_dq,
+                flash_dkv_sm90, flash_dkv_mma, flash_dkv_mma_bf16 and
+                flash_dkv) against its plain version on
                 the card: the 136M LM's shape (BH 96, T 1024, D 64) in bf16
                 and fp32, ragged T and D, Tq != Tk, causal and not, nonzero
                 offsets with rows that see no key (o = 0, lse ~ -1e30), Tq
                 200 and 1000 at D 64 (not multiples of the 128-row Q tile),
                 q_off 160 over Tq 200 / Tk 360, bf16 heads of 60, 36 and 33
                 (no whole 16-byte rows; 33 odd: register-staged loads) with
-                ragged T and offsets, fp32 heads of 30 and 33 (4-byte
+                ragged T and offsets, and for the bf16 dq and dk/dv of such
+                heads a sweep over D 1 to 63 at five shapes (ragged, Tq !=
+                Tk, blind rows), causal and not, aligned and from views one
+                element off, fp32 heads of 30 and 33 (4-byte
                 copies), and T = 8192 (BH 2, bf16). The counters show
                 each case's forward, dq and dk/dv routes: bf16 with D % 8 ==
                 0 runs flash_fwd_sm90, flash_dq_sm90 and flash_dkv_sm90,
                 fp32 flash_fwd_mma (3xTF32), flash_dq and flash_dkv_mma
                 (3xTF32), the other bf16 heads flash_fwd_mma_bf16,
-                flash_dq and flash_dkv. The generic flash_fwd, which no
-                route takes, is held to the same limits on those heads
-                through its own launcher. Tolerances: fp32 o rtol
+                flash_dq_mma_bf16 and flash_dkv_mma_bf16. On those heads
+                the generic flash_fwd and flash_dkv, which no route takes,
+                and the generic flash_dq (fp32's route) are held to the
+                same limits through their own launchers. Tolerances: fp32 o rtol
                 1e-5 + 1e-6 max|o|, dq/dk/dv
                 rtol 1e-4 + 1e-5 of the largest value; bf16 o within 1 bf16
                 ulp plus 2^-9 of sum_i p_i |v_i| / l (the tensor cores sum
@@ -85,7 +92,8 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                 can round to its neighbour on one side: see
                 ``bf16_o_excess``), dq/dk rtol 1e-4 + 2^-9 of the largest
                 value (likewise one ds), dv (p unrounded; flash_dkv_sm90
-                splits p into three exact bf16 parts) at the fp32 limit
+                and flash_dkv_mma_bf16 split p into three exact bf16
+                parts) at the fp32 limit
                 rtol 1e-4 + 1e-5 of the largest value, which a dv from
                 bf16(p) must fail; lse atol 1e-5. The routes' forward, dq
                 and dk/dv counters move by one per case.
@@ -210,7 +218,8 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                 and one validation batch: exactly 12 x 7 flash_fwd_sm90,
                 12 x 6 flash_dq_sm90 and flash_dkv_sm90 launches, no
                 flash_fwd, flash_fwd_mma, flash_fwd_mma_bf16, flash_dq,
-                flash_dkv or flash_dkv_mma, no other kernel;
+                flash_dq_mma_bf16, flash_dkv, flash_dkv_mma or
+                flash_dkv_mma_bf16, no other kernel;
                 losses finite; step ms and tokens/s.
    googlenet-main — full-width GoogLeNet (224x224x3, 1000 classes, both
                 aux heads, bf16 compute, fp32 params, momentum 0.9, wd
@@ -279,7 +288,8 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                 kernel (flash_fwd_mma, flash_dq, flash_dkv_mma), none of
                 another. Then the same in bf16 compute with heads of 60
                 (d 120, 2 heads): 4 launches each of flash_fwd_mma_bf16,
-                flash_dq and flash_dkv, none of another; losses within
+                flash_dq_mma_bf16 and flash_dkv_mma_bf16, none of
+                another; losses within
                 rtol 2e-2 (bf16 products round in other places on the
                 two devices), every leaf changed, and the card's
                 parameter change within 0.1 of the CPU's in relative norm.
@@ -379,9 +389,11 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                 generic bf16 flash_fwd, flash_dq and flash_dkv (through the
                 module's own launchers) and flash_fwd_sm90 / flash_dq_sm90
                 / flash_dkv_sm90 in turns (old, new, new, old). At D 60
-                (BH 96, T 1024, bf16, causal): the generic flash_fwd and
-                flash_fwd_mma_bf16 in turns, flash_dq and flash_dkv (the
-                route of those heads), SDPA at D 60. In fp32 at the 136M
+                (BH 96, T 1024, bf16, causal): the generic flash_fwd,
+                flash_dq and flash_dkv each in turns with the kernel that
+                took its place there (flash_fwd_mma_bf16,
+                flash_dq_mma_bf16, flash_dkv_mma_bf16), SDPA's forward and
+                backward at D 60. In fp32 at the 136M
                 shape: flash_fwd_mma and flash_dkv_mma each in turns with
                 the generic kernel's fp32 instantiation, flash_dq, and
                 SDPA's fp32 forward and backward. The
@@ -1957,8 +1969,9 @@ def flash_cases():
     shape in bf16 and fp32, ragged T and D, Tq != Tk, causal and not,
     nonzero offsets with rows that see no key, Tq 200 and 1000 (ragged
     128-row Q tiles of flash_fwd_sm90), bf16 heads of 60, 36 and 33
-    (flash_fwd_mma_bf16: 4-byte copies, and register-staged loads for the
-    odd head) with ragged T, Tq != Tk and offsets, fp32 heads of 30 and 33
+    (flash_fwd_mma_bf16, flash_dq_mma_bf16 and flash_dkv_mma_bf16: 4-byte
+    copies, and register-staged loads for the odd head) with ragged T, Tq
+    != Tk and offsets, fp32 heads of 30 and 33
     (flash_fwd_mma's and flash_dkv_mma's 4-byte copies), and T = 8192
     (where the reference's backward switches to its 2-D kernels #10 and
     #11)."""
@@ -2031,6 +2044,59 @@ def bf16_dv_control(q, k, v, do, lse, dsum, kw):
     return fa._dot(p.to(v.dtype).transpose(1, 2), do)
 
 
+# bf16 heads of D % 8 != 0 (and 2) against (BH, Tq, Tk, q_off, k_off):
+# ragged, Tq != Tk both ways, rows blind to every key, a Q tile past Tk
+SWEEP_HEADS = (1, 2, 7, 15, 17, 31, 47, 55, 63)
+SWEEP_SHAPES = ((2, 130, 70, 0, 0), (2, 70, 200, 0, 0), (2, 150, 150, 40, 0),
+                (2, 150, 150, 0, 90), (1, 257, 129, 128, 0))
+
+
+def bf16_backward_head_sweep(dev, g) -> list:
+    """flash_dq_mma_bf16 and flash_dkv_mma_bf16 (through their launchers)
+    against the plain versions at every head of SWEEP_HEADS and shape of
+    SWEEP_SHAPES, causal and not, from aligned tensors and from views one
+    bf16 element past them (the register-staged loads for even D too), at
+    phase flash's bf16 limits. A single visible key is left out: there p
+    = 1 and dp = dsum exactly, so ds is rounding noise on both sides.
+    Returns the failures."""
+    import torch
+    from theanompi_tpu_torch.ops import flash_attention as fa
+
+    worst = {"dq": 0.0, "dk": 0.0, "dv": 0.0}
+    failures, cases = [], 0
+    for D in SWEEP_HEADS:
+        for BH, Tq, Tk, q_off, k_off in SWEEP_SHAPES:
+            for causal in (True, False):
+                for off in (0, 1):
+                    def rows(T):
+                        x = torch.randn(BH * T * D + 1, generator=g, device=dev)
+                        return x.to(torch.bfloat16)[off:off + BH * T * D].view(BH, T, D)
+
+                    q, k, v, do = rows(Tq), rows(Tk), rows(Tk), rows(Tq)
+                    kw = dict(causal=causal, scale=1.0 / math.sqrt(D), q_off=q_off, k_off=k_off)
+                    po, plse = fa.flash_fwd_plain(q, k, v, **kw)
+                    dsum = torch.sum(do.float() * po.float(), dim=-1)
+                    got = (fa._launch_dq_mma_bf16(q, k, v, do, plse, dsum, **kw),
+                           *fa._launch_dkv_mma_bf16(q, k, v, do, plse, dsum, **kw))
+                    want = (fa.flash_dq_plain(q, k, v, do, plse, dsum, **kw),
+                            *fa.flash_dkv_plain(q, k, v, do, plse, dsum, **kw))
+                    x = {n_: _rel_excess(a, b, 1e-4, at * b.abs().max().item())
+                         if bool(torch.isfinite(a).all()) else math.inf
+                         for n_, a, b, at in zip(("dq", "dk", "dv"), got, want,
+                                                 (2.0 ** -9, 2.0 ** -9, 1e-5))}
+                    cases += 1
+                    for n_, r in x.items():
+                        worst[n_] = max(worst[n_], r)
+                    if max(x.values()) > 1:
+                        failures.append(f"head sweep D {D} BH {BH} Tq {Tq} Tk {Tk} offsets "
+                                        f"{q_off}/{k_off} causal {causal} view +{off}: {x}")
+    torch.cuda.synchronize()
+    print(f"[flash] bf16 backward head sweep: {cases} cases (D {SWEEP_HEADS}), worst share of "
+          f"the limits { {n_: round(r, 4) for n_, r in worst.items()} }, "
+          f"{len(failures)} failed", flush=True)
+    return failures
+
+
 def phase_flash(dev):
     """Each flash kernel against its plain version on the card; every case
     runs and prints, then any failure ends the phase.
@@ -2045,19 +2111,22 @@ def phase_flash(dev):
     check. The counters must show each case's routes: bf16 with D % 8 ==
     0 on flash_fwd_sm90, flash_dq_sm90 and flash_dkv_sm90; fp32 on
     flash_fwd_mma, flash_dq and flash_dkv_mma; the other bf16 heads on
-    flash_fwd_mma_bf16, flash_dq and flash_dkv. On those heads the generic
-    flash_fwd, which no route takes, is held to the same limits through
-    its own launcher (outside the counted calls)."""
+    flash_fwd_mma_bf16, flash_dq_mma_bf16 and flash_dkv_mma_bf16. On those
+    heads the generic flash_fwd, flash_dq and flash_dkv (the kernels these
+    heads took before) are held to the same limits through their own
+    launchers (outside the counted calls). Last, the bf16 backward's
+    head sweep (``bf16_backward_head_sweep``)."""
     import torch
     from theanompi_tpu_torch.ops import flash_attention as fa
 
     g = torch.Generator(device=dev).manual_seed(8)
     counters = (fa.FLASH_FWD, fa.FLASH_FWD_SM90, fa.FLASH_FWD_MMA, fa.FLASH_FWD_MMA_BF16,
-                fa.FLASH_DQ, fa.FLASH_DQ_SM90, fa.FLASH_DKV, fa.FLASH_DKV_SM90, fa.FLASH_DKV_MMA)
+                fa.FLASH_DQ, fa.FLASH_DQ_SM90, fa.FLASH_DQ_MMA_BF16, fa.FLASH_DKV,
+                fa.FLASH_DKV_SM90, fa.FLASH_DKV_MMA, fa.FLASH_DKV_MMA_BF16)
     names = tuple(c.name for c in counters)
     worst = dict.fromkeys(names, 0.0)
-    # every counter but the generic forward's is some case's route
-    routes = dict.fromkeys((n_ for n_ in names if n_ != "flash_fwd"), 0)
+    # every counter but the generic forward's and dk/dv's is some case's route
+    routes = dict.fromkeys((n_ for n_ in names if n_ not in ("flash_fwd", "flash_dkv")), 0)
     # the bf16 cases' worst share of each tolerance, and the control's
     readings = {"o": 0.0, "dq": 0.0, "dk": 0.0, "dv": 0.0, "dv_control": None}
     failures = []
@@ -2083,7 +2152,7 @@ def phase_flash(dev):
         elif D % 8 == 0:
             fwd, dqk, dkv = "flash_fwd_sm90", "flash_dq_sm90", "flash_dkv_sm90"
         else:
-            fwd, dqk, dkv = "flash_fwd_mma_bf16", "flash_dq", "flash_dkv"
+            fwd, dqk, dkv = "flash_fwd_mma_bf16", "flash_dq_mma_bf16", "flash_dkv_mma_bf16"
         want = tuple(int(n_ in (fwd, dqk, dkv)) for n_ in names)
         if tuple(b - a for a, b in zip(before, after)) != want:
             bad.append(f"counters {names} moved {before} -> {after}, expected + {want}")
@@ -2127,17 +2196,29 @@ def phase_flash(dev):
                 bad.append(f"dv beyond rtol 1e-4 + 1e-5 max (x{x['dv']:.3g})")
             tol = f"bf16 o at {o_x:.3g}, dq {x['dq']:.3g}, dk {x['dk']:.3g}, dv {x['dv']:.3g}"
             if fwd == "flash_fwd_mma_bf16":
-                # the generic kernel these heads took before, held to the same limits
+                # the generic kernels these heads took before, held to the same limits
                 og, lseg = fa._launch_fwd_generic(q, k, v, **kw)
                 og_x = bf16_o_excess(og, po, weight)
                 lseg_err = (lseg - plse).abs().max().item()
-                worst["flash_fwd"] = max(worst["flash_fwd"],
-                                         (og.float() - po.float()).abs().max().item())
-                tol += f"; generic flash_fwd o at {og_x:.3g}, lse off by {lseg_err:.3g}"
+                dqg = fa._launch_dq_generic(q, k, v, do, plse, dsum, **kw)
+                dkg, dvg = fa._launch_dkv_generic(q, k, v, do, plse, dsum, **kw)
+                torch.cuda.synchronize()
+                gx = {"dq": _rel_excess(dqg, pdq, 1e-4, 2.0 ** -9 * pdq.abs().max().item()),
+                      "dk": _rel_excess(dkg, pdk, 1e-4, 2.0 ** -9 * pdk.abs().max().item()),
+                      "dv": _rel_excess(dvg, pdv, 1e-4, 1e-5 * pdv.abs().max().item())}
+                for n_, e in (("flash_fwd", (og.float() - po.float()).abs().max().item()),
+                              ("flash_dq", (dqg - pdq).abs().max().item()),
+                              ("flash_dkv", max((dkg - pdk).abs().max().item(),
+                                                (dvg - pdv).abs().max().item()))):
+                    worst[n_] = max(worst[n_], e)
+                tol += (f"; generic flash_fwd o at {og_x:.3g}, lse off by {lseg_err:.3g}, "
+                        f"flash_dq {gx['dq']:.3g}, flash_dkv dk {gx['dk']:.3g} dv {gx['dv']:.3g}")
                 if og_x > 1 or lseg_err > 1e-5:
                     bad.append(f"generic flash_fwd beyond the bf16 limits (o x{og_x:.3g}, lse "
                                f"{lseg_err:.3g})")
-                del og, lseg
+                if max(gx.values()) > 1:
+                    bad.append(f"generic flash_dq / flash_dkv beyond the bf16 limits ({gx})")
+                del og, lseg, dqg, dkg, dvg
             del weight
             if label.startswith("136M shape"):
                 ctrl = bf16_dv_control(q, k, v, do, plse, dsum, kw)
@@ -2161,6 +2242,7 @@ def phase_flash(dev):
         del q, k, v, do, o, po, dq, dk, dv, pdq, pdk, pdv
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
+    failures += bf16_backward_head_sweep(dev, g)
     check(readings["dv_control"] is not None, "no 136M-shape bf16 case ran the dv control")
     check(all(routes.values()), f"a forward, dq or dk/dv route ran no case: {routes}")
     check(not failures, "flash kernels differ from their plain versions: " + " | ".join(failures))
@@ -2189,8 +2271,9 @@ def phase_lm_main():
     val_batches = 1
     want = {"flash_fwd_sm90": LM_LAYERS * (LM_STEPS + val_batches), "flash_fwd": 0,
             "flash_fwd_mma": 0, "flash_fwd_mma_bf16": 0,
-            "flash_dq_sm90": LM_LAYERS * LM_STEPS, "flash_dq": 0,
-            "flash_dkv_sm90": LM_LAYERS * LM_STEPS, "flash_dkv": 0, "flash_dkv_mma": 0}
+            "flash_dq_sm90": LM_LAYERS * LM_STEPS, "flash_dq": 0, "flash_dq_mma_bf16": 0,
+            "flash_dkv_sm90": LM_LAYERS * LM_STEPS, "flash_dkv": 0, "flash_dkv_mma": 0,
+            "flash_dkv_mma_bf16": 0}
     got = {k: counts[k] for k in want}
     check(got == want, f"lm run launched {got}, expected {want}")
     stray = {k: v for k, v in counts.items() if k not in want and v}
@@ -2204,7 +2287,9 @@ def phase_lm_main():
 
 
 LM_PARITY_FLASH = ("flash_fwd_mma", "flash_fwd_mma_bf16", "flash_fwd", "flash_fwd_sm90",
-                   "flash_dq", "flash_dq_sm90", "flash_dkv", "flash_dkv_sm90", "flash_dkv_mma")
+                   "flash_dq", "flash_dq_sm90", "flash_dq_mma_bf16", "flash_dkv", "flash_dkv_sm90",
+                   "flash_dkv_mma", "flash_dkv_mma_bf16")
+LM_BF16_D60_FLASH = ("flash_fwd_mma_bf16", "flash_dq_mma_bf16", "flash_dkv_mma_bf16")
 
 
 def _lm_two_steps(recipe, dev) -> dict:
@@ -2240,8 +2325,9 @@ def _lm_two_steps(recipe, dev) -> dict:
 def phase_lm_parity(dev):
     """A small fp32 LM trained 2 steps on the card (the flash kernels) and
     on the CPU (their plain versions) from the same weights and batches;
-    then a bf16 LM with heads of 60 (flash_fwd_mma_bf16's route) the same
-    way. Returns each run's flash launches on the card."""
+    then a bf16 LM with heads of 60 (the route of flash_fwd_mma_bf16,
+    flash_dq_mma_bf16 and flash_dkv_mma_bf16) the same way. Returns each
+    run's flash launches on the card."""
     import torch
     from theanompi_tpu_torch.models.lm import TransformerLMModel
 
@@ -2278,11 +2364,10 @@ def phase_lm_parity(dev):
     out = _lm_two_steps(recipe, dev)
     (lc, bc, pc, kc), (lg, bg, pg, kg) = out["cpu"], out[str(dev)]
     check(not any(kc.values()), f"the CPU run launched kernels: {kc}")
-    want = {n: 4 if n in ("flash_fwd_mma_bf16", "flash_dq", "flash_dkv") else 0
-            for n in LM_PARITY_FLASH}
+    want = {n: 4 if n in LM_BF16_D60_FLASH else 0 for n in LM_PARITY_FLASH}
     check({n: kg[n] for n in LM_PARITY_FLASH} == want,
-          f"the bf16 D 60 card run launched {kg}, expected 4 each of flash_fwd_mma_bf16, "
-          "flash_dq and flash_dkv and no other flash kernel")
+          f"the bf16 D 60 card run launched {kg}, expected 4 each of {LM_BF16_D60_FLASH} and no "
+          "other flash kernel")
     check(all(math.isfinite(x) for x in lg) and
           all(math.isclose(a, b, rel_tol=2e-2) for a, b in zip(lc, lg)),
           f"bf16 D 60: card losses {lg} vs CPU {lc} (rtol 2e-2)")
@@ -2308,8 +2393,9 @@ def phase_flash_times(dev, mem_rate, fp32_peak, bf16_peak):
     flash_fwd_sm90) run in turns, old, new, new, old, and so do the two
     dq kernels and the two dk/dv kernels (flash_dq's and flash_dkv's bf16
     instantiations against flash_dq_sm90 and flash_dkv_sm90). Then at D 60
-    (the same BH and T): the generic forward and flash_fwd_mma_bf16 in
-    turns, flash_dq and flash_dkv (the route of those heads), SDPA at D
+    (the same BH and T): the generic forward, dq and dk/dv each in turns
+    with the mma.sync bf16 kernel that took its place there
+    (flash_fwd_mma_bf16, flash_dq_mma_bf16, flash_dkv_mma_bf16), SDPA at D
     60 as the yardstick (keys ``*_d60`` for the generic kernels)."""
     import torch
     import torch.nn.functional as F
@@ -2401,8 +2487,8 @@ def phase_flash_times(dev, mem_rate, fp32_peak, bf16_peak):
     record(specs, sdpa_fwd, sdpa_bwd)
     del q4, k4, v4, out4
 
-    # D 60: the bf16 heads flash_fwd_mma_bf16 takes (rows of no whole
-    # 16-byte units), with the generic dq and dk/dv of their route
+    # D 60: the bf16 heads the *_mma_bf16 kernels take (rows of no whole
+    # 16-byte units), each in turns with the generic kernel it replaced
     D6 = 60
     q6, k6, v6, do6 = (torch.randn(BH, T, D6, generator=g, device=dev).to(torch.bfloat16)
                        for _ in range(4))
@@ -2412,17 +2498,25 @@ def phase_flash_times(dev, mem_rate, fp32_peak, bf16_peak):
     dsum6 = torch.sum(do6.float() * o6.float(), dim=-1)
     tile6 = 2 * BH * T * D6
     fwd6_plain = lambda: fa.flash_fwd_plain(q6, k6, v6, **kw6)  # noqa: E731
+    dq6_plain = lambda: fa.flash_dq_plain(q6, k6, v6, do6, lse6, dsum6, **kw6)  # noqa: E731
+    dkv6_plain = lambda: fa.flash_dkv_plain(q6, k6, v6, do6, lse6, dsum6, **kw6)  # noqa: E731
     specs6 = {
         "flash_fwd_mma_bf16": (lambda: fa._launch_fwd_mma_bf16(q6, k6, v6, **fkw6), fwd6_plain,
                                4 * tile6 + rows, 4 * D6 * pairs, 0),
         "flash_fwd_d60": (lambda: fa._launch_fwd_generic(q6, k6, v6, **fkw6), fwd6_plain,
                           4 * tile6 + rows, 4 * D6 * pairs, 0),
+        "flash_dq_mma_bf16": (
+            lambda: fa._launch_dq_mma_bf16(q6, k6, v6, do6, lse6, dsum6, **fkw6), dq6_plain,
+            4 * tile6 + 2 * rows + 2 * tile6, 6 * D6 * pairs, 0),
         "flash_dq_d60": (lambda: fa._launch_dq_generic(q6, k6, v6, do6, lse6, dsum6, **fkw6),
-                         lambda: fa.flash_dq_plain(q6, k6, v6, do6, lse6, dsum6, **kw6),
-                         4 * tile6 + 2 * rows + 2 * tile6, 6 * D6 * pairs, 0),
+                         dq6_plain, 4 * tile6 + 2 * rows + 2 * tile6, 6 * D6 * pairs, 0),
+        # dv's fp32 x fp32 product as three exact bf16 products: 12 D a pair
+        "flash_dkv_mma_bf16": (
+            lambda: fa._launch_dkv_mma_bf16(q6, k6, v6, do6, lse6, dsum6, **fkw6), dkv6_plain,
+            4 * tile6 + 2 * rows + 4 * tile6, 12 * D6 * pairs, 0),
         "flash_dkv_d60": (lambda: fa._launch_dkv_generic(q6, k6, v6, do6, lse6, dsum6, **fkw6),
-                          lambda: fa.flash_dkv_plain(q6, k6, v6, do6, lse6, dsum6, **kw6),
-                          4 * tile6 + 2 * rows + 4 * tile6, 6 * D6 * pairs, 2 * D6 * pairs),
+                          dkv6_plain, 4 * tile6 + 2 * rows + 4 * tile6, 6 * D6 * pairs,
+                          2 * D6 * pairs),
     }
     q4, k4, v4 = (t.view(B, H, T, D6).detach().clone().requires_grad_(True) for t in (q6, k6, v6))
     backend6 = sdpa_backend(q4, k4, v4)
@@ -2432,12 +2526,15 @@ def phase_flash_times(dev, mem_rate, fp32_peak, bf16_peak):
                             reps=20)
     sdpa_bwd6 = cuda_ms(lambda: torch.autograd.grad(out4, (q4, k4, v4), do6.view(B, H, T, D6),
                                                     retain_graph=True), reps=20)
-    old, new = "flash_fwd_d60", "flash_fwd_mma_bf16"
-    turns[old], turns[new] = [], []
-    for name in (old, new, new, old):
-        turns[name].append(cuda_ms(specs6[name][0], reps=20))
-    print(f"[times] bf16 D 60 in turns (old, new, new, old): flash_fwd {turns[old]} ms, {new} "
-          f"{turns[new]} ms; SDPA at D 60: backend {backend6}", flush=True)
+    for new in ("flash_fwd_mma_bf16", "flash_dq_mma_bf16", "flash_dkv_mma_bf16"):
+        old = f"{new[:-9]}_d60"  # the generic kernel it replaced at D 60
+        turns[old], turns[new] = [], []
+        for name in (old, new, new, old):
+            turns[name].append(cuda_ms(specs6[name][0], reps=20))
+        print(f"[times] bf16 D 60 in turns (old, new, new, old): {new[:-9]} {turns[old]} ms, "
+              f"{new} {turns[new]} ms", flush=True)
+    print(f"[times] SDPA at D 60: backend {backend6}, forward {sdpa_fwd6:.4f} ms, backward "
+          f"{sdpa_bwd6:.4f} ms", flush=True)
     record(specs6, sdpa_fwd6, sdpa_bwd6, label=" (bf16, D 60)")
     for name in specs6:
         results[name]["sdpa_backend"] = backend6
@@ -3201,7 +3298,8 @@ def find_cuobjdump() -> str:
 
 # kernel -> the SASS instructions its design must compile to: wgmma
 # (HGMMA) and TMA loads (UTMALDG) in the sm90 kernels; mma.sync (HMMA) and
-# cp.async (LDGSTS) in the mma.sync kernels, ldmatrix (LDSM) in the bf16 one
+# cp.async (LDGSTS) in the mma.sync kernels, ldmatrix (LDSM) in the bf16
+# ones (ILb0E: the cp.async instantiation, ILb1E: the register-staged one)
 SASS_KERNELS = {"flash_fwd_sm90_kernel": ("HGMMA", "UTMALDG"),
                 "flash_dq_sm90_kernel": ("HGMMA", "UTMALDG"),
                 "flash_dkv_sm90_kernel": ("HGMMA", "UTMALDG"),
@@ -3209,6 +3307,10 @@ SASS_KERNELS = {"flash_fwd_sm90_kernel": ("HGMMA", "UTMALDG"),
                 # flash_fwd_mma_bf16's instantiations: cp.async loads, register-staged loads
                 "flash_fwd_mma_bf16_kernelILb0E": ("HMMA", "LDSM", "LDGSTS"),
                 "flash_fwd_mma_bf16_kernelILb1E": ("HMMA", "LDSM"),
+                "flash_dq_mma_bf16_kernelILb0E": ("HMMA", "LDSM", "LDGSTS"),
+                "flash_dq_mma_bf16_kernelILb1E": ("HMMA", "LDSM"),
+                "flash_dkv_mma_bf16_kernelILb0E": ("HMMA", "LDSM", "LDGSTS"),
+                "flash_dkv_mma_bf16_kernelILb1E": ("HMMA", "LDSM", "LDGSTS"),
                 "flash_dkv_mma_kernel": ("HMMA", "LDGSTS")}
 SASS_OPS = ("HGMMA", "UTMALDG", "UTMASTG", "HMMA", "LDSM", "LDGSTS")
 
@@ -4283,14 +4385,15 @@ def main(argv=None) -> int:
                             ("; no route takes this kernel since flash_fwd_mma_bf16 (held to "
                              "the same limits in phase flash through its own launcher)"
                              if name == "flash_fwd" else
-                             "; bf16 heads with D % 8 == 0 go to flash_dq_sm90, so this kernel "
-                             "takes fp32 (4 launches in phase lm-parity's fp32 run) and the "
-                             f"other bf16 heads ({lm_parity_launches['bf16_d60'][name]} in its "
-                             "bf16 D 60 run)" if name == "flash_dq" else
-                             "; bf16 heads with D % 8 == 0 go to flash_dkv_sm90 and fp32 to "
-                             "flash_dkv_mma, so this kernel takes the other bf16 heads "
-                             f"({lm_parity_launches['bf16_d60'][name]} launches in phase "
-                             "lm-parity's bf16 D 60 run)" if name == "flash_dkv" else "")),
+                             "; bf16 heads go to flash_dq_sm90 (D % 8 == 0) and "
+                             "flash_dq_mma_bf16 (the others), so this kernel takes fp32 only "
+                             f"({lm_parity_launches['fp32'][name]} launches in phase lm-parity's "
+                             "fp32 run); its bf16 instantiation is held to the bf16 limits in "
+                             "phase flash through its own launcher" if name == "flash_dq" else
+                             "; no route takes this kernel since flash_dkv_mma (fp32) and "
+                             "flash_dkv_mma_bf16 (bf16 heads with D % 8 != 0); held to the same "
+                             "limits in phase flash through its own launcher"
+                             if name == "flash_dkv" else "")),
             "main_path_step_ms": lm["step_ms"],
             "main_path_tokens_per_sec": lm_run["tokens_per_sec"],
         })
@@ -4376,6 +4479,53 @@ def main(argv=None) -> int:
         "sass": {"cp.async": sass["flash_fwd_mma_bf16_kernelILb0E"],
                  "staged": sass["flash_fwd_mma_bf16_kernelILb1E"]},
     })
+    for name, replaces, work, design in (
+        ("flash_dq_mma_bf16", "theanompi_tpu/ops/pallas_attention.py:174 + :264",
+         "S, dP and dQ, 18.1 GFLOP",
+         "a CTA of 8 warps a (128-row Q tile, b*h), heaviest first; Q and dO once into "
+         "registers as bf16 A fragments; the forward's 2-stage K/V ring (4-byte cp.async for "
+         "D even, register-staged loads for D odd); S = Q K^T and dP = dO V^T as mma.sync "
+         "m16n8k16 bf16 with K and V fragments by ldmatrix; dS rounded to bf16 from S's C "
+         "fragments is dQ += dS K's A fragment, K's fragments by ldmatrix.trans; masks only on "
+         "diagonal and ragged tiles"),
+        ("flash_dkv_mma_bf16", "theanompi_tpu/ops/pallas_attention.py:207 + :302",
+         "S^T, dP^T, dK and dV as three, 36.3 GFLOP",
+         "a CTA of 8 warps a (128-key tile, b*h), heaviest first, a warp 16 keys x every "
+         "query; K and V once into registers as bf16 A fragments; a 2-stage Q/dO ring (4-byte "
+         "cp.async for D even, register-staged loads for D odd) with lse and dsum beside it; "
+         "S^T = K Q^T and dP^T = V dO^T as mma.sync m16n8k16 bf16 (Q, dO fragments by "
+         "ldmatrix), then per 16 queries P^T's C fragments split into hi, mid, lo as the A "
+         "fragments of dV += P^T dO (three exact bf16 products) and dS^T's of dK += dS^T Q "
+         "(dO, Q fragments by ldmatrix.trans)"),
+    ):
+        t = times[name]
+        n_path = lm_parity_launches["bf16_d60"][name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": src_fa, "replaces": replaces,
+            "launches": n_path, "max_abs_err": worst_f[name],
+            "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"], "turns_ms": t["turns_ms"],
+            "old_kernel_turns_ms": times[f"{name[:-9]}_d60"]["turns_ms"],
+            "matched": True,
+            "tolerance": ("bf16: dq/dk rtol 1e-4 + 2^-9 of the largest value, dv (p unrounded, "
+                          "three exact bf16 products) rtol 1e-4 + 1e-5 of the largest value "
+                          "(phase flash's bf16 limits)"),
+            "bf16_worst_share_of_tolerance": {k_: v_ for k_, v_ in flash_readings.items()
+                                              if k_ != "dv_control"},
+            "work": (f"one launch at BH 96, T 1024, D 60, bf16, causal ({work} of bf16 products "
+                     "over the causal half; heads of no whole 16-byte rows, which the tensor "
+                     "maps of the sm90 kernels refuse)"),
+            "library_note": (
+                f"torch.nn.functional.scaled_dot_product_attention(is_causal=True) backward at "
+                f"D 60 (dq, dk and dv in one call; backend {t['sdpa_backend']}): not the same "
+                "function (its dv product is bf16), a yardstick only, the port never calls it"),
+            "launches_in": (f"phase lm-parity's bf16 LM with heads of 60 (d 120, 2 heads, 2 "
+                            f"layers, 2 steps): {n_path} launches; the main path's LM has heads "
+                            "of 64 (the sm90 kernels)"),
+            "design": design,
+            "sass": {"cp.async": sass[f"{name}_kernelILb0E"],
+                     "staged": sass[f"{name}_kernelILb1E"]},
+        })
     t = times["flash_dkv_mma"]
     n_dkv = lm_parity_launches["fp32"]["flash_dkv_mma"]
     kernels.append({

@@ -11,10 +11,12 @@ K/V shard included); dq and dk/dv at offsets through the 1-D and the
 2-D kernels; and the gradients of the autograd.Function against
 ``jax.grad`` of the reference entry point, with the 1-D dispatch and
 with ``_BWD_2D_MIN_T`` monkeypatched to 1; bf16 heads whose rows are no
-whole 16-byte units (D 36, 60 and the odd 33, ``flash_fwd_mma_bf16``'s
-route) forward and backward. Beside them: the routes (``_fwd_route``,
+whole 16-byte units (D 36, 60 and the odd 33, the route of
+``flash_fwd_mma_bf16``, ``flash_dq_mma_bf16`` and ``flash_dkv_mma_bf16``)
+forward and backward. Beside them: the routes (``_fwd_route``,
 ``_dq_route``, ``_dkv_route``), the exact three-part bf16 split of p that
-``flash_dkv_sm90`` runs dv through, the tf32 split that ``flash_fwd_mma``
+``flash_dkv_sm90`` and ``flash_dkv_mma_bf16`` run dv through, the tf32
+split that ``flash_fwd_mma``
 and ``flash_dkv_mma`` run the fp32 products through (its rounding, and
 the three-product forward and dk/dv against the Pallas forward and the
 plain dk/dv), and the variant tools' anchors.
@@ -290,15 +292,15 @@ def test_highest_precision_and_the_oracle(causal):
 
 def test_cpu_path_counts_no_launch_and_other_devices_need_cuda():
     counters = (tfa.FLASH_FWD, tfa.FLASH_FWD_SM90, tfa.FLASH_FWD_MMA, tfa.FLASH_FWD_MMA_BF16,
-                tfa.FLASH_DQ, tfa.FLASH_DQ_SM90, tfa.FLASH_DKV, tfa.FLASH_DKV_SM90,
-                tfa.FLASH_DKV_MMA)
+                tfa.FLASH_DQ, tfa.FLASH_DQ_SM90, tfa.FLASH_DQ_MMA_BF16, tfa.FLASH_DKV,
+                tfa.FLASH_DKV_SM90, tfa.FLASH_DKV_MMA, tfa.FLASH_DKV_MMA_BF16)
     for c in counters:
         c.reset()
     for dt in (torch.float32, torch.bfloat16):
         for D in (8, 9):
             q = torch.randn(2, 16, 2, D).to(dt).requires_grad_(True)
             tfa.flash_attention(q, q, q, causal=True).sum().backward()
-    assert [c.launches for c in counters] == [0] * 9
+    assert [c.launches for c in counters] == [0] * len(counters)
     meta = torch.empty(4, 16, 8, device="meta")
     with pytest.raises(ValueError, match="CUDA"):
         tfa.flash_fwd(meta, meta, meta, causal=True, scale=1.0)
@@ -335,30 +337,43 @@ def test_forward_route_is_chosen_from_dtype_and_head_dim(dtype, D, route):
 
 @pytest.mark.parametrize("dtype,D,route", [
     (torch.bfloat16, 8, "sm90"), (torch.bfloat16, 40, "sm90"), (torch.bfloat16, 48, "sm90"),
-    (torch.bfloat16, 64, "sm90"), (torch.bfloat16, 36, "generic"), (torch.bfloat16, 60, "generic"),
-    (torch.bfloat16, 33, "generic"), (torch.float32, 64, "mma"), (torch.float32, 40, "mma"),
-    (torch.float32, 33, "mma"), (torch.float32, 1, "mma"),
+    (torch.bfloat16, 64, "sm90"), (torch.bfloat16, 36, "mma_bf16"),
+    (torch.bfloat16, 60, "mma_bf16"), (torch.bfloat16, 33, "mma_bf16"),
+    (torch.bfloat16, 1, "mma_bf16"), (torch.bfloat16, 63, "mma_bf16"),
+    (torch.float32, 64, "mma"), (torch.float32, 40, "mma"), (torch.float32, 33, "mma"),
+    (torch.float32, 1, "mma"),
 ])
 def test_dkv_route_is_chosen_from_dtype_and_head_dim(dtype, D, route):
     """dk/dv routes as the forward does: bf16 heads of whole 16-byte rows
     to ``flash_dkv_sm90``, fp32 at any head dim (the LM's parity run) to
     ``flash_dkv_mma`` (3xTF32 on mma.sync), and other bf16 heads, odd ones
-    included, to ``flash_dkv``."""
+    included, to ``flash_dkv_mma_bf16`` (mma.sync bf16); the generic
+    ``flash_dkv`` serves no route. The ctypes table binds each kernel's
+    entry point."""
     assert tfa._dkv_route(dtype, D) == route
     assert tfa._DKV_LAUNCH[route].__name__ == f"_launch_dkv_{route}"
+    assert tfa._launch_dkv_generic not in tfa._DKV_LAUNCH.values()
+    assert f"tmpi_flash_dkv_{route}" in tfa._LIB.signatures
 
 
 @pytest.mark.parametrize("dtype,D,route", [
     (torch.bfloat16, 8, "sm90"), (torch.bfloat16, 40, "sm90"), (torch.bfloat16, 48, "sm90"),
-    (torch.bfloat16, 64, "sm90"), (torch.bfloat16, 36, "generic"), (torch.bfloat16, 60, "generic"),
-    (torch.float32, 64, "generic"), (torch.float32, 40, "generic"),
-    (torch.bfloat16, 33, "generic"), (torch.float32, 33, "generic"),
+    (torch.bfloat16, 64, "sm90"), (torch.bfloat16, 36, "mma_bf16"),
+    (torch.bfloat16, 60, "mma_bf16"), (torch.float32, 64, "generic"),
+    (torch.float32, 40, "generic"), (torch.bfloat16, 33, "mma_bf16"),
+    (torch.float32, 33, "generic"), (torch.bfloat16, 1, "mma_bf16"),
+    (torch.bfloat16, 63, "mma_bf16"),
 ])
 def test_dq_route_is_chosen_from_dtype_and_head_dim(dtype, D, route):
     """dq routes as the forward does: bf16 heads of whole 16-byte rows to
-    ``flash_dq_sm90``, fp32 (the LM's parity run) and other bf16 heads
-    to ``flash_dq``."""
+    ``flash_dq_sm90``, other bf16 heads, odd ones included, to
+    ``flash_dq_mma_bf16`` (mma.sync bf16), and fp32 (the LM's parity run)
+    to the generic ``flash_dq``. The ctypes table binds each kernel's
+    entry point."""
     assert tfa._dq_route(dtype, D) == route
+    assert tfa._DQ_LAUNCH[route].__name__ == f"_launch_dq_{route}"
+    entry = "tmpi_flash_dq" if route == "generic" else f"tmpi_flash_dq_{route}"
+    assert entry in tfa._LIB.signatures
 
 
 def _log_uniform_probs(n, seed):
@@ -473,12 +488,14 @@ def _dv_excess(got, want):
     return (((got - want).abs() - 1e-4 * want.abs()).max() / (1e-5 * want.abs().max())).item()
 
 
-def test_dv_from_the_three_part_split_meets_the_dv_limit_and_bf16_p_does_not():
-    """dv as flash_dkv_sm90 forms it (three bf16 products of p's parts
-    with dO, summed in fp32) against ``flash_dkv_plain`` (p unrounded, an
-    fp32 x fp32 product) at a small causal bf16 shape: within the fp32 dv
-    limit chip_smoke holds the kernel to, while dv from bf16(p) fails it."""
-    BH, T, D = 4, 192, 64
+@pytest.mark.parametrize("D", [64, 60, 33])
+def test_dv_from_the_three_part_split_meets_the_dv_limit_and_bf16_p_does_not(D):
+    """dv as flash_dkv_sm90 (D 64) and flash_dkv_mma_bf16 (D 60, 33) form
+    it (three bf16 products of p's parts with dO, summed in fp32) against
+    ``flash_dkv_plain`` (p unrounded, an fp32 x fp32 product) at a small
+    causal bf16 shape: within the fp32 dv limit chip_smoke holds the
+    kernels to, while dv from bf16(p) fails it."""
+    BH, T = 4, 192
     r = np.random.RandomState(6)
     q3, k3, v3, do3 = (torch.from_numpy(r.randn(BH, T, D).astype(np.float32)).to(torch.bfloat16)
                        for _ in range(4))
@@ -581,10 +598,12 @@ def test_fwd_mma_variants_find_their_anchors_in_the_source():
             assert src.count(old) == 1 and old != new, name
 
 
-@pytest.mark.parametrize("tool,n", [("fwd_mma_bf16_variants", 4), ("dkv_mma_variants", 4)])
+@pytest.mark.parametrize("tool,n", [("fwd_mma_bf16_variants", 4), ("dkv_mma_variants", 4),
+                                    ("bwd_mma_bf16_variants", 15)])
 def test_mma_variants_of_this_slice_find_their_anchors_in_the_source(tool, n):
-    """``tools/fwd_mma_bf16_variants.py`` and ``tools/dkv_mma_variants.py``
-    edit the same source for flash_fwd_mma_bf16 and flash_dkv_mma: each
+    """``tools/fwd_mma_bf16_variants.py``, ``tools/dkv_mma_variants.py``
+    and ``tools/bwd_mma_bf16_variants.py`` edit the same source for
+    flash_fwd_mma_bf16, flash_dkv_mma and the bf16 mma.sync backward: each
     edit's anchor must be there once."""
     import importlib
 

@@ -9,15 +9,18 @@
 //                                                                   (bf16, D % 8 != 0)
 //   theanompi_tpu/ops/pallas_attention.py:174  _dq_kernel      (#8)  -> flash_dq_sm90 (bf16,
 //                                                                   D % 8 == 0), flash_dq
-//   theanompi_tpu/ops/pallas_attention.py:264  _dq_kernel_2d   (#10) -> the same two
+//                                                                   (fp32), flash_dq_mma_bf16
+//                                                                   (bf16, D % 8 != 0)
+//   theanompi_tpu/ops/pallas_attention.py:264  _dq_kernel_2d   (#10) -> the same three
 //   theanompi_tpu/ops/pallas_attention.py:207  _dkv_kernel     (#9)  -> flash_dkv_sm90 (bf16,
 //                                                                   D % 8 == 0), flash_dkv_mma
-//                                                                   (fp32), flash_dkv (bf16,
-//                                                                   D % 8 != 0)
+//                                                                   (fp32), flash_dkv_mma_bf16
+//                                                                   (bf16, D % 8 != 0)
 //   theanompi_tpu/ops/pallas_attention.py:302  _dkv_kernel_2d  (#11) -> the same three
 // (wrappers, routes and plain PyTorch versions in ops/flash_attention.py).
-// flash_fwd, the generic forward, serves no route since flash_fwd_mma_bf16;
-// it stays reachable for timing in turns. The
+// flash_fwd and flash_dkv, the generic forward and dk/dv, serve no route
+// since flash_fwd_mma_bf16 and flash_dkv_mma_bf16; they stay reachable for
+// timing in turns, and the generic flash_dq takes only fp32. The
 // TPU needs the 2-D kernels only because its 1-D ones keep the whole
 // opposite sequence in VMEM, which overflows at T >= 8192. Here every
 // kernel streams the opposite side through shared memory a tile at a
@@ -45,14 +48,15 @@
 //
 // Products: bf16 tiles go through the tensor cores (nvcuda::wmma
 // 16x16x16 in the generic kernels, wgmma in the sm90 kernels, mma.sync
-// m16n8k16 in flash_fwd_mma_bf16; fp32 accumulators). fp32 tiles run as
+// m16n8k16 in the *_mma_bf16 kernels; fp32 accumulators). fp32 tiles run as
 // three tf32 products on the tensor cores, each operand split into a tf32
 // hi and lo part, in flash_fwd_mma (the fp32 forward) and flash_dkv_mma
 // (the fp32 dk/dv); the fp32 dq still runs on fp32 FMAs on the CUDA cores
 // in the generic flash_dq, never one TF32 product. The fp32 x fp32 dv
-// product runs as fp32 FMAs in flash_dkv (bf16 heads with D % 8 != 0), as
-// three exact bf16 products of p's hi, mid and lo parts in flash_dkv_sm90,
-// and as 3xTF32 in flash_dkv_mma (their sections below). Softmax
+// product runs as fp32 FMAs in the generic flash_dkv (on no route), as
+// three exact bf16 products of p's hi, mid and lo parts in flash_dkv_sm90
+// and flash_dkv_mma_bf16, and as 3xTF32 in flash_dkv_mma (their sections
+// below). Softmax
 // statistics, probabilities and all accumulators are fp32. expf / logf,
 // not the __expf intrinsics. Built with -fmad=false, so the elementwise
 // steps round as PyTorch's separate ops do; sums inside the products run
@@ -61,7 +65,8 @@
 //
 // Design of the generic kernels (flash_fwd_sm90, flash_dkv_sm90 and
 // flash_dq_sm90, the bf16 forward, dk/dv and dq on TMA and wgmma, and
-// flash_fwd_mma, flash_fwd_mma_bf16 and flash_dkv_mma on mma.sync, have
+// flash_fwd_mma, flash_dkv_mma and the three *_mma_bf16 kernels on
+// mma.sync, have
 // their own sections below): one block of 256 threads (8 warps) per
 // (64-row tile, b*h). The block keeps its own tile (Q, or K and V) in
 // shared memory and loops over
@@ -83,8 +88,8 @@
 // memory (no cp.async/TMA), wmma (not wgmma), a block per tile with no
 // pipelining; on the LM's bf16 route all three run on the sm90 kernels,
 // the fp32 forward and dk/dv run on flash_fwd_mma and flash_dkv_mma, the
-// other bf16 heads' forward on flash_fwd_mma_bf16, and the generic ones
-// take the fp32 dq and the other bf16 heads' dq and dk/dv.
+// other bf16 heads on flash_fwd_mma_bf16, flash_dq_mma_bf16 and
+// flash_dkv_mma_bf16, and the generic flash_dq takes the fp32 dq.
 
 #include <cuda.h>  // CUtensorMap and its enums: types only, libcuda is not linked
 #include <cuda_runtime.h>
@@ -2027,25 +2032,66 @@ struct Walk {
   }
 };
 
-// K/V tile j into its stage by 4-byte cp.async (D even; `w` walks D / 2
-// words a row): columns below D, rows past Tk as zeros
+// rows [row0, row0 + 64) of a and b ([nrows, D] bf16, D even) into the
+// stages ad and bd by 4-byte cp.async (`w` walks D / 2 words a row):
+// columns below D, rows past nrows as zeros
+__device__ __forceinline__ void pair_async_bf16(bf16* ad, bf16* bd, const bf16* a, const bf16* b,
+                                                int row0, int nrows, int D, const Walk& w) {
+  for (int r = w.r0, c = w.c0; r < kTile; w.next(r, c)) {
+    const bool in = row0 + r < nrows;
+    const int64_t at = (int64_t)(in ? row0 + r : 0) * D + 2 * c;
+    cp_async<4>(reinterpret_cast<float*>(ad + r * kLdB + 2 * c),
+                reinterpret_cast<const float*>(a + at), in);
+    cp_async<4>(reinterpret_cast<float*>(bd + r * kLdB + 2 * c),
+                reinterpret_cast<const float*>(b + at), in);
+  }
+}
+
+// K/V tile j into its stage by 4-byte cp.async (D even), one group
 __device__ __forceinline__ void load_kv_bf16(SmemBf16& sm, const bf16* kb, const bf16* vb, int j,
                                              int Tk, int D, const Walk& w) {
-  const int s = j % kRing, k0 = j * kTile;
-  for (int r = w.r0, c = w.c0; r < kTile; w.next(r, c)) {
-    const bool in = k0 + r < Tk;
-    const int64_t at = (int64_t)(in ? k0 + r : 0) * D + 2 * c;
-    cp_async<4>(reinterpret_cast<float*>(sm.k[s] + r * kLdB + 2 * c),
-                reinterpret_cast<const float*>(kb + at), in);
-    cp_async<4>(reinterpret_cast<float*>(sm.v[s] + r * kLdB + 2 * c),
-                reinterpret_cast<const float*>(vb + at), in);
-  }
+  pair_async_bf16(sm.k[j % kRing], sm.v[j % kRing], kb, vb, j * kTile, Tk, D, w);
   asm volatile("cp.async.commit_group;" ::: "memory");
 }
 
-// the register-staged loads (D odd; `w` walks D elements a row): element
-// i = tid + s * 256 of the tile's 64 x D, at row r and column c, is
-// element (k0 + r) * D + c = k0 * D + i of the [Tk, D] source
+// columns D to 64 of every stage of two rings: the head's zero padding,
+// never written by the loads
+__device__ __forceinline__ void zero_pad_bf16(bf16 (&a)[kRing][kTile * kLdB],
+                                              bf16 (&b)[kRing][kTile * kLdB], int D) {
+  const int pad = kD - D;
+  for (int i = threadIdx.x; i < kRing * kTile * pad; i += kMmaThreads) {
+    const int s = i / (kTile * pad);
+    const int r = (i / pad) % kTile, c = D + i % pad;
+    a[s][r * kLdB + c] = __float2bfloat16_rn(0.0f);
+    b[s][r * kLdB + c] = __float2bfloat16_rn(0.0f);
+  }
+}
+
+// A fragments of rows r0 and r0 + 8 of src ([nrows, D] bf16), read once
+// from device memory: step kk's a[kk][e] holds row e & 1 ? r0 + 8 : r0,
+// columns 16kk + 8 (e >> 1) + 2t and + 1 (the lower column in the low
+// half); zero past nrows and D
+__device__ __forceinline__ void a_frags_bf16(uint32_t (&a)[kD / 16][4], const bf16* src, int r0,
+                                             int nrows, int D) {
+  const unsigned short* s = reinterpret_cast<const unsigned short*>(src);
+  const int t = threadIdx.x % 4;
+#pragma unroll
+  for (int kk = 0; kk < kD / 16; ++kk) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = r0 + 8 * (e & 1);
+      const int c = 16 * kk + 8 * (e >> 1) + 2 * t;
+      const uint32_t lo = r < nrows && c < D ? s[(int64_t)r * D + c] : 0u;
+      const uint32_t hi = r < nrows && c + 1 < D ? s[(int64_t)r * D + c + 1] : 0u;
+      a[kk][e] = lo | (hi << 16);
+    }
+  }
+}
+
+// the register-staged loads (D odd; `w` walks D elements a row) of a pair
+// of tiles, K and V (or Q and dO in flash_dkv_mma_bf16): element i = tid
+// + s * 256 of the tile's 64 x D, at row r and column c, is element (k0 +
+// r) * D + c = k0 * D + i of the [Tk, D] source
 struct Staged {
   unsigned short k[kStagedPer];
   unsigned short v[kStagedPer];
@@ -2104,14 +2150,7 @@ flash_fwd_mma_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
       wq0 < Tq ? sm90::k_tiles_seen(causal, min(wq0 + kWarpRows, Tq), q_off, k_off, nk) : 0;
   const int steps = (D + 15) / 16;  // 16-column steps of the head that hold data
 
-  // the head's zero padding, never written by the loads
-  const int pad = kD - D;
-  for (int i = tid; i < kRing * kTile * pad; i += kMmaThreads) {
-    const int s = i / (kTile * pad);
-    const int r = (i / pad) % kTile, c = D + i % pad;
-    sm.k[s][r * kLdB + c] = __float2bfloat16_rn(0.0f);
-    sm.v[s][r * kLdB + c] = __float2bfloat16_rn(0.0f);
-  }
+  zero_pad_bf16(sm.k, sm.v, D);
   Staged stg;
   const Walk walk(kStaged ? D : D / 2);  // elements (staged) or 4-byte words a row
   if (n_tiles > 0) {
@@ -2123,21 +2162,9 @@ flash_fwd_mma_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
     }
   }
 
-  // Q's A fragments: step kk's qa[kk][e] holds row e & 1 ? qr1 : qr0,
-  // columns 16kk + 8 (e >> 1) + 2t and + 1 (the lower column in the low half)
+  // Q's A fragments: step kk's qa[kk][e] holds row e & 1 ? qr1 : qr0
   uint32_t qa[kD / 16][4];
-  const unsigned short* qb = reinterpret_cast<const unsigned short*>(q + (int64_t)bh * Tq * D);
-#pragma unroll
-  for (int kk = 0; kk < kD / 16; ++kk) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int r = e & 1 ? qr1 : qr0;
-      const int c = 16 * kk + 8 * (e >> 1) + 2 * t;
-      const uint32_t lo = r < Tq && c < D ? qb[(int64_t)r * D + c] : 0u;
-      const uint32_t hi = r < Tq && c + 1 < D ? qb[(int64_t)r * D + c + 1] : 0u;
-      qa[kk][e] = lo | (hi << 16);
-    }
-  }
+  a_frags_bf16(qa, q + (int64_t)bh * Tq * D, qr0, Tq, D);
 
   float acc[32];
 #pragma unroll
@@ -2275,6 +2302,581 @@ int fwd_bf16(const void* q, const void* k, const void* v, void* o, void* lse, in
     flash_fwd_mma_bf16_kernel<false><<<grid, kMmaThreads, smem, stream>>>(
         (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, (float*)lse, Tq, Tk, D, q_off,
         k_off, causal, scale);
+  }
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// flash_dq_mma_bf16: the bf16 dq for heads with D % 8 != 0, on mma.sync bf16
+// ---------------------------------------------------------------------------
+//
+// The same function as flash_dq_kernel<bf16> and flash_dq_plain: p = valid
+// ? expf(s * scale - lse) : 0 with s = q.k (fp32 sums of exact bf16
+// products, the scale after the dot); dp = dO.v; ds = bf16(p * (dp - dsum)
+// * scale) (pallas_attention.py:195, the 2-D kernel's :296); dq += ds k in
+// an fp32 accumulator; expf, -fmad=false. No rounding depends on the key
+// tile, so only the order of the sums inside the products differs. It takes
+// any 1 <= D <= 64; the route sends it the bf16 heads whose rows are not
+// whole 16-byte units (D % 8 != 0), which flash_dq_sm90's tensor maps
+// refuse.
+//
+// Block: flash_fwd_mma_bf16's, with one more product. One CTA of 256
+// threads (8 warps) per (128-query tile, b*h), heaviest causal tiles
+// first; a warp owns 16 query rows (one M). Q and dO are read once from
+// device memory into registers as A fragments (32 registers at D 64), lse
+// and dsum of the thread's two rows once. K/V tiles of 64 keys stream
+// through the forward's two-stage ring: 4-byte cp.async copies for even D,
+// register-staged loads for odd D (Staged, walked by adds), the head's
+// columns from D to 64 zeroed once; two barriers a tile.
+//
+// Products per tile and warp, mma.sync m16n8k16 bf16 with fp32
+// accumulators: S = Q K^T and dP = dO V^T, K's and V's B fragments by
+// ldmatrix.x4 from the stage (the forward's K reads; rows 144 bytes apart,
+// so each 8-address phase hits 8 distinct 16-byte bank groups). p on S's C
+// fragments (sm90::tile_probs; masks only on tiles across the causal
+// diagonal or the ragged key edge, a masked element selected to 0 without
+// expf, so a blind row's sentinel lse never gives an inf). dS is rounded to
+// bf16 straight from the C fragments: those of S's n8 tiles 2kk and 2kk + 1,
+// packed, are the A fragment of key step kk of dQ += dS K (the layouts of
+// the 16-bit m16n8k16 agree, as for the forward's P V), and K's B fragments
+// for it come from the same stage by ldmatrix.x4.trans (the forward's V
+// reads). dQ stays in fp32 registers and is stored once. Query rows past
+// Tq read lse = dsum = 0 and zero Q and dO: p = 1, ds = 0, never stored.
+//
+// Registers: one CTA an SM. The cp.async build takes 235 (no spill), the
+// staged one 255 with 8 bytes of stack and no slower at D 60; held to two
+// CTAs an SM (128 registers) it spills 304 bytes and takes 27% longer
+// (tools/bwd_mma_bf16_variants.py).
+//
+// Bound, at BH 96, T 1024, D 60, bf16, causal: 71.6 MB (q, k, v, dO in
+// bf16; lse, dsum and dq in fp32; 21 us at 3.35 TB/s) against 18.1 GFLOP
+// of bf16 products over the causal half (S, dP, dQ; 18 us at 989 TFLOP/s):
+// the bytes bound it (chip_smoke.py phase times computes both).
+//
+// Not yet: wgmma from a cp.async ring (no tensor maps for these rows), a
+// producer warp, the next tile's S and dP under this one's elementwise work
+// (tools/bwd_mma_bf16_variants.py measures where the time goes).
+
+constexpr int kDqMinBlocks = 1;  // resident CTAs an SM the registers are held to
+
+template <bool kStaged>
+__global__ void __launch_bounds__(kMmaThreads, kDqMinBlocks)
+flash_dq_mma_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                         const bf16* __restrict__ v, const bf16* __restrict__ d_o,
+                         const float* __restrict__ lse, const float* __restrict__ dsum,
+                         float* __restrict__ dq_out, int Tq, int Tk, int D, int q_off,
+                         int k_off, int causal, float scale) {
+  extern __shared__ __align__(16) unsigned char dyn_smem[];
+  SmemBf16& sm = *reinterpret_cast<SmemBf16*>(dyn_smem);
+  const int bh = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kRows;  // heaviest causal tiles first
+  const int tid = threadIdx.x;
+  const int lane = tid % 32;
+  const int t = lane % 4;  // the mma fragments' thread in group
+  const int wq0 = q0 + (tid / 32) * kWarpRows;  // the warp's first query row
+  const int qr0 = wq0 + lane / 4, qr1 = qr0 + 8;  // this thread's two rows
+  const bf16* kb = k + (int64_t)bh * Tk * D;
+  const bf16* vb = v + (int64_t)bh * Tk * D;
+  const int nk = (Tk + kTile - 1) / kTile;
+  const int n_tiles = sm90::k_tiles_seen(causal, min(q0 + kRows, Tq), q_off, k_off, nk);
+  // the warp's own last tile (exclusive): it skips the CTA's later ones
+  const int n_mine =
+      wq0 < Tq ? sm90::k_tiles_seen(causal, min(wq0 + kWarpRows, Tq), q_off, k_off, nk) : 0;
+  const int steps = (D + 15) / 16;  // 16-column steps of the head that hold data
+
+  zero_pad_bf16(sm.k, sm.v, D);
+  Staged stg;
+  const Walk walk(kStaged ? D : D / 2);  // elements (staged) or 4-byte words a row
+  if (n_tiles > 0) {
+    if constexpr (kStaged) {
+      staged_load(stg, kb, vb, 0, Tk, D, walk);
+      staged_store(stg, sm.k[0], sm.v[0], walk);
+    } else {
+      load_kv_bf16(sm, kb, vb, 0, Tk, D, walk);
+    }
+  }
+
+  // Q's and dO's A fragments (rows qr0, qr1); lse and dsum of the two rows
+  uint32_t qfr[kD / 16][4], ofr[kD / 16][4];
+  a_frags_bf16(qfr, q + (int64_t)bh * Tq * D, qr0, Tq, D);
+  a_frags_bf16(ofr, d_o + (int64_t)bh * Tq * D, qr0, Tq, D);
+  const float* lse_b = lse + (int64_t)bh * Tq;
+  const float* dsum_b = dsum + (int64_t)bh * Tq;
+  const float lse0 = qr0 < Tq ? __ldg(lse_b + qr0) : 0.0f;
+  const float lse1 = qr1 < Tq ? __ldg(lse_b + qr1) : 0.0f;
+  const float dsum0 = qr0 < Tq ? __ldg(dsum_b + qr0) : 0.0f;
+  const float dsum1 = qr1 < Tq ? __ldg(dsum_b + qr1) : 0.0f;
+
+  float dq_acc[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) dq_acc[i] = 0.0f;
+
+  for (int j = 0; j < n_tiles; ++j) {
+    if constexpr (kStaged) {
+      if (j + 1 < n_tiles) staged_load(stg, kb, vb, (j + 1) * kTile, Tk, D, walk);
+    } else if (j + 1 < n_tiles) {
+      load_kv_bf16(sm, kb, vb, j + 1, Tk, D, walk);
+      asm volatile("cp.async.wait_group 1;" ::: "memory");
+    } else {
+      asm volatile("cp.async.wait_group 0;" ::: "memory");
+    }
+    __syncthreads();  // tile j has landed for every thread
+    const bf16* ks = sm.k[j % kRing];
+    const bf16* vs = sm.v[j % kRing];
+    if (j < n_mine) {
+      // s = q k^T and dp = dO v^T: s_acc[4n + e] (dp_acc's alike) is row
+      // e < 2 ? qr0 : qr1, key 8n + 2t + e % 2; ldmatrix p of step kk reads
+      // keys 16p + 8 (m >> 1) + 0..7, head columns 16kk + 8 (m & 1) + 0..7
+      float s_acc[32], dp_acc[32];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) s_acc[i] = dp_acc[i] = 0.0f;
+#pragma unroll
+      for (int kk = 0; kk < kD / 16; ++kk) {
+        if (kk < steps) {
+          uint32_t kfr[kTile / 16][4], vfr[kTile / 16][4];
+#pragma unroll
+          for (int p = 0; p < kTile / 16; ++p) {
+            const int at = (16 * p + 8 * (lane >> 4) + (lane & 7)) * kLdB + 16 * kk +
+                           8 * ((lane >> 3) & 1);
+            ldmatrix_x4<false>(kfr[p], ks + at);
+            ldmatrix_x4<false>(vfr[p], vs + at);
+          }
+#pragma unroll
+          for (int p = 0; p < kTile / 16; ++p) {
+            mma_bf16(s_acc + 8 * p, qfr[kk], kfr[p][0], kfr[p][1]);
+            mma_bf16(s_acc + 8 * p + 4, qfr[kk], kfr[p][2], kfr[p][3]);
+          }
+#pragma unroll
+          for (int p = 0; p < kTile / 16; ++p) {
+            mma_bf16(dp_acc + 8 * p, ofr[kk], vfr[p][0], vfr[p][1]);
+            mma_bf16(dp_acc + 8 * p + 4, ofr[kk], vfr[p][2], vfr[p][3]);
+          }
+        }
+      }
+
+      const int k0 = j * kTile;
+      if (k0 + kTile > Tk || (causal && k_off + k0 + kTile - 1 > q_off + wq0)) {
+        sm90::tile_probs<true>(s_acc, lse0, lse1, scale, causal, q_off, k_off, qr0, qr1,
+                               k0 + 2 * t, Tk);
+      } else {
+        sm90::tile_probs<false>(s_acc, lse0, lse1, scale, causal, q_off, k_off, qr0, qr1,
+                                k0 + 2 * t, Tk);
+      }
+
+      // dq += bf16(ds) k: key step kk's A fragment is ds over S's n8 tiles
+      // 2kk and 2kk + 1, packed (the pair 8kk + 2h is row qr0 for even h);
+      // ldmatrix.trans p is keys 16kk + 8 (m & 1) + 0..7, head columns 16p +
+      // 8 (m >> 1) + 0..7: r[0], r[1] are head group 2p's (b0, b1)
+#pragma unroll
+      for (int kk = 0; kk < kTile / 16; ++kk) {
+        uint32_t dsa[4];
+#pragma unroll
+        for (int h = 0; h < 4; ++h) {
+          const int r = 8 * kk + 2 * h;
+          const float ds_sum = h % 2 ? dsum1 : dsum0;
+          dsa[h] = sm90::pack_bf16(s_acc[r] * (dp_acc[r] - ds_sum) * scale,
+                                   s_acc[r + 1] * (dp_acc[r + 1] - ds_sum) * scale);
+        }
+        uint32_t ktr[kD / 16][4];
+#pragma unroll
+        for (int p = 0; p < kD / 16; ++p) {
+          if (p < steps)
+            ldmatrix_x4<true>(ktr[p], ks + (16 * kk + 8 * ((lane >> 3) & 1) + (lane & 7)) * kLdB +
+                                          16 * p + 8 * (lane >> 4));
+        }
+#pragma unroll
+        for (int p = 0; p < kD / 16; ++p) {
+          if (p < steps) {
+            mma_bf16(dq_acc + 8 * p, dsa, ktr[p][0], ktr[p][1]);
+            mma_bf16(dq_acc + 8 * p + 4, dsa, ktr[p][2], ktr[p][3]);
+          }
+        }
+      }
+    }
+    if constexpr (kStaged) {
+      // tile j + 1 into the stage tile j - 1 held, released at its barrier
+      if (j + 1 < n_tiles) staged_store(stg, sm.k[(j + 1) % kRing], sm.v[(j + 1) % kRing], walk);
+    }
+    __syncthreads();  // every thread is done with the stage the next load fills
+  }
+
+  // epilogue: rows qr0, qr1, columns 8n + 2t and + 1 (a float2 when D is even)
+  float* dq_b = dq_out + (int64_t)bh * Tq * D;
+  const bool pairs = D % 2 == 0 && (reinterpret_cast<uintptr_t>(dq_out) & 7) == 0;
+#pragma unroll
+  for (int n = 0; n < kD / 8; ++n) {
+    const int c = 8 * n + 2 * t;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = h ? qr1 : qr0;
+      if (r >= Tq || c >= D) continue;
+      const float x0 = dq_acc[4 * n + 2 * h], x1 = dq_acc[4 * n + 2 * h + 1];
+      float* dst = dq_b + (int64_t)r * D + c;
+      if (pairs) {
+        *reinterpret_cast<float2*>(dst) = make_float2(x0, x1);
+      } else {
+        dst[0] = x0;
+        if (c + 1 < D) dst[1] = x1;
+      }
+    }
+  }
+}
+
+int dq_bf16(const void* q, const void* k, const void* v, const void* d_o, const void* lse,
+            const void* dsum, void* dq_out, int BH, int Tq, int Tk, int D, int q_off, int k_off,
+            int causal, float scale, cudaStream_t stream) {
+  if (D < 1 || D > kD) return (int)cudaErrorInvalidValue;
+  // 4-byte copies need rows of whole words: D even, k and v 4-byte aligned
+  const bool dq_words = D % 2 == 0 && ((reinterpret_cast<uintptr_t>(k) |
+                                        reinterpret_cast<uintptr_t>(v)) & 3) == 0;
+  const size_t smem = sizeof(SmemBf16);
+  const dim3 grid(BH, (Tq + kRows - 1) / kRows);
+  cudaError_t err;
+  if (dq_words) {
+    err = prepare(flash_dq_mma_bf16_kernel<false>, smem);
+    if (err != cudaSuccess) return (int)err;
+    flash_dq_mma_bf16_kernel<false><<<grid, kMmaThreads, smem, stream>>>(
+        (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)d_o, (const float*)lse,
+        (const float*)dsum, (float*)dq_out, Tq, Tk, D, q_off, k_off, causal, scale);
+  } else {
+    err = prepare(flash_dq_mma_bf16_kernel<true>, smem);
+    if (err != cudaSuccess) return (int)err;
+    flash_dq_mma_bf16_kernel<true><<<grid, kMmaThreads, smem, stream>>>(
+        (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)d_o, (const float*)lse,
+        (const float*)dsum, (float*)dq_out, Tq, Tk, D, q_off, k_off, causal, scale);
+  }
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// flash_dkv_mma_bf16: the bf16 dk/dv for heads with D % 8 != 0, on mma.sync bf16
+// ---------------------------------------------------------------------------
+//
+// The same function as flash_dkv_kernel<bf16> and flash_dkv_plain: p =
+// valid ? expf(s * scale - lse) : 0 with s = q.k; dp = dO.v; ds = bf16(p *
+// (dp - dsum) * scale) (pallas_attention.py:235, the 2-D kernel's :338);
+// dk += ds^T q; dv += p^T f32(dO) with p not rounded (the reference upcasts
+// dO, pallas_attention.py:218). dv runs as flash_dkv_sm90 runs it: p = hi +
+// mid + lo in bf16, exactly (sm90::split_bf16; the plain split_bf16x3), and
+// three exact bf16 products with dO summed in fp32. Two parts, or bf16(p),
+// fail phase flash's dv limit (chip_smoke.py bf16_dv_control). It takes any
+// 1 <= D <= 64; the route sends it the bf16 heads with D % 8 != 0.
+//
+// Block: one CTA of 256 threads (8 warps) per (128-key tile, b*h), key
+// tiles heaviest first (blockIdx.y: in a causal launch the lowest keys see
+// the most queries). Warp w owns keys 16w + 0..15 (one M) and every query
+// of each 64-query tile. K and V are read once from device memory into
+// registers as A fragments (32 registers at D 64); dK and dV stay in fp32
+// registers (64) and are stored once. The shape: 128 keys on 8 warps, not
+// flash_dkv_mma's 64 keys with each warp half of a query tile, because the
+// registers fit at one CTA an SM (K, V, dK, dV, and S^T and dP^T of a
+// kQSub-query step: 160 at kQSub 64; p's three parts are formed 16 queries
+// at a time, 12 more; 252 in all with the cp.async loads, no spill), each
+// Q/dO tile is staged once for 128 keys instead of 64, and no partial dK
+// and dV are added at the end. With the register-staged loads (odd D) the
+// queries go in steps of 16 (kQSubStaged; 246 registers, no spill): at 64
+// the staging registers spilled 144 bytes a thread and cost 9% more time
+// (tools/bwd_mma_bf16_variants.py).
+//
+// Transposed products (flash_dkv_sm90's): S^T = K Q^T and dP^T = V dO^T put
+// keys on the C fragments' rows, Q's and dO's B fragments by ldmatrix.x4 of
+// their rows (the forward's K reads). p^T and dS^T are formed on the C
+// fragments in place; then, 16 queries at a time, the C fragments of n8
+// tiles 2qk and 2qk + 1 are the A fragments as they stand (in bf16 the
+// m16n8 C layout is the m16k16 A layout, so no query permutation is needed,
+// unlike the tf32 kernels): p's lo, mid and hi parts for dV += (lo + mid +
+// hi)^T dO (three products, small parts first) and dS packed for dK +=
+// dS^T Q, with dO's and Q's B fragments by ldmatrix.x4.trans (the forward's
+// V reads).
+//
+// Loads: Q/dO tiles of 64 queries from q_tile_start (_q_block_start)
+// through a two-stage ring: 4-byte cp.async copies for even D, the
+// register-staged loads for odd D; the tile's lse and dsum beside them by
+// 4-byte cp.async, read from shared memory per element. Rows past Tq come
+// in as zeros; the head's columns from D to 64 are zeroed once. Two
+// barriers a tile.
+//
+// Masks: only on a warp's blocks that cross the causal diagonal or the
+// ragged query edge. A query past Tq is masked explicitly: its zero q gives
+// s = 0 and its lse reads 0, so p would be 1, not 0. A masked element is
+// selected to 0 after expf, never multiplied by a 0/1 mask, so a blind
+// query's sentinel lse (<= -1e29: exp overflows) never reaches a product.
+// Keys past Tk compute rows that are never stored. A warp skips the query
+// tiles wholly above its keys.
+//
+// Bound, at BH 96, T 1024, D 60, bf16, causal: 95.2 MB (28 us at 3.35
+// TB/s) against 36.3 GFLOP of bf16 products over the causal half (S, dP,
+// dK, and dV as three: 37 us at 989 TFLOP/s): the operations bound it.
+//
+// Not yet: wgmma, a producer warp, one query step's products under the
+// other's elementwise work (tools/bwd_mma_bf16_variants.py measures where
+// the time goes).
+
+constexpr int kKeysBf16 = 128;  // keys of a flash_dkv_mma_bf16 CTA: 16 a warp
+// queries of a step whose S^T and dP^T are held in registers: 64 with the
+// cp.async loads; 16 with the register-staged ones, whose 32 staging
+// registers spill 144 bytes a thread at 64 and 24 at 32
+constexpr int kQSubCopies = 64;
+constexpr int kQSubStaged = 16;
+static_assert(kKeysBf16 == (kMmaThreads / 32) * 16, "a warp owns 16 keys");
+static_assert(kTile % kQSubCopies == 0 && kQSubCopies % 16 == 0 && kTile % kQSubStaged == 0 &&
+                  kQSubStaged % 16 == 0,
+              "query steps of whole 16-query slices");
+
+struct DkvSmemBf16 {
+  bf16 q[kRing][kTile * kLdB];
+  bf16 d_o[kRing][kTile * kLdB];
+  float lse[kRing][kTile];
+  float dsum[kRing][kTile];
+};
+
+// the Q/dO tile at row0 into ring stage s as one cp.async group: Q and dO
+// by 4-byte copies unless kStaged (the caller stores the staged rows), the
+// tile's lse and dsum by 4-byte copies; rows past Tq as zeros
+template <bool kStaged>
+__device__ __forceinline__ void load_qdo_bf16(DkvSmemBf16& sm, const bf16* qb, const bf16* dob,
+                                              const float* lse_b, const float* dsum_b, int s,
+                                              int row0, int Tq, int D, const Walk& w) {
+  if constexpr (!kStaged) pair_async_bf16(sm.q[s], sm.d_o[s], qb, dob, row0, Tq, D, w);
+  if (threadIdx.x < 2 * kTile) {
+    const int r = threadIdx.x % kTile;
+    const bool in = row0 + r < Tq;
+    const bool first = threadIdx.x < kTile;  // lse; the second 64 threads copy dsum
+    float* dst = (first ? sm.lse[s] : sm.dsum[s]) + r;
+    cp_async<4>(dst, (first ? lse_b : dsum_b) + (in ? row0 + r : 0), in);
+  }
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+template <bool kStaged>
+__global__ void __launch_bounds__(kMmaThreads, 1)
+flash_dkv_mma_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                          const bf16* __restrict__ v, const bf16* __restrict__ d_o,
+                          const float* __restrict__ lse, const float* __restrict__ dsum,
+                          float* __restrict__ dk_out, float* __restrict__ dv_out, int Tq,
+                          int Tk, int D, int q_off, int k_off, int causal, float scale) {
+  extern __shared__ __align__(16) unsigned char dyn_smem[];
+  DkvSmemBf16& sm = *reinterpret_cast<DkvSmemBf16*>(dyn_smem);
+  const int bh = blockIdx.x;
+  const int k0 = blockIdx.y * kKeysBf16;  // heaviest causal key tiles first
+  const int tid = threadIdx.x;
+  const int lane = tid % 32;
+  const int t = lane % 4;  // the mma fragments' thread in group
+  const int wk0 = k0 + (tid / 32) * 16;  // the warp's first key
+  const int kr0 = wk0 + lane / 4, kr1 = kr0 + 8;  // this thread's two keys
+  const bf16* qb = q + (int64_t)bh * Tq * D;
+  const bf16* dob = d_o + (int64_t)bh * Tq * D;
+  const float* lse_b = lse + (int64_t)bh * Tq;
+  const float* dsum_b = dsum + (int64_t)bh * Tq;
+  const int nq = (Tq + kTile - 1) / kTile;
+  const int i0 = q_tile_start(causal, k0, q_off, k_off);
+  const int n_tiles = max(nq - i0, 0);
+  // the warp's own first tile: a later warp skips the tiles of the causal
+  // diagonal that lie wholly above its keys (and a warp past Tk every tile)
+  const int i_mine = wk0 < Tk ? q_tile_start(causal, wk0, q_off, k_off) : nq;
+  const int steps = (D + 15) / 16;  // 16-column steps of the head that hold data
+  constexpr int kQSub = kStaged ? kQSubStaged : kQSubCopies;
+
+  zero_pad_bf16(sm.q, sm.d_o, D);
+  Staged stg;
+  const Walk walk(kStaged ? D : D / 2);  // elements (staged) or 4-byte words a row
+  if (n_tiles > 0) {
+    if constexpr (kStaged) {
+      staged_load(stg, qb, dob, i0 * kTile, Tq, D, walk);
+      staged_store(stg, sm.q[0], sm.d_o[0], walk);
+    }
+    load_qdo_bf16<kStaged>(sm, qb, dob, lse_b, dsum_b, 0, i0 * kTile, Tq, D, walk);
+  }
+
+  // K's and V's A fragments (keys kr0, kr1)
+  uint32_t kfr[kD / 16][4], vfr[kD / 16][4];
+  a_frags_bf16(kfr, k + (int64_t)bh * Tk * D, kr0, Tk, D);
+  a_frags_bf16(vfr, v + (int64_t)bh * Tk * D, kr0, Tk, D);
+
+  float dk_acc[32], dv_acc[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) dk_acc[i] = dv_acc[i] = 0.0f;
+
+  for (int j = 0; j < n_tiles; ++j) {
+    const int q0 = (i0 + j) * kTile;
+    if (j + 1 < n_tiles) {
+      if constexpr (kStaged) staged_load(stg, qb, dob, q0 + kTile, Tq, D, walk);
+      load_qdo_bf16<kStaged>(sm, qb, dob, lse_b, dsum_b, (j + 1) % kRing, q0 + kTile, Tq, D,
+                             walk);
+      asm volatile("cp.async.wait_group 1;" ::: "memory");
+    } else {
+      asm volatile("cp.async.wait_group 0;" ::: "memory");
+    }
+    __syncthreads();  // tile j has landed for every thread
+    const bf16* qs = sm.q[j % kRing];
+    const bf16* os = sm.d_o[j % kRing];
+    const float* lse_s = sm.lse[j % kRing];
+    const float* dsum_s = sm.dsum[j % kRing];
+    if (i0 + j >= i_mine) {
+      const bool masked = q0 + kTile > Tq || (causal && q_off + q0 < k_off + wk0 + 15);
+#pragma unroll
+      for (int qh = 0; qh < kTile; qh += kQSub) {
+        // s^T = k q^T and dp^T = v dO^T: st[4n + e] (dpt's alike) is key
+        // e < 2 ? kr0 : kr1, query qh + 8n + 2t + e % 2 of the tile
+        float st[kQSub / 2], dpt[kQSub / 2];
+#pragma unroll
+        for (int i = 0; i < kQSub / 2; ++i) st[i] = dpt[i] = 0.0f;
+#pragma unroll
+        for (int kk = 0; kk < kD / 16; ++kk) {
+          if (kk < steps) {
+            uint32_t qrow[kQSub / 16][4], orow[kQSub / 16][4];
+#pragma unroll
+            for (int p = 0; p < kQSub / 16; ++p) {
+              const int at = (qh + 16 * p + 8 * (lane >> 4) + (lane & 7)) * kLdB + 16 * kk +
+                             8 * ((lane >> 3) & 1);
+              ldmatrix_x4<false>(qrow[p], qs + at);
+              ldmatrix_x4<false>(orow[p], os + at);
+            }
+#pragma unroll
+            for (int p = 0; p < kQSub / 16; ++p) {
+              mma_bf16(st + 8 * p, kfr[kk], qrow[p][0], qrow[p][1]);
+              mma_bf16(st + 8 * p + 4, kfr[kk], qrow[p][2], qrow[p][3]);
+            }
+#pragma unroll
+            for (int p = 0; p < kQSub / 16; ++p) {
+              mma_bf16(dpt + 8 * p, vfr[kk], orow[p][0], orow[p][1]);
+              mma_bf16(dpt + 8 * p + 4, vfr[kk], orow[p][2], orow[p][3]);
+            }
+          }
+        }
+
+        // p^T and ds^T (not yet rounded) on the accumulators, in place
+#pragma unroll
+        for (int r = 0; r < kQSub / 2; ++r) {
+          const int c = qh + 8 * (r / 4) + 2 * t + r % 2;  // the query's row in the tile
+          float p = expf(st[r] * scale - lse_s[c]);
+          if (masked &&
+              !(q0 + c < Tq && visible(causal, q_off, k_off, q0 + c, (r % 4) < 2 ? kr0 : kr1, Tk)))
+            p = 0.0f;
+          st[r] = p;
+          dpt[r] = p * (dpt[r] - dsum_s[c]) * scale;
+        }
+
+        // dv += (lo + mid + hi)^T dO and dk += bf16(ds)^T q over 16-query
+        // slices: slice qk's A fragments are the C fragments of n8 tiles 2qk
+        // and 2qk + 1 (the pair 8qk + 2h is key kr0 for even h);
+        // ldmatrix.trans p is queries 16qk + 8 (m & 1) + 0..7 of the step,
+        // head columns 16p + 8 (m >> 1) + 0..7: r[0], r[1] are head group
+        // 2p's (b0, b1)
+#pragma unroll
+        for (int qk = 0; qk < kQSub / 16; ++qk) {
+          uint32_t hi[4], mid[4], lo[4], dsa[4];
+#pragma unroll
+          for (int h = 0; h < 4; ++h) {
+            const int r = 8 * qk + 2 * h;
+            float x0 = st[r], x1 = st[r + 1];
+            hi[h] = sm90::split_bf16(x0, x1);
+            mid[h] = sm90::split_bf16(x0, x1);
+            lo[h] = sm90::split_bf16(x0, x1);
+            dsa[h] = sm90::pack_bf16(dpt[r], dpt[r + 1]);
+          }
+          const int row = (qh + 16 * qk + 8 * ((lane >> 3) & 1) + (lane & 7)) * kLdB +
+                          8 * (lane >> 4);
+          uint32_t bt[kD / 16][4];
+#pragma unroll
+          for (int p = 0; p < kD / 16; ++p) {
+            if (p < steps) ldmatrix_x4<true>(bt[p], os + row + 16 * p);
+          }
+#pragma unroll
+          for (int p = 0; p < kD / 16; ++p) {
+            if (p < steps) {
+              mma_bf16(dv_acc + 8 * p, lo, bt[p][0], bt[p][1]);
+              mma_bf16(dv_acc + 8 * p + 4, lo, bt[p][2], bt[p][3]);
+            }
+          }
+#pragma unroll
+          for (int p = 0; p < kD / 16; ++p) {
+            if (p < steps) {
+              mma_bf16(dv_acc + 8 * p, mid, bt[p][0], bt[p][1]);
+              mma_bf16(dv_acc + 8 * p + 4, mid, bt[p][2], bt[p][3]);
+            }
+          }
+#pragma unroll
+          for (int p = 0; p < kD / 16; ++p) {
+            if (p < steps) {
+              mma_bf16(dv_acc + 8 * p, hi, bt[p][0], bt[p][1]);
+              mma_bf16(dv_acc + 8 * p + 4, hi, bt[p][2], bt[p][3]);
+            }
+          }
+#pragma unroll
+          for (int p = 0; p < kD / 16; ++p) {
+            if (p < steps) ldmatrix_x4<true>(bt[p], qs + row + 16 * p);
+          }
+#pragma unroll
+          for (int p = 0; p < kD / 16; ++p) {
+            if (p < steps) {
+              mma_bf16(dk_acc + 8 * p, dsa, bt[p][0], bt[p][1]);
+              mma_bf16(dk_acc + 8 * p + 4, dsa, bt[p][2], bt[p][3]);
+            }
+          }
+        }
+      }
+    }
+    if constexpr (kStaged) {
+      // tile j + 1 into the stage tile j - 1 held, released at its barrier
+      if (j + 1 < n_tiles) staged_store(stg, sm.q[(j + 1) % kRing], sm.d_o[(j + 1) % kRing], walk);
+    }
+    __syncthreads();  // every thread is done with the stage the next load fills
+  }
+
+  // epilogue: rows kr0, kr1, columns 8n + 2t and + 1 (a float2 when D is even)
+  float* dk_b = dk_out + (int64_t)bh * Tk * D;
+  float* dv_b = dv_out + (int64_t)bh * Tk * D;
+  const bool pairs = D % 2 == 0 && ((reinterpret_cast<uintptr_t>(dk_out) |
+                                     reinterpret_cast<uintptr_t>(dv_out)) & 7) == 0;
+#pragma unroll
+  for (int n = 0; n < kD / 8; ++n) {
+    const int c = 8 * n + 2 * t;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int kr = h ? kr1 : kr0;
+      const int i = 4 * n + 2 * h;
+      if (kr >= Tk || c >= D) continue;
+      const int64_t at = (int64_t)kr * D + c;
+      if (pairs) {
+        *reinterpret_cast<float2*>(dk_b + at) = make_float2(dk_acc[i], dk_acc[i + 1]);
+        *reinterpret_cast<float2*>(dv_b + at) = make_float2(dv_acc[i], dv_acc[i + 1]);
+      } else {
+        dk_b[at] = dk_acc[i];
+        dv_b[at] = dv_acc[i];
+        if (c + 1 < D) {
+          dk_b[at + 1] = dk_acc[i + 1];
+          dv_b[at + 1] = dv_acc[i + 1];
+        }
+      }
+    }
+  }
+}
+
+int dkv_bf16(const void* q, const void* k, const void* v, const void* d_o, const void* lse,
+             const void* dsum, void* dk_out, void* dv_out, int BH, int Tq, int Tk, int D,
+             int q_off, int k_off, int causal, float scale, cudaStream_t stream) {
+  if (D < 1 || D > kD) return (int)cudaErrorInvalidValue;
+  // 4-byte copies need rows of whole words: D even, q and dO 4-byte aligned
+  const bool dkv_words = D % 2 == 0 && ((reinterpret_cast<uintptr_t>(q) |
+                                         reinterpret_cast<uintptr_t>(d_o)) & 3) == 0;
+  const size_t smem = sizeof(DkvSmemBf16);
+  const dim3 grid(BH, (Tk + kKeysBf16 - 1) / kKeysBf16);
+  cudaError_t err;
+  if (dkv_words) {
+    err = prepare(flash_dkv_mma_bf16_kernel<false>, smem);
+    if (err != cudaSuccess) return (int)err;
+    flash_dkv_mma_bf16_kernel<false><<<grid, kMmaThreads, smem, stream>>>(
+        (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)d_o, (const float*)lse,
+        (const float*)dsum, (float*)dk_out, (float*)dv_out, Tq, Tk, D, q_off, k_off, causal,
+        scale);
+  } else {
+    err = prepare(flash_dkv_mma_bf16_kernel<true>, smem);
+    if (err != cudaSuccess) return (int)err;
+    flash_dkv_mma_bf16_kernel<true><<<grid, kMmaThreads, smem, stream>>>(
+        (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)d_o, (const float*)lse,
+        (const float*)dsum, (float*)dk_out, (float*)dv_out, Tq, Tk, D, q_off, k_off, causal,
+        scale);
   }
   return (int)cudaGetLastError();
 }
@@ -2773,6 +3375,33 @@ int tmpi_flash_dkv(int device, const void* q, const void* k, const void* v, cons
                      scale, s);
   return dkv<float>(q, k, v, d_o, lse, dsum, dk_out, dv_out, BH, Tq, Tk, D, q_off, k_off, causal,
                     scale, s);
+}
+
+// bf16 at any 1 <= D <= 64 (mma.sync bf16; the route sends it D % 8 != 0):
+// 4-byte cp.async copies of K and V when D is even and k, v 4-byte
+// aligned, else register-staged loads.
+int tmpi_flash_dq_mma_bf16(int device, const void* q, const void* k, const void* v,
+                           const void* d_o, const void* lse, const void* dsum, void* dq_out,
+                           int BH, int Tq, int Tk, int D, int q_off, int k_off, int causal,
+                           float scale, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  return mma::dq_bf16(q, k, v, d_o, lse, dsum, dq_out, BH, Tq, Tk, D, q_off, k_off, causal, scale,
+                      (cudaStream_t)stream);
+}
+
+// bf16 at any 1 <= D <= 64 (mma.sync bf16, dv through the three-part
+// split of p; the route sends it D % 8 != 0): 4-byte cp.async copies of Q
+// and dO when D is even and q, dO 4-byte aligned, else register-staged
+// loads.
+int tmpi_flash_dkv_mma_bf16(int device, const void* q, const void* k, const void* v,
+                            const void* d_o, const void* lse, const void* dsum, void* dk_out,
+                            void* dv_out, int BH, int Tq, int Tk, int D, int q_off, int k_off,
+                            int causal, float scale, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  return mma::dkv_bf16(q, k, v, d_o, lse, dsum, dk_out, dv_out, BH, Tq, Tk, D, q_off, k_off,
+                       causal, scale, (cudaStream_t)stream);
 }
 
 // bf16 only, 8 <= D <= 64 with D % 8 == 0, and q, k, v, dO 16-byte

@@ -11,12 +11,15 @@ sequence-parallel slice). The kernels are hand-written CUDA for Hopper
 loads) for the other bf16 heads (``_fwd_route``; the generic
 ``flash_fwd`` serves no route and stays for timing in turns); dq (#8
 and its long-sequence twin #10) as ``flash_dq_sm90`` (TMA + wgmma, dS
-from registers) for bf16 with D % 8 == 0, and as ``flash_dq`` for the
-rest (``_dq_route``); dk/dv (#9 and #11) as ``flash_dkv_sm90`` (TMA +
-wgmma, dv exact on the tensor cores through a three-part bf16 split of
-p) for bf16 with D % 8 == 0, as ``flash_dkv_mma`` (mma.sync, every
-product 3xTF32) for fp32, and as ``flash_dkv`` for the other bf16 heads
-(``_dkv_route``). The TPU needs the 2-D
+from registers) for bf16 with D % 8 == 0, as ``flash_dq_mma_bf16``
+(mma.sync bf16, the forward's ring) for the other bf16 heads, and as the
+generic ``flash_dq`` for fp32 (``_dq_route``); dk/dv (#9 and #11) as
+``flash_dkv_sm90`` (TMA + wgmma, dv exact on the tensor cores through a
+three-part bf16 split of p) for bf16 with D % 8 == 0, as
+``flash_dkv_mma`` (mma.sync, every product 3xTF32) for fp32, and as
+``flash_dkv_mma_bf16`` (mma.sync bf16, the same split of p) for the other
+bf16 heads (``_dkv_route``; the generic ``flash_dkv`` serves no route and
+stays for timing in turns). The TPU needs the 2-D
 backward kernels only because its 1-D ones keep the whole opposite
 sequence in VMEM; the CUDA kernels stream it through shared memory a
 tile at a time, so one kernel serves every T.
@@ -31,8 +34,9 @@ Inside, the kernels take heads-major ``[B*H, T, D]`` contiguous tensors.
 Numerics, at the reference's cast points (see the kernel's header): the
 products run in the input dtype with fp32 accumulation, softmax
 statistics and every accumulator are fp32, and ``dv += p^T dO`` is an
-fp32 x fp32 product with p not rounded (``flash_dkv_sm90`` runs it as
-three exact bf16 products, ``split_bf16x3``); the fp32 forward's and
+fp32 x fp32 product with p not rounded (``flash_dkv_sm90`` and
+``flash_dkv_mma_bf16`` run it as three exact bf16 products,
+``split_bf16x3``); the fp32 forward's and
 dk/dv's products run as three tf32 products each (``split_tf32x2``), held
 to a tolerance like every fp32 sum here. The plain versions beside
 the wrappers compute the same functions in PyTorch; the forward walks K
@@ -91,6 +95,10 @@ _LIB = KernelLibrary(
         # stream
         "tmpi_flash_dq_sm90": (_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                                ctypes.c_float, _P),
+        # device, q, k, v, dO, lse, dsum, dq, BH, Tq, Tk, D, q_off, k_off, causal, scale,
+        # stream
+        "tmpi_flash_dq_mma_bf16": (_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                                   ctypes.c_float, _P),
         # device, q, k, v, dO, lse, dsum, dk, dv, BH, Tq, Tk, D, q_off, k_off, causal, scale,
         # dtype, stream
         "tmpi_flash_dkv": (_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
@@ -103,6 +111,10 @@ _LIB = KernelLibrary(
         # stream
         "tmpi_flash_dkv_mma": (_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                                ctypes.c_float, _P),
+        # device, q, k, v, dO, lse, dsum, dk, dv, BH, Tq, Tk, D, q_off, k_off, causal, scale,
+        # stream
+        "tmpi_flash_dkv_mma_bf16": (_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                    _I, ctypes.c_float, _P),
     },
 )
 
@@ -112,9 +124,11 @@ FLASH_FWD_MMA = LaunchCounter("flash_fwd_mma")
 FLASH_FWD_MMA_BF16 = LaunchCounter("flash_fwd_mma_bf16")
 FLASH_DQ = LaunchCounter("flash_dq")
 FLASH_DQ_SM90 = LaunchCounter("flash_dq_sm90")
+FLASH_DQ_MMA_BF16 = LaunchCounter("flash_dq_mma_bf16")
 FLASH_DKV = LaunchCounter("flash_dkv")
 FLASH_DKV_SM90 = LaunchCounter("flash_dkv_sm90")
 FLASH_DKV_MMA = LaunchCounter("flash_dkv_mma")
+FLASH_DKV_MMA_BF16 = LaunchCounter("flash_dkv_mma_bf16")
 
 
 def build() -> float:
@@ -148,9 +162,10 @@ def split_bf16x3(p: torch.Tensor):
     """fp32 ``p`` -> bf16 ``(hi, mid, lo)`` with ``hi + mid + lo == p``
     exactly for every ``p >= 2^-100`` (and 0): each part rounds the
     remainder the previous ones leave, and 3 x 8 significand bits cover
-    fp32's 24. ``flash_dkv_sm90`` forms the same parts in registers, so
-    its ``dv += p^T dO`` is three exact bf16 products on the tensor
-    cores; two parts would leave up to 2^-17 of each p out."""
+    fp32's 24. ``flash_dkv_sm90`` and ``flash_dkv_mma_bf16`` form the same
+    parts in registers, so their ``dv += p^T dO`` is three exact bf16
+    products on the tensor cores; two parts would leave up to 2^-17 of
+    each p out."""
     hi = p.to(torch.bfloat16)
     r = p - hi.float()
     mid = r.to(torch.bfloat16)
@@ -370,13 +385,18 @@ def flash_fwd(q3, k3, v3, *, causal: bool, scale: float, q_off: int = 0, k_off: 
 def _dq_route(dtype: torch.dtype, D: int) -> str:
     """Which dq kernel takes a CUDA input, from its dtype and head dim
     alone, as ``_fwd_route``: ``"sm90"`` (``flash_dq_sm90``: TMA + wgmma,
-    bf16 with rows of whole 16-byte units) or ``"generic"``
-    (``flash_dq``: fp32, and bf16 with another D)."""
-    return "sm90" if dtype == torch.bfloat16 and D % 8 == 0 else "generic"
+    bf16 with rows of whole 16-byte units), ``"mma_bf16"``
+    (``flash_dq_mma_bf16``: bf16 with another D, odd included, on
+    mma.sync) or ``"generic"`` (``flash_dq``: fp32)."""
+    if dtype == torch.float32:
+        return "generic"
+    return "sm90" if dtype == torch.bfloat16 and D % 8 == 0 else "mma_bf16"
 
 
 def _launch_dq_generic(q3, k3, v3, do3, lse, dsum, *, causal, scale, q_off, k_off):
-    """``flash_dq_kernel`` (wmma, synchronous loads), fp32 or bf16."""
+    """``flash_dq_kernel`` (wmma, synchronous loads), fp32 or bf16: the
+    route of fp32; its bf16 instantiation is reached only from here
+    (chip_smoke times it against ``flash_dq_mma_bf16``)."""
     BH, Tq, D = q3.shape
     dev = q3.device
     dq = torch.empty((BH, Tq, D), dtype=torch.float32, device=dev)
@@ -405,11 +425,32 @@ def _launch_dq_sm90(q3, k3, v3, do3, lse, dsum, *, causal, scale, q_off, k_off):
     return dq
 
 
+def _launch_dq_mma_bf16(q3, k3, v3, do3, lse, dsum, *, causal, scale, q_off, k_off):
+    """``flash_dq_mma_bf16_kernel`` (mma.sync bf16, dS from registers;
+    4-byte cp.async copies, or register-staged loads for odd D), bf16 at
+    any D."""
+    BH, Tq, D = q3.shape
+    dev = q3.device
+    dq = torch.empty((BH, Tq, D), dtype=torch.float32, device=dev)
+    rc = _LIB.get().tmpi_flash_dq_mma_bf16(dev.index, q3.data_ptr(), k3.data_ptr(),
+                                           v3.data_ptr(), do3.data_ptr(), lse.data_ptr(),
+                                           dsum.data_ptr(), dq.data_ptr(), BH, Tq, k3.shape[1],
+                                           D, int(q_off), int(k_off), int(causal), float(scale),
+                                           stream_handle(dev))
+    _LIB.check(rc, "flash attention dq kernel (mma, bf16)")
+    FLASH_DQ_MMA_BF16.launches += 1
+    return dq
+
+
+_DQ_LAUNCH = {"sm90": _launch_dq_sm90, "mma_bf16": _launch_dq_mma_bf16,
+              "generic": _launch_dq_generic}
+
+
 def flash_dq(q3, k3, v3, do3, lse, dsum, *, causal: bool, scale: float, q_off: int = 0,
              k_off: int = 0):
     """dq partial, f32 ``[BH, Tq, D]``. A CUDA input goes to the kernel
     ``_dq_route`` names; a failure there raises and is never handed to
-    the other kernel."""
+    another kernel."""
     BH, Tq, Tk, D = _check_inputs(q3, k3, v3, ("do3", do3))
     if q3.device.type == "cpu":
         return flash_dq_plain(q3, k3, v3, do3, lse, dsum, causal=causal, scale=scale,
@@ -417,27 +458,27 @@ def flash_dq(q3, k3, v3, do3, lse, dsum, *, causal: bool, scale: float, q_off: i
     dev = q3.device
     _check_rows(lse, "lse", (BH, Tq), dev)
     _check_rows(dsum, "dsum", (BH, Tq), dev)
-    launch = _launch_dq_sm90 if _dq_route(q3.dtype, D) == "sm90" else _launch_dq_generic
-    return launch(q3, k3, v3, do3, lse, dsum, causal=causal, scale=scale, q_off=q_off,
-                  k_off=k_off)
+    return _DQ_LAUNCH[_dq_route(q3.dtype, D)](q3, k3, v3, do3, lse, dsum, causal=causal,
+                                              scale=scale, q_off=q_off, k_off=k_off)
 
 
 def _dkv_route(dtype: torch.dtype, D: int) -> str:
     """Which dk/dv kernel takes a CUDA input, from its dtype and head dim
     alone, as ``_fwd_route``: ``"sm90"`` (``flash_dkv_sm90``: TMA +
     wgmma, bf16 with rows of whole 16-byte units), ``"mma"``
-    (``flash_dkv_mma``: fp32, 3xTF32 on mma.sync, any D) or ``"generic"``
-    (``flash_dkv``: bf16 with another D)."""
+    (``flash_dkv_mma``: fp32, 3xTF32 on mma.sync, any D) or
+    ``"mma_bf16"`` (``flash_dkv_mma_bf16``: bf16 with another D, odd
+    included, on mma.sync)."""
     if dtype == torch.float32:
         return "mma"
-    return "sm90" if dtype == torch.bfloat16 and D % 8 == 0 else "generic"
+    return "sm90" if dtype == torch.bfloat16 and D % 8 == 0 else "mma_bf16"
 
 
 def _launch_dkv_generic(q3, k3, v3, do3, lse, dsum, *, causal, scale, q_off, k_off):
     """``flash_dkv_kernel`` (wmma, synchronous loads, dv in fp32 FMAs),
-    fp32 or bf16: the route of bf16 heads with D % 8 != 0; its fp32
-    instantiation is reached only from here (chip_smoke times it against
-    ``flash_dkv_mma``)."""
+    fp32 or bf16. No route reaches it: it is called only from here, so
+    that chip_smoke can time it in turns against the kernels that replaced
+    it (``flash_dkv_mma``, ``flash_dkv_mma_bf16``)."""
     BH, Tq, D = q3.shape
     Tk = k3.shape[1]
     dev = q3.device
@@ -489,14 +530,34 @@ def _launch_dkv_mma(q3, k3, v3, do3, lse, dsum, *, causal, scale, q_off, k_off):
     return dk, dv
 
 
-_DKV_LAUNCH = {"sm90": _launch_dkv_sm90, "mma": _launch_dkv_mma, "generic": _launch_dkv_generic}
+def _launch_dkv_mma_bf16(q3, k3, v3, do3, lse, dsum, *, causal, scale, q_off, k_off):
+    """``flash_dkv_mma_bf16_kernel`` (mma.sync bf16, dv through the exact
+    three-part split of p; 4-byte cp.async Q/dO ring, or register-staged
+    loads for odd D), bf16 at any D."""
+    BH, Tq, D = q3.shape
+    Tk = k3.shape[1]
+    dev = q3.device
+    dk = torch.empty((BH, Tk, D), dtype=torch.float32, device=dev)
+    dv = torch.empty((BH, Tk, D), dtype=torch.float32, device=dev)
+    rc = _LIB.get().tmpi_flash_dkv_mma_bf16(dev.index, q3.data_ptr(), k3.data_ptr(),
+                                            v3.data_ptr(), do3.data_ptr(), lse.data_ptr(),
+                                            dsum.data_ptr(), dk.data_ptr(), dv.data_ptr(), BH,
+                                            Tq, Tk, D, int(q_off), int(k_off), int(causal),
+                                            float(scale), stream_handle(dev))
+    _LIB.check(rc, "flash attention dk/dv kernel (mma, bf16)")
+    FLASH_DKV_MMA_BF16.launches += 1
+    return dk, dv
+
+
+_DKV_LAUNCH = {"sm90": _launch_dkv_sm90, "mma": _launch_dkv_mma,
+               "mma_bf16": _launch_dkv_mma_bf16}
 
 
 def flash_dkv(q3, k3, v3, do3, lse, dsum, *, causal: bool, scale: float, q_off: int = 0,
               k_off: int = 0):
     """(dk, dv) partials, f32 ``[BH, Tk, D]``. A CUDA input goes to the
     kernel ``_dkv_route`` names; a failure there raises and is never
-    handed to the other kernel."""
+    handed to another kernel."""
     BH, Tq, Tk, D = _check_inputs(q3, k3, v3, ("do3", do3))
     if q3.device.type == "cpu":
         return flash_dkv_plain(q3, k3, v3, do3, lse, dsum, causal=causal, scale=scale,
