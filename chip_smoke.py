@@ -13,8 +13,9 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                 ``flash_dkv_sm90_kernel`` (``cuobjdump -sass`` of the
                 built library) must hold HGMMA
                 (wgmma) and UTMALDG (TMA loads), that of
-                ``flash_fwd_mma_kernel`` and ``flash_dkv_mma_kernel`` HMMA
-                (mma.sync) and LDGSTS (cp.async), and both instantiations
+                ``flash_fwd_mma_kernel``, ``flash_dq_mma_kernel`` and
+                ``flash_dkv_mma_kernel`` HMMA (mma.sync) and LDGSTS
+                (cp.async), and both instantiations
                 of ``flash_fwd_mma_bf16_kernel``, ``flash_dq_mma_bf16_kernel``
                 and ``flash_dkv_mma_bf16_kernel`` HMMA and LDSM (ldmatrix),
                 the cp.async ones LDGSTS too (the staged dk/dv one as well:
@@ -60,10 +61,16 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                 16-byte boundary), scales and outputs sit between guard
                 rows and elements that must not move. A misaligned leaf
                 is refused. Counters move by one a list (two for the
-                split).
+                split). Last, #5's one-launch kernel and the three-pass
+                launcher it replaced, bit for bit, over buffers past the
+                50 MB L2: a codec round's 476,292 rows (244 MB) and
+                131,071 rows (67 MB, an odd count), the latter also with
+                a NaN, with +inf and -inf, and with -inf alone; each
+                counter moves by one a call.
    flash      — each flash attention kernel (#7-11: flash_fwd_sm90,
                 flash_fwd_mma, flash_fwd_mma_bf16 and flash_fwd,
-                flash_dq_sm90, flash_dq_mma_bf16 and flash_dq,
+                flash_dq_sm90, flash_dq_mma, flash_dq_mma_bf16 and
+                flash_dq,
                 flash_dkv_sm90, flash_dkv_mma, flash_dkv_mma_bf16 and
                 flash_dkv) against its plain version on
                 the card: the 136M LM's shape (BH 96, T 1024, D 64) in bf16
@@ -76,15 +83,17 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                 heads a sweep over D 1 to 63 at five shapes (ragged, Tq !=
                 Tk, blind rows), causal and not, aligned and from views one
                 element off, fp32 heads of 30 and 33 (4-byte
-                copies), and T = 8192 (BH 2, bf16). The counters show
+                copies) and the same sweep of the fp32 dq, and T = 8192
+                (BH 2, bf16). The counters show
                 each case's forward, dq and dk/dv routes: bf16 with D % 8 ==
                 0 runs flash_fwd_sm90, flash_dq_sm90 and flash_dkv_sm90,
-                fp32 flash_fwd_mma (3xTF32), flash_dq and flash_dkv_mma
-                (3xTF32), the other bf16 heads flash_fwd_mma_bf16,
-                flash_dq_mma_bf16 and flash_dkv_mma_bf16. On those heads
-                the generic flash_fwd and flash_dkv, which no route takes,
-                and the generic flash_dq (fp32's route) are held to the
-                same limits through their own launchers. Tolerances: fp32 o rtol
+                fp32 flash_fwd_mma, flash_dq_mma and flash_dkv_mma (each
+                3xTF32), the other bf16 heads flash_fwd_mma_bf16,
+                flash_dq_mma_bf16 and flash_dkv_mma_bf16. The generic
+                flash_fwd, flash_dq and flash_dkv, which no route takes,
+                are held to the same limits through their own launchers
+                on those bf16 heads, and the generic flash_dq on every
+                fp32 case. Tolerances: fp32 o rtol
                 1e-5 + 1e-6 max|o|, dq/dk/dv
                 rtol 1e-4 + 1e-5 of the largest value; bf16 o within 1 bf16
                 ulp plus 2^-9 of sum_i p_i |v_i| / l (the tensor cores sum
@@ -218,8 +227,8 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                 and one validation batch: exactly 12 x 7 flash_fwd_sm90,
                 12 x 6 flash_dq_sm90 and flash_dkv_sm90 launches, no
                 flash_fwd, flash_fwd_mma, flash_fwd_mma_bf16, flash_dq,
-                flash_dq_mma_bf16, flash_dkv, flash_dkv_mma or
-                flash_dkv_mma_bf16, no other kernel;
+                flash_dq_mma, flash_dq_mma_bf16, flash_dkv, flash_dkv_mma
+                or flash_dkv_mma_bf16, no other kernel;
                 losses finite; step ms and tokens/s.
    googlenet-main — full-width GoogLeNet (224x224x3, 1000 classes, both
                 aux heads, bf16 compute, fp32 params, momentum 0.9, wd
@@ -285,7 +294,7 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                 card and on the CPU from the same weights and batches:
                 losses within rtol 1e-4, params within atol 1e-6 + rtol
                 1e-4, every leaf changed, 4 launches of each fp32 flash
-                kernel (flash_fwd_mma, flash_dq, flash_dkv_mma), none of
+                kernel (flash_fwd_mma, flash_dq_mma, flash_dkv_mma), none of
                 another. Then the same in bf16 compute with heads of 60
                 (d 120, 2 heads): 4 launches each of flash_fwd_mma_bf16,
                 flash_dq_mma_bf16 and flash_dkv_mma_bf16, none of
@@ -376,7 +385,10 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                 codec's former 16 one-leaf calls, for #4 one
                 ``torch.mul`` over the round's buffers (and per leaf);
                 the host's microseconds per round. #5-6 per round,
-                #6 in turns with ``torch.mul``. Each: time (CUDA events), its bound
+                #6 in turns with ``torch.mul``; then each over ONE
+                buffer of the round's elements: #5's one launch in turns
+                with the three-pass launcher it replaced (old, new, new,
+                old), #6 with ``torch.mul``. Each: time (CUDA events), its bound
                 (bytes / memory rate vs operations / fp32 peak, the larger;
                 #1-2 count the scalar block once per real launch), the
                 plain version's time, and a PyTorch yardstick where one
@@ -394,9 +406,9 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                 took its place there (flash_fwd_mma_bf16,
                 flash_dq_mma_bf16, flash_dkv_mma_bf16), SDPA's forward and
                 backward at D 60. In fp32 at the 136M
-                shape: flash_fwd_mma and flash_dkv_mma each in turns with
-                the generic kernel's fp32 instantiation, flash_dq, and
-                SDPA's fp32 forward and backward. The
+                shape: flash_fwd_mma, flash_dq_mma and flash_dkv_mma
+                each in turns with the generic kernel's fp32
+                instantiation, and SDPA's fp32 forward and backward. The
                 pool kernels over the nine inception pools at batch 512
                 in bf16 (one step's launches): bound 2 (forward) or 4
                 (backward) bf16 tensor passes at the data sheet's memory
@@ -857,6 +869,56 @@ def phase_quant_leaves(shapes, dev):
     return len(cases)
 
 
+def quant_whole_buffers(dev):
+    """(label, (rows, 128) f32) past the 50 MB L2 for #5: a codec round's
+    leaves zero-padded end to end (476,292 rows, 244 MB) and 131,071 rows
+    (67 MB, an odd count) of row magnitudes spread over e^+-6, the latter
+    also with one NaN, with +inf and -inf, and with -inf alone (the
+    scale's sign and NaN cases: NaN and inf scales give zero values)."""
+    import torch
+    from theanompi_tpu_torch.tools.quant_whole_variants import round_buffer
+
+    g = torch.Generator(device=dev).manual_seed(11)
+    rows = 131_071
+    x = torch.randn(rows, 128, generator=g, device=dev)
+    x *= torch.exp(2 * torch.randn(rows, 1, generator=g, device=dev))
+    nan, infs, neg = x.clone(), x.clone(), x.clone()
+    nan[77_777, 5] = float("nan")
+    infs[65_535, 3], infs[rows - 1, 127] = float("inf"), -float("inf")
+    neg[3, 0] = -float("inf")
+    return [("a codec round, 244 MB", round_buffer(dev)), ("131071 rows, 67 MB", x),
+            ("131071 rows with a NaN", nan), ("131071 rows with +inf and -inf", infs),
+            ("131071 rows with -inf", neg)]
+
+
+def phase_quant_whole(dev) -> int:
+    """#5 over buffers past the L2 (``quant_whole_buffers``): the
+    one-launch kernel (``quantize_int8``) and the three-pass launcher it
+    replaced (``quant._quantize_int8_three_pass``, on no route) each bit
+    for bit against ``quantize_int8_plain``; each counter moves by one a
+    call."""
+    import torch
+    from theanompi_tpu_torch.ops import quant as tq
+
+    cases = quant_whole_buffers(dev)
+    start = {c.name: c.launches for c in (tq.QUANT, tq.QUANT_THREE_PASS)}
+    for label, x in cases:
+        pv, ps = tq.quantize_int8_plain(x)
+        for name, fn in (("quant", tq.quantize_int8),
+                         ("quant_three_pass", tq._quantize_int8_three_pass)):
+            v, s = fn(x)
+            check(bits_equal(v, pv) and bits_equal(s, ps),
+                  f"#5 {name} differs from the plain version ({label}: scale {s.item()!r}, "
+                  f"plain {ps.item()!r})")
+        print(f"  #5 {label:34s} rows {x.shape[0]:7d}: scale {ps.item()!r}; the one launch and "
+              "the three passes bit-identical", flush=True)
+    torch.cuda.synchronize()
+    got = {c.name: c.launches - start[c.name] for c in (tq.QUANT, tq.QUANT_THREE_PASS)}
+    want = {"quant": len(cases), "quant_three_pass": len(cases)}
+    check(got == want, f"#5 counters moved {got}, expected {want}")
+    return len(cases)
+
+
 def phase_quant(shapes, dev):
     """Kernels #3-6 and the packed wire against their plain versions."""
     import torch
@@ -903,7 +965,8 @@ def phase_quant(shapes, dev):
     want = {"quant_block": 2 * k, "dequant_block": 3 * k, "quant": k, "dequant": k}
     got = {c.name: c.launches for c in (tq.QUANT_BLOCK, tq.DEQUANT_BLOCK, tq.QUANT, tq.DEQUANT)}
     check(got == want, f"quant counters moved {got}, expected {want}")
-    return worst, k + phase_dequant_scales(dev) + phase_quant_leaves(shapes, dev)
+    return worst, (k + phase_dequant_scales(dev) + phase_quant_leaves(shapes, dev)
+                   + phase_quant_whole(dev))
 
 
 def phase_dequant_scales(dev) -> int:
@@ -1852,8 +1915,9 @@ def phase_quant_times(dev, mem_rate, fp32_peak):
     #5-6 per round as before (one three-pass / one launch per padded
     leaf), #6 in turns with ``torch.mul`` per leaf; then #6 over ONE
     buffer of the round's 60,965,376 elements, one launch, in turns with
-    one ``torch.mul(vals, scale)`` (the card's own time). Each against
-    the bytes bound and its plain version."""
+    one ``torch.mul(vals, scale)`` (the card's own time), and #5 over the
+    same buffer, its one launch in turns with the three-pass launcher it
+    replaced. Each against the bytes bound and its plain version."""
     import torch
     from theanompi_tpu_torch.ops import quant as tq
     from theanompi_tpu_torch.tools import quant_variants as qv
@@ -1960,6 +2024,38 @@ def phase_quant_times(dev, mem_rate, fp32_peak):
           f"{mean['library']:.4f} ms, {mean['kernel'] / mean['library']:.3f}x | plain "
           f"{plain_ms:.4f} ms | turns (kernel, library, library, kernel) {turns}", flush=True)
     del v_one, s_one
+    # #5 over the same ONE buffer: the one-launch kernel in turns with the
+    # three-pass launcher it replaced (old, new, new, old), both bit for
+    # bit the plain version's
+    x_one = torch.cat(x2ds)
+    pv, ps = tq.quantize_int8_plain(x_one)
+    ways = {"kernel": lambda: tq.quantize_int8(x_one),
+            "three_pass": lambda: tq._quantize_int8_three_pass(x_one)}
+    for k, fn in ways.items():
+        v_k, s_k = fn()
+        check(bits_equal(v_k, pv) and bits_equal(s_k, ps),
+              f"#5 {k} over one buffer differs from the plain version")
+    del pv, ps, v_k, s_k
+    turns = {k: [] for k in ways}
+    for k in ("three_pass", "kernel", "kernel", "three_pass"):
+        turns[k].append(cuda_ms(ways[k], reps=20))
+    mean = {k: sum(v) / len(v) for k, v in turns.items()}
+    one_bytes = elems * 5 + 4  # f32 in, int8 out, the scale: each byte once
+    bound_ms = one_bytes / mem_rate * 1e3
+    floor_ms = (elems * 9 + 4) / mem_rate * 1e3  # the input read twice
+    plain_ms = cuda_ms(lambda: tq.quantize_int8_plain(x_one), reps=5)
+    results["quant_one_buffer"] = dict(
+        step_ms=mean["kernel"], three_pass_ms=mean["three_pass"], plain_ms=plain_ms,
+        bound_ms=bound_ms, two_read_floor_ms=floor_ms, bytes=one_bytes, bound_by="bytes",
+        turns_ms=turns, rows=rows, elements=elems)
+    print(f"[times] quant over one ({rows}, 128) buffer ({elems} elements): one launch "
+          f"{mean['kernel']:.4f} ms, the three-pass launcher {mean['three_pass']:.4f} ms "
+          f"({mean['three_pass'] / mean['kernel']:.3f}x) | bound {bound_ms:.4f} ms "
+          f"({one_bytes / 1e6:.1f} MB; bytes): {bound_ms / mean['kernel'] * 100:.1f}% / "
+          f"{bound_ms / mean['three_pass'] * 100:.1f}% of it | two reads and a write "
+          f"{floor_ms:.4f} ms | plain {plain_ms:.4f} ms | library none | turns (three_pass, "
+          f"kernel, kernel, three_pass) {turns}", flush=True)
+    del x_one
     torch.cuda.synchronize()
     return results
 
@@ -2097,6 +2193,49 @@ def bf16_backward_head_sweep(dev, g) -> list:
     return failures
 
 
+def fp32_dq_head_sweep(dev, g) -> list:
+    """flash_dq_mma (through its launcher) against flash_dq_plain at every
+    head of SWEEP_HEADS and shape of SWEEP_SHAPES, causal and not, from
+    aligned tensors and from views one fp32 element past them (4-byte
+    copies at every D), at phase flash's fp32 dq limit (rtol 1e-4 + 1e-5
+    of the largest value). Returns the failures."""
+    import torch
+    from theanompi_tpu_torch.ops import flash_attention as fa
+
+    worst, failures, cases = 0.0, [], 0
+    for D in SWEEP_HEADS:
+        for BH, Tq, Tk, q_off, k_off in SWEEP_SHAPES:
+            for causal in (True, False):
+                for off in (0, 1):
+                    def rows(T):
+                        x = torch.randn(BH * T * D + 1, generator=g, device=dev)
+                        return x[off:off + BH * T * D].view(BH, T, D)
+
+                    q, k, v, do = rows(Tq), rows(Tk), rows(Tk), rows(Tq)
+                    kw = dict(causal=causal, scale=1.0 / math.sqrt(D), q_off=q_off, k_off=k_off)
+                    po, plse = fa.flash_fwd_plain(q, k, v, **kw)
+                    dsum = torch.sum(do * po, dim=-1)
+                    got = fa._launch_dq_mma(q, k, v, do, plse, dsum, **kw)
+                    want = fa.flash_dq_plain(q, k, v, do, plse, dsum, **kw)
+                    x = (_rel_excess(got, want, 1e-4, 1e-5 * want.abs().max().item())
+                         if bool(torch.isfinite(got).all()) else math.inf)
+                    cases += 1
+                    worst = max(worst, x)
+                    if x > 1:
+                        failures.append(f"fp32 dq sweep D {D} BH {BH} Tq {Tq} Tk {Tk} offsets "
+                                        f"{q_off}/{k_off} causal {causal} view +{off}: {x:.3g}")
+    torch.cuda.synchronize()
+    print(f"[flash] fp32 dq head sweep: {cases} cases (D {SWEEP_HEADS}), worst share of the "
+          f"limit {worst:.4f}, {len(failures)} failed", flush=True)
+    return failures
+
+
+# the generic kernels, on no route: held to the routes' limits through
+# their own launchers, and timed in turns against the kernels that
+# replaced them
+GENERIC_FLASH = ("flash_fwd", "flash_dq", "flash_dkv")
+
+
 def phase_flash(dev):
     """Each flash kernel against its plain version on the card; every case
     runs and prints, then any failure ends the phase.
@@ -2110,23 +2249,25 @@ def phase_flash(dev):
     dv with p rounded to bf16 (``bf16_dv_control``), must fail that dv
     check. The counters must show each case's routes: bf16 with D % 8 ==
     0 on flash_fwd_sm90, flash_dq_sm90 and flash_dkv_sm90; fp32 on
-    flash_fwd_mma, flash_dq and flash_dkv_mma; the other bf16 heads on
+    flash_fwd_mma, flash_dq_mma and flash_dkv_mma; the other bf16 heads on
     flash_fwd_mma_bf16, flash_dq_mma_bf16 and flash_dkv_mma_bf16. On those
     heads the generic flash_fwd, flash_dq and flash_dkv (the kernels these
-    heads took before) are held to the same limits through their own
-    launchers (outside the counted calls). Last, the bf16 backward's
-    head sweep (``bf16_backward_head_sweep``)."""
+    heads took before), and on every fp32 case the generic flash_dq (the
+    fp32 dq's kernel before flash_dq_mma), are held to the same limits
+    through their own launchers (outside the counted calls). Last, the
+    bf16 backward's head sweep (``bf16_backward_head_sweep``) and the fp32
+    dq's (``fp32_dq_head_sweep``)."""
     import torch
     from theanompi_tpu_torch.ops import flash_attention as fa
 
     g = torch.Generator(device=dev).manual_seed(8)
     counters = (fa.FLASH_FWD, fa.FLASH_FWD_SM90, fa.FLASH_FWD_MMA, fa.FLASH_FWD_MMA_BF16,
-                fa.FLASH_DQ, fa.FLASH_DQ_SM90, fa.FLASH_DQ_MMA_BF16, fa.FLASH_DKV,
-                fa.FLASH_DKV_SM90, fa.FLASH_DKV_MMA, fa.FLASH_DKV_MMA_BF16)
+                fa.FLASH_DQ, fa.FLASH_DQ_SM90, fa.FLASH_DQ_MMA, fa.FLASH_DQ_MMA_BF16,
+                fa.FLASH_DKV, fa.FLASH_DKV_SM90, fa.FLASH_DKV_MMA, fa.FLASH_DKV_MMA_BF16)
     names = tuple(c.name for c in counters)
     worst = dict.fromkeys(names, 0.0)
-    # every counter but the generic forward's and dk/dv's is some case's route
-    routes = dict.fromkeys((n_ for n_ in names if n_ not in ("flash_fwd", "flash_dkv")), 0)
+    # every counter but the three generic kernels' is some case's route
+    routes = dict.fromkeys((n_ for n_ in names if n_ not in GENERIC_FLASH), 0)
     # the bf16 cases' worst share of each tolerance, and the control's
     readings = {"o": 0.0, "dq": 0.0, "dk": 0.0, "dv": 0.0, "dv_control": None}
     failures = []
@@ -2148,7 +2289,7 @@ def phase_flash(dev):
         after = tuple(c.launches for c in counters)
         bad = []
         if dt == torch.float32:
-            fwd, dqk, dkv = "flash_fwd_mma", "flash_dq", "flash_dkv_mma"
+            fwd, dqk, dkv = "flash_fwd_mma", "flash_dq_mma", "flash_dkv_mma"
         elif D % 8 == 0:
             fwd, dqk, dkv = "flash_fwd_sm90", "flash_dq_sm90", "flash_dkv_sm90"
         else:
@@ -2176,7 +2317,15 @@ def phase_flash(dev):
                 bad.append(f"o beyond rtol 1e-5 + 1e-6 max|o| (x{o_x:.3g})")
             if grad_x > 1:
                 bad.append(f"dq/dk/dv beyond rtol 1e-4 + 1e-5 max (x{grad_x:.3g})")
-            tol = f"fp32 o at {o_x:.3g}"
+            # the generic flash_dq, the fp32 dq's kernel before flash_dq_mma
+            dqg = fa._launch_dq_generic(q, k, v, do, plse, dsum, **kw)
+            torch.cuda.synchronize()
+            gdq_x = _rel_excess(dqg, pdq, 1e-4, 1e-5 * pdq.abs().max().item())
+            worst["flash_dq"] = max(worst["flash_dq"], (dqg - pdq).abs().max().item())
+            if gdq_x > 1:
+                bad.append(f"generic flash_dq beyond rtol 1e-4 + 1e-5 max (x{gdq_x:.3g})")
+            del dqg
+            tol = f"fp32 o at {o_x:.3g}; generic flash_dq at {gdq_x:.3g}"
         else:
             # sum_i p_i |v_i| / l: the fp32 forward of |v|
             weight, _ = fa.flash_fwd_plain(q.float(), k.float(), v.float().abs(), **kw)
@@ -2243,6 +2392,7 @@ def phase_flash(dev):
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     failures += bf16_backward_head_sweep(dev, g)
+    failures += fp32_dq_head_sweep(dev, g)
     check(readings["dv_control"] is not None, "no 136M-shape bf16 case ran the dv control")
     check(all(routes.values()), f"a forward, dq or dk/dv route ran no case: {routes}")
     check(not failures, "flash kernels differ from their plain versions: " + " | ".join(failures))
@@ -2271,7 +2421,8 @@ def phase_lm_main():
     val_batches = 1
     want = {"flash_fwd_sm90": LM_LAYERS * (LM_STEPS + val_batches), "flash_fwd": 0,
             "flash_fwd_mma": 0, "flash_fwd_mma_bf16": 0,
-            "flash_dq_sm90": LM_LAYERS * LM_STEPS, "flash_dq": 0, "flash_dq_mma_bf16": 0,
+            "flash_dq_sm90": LM_LAYERS * LM_STEPS, "flash_dq": 0, "flash_dq_mma": 0,
+            "flash_dq_mma_bf16": 0,
             "flash_dkv_sm90": LM_LAYERS * LM_STEPS, "flash_dkv": 0, "flash_dkv_mma": 0,
             "flash_dkv_mma_bf16": 0}
     got = {k: counts[k] for k in want}
@@ -2287,8 +2438,9 @@ def phase_lm_main():
 
 
 LM_PARITY_FLASH = ("flash_fwd_mma", "flash_fwd_mma_bf16", "flash_fwd", "flash_fwd_sm90",
-                   "flash_dq", "flash_dq_sm90", "flash_dq_mma_bf16", "flash_dkv", "flash_dkv_sm90",
-                   "flash_dkv_mma", "flash_dkv_mma_bf16")
+                   "flash_dq", "flash_dq_sm90", "flash_dq_mma", "flash_dq_mma_bf16", "flash_dkv",
+                   "flash_dkv_sm90", "flash_dkv_mma", "flash_dkv_mma_bf16")
+LM_FP32_FLASH = ("flash_fwd_mma", "flash_dq_mma", "flash_dkv_mma")
 LM_BF16_D60_FLASH = ("flash_fwd_mma_bf16", "flash_dq_mma_bf16", "flash_dkv_mma_bf16")
 
 
@@ -2338,11 +2490,10 @@ def phase_lm_parity(dev):
     out = _lm_two_steps(recipe, dev)
     (lc, bc, pc, kc), (lg, bg, pg, kg) = out["cpu"], out[str(dev)]
     check(not any(kc.values()), f"the CPU run launched kernels: {kc}")
-    want = {n: 4 if n in ("flash_fwd_mma", "flash_dq", "flash_dkv_mma") else 0
-            for n in LM_PARITY_FLASH}
+    want = {n: 4 if n in LM_FP32_FLASH else 0 for n in LM_PARITY_FLASH}
     check({n: kg[n] for n in LM_PARITY_FLASH} == want,
-          f"the card run launched {kg}, expected 4 of each fp32 flash kernel (flash_fwd_mma, "
-          "flash_dq, flash_dkv_mma) and no other flash kernel")
+          f"the card run launched {kg}, expected 4 of each fp32 flash kernel {LM_FP32_FLASH} "
+          "and no other flash kernel")
     check(all(math.isclose(a, b, rel_tol=1e-4) for a, b in zip(lc, lg)),
           f"card losses {lg} vs CPU {lc}")
     worst = 0.0
@@ -2579,16 +2730,16 @@ def phase_flash_times_fp32(dev, mem_rate, fp32_peak, tf32_peak):
     1024, D 64, causal), random fp32 inputs: flash_fwd_mma (3xTF32 on
     mma.sync) against the generic kernel's fp32 instantiation (fp32 FMAs,
     through ``fa._launch_fwd_generic``) in turns, old, new, new, old;
-    flash_dkv_mma (3xTF32 on mma.sync) against the generic flash_dkv's
-    fp32 instantiation the same way; the fp32 flash_dq (the generic
-    kernel, which the fp32 backward runs); SDPA's fp32 forward and
-    backward as the yardstick,
+    flash_dq_mma and flash_dkv_mma (3xTF32 on mma.sync) against the
+    generic flash_dq's and flash_dkv's fp32 instantiations the same way;
+    SDPA's fp32 forward and backward as the yardstick,
     with the backend PyTorch's dispatcher picks, the device kernels its
     forward launches, and each forward's largest error against a float64
     forward of the same inputs (a single tf32 product would leave about
     1e-3). Bounds: bytes over the memory rate against the products, fp32
-    FMAs at the fp32 peak, flash_fwd_mma's and flash_dkv_mma's three tf32
-    products at the tf32 tensor-core peak."""
+    FMAs at the fp32 peak, the three tf32 products of each product of
+    flash_fwd_mma, flash_dq_mma and flash_dkv_mma at the tf32 tensor-core
+    peak."""
     import torch
     import torch.nn.functional as F
     from theanompi_tpu_torch.ops import flash_attention as fa
@@ -2606,6 +2757,7 @@ def phase_flash_times_fp32(dev, mem_rate, fp32_peak, tf32_peak):
     rows = 4 * BH * T
     fwd_plain = lambda: fa.flash_fwd_plain(q, k, v, **kw)  # noqa: E731
     dkv_plain = lambda: fa.flash_dkv_plain(q, k, v, do, lse, dsum, **kw)  # noqa: E731
+    dq_plain = lambda: fa.flash_dq_plain(q, k, v, do, lse, dsum, **kw)  # noqa: E731
     specs = {
         # name: (kernel, plain, bytes, fp32 FLOPs, tf32 FLOPs)
         "flash_fwd_mma": (lambda: fa._launch_fwd_mma(q, k, v, **fkw), fwd_plain,
@@ -2613,8 +2765,10 @@ def phase_flash_times_fp32(dev, mem_rate, fp32_peak, tf32_peak):
         "flash_fwd_fp32": (lambda: fa._launch_fwd_generic(q, k, v, **fkw), fwd_plain,
                            4 * tile + rows, 4 * D * pairs, 0),
         "flash_dq_fp32": (lambda: fa._launch_dq_generic(q, k, v, do, lse, dsum, **fkw),
-                          lambda: fa.flash_dq_plain(q, k, v, do, lse, dsum, **kw),
-                          5 * tile + 2 * rows, 6 * D * pairs, 0),
+                          dq_plain, 5 * tile + 2 * rows, 6 * D * pairs, 0),
+        # three products (S, dP, dQ), each as three tf32 products
+        "flash_dq_mma": (lambda: fa._launch_dq_mma(q, k, v, do, lse, dsum, **fkw), dq_plain,
+                         5 * tile + 2 * rows, 0, 3 * 6 * D * pairs),
         "flash_dkv_fp32": (lambda: fa._launch_dkv_generic(q, k, v, do, lse, dsum, **fkw),
                            dkv_plain, 6 * tile + 2 * rows, 8 * D * pairs, 0),
         # four products (S, dP, dV, dK), each as three tf32 products
@@ -2644,7 +2798,8 @@ def phase_flash_times_fp32(dev, mem_rate, fp32_peak, tf32_peak):
           f"torch.backends.cuda.matmul.allow_tf32 {torch.backends.cuda.matmul.allow_tf32}; "
           f"max |o - o_float64|: {f64_err}", flush=True)
     turns = {}
-    for old, new in (("flash_fwd_fp32", "flash_fwd_mma"), ("flash_dkv_fp32", "flash_dkv_mma")):
+    for old, new in (("flash_fwd_fp32", "flash_fwd_mma"), ("flash_dq_fp32", "flash_dq_mma"),
+                     ("flash_dkv_fp32", "flash_dkv_mma")):
         turns[old], turns[new] = [], []
         for name in (old, new, new, old):
             turns[name].append(cuda_ms(specs[name][0], reps=20))
@@ -3304,6 +3459,7 @@ SASS_KERNELS = {"flash_fwd_sm90_kernel": ("HGMMA", "UTMALDG"),
                 "flash_dq_sm90_kernel": ("HGMMA", "UTMALDG"),
                 "flash_dkv_sm90_kernel": ("HGMMA", "UTMALDG"),
                 "flash_fwd_mma_kernel": ("HMMA", "LDGSTS"),
+                "flash_dq_mma_kernel": ("HMMA", "LDGSTS"),
                 # flash_fwd_mma_bf16's instantiations: cp.async loads, register-staged loads
                 "flash_fwd_mma_bf16_kernelILb0E": ("HMMA", "LDSM", "LDGSTS"),
                 "flash_fwd_mma_bf16_kernelILb1E": ("HMMA", "LDSM"),
@@ -4331,6 +4487,21 @@ def main(argv=None) -> int:
                                       if (k == "quantize") == (name == "quant_block")})
         if "library_per_leaf_ms" in t:
             kernels[-1]["library_per_leaf_ms"] = t["library_per_leaf_ms"]
+        if name == "quant":
+            # the card's own time over one buffer of the round's elements, one
+            # launch, in turns with the three-pass launcher it replaced (the
+            # 16-call round beside it)
+            one = times["quant_one_buffer"]
+            kernels[-1].update(
+                {k_: one[k_] for k_ in ("plain_ms", "bound_ms", "bound_by", "turns_ms",
+                                        "two_read_floor_ms")},
+                ms=one["step_ms"], old_kernel_ms=one["three_pass_ms"],
+                work=(f"one launch over one ({one['rows']}, 128) buffer, the codec round's "
+                      f"{one['elements']} elements (the three-pass launcher it replaced in "
+                      "the same turns: old_kernel_ms; two_read_floor_ms: the input read twice "
+                      "and the values written once)"),
+                round_of_16_calls={k_: t[k_] for k_ in ("step_ms", "plain_ms", "bound_ms",
+                                                        "library_ms", "turns_ms")})
         if name == "dequant":
             # the card's own time: one launch over one buffer of the round's
             # elements against one torch.mul (the 16-call round beside it)
@@ -4344,7 +4515,6 @@ def main(argv=None) -> int:
                 round_of_16_calls={k_: t[k_] for k_ in ("step_ms", "plain_ms", "bound_ms",
                                                         "library_ms", "turns_ms")})
     src_fa = "theanompi_tpu_torch/csrc/flash_attention.cu"
-    generic_flash = ("flash_fwd", "flash_dq", "flash_dkv")
     lm = lm_run["summary"]
     for name, replaces in (
         ("flash_fwd_sm90", "theanompi_tpu/ops/pallas_attention.py:131"),
@@ -4372,7 +4542,7 @@ def main(argv=None) -> int:
             "bf16_dv_control_share": flash_readings["dv_control"],
             "work": ("one launch at the 136M LM's attention shape: BH 96, T 1024, D 64, bf16, "
                      "causal" + (f" (the generic kernel's bf16 instantiation, which the LM ran "
-                                 f"before {name}_sm90)" if name in generic_flash else "")),
+                                 f"before {name}_sm90)" if name in GENERIC_FLASH else "")),
             "library_note": (
                 "torch.nn.functional.scaled_dot_product_attention(is_causal=True) " +
                 ("forward" if name.startswith("flash_fwd") else
@@ -4385,11 +4555,10 @@ def main(argv=None) -> int:
                             ("; no route takes this kernel since flash_fwd_mma_bf16 (held to "
                              "the same limits in phase flash through its own launcher)"
                              if name == "flash_fwd" else
-                             "; bf16 heads go to flash_dq_sm90 (D % 8 == 0) and "
-                             "flash_dq_mma_bf16 (the others), so this kernel takes fp32 only "
-                             f"({lm_parity_launches['fp32'][name]} launches in phase lm-parity's "
-                             "fp32 run); its bf16 instantiation is held to the bf16 limits in "
-                             "phase flash through its own launcher" if name == "flash_dq" else
+                             "; no route takes this kernel since flash_dq_mma (fp32) and "
+                             "flash_dq_mma_bf16 (bf16 heads with D % 8 != 0); held to the same "
+                             "limits in phase flash through its own launcher (fp32 and bf16)"
+                             if name == "flash_dq" else
                              "; no route takes this kernel since flash_dkv_mma (fp32) and "
                              "flash_dkv_mma_bf16 (bf16 heads with D % 8 != 0); held to the same "
                              "limits in phase flash through its own launcher"
@@ -4399,7 +4568,7 @@ def main(argv=None) -> int:
         })
         if t.get("turns_ms"):
             kernels[-1]["turns_ms"] = t["turns_ms"]
-        if name in generic_flash:  # its fp32 instantiation at the same shape, and bf16 at D 60
+        if name in GENERIC_FLASH:  # its fp32 instantiation at the same shape, and bf16 at D 60
             kernels[-1]["fp32"] = times[f"{name}_fp32"]
             kernels[-1]["bf16_d60"] = times[f"{name}_d60"]
             kernels[-1]["lm_parity_launches"] = {run: c[name]
@@ -4526,6 +4695,36 @@ def main(argv=None) -> int:
             "sass": {"cp.async": sass[f"{name}_kernelILb0E"],
                      "staged": sass[f"{name}_kernelILb1E"]},
         })
+    t = times["flash_dq_mma"]
+    n_dq = lm_parity_launches["fp32"]["flash_dq_mma"]
+    kernels.append({
+        "name": "flash_dq_mma", "route": "cuda", "source": src_fa,
+        "replaces": "theanompi_tpu/ops/pallas_attention.py:174 + :264",
+        "launches": n_dq, "max_abs_err": worst_f["flash_dq_mma"],
+        "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+        "bound_by": t["bound_by"], "library_ms": t["library_ms"], "turns_ms": t["turns_ms"],
+        "old_kernel_turns_ms": times["flash_dq_fp32"]["turns_ms"],
+        "matched": True,
+        "tolerance": "fp32: dq rtol 1e-4 + 1e-5 of the largest value (phase flash)",
+        "work": ("one launch at the 136M LM's attention shape in fp32: BH 96, T 1024, D 64, "
+                 "causal; three products as three tf32 products each (58.04 GFLOP at the tf32 "
+                 "peak)"),
+        "library_note": (
+            f"torch.nn.functional.scaled_dot_product_attention(is_causal=True) backward in fp32 "
+            f"(dq, dk and dv in one call; backend {t['sdpa_backend']}): not the same function, "
+            "a yardstick only, the port never calls it"),
+        "launches_in": (f"fp32 attention: {n_dq} launches in phase lm-parity (a 2-layer fp32 "
+                        "LM, 2 steps); the main path's LM is bf16 (flash_dq_sm90)"),
+        "lm_parity_launches": n_dq,
+        "design": ("a CTA of 8 warps a (128-row Q tile, b*h), heaviest first; Q once into "
+                   "registers as tf32 hi/lo fragments, dO's into shared memory in fragment "
+                   "order; the forward's 2-stage cp.async K/V ring, each tile split into tf32 "
+                   "hi/lo once by the CTA (K also transposed); S = Q K^T, dP = dO V^T and dQ += "
+                   "dS K as mma.sync m16n8k8 tf32, each three products (3xTF32); permuted head "
+                   "columns and key steps make dS's C fragment dQ's A fragment; masks only on "
+                   "diagonal and ragged tiles"),
+        "sass": sass["flash_dq_mma_kernel"],
+    })
     t = times["flash_dkv_mma"]
     n_dkv = lm_parity_launches["fp32"]["flash_dkv_mma"]
     kernels.append({

@@ -16,10 +16,10 @@ whole 16-byte units (D 36, 60 and the odd 33, the route of
 forward and backward. Beside them: the routes (``_fwd_route``,
 ``_dq_route``, ``_dkv_route``), the exact three-part bf16 split of p that
 ``flash_dkv_sm90`` and ``flash_dkv_mma_bf16`` run dv through, the tf32
-split that ``flash_fwd_mma``
-and ``flash_dkv_mma`` run the fp32 products through (its rounding, and
-the three-product forward and dk/dv against the Pallas forward and the
-plain dk/dv), and the variant tools' anchors.
+split that ``flash_fwd_mma``, ``flash_dq_mma`` and ``flash_dkv_mma`` run
+the fp32 products through (its rounding, and the three-product forward,
+dq and dk/dv against the Pallas forward, the Pallas dq and the plain
+dk/dv), and the variant tools' anchors.
 
 Tolerances. fp32: o atol 3e-6 rtol 1e-5, lse atol 1e-5, dq/dk/dv atol
 2e-5 rtol 1e-4 (the reference's own tests'): the sums run in another
@@ -292,8 +292,8 @@ def test_highest_precision_and_the_oracle(causal):
 
 def test_cpu_path_counts_no_launch_and_other_devices_need_cuda():
     counters = (tfa.FLASH_FWD, tfa.FLASH_FWD_SM90, tfa.FLASH_FWD_MMA, tfa.FLASH_FWD_MMA_BF16,
-                tfa.FLASH_DQ, tfa.FLASH_DQ_SM90, tfa.FLASH_DQ_MMA_BF16, tfa.FLASH_DKV,
-                tfa.FLASH_DKV_SM90, tfa.FLASH_DKV_MMA, tfa.FLASH_DKV_MMA_BF16)
+                tfa.FLASH_DQ, tfa.FLASH_DQ_SM90, tfa.FLASH_DQ_MMA, tfa.FLASH_DQ_MMA_BF16,
+                tfa.FLASH_DKV, tfa.FLASH_DKV_SM90, tfa.FLASH_DKV_MMA, tfa.FLASH_DKV_MMA_BF16)
     for c in counters:
         c.reset()
     for dt in (torch.float32, torch.bfloat16):
@@ -359,21 +359,22 @@ def test_dkv_route_is_chosen_from_dtype_and_head_dim(dtype, D, route):
 @pytest.mark.parametrize("dtype,D,route", [
     (torch.bfloat16, 8, "sm90"), (torch.bfloat16, 40, "sm90"), (torch.bfloat16, 48, "sm90"),
     (torch.bfloat16, 64, "sm90"), (torch.bfloat16, 36, "mma_bf16"),
-    (torch.bfloat16, 60, "mma_bf16"), (torch.float32, 64, "generic"),
-    (torch.float32, 40, "generic"), (torch.bfloat16, 33, "mma_bf16"),
-    (torch.float32, 33, "generic"), (torch.bfloat16, 1, "mma_bf16"),
+    (torch.bfloat16, 60, "mma_bf16"), (torch.float32, 64, "mma"),
+    (torch.float32, 40, "mma"), (torch.bfloat16, 33, "mma_bf16"),
+    (torch.float32, 33, "mma"), (torch.bfloat16, 1, "mma_bf16"),
     (torch.bfloat16, 63, "mma_bf16"),
 ])
 def test_dq_route_is_chosen_from_dtype_and_head_dim(dtype, D, route):
     """dq routes as the forward does: bf16 heads of whole 16-byte rows to
     ``flash_dq_sm90``, other bf16 heads, odd ones included, to
     ``flash_dq_mma_bf16`` (mma.sync bf16), and fp32 (the LM's parity run)
-    to the generic ``flash_dq``. The ctypes table binds each kernel's
+    at any D to ``flash_dq_mma`` (3xTF32 on mma.sync). The generic
+    ``flash_dq`` is on no route. The ctypes table binds each kernel's
     entry point."""
     assert tfa._dq_route(dtype, D) == route
     assert tfa._DQ_LAUNCH[route].__name__ == f"_launch_dq_{route}"
-    entry = "tmpi_flash_dq" if route == "generic" else f"tmpi_flash_dq_{route}"
-    assert entry in tfa._LIB.signatures
+    assert tfa._launch_dq_generic not in tfa._DQ_LAUNCH.values()
+    assert f"tmpi_flash_dq_{route}" in tfa._LIB.signatures
 
 
 def _log_uniform_probs(n, seed):
@@ -542,6 +543,42 @@ def test_dkv_from_three_tf32_products_meets_the_fp32_limit_and_one_does_not(
         assert not want[0][:, seen:].any() and not want[1][:, seen:].any()
 
 
+@pytest.mark.parametrize("Tq,Tk,D,q_off,k_off", [
+    (96, 200, 64, 160, 0),   # chip_smoke's "offsets q 160 k 0", at 2 heads
+    (192, 192, 64, 0, 100),  # "offsets q 0 k 100": rows 0-99 see no key
+    (200, 200, 40, 0, 0),    # a ragged T and head
+])
+def test_dq_from_three_tf32_products_meets_the_fp32_limit_and_one_does_not(
+        Tq, Tk, D, q_off, k_off, monkeypatch):
+    """dq with every product taken as ``flash_dq_mma`` takes it (S, dP and
+    dQ each as three tf32 products) meets the fp32 dq limit phase flash
+    holds the kernel to (rtol 1e-4 + 1e-5 of the largest value) against
+    the Pallas dq kernel (``_dq_call``, interpret mode) at a causal shape
+    with offsets, given the Pallas forward's lse; with one tf32 product
+    it misses it. The plain version's own ``_dot`` is swapped for each."""
+    B, H = 1, 2
+    q, k, v = _qkv(B, Tq, Tk, H, D, seed=Tq + k_off + 2)
+    g = np.random.RandomState(D + q_off + 1).randn(B * H, Tq, D).astype(np.float32)
+    cfg, q3, k3, v3, _ = pa._prepare(*(jnp.asarray(x) for x in (q, k, v)), True, None, None,
+                                     64, 64)
+    g3 = jnp.pad(jnp.asarray(g), ((0, 0), (0, q3.shape[1] - Tq), (0, 0)))
+    qo, ko = pa._as_off(q_off), pa._as_off(k_off)
+    o, lse = pa._fwd(cfg, q3, k3, v3, qo, ko)
+    dsum = pa._dsum_of(g3, o)
+    want = _t(np.asarray(pa._dq_call(cfg, q3, k3, v3, g3, lse, dsum, qo, ko))[:, :Tq])
+    args = [_t(_heads_major(x)) for x in (q, k, v)] + [
+        _t(g), _t(np.asarray(lse)[:, :Tq, 0]), _t(np.asarray(dsum)[:, :Tq, 0])]
+    kw = dict(causal=True, scale=cfg.scale, q_off=q_off, k_off=k_off)
+    shares = {}
+    for name, dot in (("tf32x3", _dot_tf32x3), ("tf32", _dot_tf32)):
+        monkeypatch.setattr(tfa, "_dot", dot)
+        shares[name] = _dv_excess(tfa.flash_dq_plain(*args, **kw), want)
+    assert shares["tf32x3"] <= 1, shares
+    assert shares["tf32"] > 10, shares
+    if k_off > q_off:  # queries that see no key: dq = 0
+        assert not want[:, :k_off - q_off].any()
+
+
 def test_fwd_variants_find_their_anchors_in_the_source():
     """``tools/fwd_variants.py`` builds its variants by text edits of
     ``csrc/flash_attention.cu``: each edit's anchor must be there once."""
@@ -599,12 +636,13 @@ def test_fwd_mma_variants_find_their_anchors_in_the_source():
 
 
 @pytest.mark.parametrize("tool,n", [("fwd_mma_bf16_variants", 4), ("dkv_mma_variants", 4),
-                                    ("bwd_mma_bf16_variants", 15)])
+                                    ("bwd_mma_bf16_variants", 15), ("dq_mma_variants", 6)])
 def test_mma_variants_of_this_slice_find_their_anchors_in_the_source(tool, n):
-    """``tools/fwd_mma_bf16_variants.py``, ``tools/dkv_mma_variants.py``
-    and ``tools/bwd_mma_bf16_variants.py`` edit the same source for
-    flash_fwd_mma_bf16, flash_dkv_mma and the bf16 mma.sync backward: each
-    edit's anchor must be there once."""
+    """``tools/fwd_mma_bf16_variants.py``, ``tools/dkv_mma_variants.py``,
+    ``tools/bwd_mma_bf16_variants.py`` and ``tools/dq_mma_variants.py``
+    edit the same source for flash_fwd_mma_bf16, flash_dkv_mma, the bf16
+    mma.sync backward and flash_dq_mma: each edit's anchor must be there
+    once."""
     import importlib
 
     from theanompi_tpu_torch.ops.kernels import CSRC_DIR

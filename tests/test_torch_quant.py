@@ -232,3 +232,31 @@ def test_whole_buffer_dequantize_checks_its_arguments_off_the_cpu():
         tq.dequantize_int8(torch.empty(128, 3, dtype=torch.int8, device="meta").t(), scale)
     with pytest.raises(TypeError, match="scale has dtype torch.float64"):
         tq.dequantize_int8(vals, scale.double())
+
+
+def test_whole_buffer_quantize_checks_its_arguments_off_the_cpu():
+    """Off the CPU ``quantize_int8`` checks its buffer before its one
+    launch, and ``_check`` names it (meta tensors stand in for the card's:
+    the checks run before any launch)."""
+    with pytest.raises(TypeError, match="x has dtype torch.float64"):
+        tq.quantize_int8(torch.empty(3, 128, dtype=torch.float64, device="meta"))
+    with pytest.raises(ValueError, match="x must be contiguous"):
+        tq.quantize_int8(torch.empty(128, 3, device="meta").t())
+    with pytest.raises(ValueError, match=r"\(rows >= 1, 128\)"):
+        tq.quantize_int8(torch.empty(3, 64, device="meta"))
+    with pytest.raises(ValueError, match=r"\(rows >= 1, 128\)"):
+        tq.quantize_int8(torch.empty(0, 128, device="meta"))
+
+
+def test_whole_buffer_quantize_variants_find_their_anchors_in_the_source():
+    """``tools/quant_whole_variants.py`` builds its variants by text edits
+    of ``csrc/quant.cu``: each edit's anchor must be there once."""
+    from theanompi_tpu_torch.ops.kernels import CSRC_DIR
+    from theanompi_tpu_torch.tools import quant_whole_variants
+
+    src = (CSRC_DIR / "quant.cu").read_text()
+    variants = quant_whole_variants._variants(src)
+    assert variants["base"] == [] and len(variants) == 4
+    for name, edits in variants.items():
+        for old, new in edits:
+            assert src.count(old) == 1 and old != new, name

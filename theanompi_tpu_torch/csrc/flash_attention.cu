@@ -8,7 +8,7 @@
 //                                                                   (fp32), flash_fwd_mma_bf16
 //                                                                   (bf16, D % 8 != 0)
 //   theanompi_tpu/ops/pallas_attention.py:174  _dq_kernel      (#8)  -> flash_dq_sm90 (bf16,
-//                                                                   D % 8 == 0), flash_dq
+//                                                                   D % 8 == 0), flash_dq_mma
 //                                                                   (fp32), flash_dq_mma_bf16
 //                                                                   (bf16, D % 8 != 0)
 //   theanompi_tpu/ops/pallas_attention.py:264  _dq_kernel_2d   (#10) -> the same three
@@ -18,9 +18,9 @@
 //                                                                   (bf16, D % 8 != 0)
 //   theanompi_tpu/ops/pallas_attention.py:302  _dkv_kernel_2d  (#11) -> the same three
 // (wrappers, routes and plain PyTorch versions in ops/flash_attention.py).
-// flash_fwd and flash_dkv, the generic forward and dk/dv, serve no route
-// since flash_fwd_mma_bf16 and flash_dkv_mma_bf16; they stay reachable for
-// timing in turns, and the generic flash_dq takes only fp32. The
+// flash_fwd, flash_dq and flash_dkv, the generic kernels, serve no route
+// since flash_fwd_mma_bf16, flash_dq_mma and flash_dkv_mma_bf16; they stay
+// reachable for timing in turns. The
 // TPU needs the 2-D kernels only because its 1-D ones keep the whole
 // opposite sequence in VMEM, which overflows at T >= 8192. Here every
 // kernel streams the opposite side through shared memory a tile at a
@@ -50,9 +50,10 @@
 // 16x16x16 in the generic kernels, wgmma in the sm90 kernels, mma.sync
 // m16n8k16 in the *_mma_bf16 kernels; fp32 accumulators). fp32 tiles run as
 // three tf32 products on the tensor cores, each operand split into a tf32
-// hi and lo part, in flash_fwd_mma (the fp32 forward) and flash_dkv_mma
-// (the fp32 dk/dv); the fp32 dq still runs on fp32 FMAs on the CUDA cores
-// in the generic flash_dq, never one TF32 product. The fp32 x fp32 dv
+// hi and lo part, in flash_fwd_mma (the fp32 forward), flash_dq_mma (the
+// fp32 dq) and flash_dkv_mma (the fp32 dk/dv), never one TF32 product; the
+// generic kernels (on no route) run fp32 products as fp32 FMAs on the CUDA
+// cores. The fp32 x fp32 dv
 // product runs as fp32 FMAs in the generic flash_dkv (on no route), as
 // three exact bf16 products of p's hi, mid and lo parts in flash_dkv_sm90
 // and flash_dkv_mma_bf16, and as 3xTF32 in flash_dkv_mma (their sections
@@ -65,8 +66,8 @@
 //
 // Design of the generic kernels (flash_fwd_sm90, flash_dkv_sm90 and
 // flash_dq_sm90, the bf16 forward, dk/dv and dq on TMA and wgmma, and
-// flash_fwd_mma, flash_dkv_mma and the three *_mma_bf16 kernels on
-// mma.sync, have
+// flash_fwd_mma, flash_dq_mma, flash_dkv_mma and the three *_mma_bf16
+// kernels on mma.sync, have
 // their own sections below): one block of 256 threads (8 warps) per
 // (64-row tile, b*h). The block keeps its own tile (Q, or K and V) in
 // shared memory and loops over
@@ -86,10 +87,10 @@
 // bf16, 39 us) takes that away (chip_smoke.py phase times computes each).
 // The generic kernels are simple: synchronous 16-byte loads into shared
 // memory (no cp.async/TMA), wmma (not wgmma), a block per tile with no
-// pipelining; on the LM's bf16 route all three run on the sm90 kernels,
-// the fp32 forward and dk/dv run on flash_fwd_mma and flash_dkv_mma, the
-// other bf16 heads on flash_fwd_mma_bf16, flash_dq_mma_bf16 and
-// flash_dkv_mma_bf16, and the generic flash_dq takes the fp32 dq.
+// pipelining, and they serve no route: on the LM's bf16 route all three
+// run on the sm90 kernels, fp32 on flash_fwd_mma, flash_dq_mma and
+// flash_dkv_mma, the other bf16 heads on flash_fwd_mma_bf16,
+// flash_dq_mma_bf16 and flash_dkv_mma_bf16.
 
 #include <cuda.h>  // CUtensorMap and its enums: types only, libcuda is not linked
 #include <cuda_runtime.h>
@@ -1702,11 +1703,15 @@ __device__ __forceinline__ void tile_async(float* dst, const float* __restrict__
   }
 }
 
-__device__ __forceinline__ void load_kv_async(Smem& sm, const float* kb, const float* vb, int j,
+// K/V tile j into its stage of a ring (Smem's, or flash_dq_mma's
+// DqMmaSmem, whose V rows are as long as K's)
+template <typename Ring>
+__device__ __forceinline__ void load_kv_async(Ring& sm, const float* kb, const float* vb, int j,
                                               int Tk, int D, bool vec) {
+  constexpr int kLdv = sizeof(Ring::v) / sizeof(float) / kRing / kTile;
   const int s = j % kRing;
   tile_async<kLdK>(sm.k[s], kb, j * kTile, Tk, D, vec);
-  tile_async<kLdV>(sm.v[s], vb, j * kTile, Tk, D, vec);
+  tile_async<kLdv>(sm.v[s], vb, j * kTile, Tk, D, vec);
   asm volatile("cp.async.commit_group;" ::: "memory");
 }
 
@@ -3276,6 +3281,314 @@ int dkv_fp32(const void* q, const void* k, const void* v, const void* d_o, const
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// flash_dq_mma: the fp32 dq for Hopper, on mma.sync tf32 (3xTF32)
+// ---------------------------------------------------------------------------
+//
+// The same function as flash_dq_kernel<float> and flash_dq_plain: p = valid
+// ? expf(s * scale - lse) : 0 with s = q.k; dp = dO.v; ds = p * (dp - dsum)
+// * scale in fp32, never rounded (pallas_attention.py:195, the 2-D kernel's
+// :296); dq += ds k in an fp32 accumulator. All three products run as three
+// tf32 products each on the tensor cores (flash_fwd_mma's split_tf32: lo hi
+// + hi lo + hi hi, the small terms first), so the kernel is held to phase
+// flash's fp32 dq limit, not to bits. It serves #8 and #10 (one kernel
+// streams every T) for fp32 at any D <= 64.
+//
+// Block: flash_fwd_mma's. One CTA of 256 threads (8 warps) per (128-query
+// tile, b*h), heaviest causal tiles first; a warp owns 16 query rows (one M
+// of the mma) and skips the tiles its rows cannot see. K/V tiles of 64 keys
+// stream through the forward's two-stage cp.async ring (16-byte copies when
+// D % 4 == 0 and k, v are 16-byte aligned, else 4-byte ones; rows past Tk
+// zero-filled, the head's columns from D to 64 zeroed once). Once a tile
+// lands the CTA splits it once (split_kv_dq): K's and V's tf32 hi parts in
+// place, their lo parts beside the ring, and K's hi and lo parts again as
+// K^T (a row per head column). Three barriers a tile: landed, split, read.
+//
+// Registers and shared memory: Q's tf32 hi and lo A fragments (64
+// registers at D 64) and the S, dP and dQ accumulators (96) stay in
+// registers. dO's hi and lo A fragments would take 64 more, past the 255 a
+// thread has, so each thread parks its own in shared memory once (in
+// fragment order: a warp's 16-byte reads of one k-step are 512 contiguous
+// bytes) and reads back one k-step's 8 registers at a time. Ring, K's and
+// V's lo parts, K^T and dO's fragments: 208 KB, one CTA an SM.
+//
+// Products per tile and warp, mma.sync m16n8k8 tf32: S = Q K^T and dP = dO
+// V^T with the head dim permuted (logical column t is head column 2t, t + 4
+// is 2t + 1, as in flash_fwd_mma), so K's and V's B fragments are float2s of
+// their rows (72 floats apart: a half-warp's pairs hit 32 distinct banks).
+// p and ds form on S's C fragments in place (sm90::tile_probs: masks only on
+// tiles across the causal diagonal or the ragged key edge, a masked element
+// selected to 0 without expf, so a blind row's sentinel lse never gives an
+// inf); ds is split into tf32 hi and lo in registers. dQ += dS K takes dS's
+// C fragment as its A fragment as it stands (a0 = c0, a1 = c2, a2 = c1, a3
+// = c3), the keys of each 8-key step permuted the same way in K's B
+// fragment, whose (key 2t, key 2t + 1) pairs are float2s of K^T's rows: no
+// shuffle and no shared stage for dS. Each 8-column (or 8-key) step issues
+// its 8 column groups' products back to back, one term at a time. Query
+// rows past Tq read lse = dsum = 0 and zero Q and dO: p = 1, ds = 0, never
+// stored (a row of dQ takes only its own row of dS).
+//
+// Bound, at the 136M LM's shape in fp32 (BH 96, T 1024, D 64, causal):
+// 126.6 MB (38 us at 3.35 TB/s); 19.3 GFLOP of products over the causal
+// half as fp32 FMAs (289 us at 67 TFLOP/s), 58.0 GFLOP as 3xTF32 (117 us at
+// the 494.7 TFLOP/s dense tf32 rate): the tensor cores' share bounds it.
+//
+// Not yet: wgmma (tf32 wgmma takes K-major operands only), a producer warp,
+// one tile's products under the previous tile's elementwise work.
+
+struct DqMmaSmem {
+  float k[kRing][kTile * kLdK];  // the ring; K's and V's tf32 hi parts in place once split
+  float v[kRing][kTile * kLdK];
+  float k_lo[kTile * kLdK];
+  float v_lo[kTile * kLdK];
+  float kt_hi[kD * kLdK];  // K^T: a row per head column, 64 keys + 8
+  float kt_lo[kD * kLdK];
+  // dO's A fragments, hi and lo, of each warp and k-step, in lane order
+  uint4 do_frag[kMmaThreads / 32][kD / 8][2][32];
+};
+
+// the landed K tile ks -> its hi parts in place, lo parts in sm.k_lo, and
+// both transposed into sm.kt_hi / sm.kt_lo; the V tile vs -> hi in place,
+// lo in sm.v_lo. A thread loads all its float4s before it splits and
+// stores any. K: consecutive lanes take consecutive rows of one column
+// group, so the transposed 4-byte stores of a warp hit 32 distinct banks;
+// V: consecutive float4s of a row.
+__device__ __forceinline__ void split_kv_dq(DqMmaSmem& sm, float* ks, float* vs) {
+  constexpr int kPer = kTile * kD / 4 / kMmaThreads;  // float4s a thread, each of K and V
+  float4 xk[kPer], xv[kPer];
+#pragma unroll
+  for (int j = 0; j < kPer; ++j) {
+    const int i = threadIdx.x + j * kMmaThreads;
+    xk[j] = *reinterpret_cast<const float4*>(ks + (i % kTile) * kLdK + (i / kTile) * 4);
+    xv[j] = *reinterpret_cast<const float4*>(vs + (i / (kD / 4)) * kLdK + (i % (kD / 4)) * 4);
+  }
+#pragma unroll
+  for (int j = 0; j < kPer; ++j) {
+    const int i = threadIdx.x + j * kMmaThreads;
+    const int r = i % kTile, c = (i / kTile) * 4;
+    const float xs[4] = {xk[j].x, xk[j].y, xk[j].z, xk[j].w};
+    uint32_t h[4], l[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      split_tf32(xs[e], h[e], l[e]);
+      sm.kt_hi[(c + e) * kLdK + r] = __uint_as_float(h[e]);
+      sm.kt_lo[(c + e) * kLdK + r] = __uint_as_float(l[e]);
+    }
+    *reinterpret_cast<uint4*>(ks + r * kLdK + c) = make_uint4(h[0], h[1], h[2], h[3]);
+    *reinterpret_cast<uint4*>(sm.k_lo + r * kLdK + c) = make_uint4(l[0], l[1], l[2], l[3]);
+    const int at = (i / (kD / 4)) * kLdK + (i % (kD / 4)) * 4;
+    split_tf32(xv[j].x, h[0], l[0]);
+    split_tf32(xv[j].y, h[1], l[1]);
+    split_tf32(xv[j].z, h[2], l[2]);
+    split_tf32(xv[j].w, h[3], l[3]);
+    *reinterpret_cast<uint4*>(vs + at) = make_uint4(h[0], h[1], h[2], h[3]);
+    *reinterpret_cast<uint4*>(sm.v_lo + at) = make_uint4(l[0], l[1], l[2], l[3]);
+  }
+}
+
+__global__ void __launch_bounds__(kMmaThreads, 1)
+flash_dq_mma_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v, const float* __restrict__ d_o,
+                    const float* __restrict__ lse, const float* __restrict__ dsum,
+                    float* __restrict__ dq_out, int Tq, int Tk, int D, int q_off, int k_off,
+                    int causal, float scale) {
+  extern __shared__ __align__(16) unsigned char dyn_smem[];
+  DqMmaSmem& sm = *reinterpret_cast<DqMmaSmem*>(dyn_smem);
+  const int bh = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kRows;  // heaviest causal tiles first
+  const int tid = threadIdx.x;
+  const int lane = tid % 32, warp = tid / 32;
+  const int g = lane / 4, t = lane % 4;  // the mma fragments' group and thread in group
+  const int wq0 = q0 + warp * kWarpRows;  // the warp's first query row
+  const int qr0 = wq0 + g, qr1 = qr0 + 8;  // this thread's two rows
+  const float* kb = k + (int64_t)bh * Tk * D;
+  const float* vb = v + (int64_t)bh * Tk * D;
+  const bool vec = D % 4 == 0 && ((reinterpret_cast<uintptr_t>(k) |
+                                   reinterpret_cast<uintptr_t>(v)) & 15) == 0;
+  const int nk = (Tk + kTile - 1) / kTile;
+  const int n_tiles = sm90::k_tiles_seen(causal, min(q0 + kRows, Tq), q_off, k_off, nk);
+  // the warp's own last tile (exclusive): it skips the CTA's later ones
+  const int n_mine =
+      wq0 < Tq ? sm90::k_tiles_seen(causal, min(wq0 + kWarpRows, Tq), q_off, k_off, nk) : 0;
+  const int steps = (D + 7) / 8;  // 8-column steps of the head that hold data
+
+  if (n_tiles > 0) load_kv_async(sm, kb, vb, 0, Tk, D, vec);
+  // the head's zero padding, never written by the copies
+  const int pad = kD - D;
+  for (int i = tid; i < kRing * kTile * pad; i += kMmaThreads) {
+    const int s = i / (kTile * pad);
+    const int r = (i / pad) % kTile, c = D + i % pad;
+    sm.k[s][r * kLdK + c] = 0.0f;
+    sm.v[s][r * kLdK + c] = 0.0f;
+  }
+
+  // Q's A fragments in registers and dO's in shared memory, hi and lo:
+  // element e of step kk is row e & 1 ? qr1 : qr0, head column 8kk + 2t +
+  // (e >> 1) (the permuted columns)
+  uint32_t q_hi[kD / 8][4], q_lo[kD / 8][4];
+  const float* qb = q + (int64_t)bh * Tq * D;
+  const float* ob = d_o + (int64_t)bh * Tq * D;
+#pragma unroll
+  for (int kk = 0; kk < kD / 8; ++kk) {
+    uint32_t oh[4], ol[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = e & 1 ? qr1 : qr0;
+      const int c = 8 * kk + 2 * t + (e >> 1);
+      const bool in = r < Tq && c < D;
+      split_tf32(in ? qb[(int64_t)r * D + c] : 0.0f, q_hi[kk][e], q_lo[kk][e]);
+      split_tf32(in ? ob[(int64_t)r * D + c] : 0.0f, oh[e], ol[e]);
+    }
+    sm.do_frag[warp][kk][0][lane] = make_uint4(oh[0], oh[1], oh[2], oh[3]);
+    sm.do_frag[warp][kk][1][lane] = make_uint4(ol[0], ol[1], ol[2], ol[3]);
+  }
+  const float* lse_b = lse + (int64_t)bh * Tq;
+  const float* dsum_b = dsum + (int64_t)bh * Tq;
+  const float lse0 = qr0 < Tq ? __ldg(lse_b + qr0) : 0.0f;
+  const float lse1 = qr1 < Tq ? __ldg(lse_b + qr1) : 0.0f;
+  const float dsum0 = qr0 < Tq ? __ldg(dsum_b + qr0) : 0.0f;
+  const float dsum1 = qr1 < Tq ? __ldg(dsum_b + qr1) : 0.0f;
+
+  float dq_acc[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) dq_acc[i] = 0.0f;
+
+  for (int j = 0; j < n_tiles; ++j) {
+    if (j + 1 < n_tiles) {
+      load_kv_async(sm, kb, vb, j + 1, Tk, D, vec);
+      asm volatile("cp.async.wait_group 1;" ::: "memory");
+    } else {
+      asm volatile("cp.async.wait_group 0;" ::: "memory");
+    }
+    __syncthreads();  // tile j has landed for every thread
+    float* ks = sm.k[j % kRing];
+    float* vs = sm.v[j % kRing];
+    split_kv_dq(sm, ks, vs);
+    __syncthreads();  // the split tile is whole
+    if (j < n_mine) {
+      // s = q k^T and dp = dO v^T: s_acc[4n + e] (dp_acc's alike) is row
+      // e < 2 ? qr0 : qr1, key 8n + 2t + e % 2. Each 8-column step runs
+      // the 8 key groups' independent products back to back, one of the
+      // three terms at a time, S's and then dP's.
+      float s_acc[32], dp_acc[32];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) s_acc[i] = dp_acc[i] = 0.0f;
+#pragma unroll
+      for (int kk = 0; kk < kD / 8; ++kk) {
+        if (kk < steps) {
+          uint32_t kv_hi[kTile / 8][2], kv_lo[kTile / 8][2];
+#pragma unroll
+          for (int n = 0; n < kTile / 8; ++n)
+            b_parts(ks, sm.k_lo, (8 * n + g) * kLdK + 8 * kk + 2 * t, kv_hi[n], kv_lo[n]);
+#pragma unroll
+          for (int n = 0; n < kTile / 8; ++n)
+            mma_tf32(s_acc + 4 * n, q_lo[kk], kv_hi[n][0], kv_hi[n][1]);
+#pragma unroll
+          for (int n = 0; n < kTile / 8; ++n)
+            mma_tf32(s_acc + 4 * n, q_hi[kk], kv_lo[n][0], kv_lo[n][1]);
+#pragma unroll
+          for (int n = 0; n < kTile / 8; ++n)
+            mma_tf32(s_acc + 4 * n, q_hi[kk], kv_hi[n][0], kv_hi[n][1]);
+          const uint4 oh4 = sm.do_frag[warp][kk][0][lane], ol4 = sm.do_frag[warp][kk][1][lane];
+          const uint32_t o_hi[4] = {oh4.x, oh4.y, oh4.z, oh4.w};
+          const uint32_t o_lo[4] = {ol4.x, ol4.y, ol4.z, ol4.w};
+#pragma unroll
+          for (int n = 0; n < kTile / 8; ++n)
+            b_parts(vs, sm.v_lo, (8 * n + g) * kLdK + 8 * kk + 2 * t, kv_hi[n], kv_lo[n]);
+#pragma unroll
+          for (int n = 0; n < kTile / 8; ++n)
+            mma_tf32(dp_acc + 4 * n, o_lo, kv_hi[n][0], kv_hi[n][1]);
+#pragma unroll
+          for (int n = 0; n < kTile / 8; ++n)
+            mma_tf32(dp_acc + 4 * n, o_hi, kv_lo[n][0], kv_lo[n][1]);
+#pragma unroll
+          for (int n = 0; n < kTile / 8; ++n)
+            mma_tf32(dp_acc + 4 * n, o_hi, kv_hi[n][0], kv_hi[n][1]);
+        }
+      }
+
+      const int k0 = j * kTile;
+      if (k0 + kTile > Tk || (causal && k_off + k0 + kTile - 1 > q_off + wq0)) {
+        sm90::tile_probs<true>(s_acc, lse0, lse1, scale, causal, q_off, k_off, qr0, qr1,
+                               k0 + 2 * t, Tk);
+      } else {
+        sm90::tile_probs<false>(s_acc, lse0, lse1, scale, causal, q_off, k_off, qr0, qr1,
+                                k0 + 2 * t, Tk);
+      }
+      // ds = p * (dp - dsum) * scale, in place, in fp32
+#pragma unroll
+      for (int i = 0; i < 32; ++i)
+        s_acc[i] = s_acc[i] * (dp_acc[i] - ((i % 4) < 2 ? dsum0 : dsum1)) * scale;
+
+      // dq += ds k: key step kk's A fragment is ds's C fragment of keys
+      // 8kk..8kk+7 (a0 = c0, a1 = c2, a2 = c1, a3 = c3); B takes K^T's row
+      // 8n + g (head column) at keys 8kk + 2t and + 1
+#pragma unroll
+      for (int kk = 0; kk < kTile / 8; ++kk) {
+        uint32_t ds_hi[4], ds_lo[4];
+        split_tf32(s_acc[4 * kk], ds_hi[0], ds_lo[0]);
+        split_tf32(s_acc[4 * kk + 2], ds_hi[1], ds_lo[1]);
+        split_tf32(s_acc[4 * kk + 1], ds_hi[2], ds_lo[2]);
+        split_tf32(s_acc[4 * kk + 3], ds_hi[3], ds_lo[3]);
+        uint32_t th[kD / 8][2], tl[kD / 8][2];
+#pragma unroll
+        for (int n = 0; n < kD / 8; ++n) {
+          if (n < steps)
+            b_parts(sm.kt_hi, sm.kt_lo, (8 * n + g) * kLdK + 8 * kk + 2 * t, th[n], tl[n]);
+        }
+#pragma unroll
+        for (int n = 0; n < kD / 8; ++n) {
+          if (n < steps) mma_tf32(dq_acc + 4 * n, ds_lo, th[n][0], th[n][1]);
+        }
+#pragma unroll
+        for (int n = 0; n < kD / 8; ++n) {
+          if (n < steps) mma_tf32(dq_acc + 4 * n, ds_hi, tl[n][0], tl[n][1]);
+        }
+#pragma unroll
+        for (int n = 0; n < kD / 8; ++n) {
+          if (n < steps) mma_tf32(dq_acc + 4 * n, ds_hi, th[n][0], th[n][1]);
+        }
+      }
+    }
+    __syncthreads();  // every thread is done with the split tile and the stage tile j + 2 fills
+  }
+
+  // epilogue: rows qr0, qr1, columns 8n + 2t and + 1 (a float2 when D is even)
+  float* dq_b = dq_out + (int64_t)bh * Tq * D;
+  const bool pairs = D % 2 == 0 && (reinterpret_cast<uintptr_t>(dq_out) & 7) == 0;
+#pragma unroll
+  for (int n = 0; n < kD / 8; ++n) {
+    const int c = 8 * n + 2 * t;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = h ? qr1 : qr0;
+      if (r >= Tq || c >= D) continue;
+      const float x0 = dq_acc[4 * n + 2 * h], x1 = dq_acc[4 * n + 2 * h + 1];
+      float* dst = dq_b + (int64_t)r * D + c;
+      if (pairs) {
+        *reinterpret_cast<float2*>(dst) = make_float2(x0, x1);
+      } else {
+        dst[0] = x0;
+        if (c + 1 < D) dst[1] = x1;
+      }
+    }
+  }
+}
+
+int dq_fp32(const void* q, const void* k, const void* v, const void* d_o, const void* lse,
+            const void* dsum, void* dq_out, int BH, int Tq, int Tk, int D, int q_off, int k_off,
+            int causal, float scale, cudaStream_t stream) {
+  if (D < 1 || D > kD) return (int)cudaErrorInvalidValue;
+  const size_t smem = sizeof(DqMmaSmem);
+  cudaError_t err = prepare(flash_dq_mma_kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(BH, (Tq + kRows - 1) / kRows);
+  flash_dq_mma_kernel<<<grid, kMmaThreads, smem, stream>>>(
+      (const float*)q, (const float*)k, (const float*)v, (const float*)d_o, (const float*)lse,
+      (const float*)dsum, (float*)dq_out, Tq, Tk, D, q_off, k_off, causal, scale);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace mma
 
 }  // namespace
@@ -3426,6 +3739,16 @@ int tmpi_flash_dkv_mma(int device, const void* q, const void* k, const void* v, 
   if (err != cudaSuccess) return (int)err;
   return mma::dkv_fp32(q, k, v, d_o, lse, dsum, dk_out, dv_out, BH, Tq, Tk, D, q_off, k_off,
                        causal, scale, (cudaStream_t)stream);
+}
+
+// fp32 only (3xTF32 on mma.sync), any 1 <= D <= 64.
+int tmpi_flash_dq_mma(int device, const void* q, const void* k, const void* v, const void* d_o,
+                      const void* lse, const void* dsum, void* dq_out, int BH, int Tq, int Tk,
+                      int D, int q_off, int k_off, int causal, float scale, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  return mma::dq_fp32(q, k, v, d_o, lse, dsum, dq_out, BH, Tq, Tk, D, q_off, k_off, causal, scale,
+                      (cudaStream_t)stream);
 }
 
 }  // extern "C"

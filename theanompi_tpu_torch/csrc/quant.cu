@@ -68,10 +68,22 @@
 // thread per 4 values for #4 (PERF.md).
 //
 // The whole-buffer #5 needs a reduction across blocks, which Hopper's
-// blocks cannot carry between them as the TPU's sequential grid can: pass
-// 1 writes each block's absmax to scratch, pass 2 (one block) reduces
-// those and writes the scale to device memory, pass 3 quantizes with it.
-// No host sync. #5 is three grid-stride loops with float4 loads. #6
+// blocks cannot carry between them as the TPU's sequential grid can.
+// quant_whole_kernel does it in ONE launch: a persistent grid of no more
+// CTAs than can be resident at once, each CTA a contiguous run of the
+// buffer. A CTA reduces its run's absmax (nanmax / block_nanmax: a NaN
+// wins), publishes it and waits at a grid-wide barrier (an atomic counter
+// in the wrapper's scratch, zeroed on the launch's stream, so the launch
+// is capturable and needs no host sync); then every CTA reduces the few
+// hundred partials itself and applies scale_of (CTA 0 writes the scale),
+// and quantizes its run last float4 first, so that what the L2 still
+// holds of the first pass's end is read from there. Bytes: two reads of
+// the input and one write, as the three-pass launcher it replaced
+// (quant_three_pass: each block's absmax to scratch, one block's scale,
+// then the values; three launches), which stays for timing in turns, and
+// about as fast (PERF.md: 1-2% less time in turns; keeping a run's head
+// in shared memory or registers across the barrier, or L2 eviction
+// hints, measured slower). #6
 // (dequant_scalar_kernel) moves 16 int8 a thread in one 16-byte load and
 // writes them as four float4 stores with the evict-first hint, through a
 // per-warp staging in shared memory that keeps every warp-wide store on
@@ -298,7 +310,7 @@ __device__ __forceinline__ float block_nanmax(float m) {
   return warp_nanmax(m);                      // every warp ends with the block max
 }
 
-// #5 pass 1: each block's absmax over its grid-stride share
+// #5's three-pass launcher, pass 1: each block's absmax over its grid-stride share
 __global__ void absmax_partial_kernel(const float4* __restrict__ x, int64_t n4,
                                       float* __restrict__ partial) {
   float m = 0.0f;
@@ -310,7 +322,7 @@ __global__ void absmax_partial_kernel(const float4* __restrict__ x, int64_t n4,
   if (threadIdx.x == 0) partial[blockIdx.x] = m;
 }
 
-// #5 pass 2: one block reduces the partials and writes the scale
+// its pass 2: one block reduces the partials and writes the scale
 __global__ void scale_from_partials_kernel(const float* __restrict__ partial, int n_partial,
                                            float* __restrict__ scale) {
   float m = 0.0f;
@@ -319,7 +331,7 @@ __global__ void scale_from_partials_kernel(const float* __restrict__ partial, in
   if (threadIdx.x == 0) scale[0] = scale_of(m);
 }
 
-// #5 pass 3: quantize every value with the one device-resident scale
+// its pass 3: quantize every value with the one device-resident scale
 __global__ void quant_scalar_kernel(const float4* __restrict__ x, const float* __restrict__ scale,
                                     char4* __restrict__ vals, int64_t n4) {
   const float s = scale[0];
@@ -353,6 +365,80 @@ dequant_scalar_kernel(const int4* __restrict__ vals, const float* __restrict__ s
       if (8 * k < left) __stcs(out + c0 * 4 + 32 * k + lane, dequant4(words[32 * k + lane], s));
     }
     __syncwarp();  // the stage is read before the next pass writes it
+  }
+}
+
+// #5 in one launch: quant_whole_kernel (the file's header). The buffer is
+// cut into slots of kThreads float4s (a float4 a thread), and each CTA
+// takes a contiguous run of them; kWholeUnroll slots' loads a thread in
+// flight. The second pass takes the run last slot first (kReverse), so
+// whatever the L2 still holds of the first pass's end is read from there.
+constexpr int kWholeUnroll = 4;
+constexpr bool kReverse = true;
+constexpr unsigned kSpinLimit = 1u << 26;  // ~7 s of 100 ns naps: a grid that cannot all be
+                                           // resident traps instead of hanging the card
+
+__device__ __forceinline__ unsigned load_acquire(const unsigned* p) {
+  unsigned v;
+  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+// scratch: [0] the arrival counter, zeroed before the launch; [1 +
+// block] each CTA's partial absmax
+__global__ void __launch_bounds__(kThreads)
+quant_whole_kernel(const float4* __restrict__ x, int64_t n4, char4* __restrict__ vals,
+                   float* __restrict__ scale, unsigned* __restrict__ scratch) {
+  float* partial = reinterpret_cast<float*>(scratch + 1);
+  const int64_t slots = (n4 + kThreads - 1) / kThreads;
+  const int64_t per = (slots + gridDim.x - 1) / gridDim.x;
+  const int64_t first = (int64_t)blockIdx.x * per;  // this CTA's first slot
+  const int64_t mine = slots > first ? (slots - first < per ? slots - first : per) : 0;
+  // the float4 this thread takes of the CTA's slot k (n4: none)
+  auto at = [&](int64_t k) {
+    const int64_t i = (first + k) * kThreads + threadIdx.x;
+    return k < mine && i < n4 ? i : n4;
+  };
+  const float4 zero = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  float m = 0.0f;  // |x| >= 0: 0 is max's identity
+  for (int64_t k = 0; k < mine; k += kWholeUnroll) {
+    float4 v[kWholeUnroll];
+#pragma unroll
+    for (int u = 0; u < kWholeUnroll; ++u) {
+      const int64_t i = at(k + u);
+      v[u] = i < n4 ? x[i] : zero;
+    }
+#pragma unroll
+    for (int u = 0; u < kWholeUnroll; ++u) m = nanmax(m, absmax4(v[u]));
+  }
+  m = block_nanmax(m);
+  if (threadIdx.x == 0) {
+    __stcg(partial + blockIdx.x, m);
+    __threadfence();
+    atomicAdd(scratch, 1u);
+    unsigned spins = 0;
+    while (load_acquire(scratch) < gridDim.x) {
+      if (++spins > kSpinLimit) __trap();
+      __nanosleep(100);
+    }
+    __threadfence();
+  }
+  __syncthreads();  // every partial is published
+  float a = 0.0f;
+  for (int c = threadIdx.x; c < (int)gridDim.x; c += kThreads) a = nanmax(a, __ldcg(partial + c));
+  const float s = scale_of(block_nanmax(a));
+  if (blockIdx.x == 0 && threadIdx.x == 0) scale[0] = s;
+  for (int64_t r = 0; r < mine; r += kWholeUnroll) {
+    float4 v[kWholeUnroll];
+    int64_t i[kWholeUnroll];
+#pragma unroll
+    for (int u = 0; u < kWholeUnroll; ++u) {
+      i[u] = r + u < mine ? at(kReverse ? mine - 1 - (r + u) : r + u) : n4;
+      v[u] = i[u] < n4 ? x[i[u]] : zero;
+    }
+#pragma unroll
+    for (int u = 0; u < kWholeUnroll; ++u)
+      if (i[u] < n4) vals[i[u]] = quant4(v[u], s);
   }
 }
 
@@ -406,9 +492,34 @@ int tmpi_block_codec_multi(int device, int op, const void* rows, int n_leaves, i
   return (int)cudaGetLastError();
 }
 
-// partial: scratch of n_partial floats (n_partial >= 1 blocks for pass 1)
-int tmpi_quant(int device, const void* x, void* vals, void* scale, void* partial,
-               int64_t rows, int n_partial, int max_blocks, void* stream) {
+// #5 in one launch. scratch: 1 + max_blocks 4-byte words (the barrier's
+// counter, zeroed here on the stream, and the partials); the grid is the
+// work's, at most max_blocks and at most the CTAs that can be resident at
+// once (the barrier needs every CTA running).
+int tmpi_quant(int device, const void* x, void* vals, void* scale, void* scratch, int64_t rows,
+               int max_blocks, void* stream) {
+  if (rows < 1 || max_blocks < 1) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  cudaStream_t s = (cudaStream_t)stream;
+  int per_sm = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, quant_whole_kernel, kThreads, 0);
+  if (err != cudaSuccess) return (int)err;
+  if (per_sm < 1) return (int)cudaErrorLaunchOutOfResources;
+  const int64_t n4 = rows * (kLanes / 4);
+  const int resident = per_sm * work_table::sm_count(device);
+  const int grid = grid_for(n4, kThreads, max_blocks < resident ? max_blocks : resident);
+  if ((err = cudaMemsetAsync(scratch, 0, sizeof(unsigned), s)) != cudaSuccess) return (int)err;
+  quant_whole_kernel<<<grid, kThreads, 0, s>>>((const float4*)x, n4, (char4*)vals,
+                                               (float*)scale, (unsigned*)scratch);
+  return (int)cudaGetLastError();
+}
+
+// #5 as the three passes quant_whole_kernel replaced (no route takes it;
+// kept for timing in turns). partial: scratch of n_partial floats
+// (n_partial >= 1 blocks for pass 1).
+int tmpi_quant_three_pass(int device, const void* x, void* vals, void* scale, void* partial,
+                          int64_t rows, int n_partial, int max_blocks, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = (cudaStream_t)stream;

@@ -11,9 +11,11 @@ sequence-parallel slice). The kernels are hand-written CUDA for Hopper
 loads) for the other bf16 heads (``_fwd_route``; the generic
 ``flash_fwd`` serves no route and stays for timing in turns); dq (#8
 and its long-sequence twin #10) as ``flash_dq_sm90`` (TMA + wgmma, dS
-from registers) for bf16 with D % 8 == 0, as ``flash_dq_mma_bf16``
-(mma.sync bf16, the forward's ring) for the other bf16 heads, and as the
-generic ``flash_dq`` for fp32 (``_dq_route``); dk/dv (#9 and #11) as
+from registers) for bf16 with D % 8 == 0, as ``flash_dq_mma`` (mma.sync,
+every product 3xTF32, the forward's ring) for fp32, and as
+``flash_dq_mma_bf16`` (mma.sync bf16, the forward's ring) for the other
+bf16 heads (``_dq_route``; the generic ``flash_dq`` serves no route and
+stays for timing in turns); dk/dv (#9 and #11) as
 ``flash_dkv_sm90`` (TMA + wgmma, dv exact on the tensor cores through a
 three-part bf16 split of p) for bf16 with D % 8 == 0, as
 ``flash_dkv_mma`` (mma.sync, every product 3xTF32) for fp32, and as
@@ -36,9 +38,9 @@ products run in the input dtype with fp32 accumulation, softmax
 statistics and every accumulator are fp32, and ``dv += p^T dO`` is an
 fp32 x fp32 product with p not rounded (``flash_dkv_sm90`` and
 ``flash_dkv_mma_bf16`` run it as three exact bf16 products,
-``split_bf16x3``); the fp32 forward's and
-dk/dv's products run as three tf32 products each (``split_tf32x2``), held
-to a tolerance like every fp32 sum here. The plain versions beside
+``split_bf16x3``); the fp32 forward's, dq's and dk/dv's products run as
+three tf32 products each (``split_tf32x2``), held to a tolerance like
+every fp32 sum here. The plain versions beside
 the wrappers compute the same functions in PyTorch; the forward walks K
 in tiles of ``block_k`` as the kernel does, so that bf16 rounds the same
 probabilities relative to the same running maxima. The wrappers run the
@@ -99,6 +101,10 @@ _LIB = KernelLibrary(
         # stream
         "tmpi_flash_dq_mma_bf16": (_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                                    ctypes.c_float, _P),
+        # device, q, k, v, dO, lse, dsum, dq, BH, Tq, Tk, D, q_off, k_off, causal, scale,
+        # stream
+        "tmpi_flash_dq_mma": (_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                              ctypes.c_float, _P),
         # device, q, k, v, dO, lse, dsum, dk, dv, BH, Tq, Tk, D, q_off, k_off, causal, scale,
         # dtype, stream
         "tmpi_flash_dkv": (_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
@@ -124,6 +130,7 @@ FLASH_FWD_MMA = LaunchCounter("flash_fwd_mma")
 FLASH_FWD_MMA_BF16 = LaunchCounter("flash_fwd_mma_bf16")
 FLASH_DQ = LaunchCounter("flash_dq")
 FLASH_DQ_SM90 = LaunchCounter("flash_dq_sm90")
+FLASH_DQ_MMA = LaunchCounter("flash_dq_mma")
 FLASH_DQ_MMA_BF16 = LaunchCounter("flash_dq_mma_bf16")
 FLASH_DKV = LaunchCounter("flash_dkv")
 FLASH_DKV_SM90 = LaunchCounter("flash_dkv_sm90")
@@ -385,18 +392,20 @@ def flash_fwd(q3, k3, v3, *, causal: bool, scale: float, q_off: int = 0, k_off: 
 def _dq_route(dtype: torch.dtype, D: int) -> str:
     """Which dq kernel takes a CUDA input, from its dtype and head dim
     alone, as ``_fwd_route``: ``"sm90"`` (``flash_dq_sm90``: TMA + wgmma,
-    bf16 with rows of whole 16-byte units), ``"mma_bf16"``
+    bf16 with rows of whole 16-byte units), ``"mma"`` (``flash_dq_mma``:
+    fp32, 3xTF32 on mma.sync, any D) or ``"mma_bf16"``
     (``flash_dq_mma_bf16``: bf16 with another D, odd included, on
-    mma.sync) or ``"generic"`` (``flash_dq``: fp32)."""
+    mma.sync)."""
     if dtype == torch.float32:
-        return "generic"
+        return "mma"
     return "sm90" if dtype == torch.bfloat16 and D % 8 == 0 else "mma_bf16"
 
 
 def _launch_dq_generic(q3, k3, v3, do3, lse, dsum, *, causal, scale, q_off, k_off):
-    """``flash_dq_kernel`` (wmma, synchronous loads), fp32 or bf16: the
-    route of fp32; its bf16 instantiation is reached only from here
-    (chip_smoke times it against ``flash_dq_mma_bf16``)."""
+    """``flash_dq_kernel`` (wmma, synchronous loads, fp32 products as fp32
+    FMAs), fp32 or bf16. No route reaches it: it is called only from here,
+    so that chip_smoke can time it in turns against the kernels that
+    replaced it (``flash_dq_mma``, ``flash_dq_mma_bf16``)."""
     BH, Tq, D = q3.shape
     dev = q3.device
     dq = torch.empty((BH, Tq, D), dtype=torch.float32, device=dev)
@@ -442,8 +451,22 @@ def _launch_dq_mma_bf16(q3, k3, v3, do3, lse, dsum, *, causal, scale, q_off, k_o
     return dq
 
 
-_DQ_LAUNCH = {"sm90": _launch_dq_sm90, "mma_bf16": _launch_dq_mma_bf16,
-              "generic": _launch_dq_generic}
+def _launch_dq_mma(q3, k3, v3, do3, lse, dsum, *, causal, scale, q_off, k_off):
+    """``flash_dq_mma_kernel`` (the forward's cp.async K/V ring, every
+    product 3xTF32 on mma.sync, dS from registers), fp32 at any D."""
+    BH, Tq, D = q3.shape
+    dev = q3.device
+    dq = torch.empty((BH, Tq, D), dtype=torch.float32, device=dev)
+    rc = _LIB.get().tmpi_flash_dq_mma(dev.index, q3.data_ptr(), k3.data_ptr(), v3.data_ptr(),
+                                      do3.data_ptr(), lse.data_ptr(), dsum.data_ptr(),
+                                      dq.data_ptr(), BH, Tq, k3.shape[1], D, int(q_off),
+                                      int(k_off), int(causal), float(scale), stream_handle(dev))
+    _LIB.check(rc, "flash attention dq kernel (mma)")
+    FLASH_DQ_MMA.launches += 1
+    return dq
+
+
+_DQ_LAUNCH = {"sm90": _launch_dq_sm90, "mma": _launch_dq_mma, "mma_bf16": _launch_dq_mma_bf16}
 
 
 def flash_dq(q3, k3, v3, do3, lse, dsum, *, causal: bool, scale: float, q_off: int = 0,
