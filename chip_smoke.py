@@ -151,7 +151,12 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                 no codec, as the reference's one-device path). Counters are
                 zeroed just before each run and read just after: one
                 launch of the run's update kernel per step (one dtype group
-                of 16 leaves), none of any other kernel.
+                of 16 leaves), none of any other kernel. Then 12 steps on
+                uint8 ``imagenet_synthetic`` at ``--dispatch-depth 1``, at
+                depth 3 and at the default, in turns (default, 1, 3, 1,
+                default): the same JSONL rows every run, as many steps in
+                flight as the depth (depth 3 reads rows while newer steps
+                run), the step times printed.
 4. bsp-ranks  — multi-rank BSP of the same model through the CLI: global
                 batch 128 split over the ranks, 6 steps, ``--fused-update
                 --strategy psum --wire-codec int8:ef``. With one card: 2
@@ -257,26 +262,43 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                 against the same model's step with a uint8 batch resident
                 on the card (twice), and the host time the loop waited on
                 the loader a step.
-   resume     — checkpoint and resume through the CLI at AlexNet's full
-                width (``--synthetic --fused-update``, 4 steps an epoch,
-                so the 3-step cut is mid-epoch), on one card and on 2
-                ranks on cuda:0 over gloo with psum + int8:ef: 6 steps
-                twice without a break (the determinism control, once with
-                the async writer and once ``--sync-ckpt``), then 3 steps
-                with ``--ckpt-dir`` and ``--resume`` to 6, async and
-                sync. The state the resumed run loads has the digest the
-                writer recorded at step 3; the resumed runs launch the
-                update (and on 2 ranks the codec) once a step from the
-                restored state. The final checkpoints (every entry:
-                params, velocities, step, residuals, generator states)
-                equal the async control's bit for bit wherever the two
-                controls are equal; elsewhere the controls' largest
-                relative difference is printed and the resumed run is
-                held to no more than twice it. Prints the file size, the
-                sync save (gather, CRC, write), what an async save costs
-                the loop and the writer's wall time, the load, and the
-                step time of the epoch whose steps overlap the writer
-                against the sync run's same epoch.
+   resume     — checkpoint, resume and the supervisor through the CLI at
+                AlexNet's full width (``--synthetic --fused-update``, 2
+                steps an epoch: saves at steps 2, 4 and 6). One card: 6
+                steps without a break (the control, async writer);
+                a supervised run (``--max-retries 2 --inject-fault
+                bitrot@4 --inject-fault crash@5``): the crash leaves no
+                newer save, the retry's scrub quarantines ``ckpt_4``, its
+                record names step 2, and the retried run loads ckpt_2's
+                state (the digest a save of it records) with its dropout
+                generator, 4 + 4 launches of #1 over both attempts; the
+                preemption pair (``--max-retries 1 --sigterm-grace 30
+                --inject-fault sigterm@3 --sync-ckpt --fault-ledger``):
+                exit 75 with ``resumable.json`` at step 3, then the same
+                command resumes by itself (digest, generators, 3
+                launches). 2 ranks on cuda:0 over gloo with psum +
+                int8:ef: the control; ``--sync-ckpt --max-retries 1
+                --inject-fault crash@5`` (gathered files, no crash save):
+                the retry resumes from ckpt_4 (record, digest,
+                generators; #1, #3 and #4 4 + 2 a rank over the
+                attempts, both ranks' counts of attempt 1 on record);
+                ``--ckpt-sharded --max-retries
+                1 --inject-fault crash@4``: each rank's crash save makes
+                one member of step 3's set, the retry resumes from it
+                (digest, generators; #1, #3 and #4 3 + 3 a rank over the
+                attempts); ``--ckpt-sharded --elastic --max-retries 1
+                --inject-fault shrink@4:1``: the retry runs one rank,
+                resharded from 2 (the params the set's bit for bit, the
+                16 residual leaves reset, the generators restarted; #3 /
+                #4 3 a rank, then none). Every final checkpoint (params,
+                velocities, step, residuals, generator states; a set
+                reassembled) equals the control's bit for bit, whether
+                its run wrote async or ``--sync-ckpt``. Prints the file
+                size, the saves, the loads, the reshard and each retry's
+                time from the failure to its first step, in parts.
+                ``--only resume`` runs this phase alone; on 4 cards
+                (NCCL) only the shrink from 4 ranks to 2 (``shrink@4:2``,
+                sharded), with the same checks.
 5. parity     — the same small AlexNet (67x67, fp32, dropout off) trained 2
                 steps on the card and on the CPU (where the wrappers run
                 their plain versions) from the same weights and batches.
@@ -466,10 +488,12 @@ LM_SHAPE = dict(B=8, T=1024, H=12, D=64)
 GNET_BATCH = 512
 GNET_STEPS = 6
 FULL_WIDTH = ["--dataset-arg", "image_shape=[227,227,3]", "--dataset-arg", "n_classes=1000"]
-# phase resume: steps a run and an epoch (the cut at RESUME_STEPS // 2
-# lands mid-epoch)
+# phase resume: steps a run and an epoch (saves at steps 2, 4 and 6; the
+# preemption at step 3 and the crash saves at step 3 land mid-epoch)
 RESUME_STEPS = 6
-RESUME_EPOCH = 4
+RESUME_EPOCH = 2
+# phase main's dispatch-depth runs: steps a run (2 warm-up steps left out)
+DISPATCH_STEPS = 12
 
 
 class Failed(Exception):
@@ -504,15 +528,16 @@ class Tee(io.TextIOBase):
             st.flush()
 
 
-def run_cli(argv):
+def run_cli(argv, want_rc: int = 0):
     """``theanompi_tpu_torch.cli.main(argv)``; returns its summary (the
-    last stdout line), echoing the run's output."""
+    last stdout line), echoing the run's output. The exit code must be
+    ``want_rc`` (75: a preempted run)."""
     from theanompi_tpu_torch import cli
 
     buf = io.StringIO()
     with contextlib.redirect_stdout(Tee(sys.stdout, buf)):
         rc = cli.main(argv)
-    check(rc == 0, f"cli.main returned {rc}")
+    check(rc == want_rc, f"cli.main returned {rc}, expected {want_rc}")
     return json.loads(buf.getvalue().strip().splitlines()[-1])
 
 
@@ -1042,7 +1067,56 @@ def phase_main():
               f"{summary['steady_steps']} steps (CUDA events, 2 warm-up steps excluded), "
               f"{summary['images_per_sec']:.1f} img/s, launches {counts}", flush=True)
         runs[name] = {"launches": launches, "summary": summary}
+    runs["dispatch"] = dispatch_depth_runs()
     return runs
+
+
+def dispatch_depth_runs() -> dict:
+    """AlexNet's CLI step at ``--dispatch-depth 1`` (the reference's
+    default: the host waits for each step before it enqueues the next)
+    against the port's default (rows read every ``--print-freq`` steps),
+    in turns: default, depth 1, depth 3, depth 1, default; on uint8
+    ``imagenet_synthetic``, whose feed does not pace the step (float32
+    ``--synthetic`` batches do). Every run's JSONL rows must be the same
+    but for the wall-clock fields. Depth 3 reaches 3 steps in flight, so
+    its rows are read on the side stream while newer steps run (the
+    ``partial`` drain); depth 1 never has a newer step in flight."""
+    from theanompi_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+
+    root = tempfile.mkdtemp(prefix="tmpi-dispatch-")
+    out: dict = {"default": [], "depth-1": [], "depth-3": []}
+    rows0 = None
+    try:
+        for i, (label, flags) in enumerate((("default", []), ("depth-1", ["--dispatch-depth", "1"]),
+                                            ("depth-3", ["--dispatch-depth", "3"]),
+                                            ("depth-1", ["--dispatch-depth", "1"]),
+                                            ("default", []))):
+            logs = os.path.join(root, str(i))
+            argv = ["BSP", "1", "alexnet", "AlexNet", "--dataset", "imagenet_synthetic",
+                    "--fused-update", "--max-steps", str(DISPATCH_STEPS), "--seed", "0",
+                    "--dataset-arg", f"n_train={128 * DISPATCH_STEPS}", "--dataset-arg",
+                    "n_val=128", "--save-dir", logs, *flags]
+            print(f"[main] python -m theanompi_tpu_torch.cli {' '.join(argv)}", flush=True)
+            reset_launch_counts()
+            s = run_cli(argv)
+            check(launch_counts().get("fused_momentum") == update_launches(16) * DISPATCH_STEPS,
+                  f"dispatch {label}: launches {launch_counts()}")
+            with open(os.path.join(logs, "alexnet_bsp.jsonl")) as f:
+                rows = [{k: v for k, v in json.loads(line).items()
+                         if k not in ("images_per_sec", "seconds")} for line in f]
+            rows0 = rows0 or rows
+            check(rows == rows0, f"dispatch {label}: its JSONL rows differ from the first run's")
+            depth = int(flags[1]) if flags else None
+            check(s["dispatch_depth"] == depth
+                  and (depth is None or s["max_in_flight"] == depth),
+                  f"dispatch {label}: depth {s['dispatch_depth']}, {s['max_in_flight']} in flight")
+            out[label].append({k: s[k] for k in ("step_ms", "images_per_sec", "host_blocked_s",
+                                                 "dispatch_syncs", "max_in_flight",
+                                                 "train_loop_s")})
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print("[main] dispatch depth (CUDA-event step ms, in turns): " + json.dumps(out), flush=True)
+    return out
 
 
 def phase_bsp_ranks(n_cards):
@@ -1614,144 +1688,312 @@ def phase_rules(n_cards: int, smi: str) -> dict:
 
 
 def _keep_newest(ckpt_dir: str) -> None:
-    """Remove every checkpoint in ``ckpt_dir`` but the newest (disk)."""
-    files = sorted((int(re.search(r"ckpt_(\d+)\.npz$", f).group(1)), f)
-                   for f in os.listdir(ckpt_dir) if f.endswith(".npz"))
-    for _, f in files[:-1]:
-        os.unlink(os.path.join(ckpt_dir, f))
+    """Remove every checkpoint in ``ckpt_dir`` but the newest (disk): a
+    single file, or every member of the newest sharded set."""
+    from theanompi_tpu_torch.utils.checkpoint import checkpoint_step, latest_checkpoint
+
+    newest = latest_checkpoint(ckpt_dir)
+    if newest is None:
+        return
+    keep = checkpoint_step(newest)
+    for f in os.listdir(ckpt_dir):
+        m = re.search(r"ckpt_(\d+)\.", f)
+        if m and f.endswith(".npz") and int(m.group(1)) != keep:
+            os.unlink(os.path.join(ckpt_dir, f))
 
 
-def _rel_diff(a, b) -> float:
-    a64, b64 = a.astype("float64"), b.astype("float64")
-    return float(abs(a64 - b64).max() / max(abs(a64).max(), 1e-30))
+def _state_digest(path: str) -> str:
+    """The digest a gathered save of the state in ``path`` records (a
+    single file, or a sharded set reassembled)."""
+    from theanompi_tpu_torch.utils.checkpoint import (
+        integrity_manifest, load_checkpoint, manifest_digest)
+
+    return manifest_digest(integrity_manifest(load_checkpoint(path)))
 
 
-def compare_final(control_a: str, control_b: str, resumed: dict) -> dict:
-    """Entry by entry: where the two controls' bytes agree the resumed
-    runs' must equal them; elsewhere each resumed run is held to twice the
-    controls' largest relative difference over all entries."""
-    import numpy as np
+def compare_final(control: str, resumed: dict) -> dict:
+    """Entry by entry, each resumed run's final checkpoint (a sharded set
+    reassembled) must equal the uninterrupted control's bit for bit:
+    dtype, shape and bytes."""
+    from theanompi_tpu_torch.utils.checkpoint import load_checkpoint
 
-    from theanompi_tpu_torch.utils.checkpoint import META_KEYS
-
-    with np.load(control_a) as fa, np.load(control_b) as fb:
-        keys = [k for k in fa.files if k not in META_KEYS]
-        check(sorted(keys) == sorted(k for k in fb.files if k not in META_KEYS),
-              "the controls' checkpoints hold different entries")
-        ctrl = {}
-        for k in keys:
-            a, b = fa[k], fb[k]
-            same = a.tobytes() == b.tobytes()
-            ctrl[k] = (a, 0.0 if same else _rel_diff(a, b), same)
-        limit = max(c[1] for c in ctrl.values())
-        out = {"entries": len(keys), "controls_bit_identical": sum(c[2] for c in ctrl.values()),
-               "controls_max_rel_diff": limit}
-        for label, path in resumed.items():
-            worst = 0.0
-            with np.load(path) as fr:
-                for k, (a, _, same) in ctrl.items():
-                    r = fr[k]
-                    if same:
-                        check(r.tobytes() == a.tobytes(),
-                              f"{label}: {k} differs from the controls, which agree bit for bit")
-                    else:
-                        d = _rel_diff(r, a)
-                        check(d <= 2 * limit, f"{label}: {k} relative difference {d:.3e} > "
-                                              f"twice the controls' {limit:.3e}")
-                        worst = max(worst, d)
-            out[f"{label}_max_rel_diff"] = worst
-    return out
+    fc = load_checkpoint(control)
+    keys = sorted(fc)
+    for label, path in resumed.items():
+        fr = load_checkpoint(path)
+        check(sorted(fr) == keys, f"{label}: its final checkpoint holds other entries "
+                                  f"({sorted(set(fr) ^ set(keys))})")
+        differ = [k for k in keys if fr[k].dtype != fc[k].dtype or fr[k].shape != fc[k].shape
+                  or fr[k].tobytes() != fc[k].tobytes()]
+        check(not differ, f"{label}: {len(differ)} entries differ from the uninterrupted "
+                          f"run's, first {differ[:4]}")
+    return {"entries": len(keys), "bit_identical": sorted(resumed)}
 
 
-def phase_resume():
-    """Checkpoint and resume through the CLI (module docstring, phase
-    resume), on one card and on 2 ranks sharing it over gloo."""
+def _records(obs_dir: str) -> list:
+    with open(os.path.join(obs_dir, "supervisor.jsonl")) as f:
+        return [json.loads(line) for line in f]
+
+
+def _check_launches(label: str, counts: dict, steps: int, codec: bool) -> None:
+    """One rank's counts of ``steps`` steps: one fused_momentum launch a
+    step over the 16 leaves, and with the codec one quant_block and one
+    dequant_block a step (none without)."""
+    want = {"fused_momentum": update_launches(16) * steps,
+            "quant_block": steps if codec else 0, "dequant_block": steps if codec else 0}
+    got = {k: counts.get(k, 0) for k in want}
+    check(got == want, f"{label}: launches {got}, expected {want}")
+
+
+def _resume_checks(label: str, s: dict, path: str, step: int) -> None:
+    """The resumed run loaded the state of ``path`` (the digest a save of
+    it records) at ``step``, with its dropout generators."""
+    check(s["resumed_from_step"] == step,
+          f"{label}: resumed from {s['resumed_from_step']}, expected {step}")
+    want = _state_digest(path)
+    check(s["resume"]["digest"] == want, f"{label}: the loaded state's digest "
+                                         f"{s['resume']['digest']} is not the file's {want}")
+    check(s["resume"]["torch_rng_restored"], f"{label}: the dropout generators were not restored")
+
+
+def _reshard_checks(label: str, s: dict, set_path: str, from_world: int, to_world: int,
+                    step: int) -> None:
+    """An elastic retry resharded the set ``set_path`` (step ``step``, a
+    world of ``from_world``) onto ``to_world`` ranks: the params it
+    loaded are the set's bit for bit, the residuals were reset, and the
+    dropout streams restarted from (seed, rank)."""
+    from theanompi_tpu_torch.utils.checkpoint import (
+        integrity_manifest, load_checkpoint, manifest_digest)
+
+    check(s["world"] == to_world and s["devices"] == to_world
+          and s["resharded_from_world"] == from_world and s["resumed_from_step"] == step,
+          f"{label}: world {s['world']}, resharded from {s['resharded_from_world']} at step "
+          f"{s['resumed_from_step']}, expected {from_world} -> {to_world} at {step}")
+    r = s["reshard"]
+    saved = load_checkpoint(set_path)
+    params = {k: v for k, v in saved.items() if k.startswith(".params/")}
+    check(r["params_digest"] == manifest_digest(integrity_manifest(params)),
+          f"{label}: the loaded params are not the set's")
+    check(len(r["reset"]) == 16 and all(k.startswith(".ef/") for k in r["reset"]),
+          f"{label}: reset leaves {r['reset']}, expected the 16 .ef residuals")
+    check(not s["resume"]["torch_rng_restored"],
+          f"{label}: generator rows of {from_world} ranks restored onto {to_world}")
+
+
+def phase_resume(n_cards: int = 1, nccl_only: bool = False):
+    """Checkpoint, resume and the supervisor through the CLI (module
+    docstring, phase resume): one card, 2 ranks sharing it over gloo,
+    and with 4 cards an NCCL shrink from 4 ranks to 2 (alone with
+    ``nccl_only``)."""
     import torch
 
     from theanompi_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from theanompi_tpu_torch.utils.checkpoint import latest_checkpoint, read_resumable_marker
 
     results = {}
-    for label, n, extra in (
+    configs = [
         ("one-card", 1, []),
         ("2-ranks-psum-int8:ef", 2, ["--device", "cuda:0", "--backend", "gloo",
                                      "--strategy", "psum", "--wire-codec", "int8:ef"]),
-    ):
+    ]
+    if n_cards >= 4:
+        nccl = ("4-ranks-nccl-psum-int8:ef", 4, ["--strategy", "psum", "--wire-codec", "int8:ef"])
+        configs = [nccl] if nccl_only else configs + [nccl]
+    for label, n, extra in configs:
         torch.cuda.empty_cache()
         root = tempfile.mkdtemp(prefix="tmpi-resume-")
         try:
-            def run(name, steps, *flags):
+            def run(name, *flags, rc=0):
                 d = os.path.join(root, name)
                 argv = ["BSP", str(n), "alexnet", "AlexNet", "--synthetic", "--fused-update",
-                        "--max-steps", str(steps), "--seed", "0", *FULL_WIDTH,
+                        "--max-steps", str(RESUME_STEPS), "--seed", "0", *FULL_WIDTH,
                         "--dataset-arg", f"n_train={128 * RESUME_EPOCH}",
                         "--dataset-arg", "n_val=128", "--ckpt-dir", d, *extra, *flags]
                 print(f"[resume] python -m theanompi_tpu_torch.cli {' '.join(argv)}", flush=True)
                 reset_launch_counts()
-                summary = run_cli(argv)
-                counts = summary["kernel_launches_per_rank"] if n > 1 else [launch_counts()]
-                check(summary["steps"] == steps and summary["nonfinite_steps"] == 0
+                t0 = time.perf_counter()
+                summary = run_cli(argv, rc)
+                wall = time.perf_counter() - t0
+                if rc:
+                    return summary, None, d
+                summary["wall_s"] = wall
+                counts = (summary["kernel_launches_per_rank"] if summary["devices"] > 1
+                          else [launch_counts()])
+                check(summary["steps"] == RESUME_STEPS and summary["nonfinite_steps"] == 0
                       and all(math.isfinite(v) for v in summary["losses"]),
                       f"{label} {name}: steps {summary['steps']}, losses {summary['losses']}")
-                _keep_newest(d)
-                return summary, counts
+                return summary, counts, d
 
-            half = RESUME_STEPS // 2
-            ctrl_a, _ = run("control-async", RESUME_STEPS)
-            ctrl_b, _ = run("control-sync", RESUME_STEPS, "--sync-ckpt")
-            resumed, firsts, resumed_counts = {}, {}, {}
-            for mode, flags in (("async", []), ("sync", ["--sync-ckpt"])):
-                firsts[mode], _ = run(f"resumed-{mode}", half, *flags)
-                resumed[mode], resumed_counts[mode] = run(f"resumed-{mode}", RESUME_STEPS,
-                                                          "--resume", *flags)
-                r, f = resumed[mode], firsts[mode]
-                check(r["resumed_from_step"] == half,
-                      f"{label} {mode}: resumed from {r['resumed_from_step']}, expected {half}")
-                check(r["resume"]["digest"] == f["checkpoints"][-1]["digest"],
-                      f"{label} {mode}: the loaded state's digest {r['resume']['digest']} is not "
-                      f"the writer's {f['checkpoints'][-1]['digest']}")
-                check(r["resume"]["torch_rng_restored"],
-                      f"{label} {mode}: the dropout generators were not restored")
-                want = {"fused_momentum": update_launches(16)}
-                if n > 1:
-                    want.update(quant_block=1, dequant_block=1)
-                for rank, counts in enumerate(resumed_counts[mode]):
-                    for k, v in want.items():
-                        check(counts[k] == v * (RESUME_STEPS - half),
-                              f"{label} {mode}: rank {rank} launched {k} {counts[k]} times after "
-                              f"the resume, expected {v} x {RESUME_STEPS - half}")
-                if n > 1:
-                    check(r["ef_digest_per_rank"] != f["ef_digest_per_rank"]
-                          and len(set(r["replica_digest_per_rank"])) == 1,
-                          f"{label} {mode}: residuals or replicas after the resume: "
-                          f"{r['ef_digest_per_rank']} {r['replica_digest_per_rank']}")
-            final = {k: s["checkpoints"][-1]["path"] for k, s in resumed.items()}
-            cmp = compare_final(ctrl_a["checkpoints"][-1]["path"],
-                                ctrl_b["checkpoints"][-1]["path"], final)
-            saves = {"async": ctrl_a["checkpoints"], "sync": ctrl_b["checkpoints"]}
-            info = {
-                "ranks": n, "compare": cmp,
-                "file_bytes": saves["sync"][-1]["bytes"],
-                "sync_save_ms": [{k: c[k] for k in ("step", "gather_ms", "crc_ms", "write_ms",
-                                                     "loop_ms")} for c in saves["sync"]],
-                "async_save_ms": [{k: c[k] for k in ("step", "loop_ms", "writer_ms", "crc_ms",
-                                                      "write_ms")} for c in saves["async"]],
-                "load_ms": {m: {k: r["resume"][k] for k in ("verify_ms", "load_ms")}
-                            for m, r in resumed.items()},
-                "epoch_step_ms": {"async": ctrl_a["epoch_step_ms"],
-                                  "sync": ctrl_b["epoch_step_ms"]},
-                "resumed_launches": {m: c for m, c in resumed_counts.items()},
-                "losses": {"control-async": ctrl_a["losses"], "control-sync": ctrl_b["losses"],
-                           **{f"resumed-{m}": firsts[m]["losses"] + r["losses"]
-                              for m, r in resumed.items()}},
-            }
-            print(f"[resume] {label}: {cmp['controls_bit_identical']} of {cmp['entries']} "
-                  f"entries bit-identical between the two uninterrupted runs (largest relative "
-                  f"difference {cmp['controls_max_rel_diff']:.3e}); resumed runs within "
-                  f"{cmp['async_max_rel_diff']:.3e} / {cmp['sync_max_rel_diff']:.3e}", flush=True)
-            print(f"[resume] {label}: file {info['file_bytes']} bytes; sync save "
-                  f"{info['sync_save_ms']}; async save {info['async_save_ms']}; load "
-                  f"{info['load_ms']}; epoch step ms (epoch 1 overlaps the async writer) "
-                  f"{info['epoch_step_ms']}", flush=True)
+            codec = n > 1
+            info = {"ranks": n, "launches": {}}
+            final = {}
+
+            def note_launches(name, s, counts):
+                """Each attempt's counts of the path's kernels, rank by rank
+                (the kernels line)."""
+                attempts = [f["launches_per_rank"] for f in s["failed_attempts"]] + [counts]
+                info["launches"][name] = [
+                    [{k: c.get(k, 0) for k in ("fused_momentum", "quant_block", "dequant_block")}
+                     for c in ranks] for ranks in attempts]
+
+            sync_saves = []  # the --sync-ckpt runs' saves
+            if n < 4:
+                # the uninterrupted run (the async writer); the resumed runs
+                # write async and --sync-ckpt, and each must end at its state
+                ctrl, _, dc = run("control")
+                _keep_newest(dc)
+            if n == 1:
+                # a supervised crash: ckpt_4 rots at rest, the crash before
+                # step 5 leaves no newer save, so the retry scrubs ckpt_4 away
+                # and walks back to ckpt_2
+                obs = os.path.join(root, "obs-crash")
+                s, counts, d = run("supervised-crash", "--max-retries", "2", "--retry-backoff",
+                                   "0", "--inject-fault", "bitrot@4", "--inject-fault",
+                                   "crash@5", "--obs-dir", obs)
+                check(s["retries"] == 1 and s["retry_causes"] == {"crash": 1},
+                      f"{label} supervised crash: retries {s['retries']} {s['retry_causes']}")
+                check(os.listdir(os.path.join(d, "quarantine")) == ["ckpt_4.npz"],
+                      f"{label} supervised crash: quarantine holds "
+                      f"{os.listdir(os.path.join(d, 'quarantine'))}")
+                (retry,) = [r for r in _records(obs) if r["kind"] == "retry"]
+                check(retry["step"] == 2, f"{label} supervised crash: the retry record names "
+                                          f"step {retry['step']}, expected 2")
+                _resume_checks(f"{label} supervised crash", s, os.path.join(d, "ckpt_2.npz"), 2)
+                (failed,) = s["failed_attempts"]
+                _check_launches(f"{label} supervised crash, attempt 1",
+                                failed["launches_per_rank"][0], 4, False)
+                # one process: the counts hold both attempts (4 + 4 steps)
+                _check_launches(f"{label} supervised crash, both attempts", counts[0], 8, False)
+                final["supervised-crash"] = latest_checkpoint(d)
+                note_launches("supervised-crash", s, counts)
+                info["supervised_crash"] = {"recovery_ms": s["recovery_ms"],
+                                            "recovery": s["recovery"], "retry": retry,
+                                            "load_ms": s["resume"]["load_ms"],
+                                            "verify_ms": s["resume"]["verify_ms"],
+                                            "wall_s": s["wall_s"]}
+                # preemption: SIGTERM before step 3 (the grace path saves step 3
+                # and marks the run), then the same command resumes by itself
+                pflags = ["--max-retries", "1", "--sigterm-grace", "30", "--sync-ckpt",
+                          "--inject-fault", "sigterm@3", "--fault-ledger",
+                          os.path.join(root, "ledger")]
+                out, _, d = run("preempted", *pflags, rc=75)
+                check(out == {"preempted": True, "step": 3, "resumable": True},
+                      f"{label} preemption: the CLI printed {out}")
+                marker = read_resumable_marker(d)
+                check(marker is not None and marker["step"] == 3,
+                      f"{label} preemption: marker {marker}")
+                s2, counts2, d = run("preempted", *pflags)
+                check(s2["preempt_resumes"] == 1 and s2["retries"] == 0
+                      and read_resumable_marker(d) is None,
+                      f"{label} preemption: {s2['preempt_resumes']} marker resumes, "
+                      f"{s2['retries']} retries")
+                _resume_checks(f"{label} preemption", s2, os.path.join(d, "ckpt_3.npz"), 3)
+                _check_launches(f"{label} preemption, the resumed invocation", counts2[0], 3, False)
+                sync_saves += s2["checkpoints"]
+                final["preempted"] = latest_checkpoint(d)
+                note_launches("preempted", s2, counts2)
+                info["preempted"] = {"load_ms": s2["resume"]["load_ms"], "wall_s": s2["wall_s"]}
+            elif n == 2:
+                # the default multi-rank resume, from a gathered file: no rank
+                # makes a crash save (a gathered save is collective), so the
+                # retry resumes from ckpt_4, written with --sync-ckpt
+                obs = os.path.join(root, "obs-gathered")
+                s, counts, d = run("gathered-crash", "--sync-ckpt", "--max-retries", "1",
+                                   "--retry-backoff", "0", "--inject-fault", "crash@5",
+                                   "--obs-dir", obs)
+                check(s["retries"] == 1 and s["retry_causes"] == {"crash": 1},
+                      f"{label} gathered crash: retries {s['retries']} {s['retry_causes']}")
+                (retry,) = [r for r in _records(obs) if r["kind"] == "retry"]
+                check(retry["step"] == 4, f"{label} gathered crash: the retry record names "
+                                          f"step {retry['step']}, expected 4")
+                _resume_checks(f"{label} gathered crash", s, os.path.join(d, "ckpt_4.npz"), 4)
+                (failed,) = s["failed_attempts"]
+                check(len(failed["launches_per_rank"]) == 2,
+                      f"{label} gathered crash: attempt 1 reported "
+                      f"{len(failed['launches_per_rank'])} ranks' launches")
+                for rank in range(2):
+                    _check_launches(f"{label} gathered crash, attempt 1 rank {rank}",
+                                    failed["launches_per_rank"][rank], 4, codec)
+                    _check_launches(f"{label} gathered crash, attempt 2 rank {rank}",
+                                    counts[rank], 2, codec)
+                check(s["ef_digest_per_rank"][0] != s["ef_digest_per_rank"][1]
+                      and len(set(s["replica_digest_per_rank"])) == 1,
+                      f"{label} gathered crash: residuals or replicas after the resume")
+                sync_saves += s["checkpoints"]
+                final["gathered-crash"] = latest_checkpoint(d)
+                note_launches("gathered-crash", s, counts)
+                info["gathered_crash"] = {"recovery_ms": s["recovery_ms"],
+                                          "recovery": s["recovery"], "retry": retry,
+                                          "load_ms": s["resume"]["load_ms"],
+                                          "verify_ms": s["resume"]["verify_ms"],
+                                          "wall_s": s["wall_s"]}
+                # each rank's crash save completes one sharded set at step 3
+                s, counts, d = run("sharded-crash", "--ckpt-sharded", "--max-retries", "1",
+                                   "--retry-backoff", "0", "--inject-fault", "crash@4")
+                members = sorted(f for f in os.listdir(d) if f.startswith("ckpt_3."))
+                check(members == ["ckpt_3.proc0of2.npz", "ckpt_3.proc1of2.npz"],
+                      f"{label} sharded crash: step 3's set is {members}")
+                _resume_checks(f"{label} sharded crash", s,
+                               os.path.join(d, "ckpt_3.proc0of2.npz"), 3)
+                (failed,) = s["failed_attempts"]
+                for rank in range(2):
+                    _check_launches(f"{label} sharded crash, attempt 1 rank {rank}",
+                                    failed["launches_per_rank"][rank], 3, codec)
+                    _check_launches(f"{label} sharded crash, attempt 2 rank {rank}",
+                                    counts[rank], 3, codec)
+                check(s["ef_digest_per_rank"][0] != s["ef_digest_per_rank"][1]
+                      and len(set(s["replica_digest_per_rank"])) == 1,
+                      f"{label} sharded crash: residuals or replicas after the resume")
+                final["sharded-crash"] = latest_checkpoint(d)
+                note_launches("sharded-crash", s, counts)
+                sharded_saves = [c for c in s["checkpoints"] if c["mode"] == "async"]
+                info["sharded_crash"] = {"recovery_ms": s["recovery_ms"],
+                                         "recovery": s["recovery"],
+                                         "load_ms": s["resume"]["load_ms"],
+                                         "async_save_ms": [{k: c[k] for k in (
+                                             "step", "loop_ms", "writer_ms", "write_ms", "bytes")}
+                                             for c in sharded_saves],
+                                         "wall_s": s["wall_s"]}
+            if n > 1:
+                # an elastic shrink: the world drops to n/2 ranks before step 4;
+                # the crash saves complete step 3's set, and the retry reshards it
+                to = n // 2
+                s, counts, d = run("elastic-shrink", "--ckpt-sharded", "--elastic",
+                                   "--max-retries", "1", "--retry-backoff", "0",
+                                   "--inject-fault", f"shrink@4:{to}")
+                _reshard_checks(f"{label} elastic shrink", s,
+                                os.path.join(d, f"ckpt_3.proc0of{n}.npz"), n, to, 3)
+                (failed,) = s["failed_attempts"]
+                for rank in range(n):
+                    _check_launches(f"{label} elastic shrink, attempt 1 rank {rank}",
+                                    failed["launches_per_rank"][rank], 3, True)
+                for rank in range(to):
+                    _check_launches(f"{label} elastic shrink, attempt 2 rank {rank}",
+                                    counts[rank], 3, to > 1)
+                note_launches("elastic-shrink", s, counts)
+                info["elastic_shrink"] = {"reshard": s["reshard"], "recovery_ms": s["recovery_ms"],
+                                          "recovery": s["recovery"],
+                                          "wall_s": s["wall_s"], "world": s["world"]}
+            if n < 4:
+                cmp = compare_final(ctrl["checkpoints"][-1]["path"], final)
+                info.update({
+                    "compare": cmp,
+                    "file_bytes": ctrl["checkpoints"][-1]["bytes"],
+                    "sync_save_ms": [{k: c[k] for k in ("step", "gather_ms", "crc_ms", "write_ms",
+                                                         "loop_ms")} for c in sync_saves],
+                    "async_save_ms": [{k: c[k] for k in ("step", "loop_ms", "writer_ms", "crc_ms",
+                                                          "write_ms")}
+                                      for c in ctrl["checkpoints"]],
+                    "epoch_step_ms": ctrl["epoch_step_ms"],
+                    "losses": {"control": ctrl["losses"]},
+                })
+                print(f"[resume] {label}: {', '.join(cmp['bit_identical'])} end bit for bit at the "
+                      f"uninterrupted run's state ({cmp['entries']} entries)", flush=True)
+                print(f"[resume] {label}: file {info['file_bytes']} bytes; sync save "
+                      f"{info['sync_save_ms']}; async save {info['async_save_ms']}; epoch step "
+                      f"ms {info['epoch_step_ms']}", flush=True)
+            print(f"[resume] {label}: " + json.dumps(
+                {k: v for k, v in info.items() if k not in ("compare", "losses")}), flush=True)
             results[label] = info
         finally:
             shutil.rmtree(root, ignore_errors=True)
@@ -4198,6 +4440,38 @@ def only_rules(smi: str, kind: str, t_start: float) -> int:
     return 0
 
 
+def only_resume(smi: str, kind: str, t_start: float) -> int:
+    """``--only resume``: build the phase's kernels (the fused update and
+    the quantizer) and run phase resume alone; on 4 cards only its NCCL
+    shrink from 4 ranks to 2 (the one-card and gloo runs need one card);
+    its JSON, the card line and the result line last."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+
+    from theanompi_tpu_torch.ops import fused_update as fu
+    from theanompi_tpu_torch.ops import quant as tq
+
+    try:
+        with ThreadPoolExecutor(max_workers=2) as pool:
+            for src, f in (("fused_update.cu", pool.submit(fu.build)),
+                           ("quant.cu", pool.submit(tq.build))):
+                print(f"[build] csrc/{src}: nvcc {f.result():.2f} s", flush=True)
+        t0 = time.perf_counter()
+        n = torch.cuda.device_count()
+        resume = phase_resume(n, nccl_only=n >= 4)
+        print(f"[resume] done ({time.perf_counter() - t0:.1f} s)", flush=True)
+    except Failed as e:
+        print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
+        return 1
+    print(f"chip_smoke: wall {time.perf_counter() - t_start:.1f} s", flush=True)
+    print(json.dumps({"resume": resume}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
 def build_all():
     """Build every kernel library at once (one nvcc per source, started
     together); returns {source: nvcc seconds}."""
@@ -4219,8 +4493,10 @@ def main(argv=None) -> int:
     args = sys.argv[1:] if argv is None else list(argv)
     only = None
     if args:
-        if len(args) != 2 or args[0] != "--only" or args[1] not in ("bsp-exchange", "rules"):
-            print("usage: python3 chip_smoke.py [--only bsp-exchange|rules]", file=sys.stderr)
+        if len(args) != 2 or args[0] != "--only" or args[1] not in ("bsp-exchange", "rules",
+                                                                       "resume"):
+            print("usage: python3 chip_smoke.py [--only bsp-exchange|rules|resume]",
+                  file=sys.stderr)
             return 2
         only = args[1]
     try:
@@ -4257,6 +4533,8 @@ def main(argv=None) -> int:
             return only_bsp_exchange(smi, kind, t_start)
         if only == "rules":
             return only_rules(smi, kind, t_start)
+        if only == "resume":
+            return only_resume(smi, kind, t_start)
         t0 = time.perf_counter()
         builds = build_all()
         for src, secs in builds.items():
@@ -4341,7 +4619,7 @@ def main(argv=None) -> int:
         print(f"[rules] done ({time.perf_counter() - t0:.1f} s)", flush=True)
 
         t0 = time.perf_counter()
-        resume_runs = phase_resume()
+        resume_runs = phase_resume(torch.cuda.device_count())
         print(f"[resume] done ({time.perf_counter() - t0:.1f} s)", flush=True)
 
         t0 = time.perf_counter()
@@ -4426,6 +4704,9 @@ def main(argv=None) -> int:
             "main_path_step_ms": runs[name]["summary"]["step_ms"],
             "main_path_images_per_sec": runs[name]["summary"]["images_per_sec"],
         })
+        if rule == "momentum":
+            # the same run at --dispatch-depth 1 and the default, in turns
+            kernels[-1]["dispatch_depth_runs"] = runs["dispatch"]
         if rule == "momentum":
             kernels[-1]["googlenet_main_launches"] = gnet_runs["pool-kernel"]["launches"][name]
             kernels[-1]["feed_main"] = {k: {"launches": r["launches"][name],
@@ -4810,9 +5091,10 @@ def main(argv=None) -> int:
                                     "resident_step_ms": gf["resident_step_ms"]}
     for k in kernels:
         if k["name"] in ("fused_momentum", "quant_block", "dequant_block"):
+            # phase resume's runs: each attempt's count on each rank
             k["resume_launches"] = {
-                label: {mode: [c[k["name"]] for c in counts]
-                        for mode, counts in r["resumed_launches"].items()}
+                label: {run: [[c.get(k["name"], 0) for c in attempt] for attempt in attempts]
+                        for run, attempts in r["launches"].items()}
                 for label, r in resume_runs.items() if r["ranks"] > 1 or k["name"] ==
                 "fused_momentum"}
     for k in kernels:

@@ -69,6 +69,8 @@ def test_importing_the_port_loads_no_jax():
         "import theanompi_tpu_torch.utils.checkpoint, theanompi_tpu_torch.utils.recorder\n"
         "import theanompi_tpu_torch.graphs, theanompi_tpu_torch.utils.flops\n"
         "import theanompi_tpu_torch.tools.bench\n"
+        "import theanompi_tpu_torch.utils.faults, theanompi_tpu_torch.utils.dispatch\n"
+        "import theanompi_tpu_torch.launch.supervisor\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'theanompi_tpu'))\n"
         "print(bad)\n"
     )

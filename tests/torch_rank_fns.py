@@ -169,3 +169,15 @@ def resume_step_rank(rank, n, device, steps):
 
     agree_on_step(steps[rank], n)
     return all_gather_objects(steps[rank], n)
+
+
+def fail_or_block_rank(rank, n, device):
+    """Rank 0 fails at once; every other rank stays blocked (as a peer
+    does in a collective that never returns) and never reports."""
+    import time
+
+    if rank == 0:
+        e = RuntimeError("rank 0 fails")
+        e.t_fail = time.time()
+        raise e
+    time.sleep(600)

@@ -233,7 +233,8 @@ def state_from_flat(flat: dict, template, layouts: Tree, rank: int = 0, world: i
         n = np.shape(flat[k])[0] if np.ndim(flat[k]) else None
         if n != world:
             raise ValueError(f"checkpoint leaf {k!r} stacks the residuals of {n} ranks; this "
-                             f"run has {world} (resharding is not ported)")
+                             f"run has {world} (a resume onto another world is elastic: "
+                             "--elastic reshards the checkpoint)")
     ef = template.ef
     if tree_leaves(template.ef):
         lays = _ef_layouts(template.ef, layouts)
@@ -283,8 +284,8 @@ def _worker_row(flat: dict, key: str, row: int, n_workers: int) -> np.ndarray:
     n = arr.shape[0] if arr.ndim else None
     if n != n_workers:
         raise ValueError(f"checkpoint leaf {key!r} stacks {n} workers; this run has "
-                         f"{n_workers} (a resume onto another worker count, elastic resume, "
-                         "is not ported)")
+                         f"{n_workers} (a resume onto another worker count is elastic: "
+                         "--elastic reshards the checkpoint, utils/checkpoint.load_resharded)")
     return arr[row]
 
 
@@ -318,3 +319,65 @@ def worker_from_flat(flat: dict, template, layouts: Tree, row: int, n_workers: i
     for k, _, _ in _state_pairs(template, layouts):
         sub[k] = _worker_row(flat, WORKERS + k, row, n_workers)
     return state_from_flat(sub, template._replace(ef=()), layouts)._replace(ef=template.ef)
+
+
+# --------------------------------------------------------------------------
+# the parts of a checkpoint each rank holds: sharded sets and reshard
+# targets, with no collective
+# --------------------------------------------------------------------------
+
+
+def state_parts(state, layouts: Tree, rank: int = 0, world: int = 1) -> list:
+    """``(entry, tensor, row, rows)`` of every entry of a BSP TrainState
+    this rank holds, in the reference's layout (views): the replicated
+    leaves (``row`` None) and its own row ``rank`` of each ``.ef`` stack
+    of ``world`` rows."""
+    parts = [(k, to_reference_layout(t.detach(), lay), None, 1)
+             for k, t, lay in _state_pairs(state, layouts)]
+    if tree_leaves(state.ef):
+        lays = _ef_layouts(state.ef, layouts)
+        parts += [(k, to_reference_layout(t.detach(), lays[i]), rank, world)
+                  for i, (k, t) in enumerate(_paths(state.ef, ".ef"))]
+    return parts
+
+
+def worker_parts(worker, layouts: Tree, row: int, n_workers: int) -> list:
+    """``(entry, tensor, row, rows)`` of one worker's ``.workers/`` rows
+    (its ``ef`` left out); ``row`` -1 where another rank of the worker's
+    group writes them."""
+    return [(WORKERS + k, to_reference_layout(t.detach(), lay), row, n_workers)
+            for k, t, lay in _state_pairs(worker._replace(ef=()), layouts)]
+
+
+def _np_dtype(v) -> np.dtype:
+    if isinstance(v, torch.Tensor):
+        dt = torch.float32 if v.dtype == torch.bfloat16 else v.dtype
+        return torch.empty((), dtype=dt).numpy().dtype
+    return np.asarray(v).dtype
+
+
+def entry_shapes(parts: list) -> dict:
+    """``{entry: (global shape, numpy dtype)}`` of a checkpoint from any
+    rank's parts (``utils/checkpoint.load_resharded``'s target)."""
+    return {k: ((rows, *tuple(v.shape)) if row is not None else tuple(v.shape), _np_dtype(v))
+            for k, v, row, rows in parts}
+
+
+def shard_layout(parts: list, rank: int) -> tuple:
+    """This rank's pieces of a sharded set: ``(entries, layout)``,
+    ``entries`` ``{name: tensor or array}`` to snapshot and ``layout``
+    ``{name: (entry, global shape, bounds)}``. Rank 0 writes the
+    replicated entries whole; every rank writes the rows it owns."""
+    entries, layout = {}, {}
+    for k, v, row, rows in parts:
+        shape = tuple(v.shape)
+        if row is None:
+            if rank != 0:
+                continue
+            entries[k] = v
+            layout[k] = (k, shape, [[0, d] for d in shape])
+        elif row >= 0:
+            name = f"{k}@{row}"
+            entries[name] = v.unsqueeze(0) if isinstance(v, torch.Tensor) else np.asarray(v)[None]
+            layout[name] = (k, (rows, *shape), [[row, row + 1], *([0, d] for d in shape)])
+    return entries, layout

@@ -72,6 +72,23 @@ a group)::
         --dataset imagenet_synthetic --fused-update --wire-codec int8 --max-steps 16 \
         --dataset-arg n_train=2048 --dataset-arg n_val=512
 
+Fault tolerance (``launch/supervisor.py``, ``utils/faults.py``): up to 2
+retries of a failed attempt, each resumed from the newest verified
+checkpoint; an injected crash before step 5 and a truncated newest file;
+per-rank sharded checkpoints and an elastic shrink from 2 ranks to 1;
+SIGTERM grace (exit code 75, ``resumable.json``; the next supervised
+invocation resumes by itself)::
+
+    python -m theanompi_tpu_torch.cli BSP 1 alexnet AlexNet --synthetic \
+        --fused-update --max-steps 8 --ckpt-dir CKPT --max-retries 2 \
+        --inject-fault crash@5 --inject-fault ckpt_truncate@4 --obs-dir OBS
+    python -m theanompi_tpu_torch.cli BSP 2 alexnet AlexNet --synthetic \
+        --device cuda:0 --backend gloo --wire-codec int8:ef --ckpt-dir CKPT \
+        --ckpt-sharded --elastic --max-retries 1 --inject-fault shrink@5:1 ...
+    python -m theanompi_tpu_torch.cli BSP 1 alexnet AlexNet --synthetic \
+        --ckpt-dir CKPT --max-retries 1 --sigterm-grace 30 --inject-fault sigterm@3 \
+        --fault-ledger LEDGER ...
+
 Runs on the CUDA card(s); ``--device cpu`` runs on the CPU instead
 (ranks over gloo), ``--device cuda:0 --backend gloo`` puts every rank on
 one card. Without a card and without ``--device cpu`` it fails. The
@@ -174,6 +191,64 @@ def build_parser() -> argparse.ArgumentParser:
                    help="gradient accumulation: split each rank's batch into this many "
                         "microbatches inside the step, their fp32 gradients averaged before "
                         "the one update (large-batch SGD at small-batch activation memory)")
+    p.add_argument("--dispatch-depth", type=int, default=None,
+                   help="keep at most K steps in flight before the host waits for the "
+                        "oldest (utils/dispatch.py); 1 is the reference's per-step sync. "
+                        "Default: no bound of its own, metrics read back every "
+                        "--print-freq steps and at epoch ends (the rows are the same "
+                        "either way; a sync every step costs the host's enqueue time on "
+                        "every step)")
+    p.add_argument("--ckpt-sharded", action="store_true",
+                   help="per-rank sharded checkpoints: each rank writes only its own "
+                        "part (ckpt_<step>.proc<r>of<n>.npz), with no gather and no "
+                        "collective; a set loads under any rank count, and a crash "
+                        "save runs on every rank")
+    p.add_argument("--max-retries", type=int, default=0,
+                   help="run under the fault-tolerant supervisor (launch/supervisor.py): "
+                        "retry a failed run up to N times, each attempt resumed from the "
+                        "newest VERIFIED checkpoint after a backoff (requires --ckpt-dir; "
+                        "0 = no supervisor)")
+    p.add_argument("--retry-backoff", type=float, default=1.0,
+                   help="supervisor backoff base in seconds: retry k sleeps base * "
+                        "2**(k-1), capped at 60s")
+    p.add_argument("--retry-jitter", action="store_true",
+                   help="decorrelated-jitter retry backoff instead of the plain "
+                        "exponential ladder (sleep_k = uniform(base, 3*sleep_{k-1}), "
+                        "capped): deterministic under --seed on one host, and the value "
+                        "slept is recorded in the retry record")
+    p.add_argument("--scrub-interval", type=float, default=0.0,
+                   help="background checkpoint scrubber: re-verify the keep-chain every "
+                        "N seconds and move corrupt members into <ckpt-dir>/quarantine/ "
+                        "(0 = off; the supervisor still scrubs once before each retry)")
+    p.add_argument("--fault-ledger", default=None, metavar="PATH",
+                   help="fired-fault ledger file for --inject-fault: fired specs are "
+                        "appended (fsynced before the fault's side effect) and specs "
+                        "already in it arm as fired, so a fault fires once across "
+                        "process relaunches")
+    p.add_argument("--elastic", action="store_true",
+                   help="elastic world size: with --max-retries every retry probes the "
+                        "world again (n_devices is the cap) and reshards the newest "
+                        "verified checkpoint onto it (utils/checkpoint.load_resharded); "
+                        "with --resume alone, a one-shot resume of a checkpoint of "
+                        "another world. Requires --ckpt-dir")
+    p.add_argument("--elastic-lr-scale", choices=["none", "linear"], default="none",
+                   help="with --elastic: scale the recipe's base LR by n_new / n_base on a "
+                        "world change (for EASGD/GoSGD, whose global batch grows with the "
+                        "world; BSP's global batch does not change, so 'none')")
+    p.add_argument("--sigterm-grace", type=float, default=0.0,
+                   help="preemption grace window in seconds: > 0 installs a SIGTERM "
+                        "handler; the loop then checkpoints, marks the run resumable "
+                        "(resumable.json in --ckpt-dir) and exits with code 75 instead of "
+                        "dying mid-step (0 = default SIGTERM disposition)")
+    p.add_argument("--inject-fault", action="append", default=[], metavar="KIND@STEP",
+                   help="deterministic fault injection (repeatable; utils/faults.py): "
+                        "crash@K, sigterm@K, sigkill@K, ckpt_truncate@K, nan_batch@K, "
+                        "loader_stall@K:S, shrink@K:W, grow@K:W, slice_down@K, enospc@K, "
+                        "slow_write@K:S, bitrot@K, partial_set@K; each fires once")
+    p.add_argument("--obs-dir", default=None,
+                   help="observability output dir; until the port's observability slice "
+                        "it holds only the supervisor's records (supervisor.jsonl, "
+                        "metrics.jsonl)")
     p.add_argument("--device", default=None,
                    help="'cpu' to run on the CPU, 'cuda:K' to put every rank on card K; "
                         "default: card r for rank r")
@@ -203,6 +278,18 @@ def main(argv=None) -> int:
         parser.error(f"--synthetic is --dataset synthetic; it contradicts --dataset {args.dataset}")
 
     from theanompi_tpu_torch.launch.session import launch_training
+    from theanompi_tpu_torch.utils.faults import Preempted
+
+    for flag, on in (("--max-retries", args.max_retries), ("--elastic", args.elastic),
+                     ("--sigterm-grace", args.sigterm_grace)):
+        if on and not args.ckpt_dir:
+            raise SystemExit(f"{flag} requires --ckpt-dir (retries, reshards and the grace "
+                             "window all resume from a checkpoint)")
+    if args.scrub_interval and not args.ckpt_dir:
+        print("WARNING: --scrub-interval needs --ckpt-dir; the checkpoint scrubber is off",
+              flush=True)
+    if args.dispatch_depth is not None and args.dispatch_depth < 1:
+        parser.error(f"--dispatch-depth must be >= 1, got {args.dispatch_depth}")
 
     rule_kwargs = {k: getattr(args, k) for k in ("avg_freq", "group_size", "alpha", "p_push")
                    if getattr(args, k) is not None}
@@ -216,34 +303,58 @@ def main(argv=None) -> int:
     if "image_shape" in dataset_kwargs:
         dataset_kwargs["image_shape"] = tuple(dataset_kwargs["image_shape"])
 
-    summary = launch_training(
-        args.rule.lower(),
-        args.n_devices,
-        args.modelfile,
-        args.modelclass,
-        backend=args.backend,
-        device=args.device,
-        fused_update=args.fused_update,
-        pool_kernel=args.pool_kernel,
-        strategy=args.strategy,
-        wire_codec=args.wire_codec,
-        n_epochs=args.epochs,
-        max_steps=args.max_steps,
-        dataset="synthetic" if args.synthetic else args.dataset,
-        dataset_kwargs=dataset_kwargs,
-        recipe_overrides=overrides,
-        seed=args.seed,
-        save_dir=args.save_dir,
-        ckpt_dir=args.ckpt_dir,
-        async_checkpoint=not args.sync_ckpt,
-        resume=args.resume,
-        print_freq=args.print_freq,
-        steps_per_dispatch=args.steps_per_dispatch,
-        accum_steps=args.accum_steps,
-        n_slices=args.slices,
-        allreduce_buckets=args.allreduce_buckets,
-        **rule_kwargs,
-    )
+    if args.max_retries > 0:
+        from theanompi_tpu_torch.launch.supervisor import supervise_training
+
+        def run(*a, **kw):
+            return supervise_training(*a, max_retries=args.max_retries,
+                                      backoff_base=args.retry_backoff,
+                                      retry_jitter=args.retry_jitter, obs_dir=args.obs_dir, **kw)
+    else:
+        run = launch_training
+    try:
+        summary = run(
+            args.rule.lower(),
+            args.n_devices,
+            args.modelfile,
+            args.modelclass,
+            backend=args.backend,
+            device=args.device,
+            fused_update=args.fused_update,
+            pool_kernel=args.pool_kernel,
+            strategy=args.strategy,
+            wire_codec=args.wire_codec,
+            n_epochs=args.epochs,
+            max_steps=args.max_steps,
+            dataset="synthetic" if args.synthetic else args.dataset,
+            dataset_kwargs=dataset_kwargs,
+            recipe_overrides=overrides,
+            seed=args.seed,
+            save_dir=args.save_dir,
+            ckpt_dir=args.ckpt_dir,
+            async_checkpoint=not args.sync_ckpt,
+            resume=args.resume,
+            print_freq=args.print_freq,
+            steps_per_dispatch=args.steps_per_dispatch,
+            accum_steps=args.accum_steps,
+            n_slices=args.slices,
+            allreduce_buckets=args.allreduce_buckets,
+            dispatch_depth=args.dispatch_depth,
+            ckpt_sharded=args.ckpt_sharded,
+            scrub_interval=args.scrub_interval,
+            elastic=args.elastic,
+            elastic_lr_scale=args.elastic_lr_scale,
+            sigterm_grace=args.sigterm_grace,
+            inject_faults=args.inject_fault or None,
+            fault_ledger=args.fault_ledger,
+            **rule_kwargs,
+        )
+    except Preempted as e:
+        # checkpointed and marked resumable inside the grace window: a
+        # retryable exit (EX_TEMPFAIL); the next supervised invocation
+        # resumes from the marker
+        print(json.dumps({"preempted": True, "step": e.step, "resumable": True}))
+        return 75
     print(json.dumps(summary, default=str))
     return 0
 

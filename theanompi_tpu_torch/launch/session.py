@@ -8,6 +8,19 @@ rank joins a ``torch.distributed`` process group through a ``file://``
 rendezvous in a fresh temporary directory, on its own card (``cuda:r``,
 NCCL) unless the caller names a device (``"cpu"``: gloo; ``"cuda:k"``:
 every rank on card k, which needs gloo).
+
+A rank's failure comes back to the parent as the same exception type
+when it is one the supervisor tells apart (``Preempted``,
+``TopologyChanged``, ``InjectedCrash``, ``OSError`` with its errno),
+with its ``step`` / ``new_world``, and the rank's traceback in the
+message; any other failure as ``RuntimeError``. The other ranks get
+``REPORT_GRACE`` seconds to report (ranks that fail alike, as an
+injected fault fires on every rank), or ``FAIL_GRACE`` seconds while a
+rank may still be writing (every rank's crash save under
+``--ckpt-sharded``, rank 0's preemption save), before they are stopped;
+the wait ends once every rank has exited. SIGTERM sent to the parent
+while ranks run is forwarded to each of them (their grace handlers
+decide what it means).
 """
 
 from __future__ import annotations
@@ -18,6 +31,7 @@ import multiprocessing as mp
 import os
 import queue
 import shutil
+import signal
 import tempfile
 import threading
 import time
@@ -72,6 +86,53 @@ def rank_devices(n: int, device=None) -> list:
     return [dev] * n
 
 
+# seconds the other ranks get to report after one fails, before they
+# are stopped: REPORT_GRACE for ranks that fail alike, FAIL_GRACE while
+# a rank may still be writing a save (module docstring)
+REPORT_GRACE = 3.0
+FAIL_GRACE = 30.0
+
+
+def _exc_payload(e: BaseException) -> dict:
+    """What the parent needs to raise ``e``'s type again: its class and
+    the attributes the supervisor reads."""
+    from theanompi_tpu_torch.ops.kernels import launch_counts
+    from theanompi_tpu_torch.utils.faults import InjectedCrash, Preempted, TopologyChanged
+
+    t = {"t_fail": getattr(e, "t_fail", None), "launches": launch_counts()}
+    for cls in (Preempted, TopologyChanged, InjectedCrash):
+        if isinstance(e, cls):
+            return {"type": cls.__name__, "step": getattr(e, "step", None),
+                    "kind": getattr(e, "kind", None), "new_world": getattr(e, "new_world", None),
+                    **t}
+    if isinstance(e, OSError):
+        return {"type": "OSError", "errno": e.errno, **t}
+    return {"type": "RuntimeError", **t}
+
+
+def rank_failure(rank: int, n: int, payload: dict, tb: str) -> BaseException:
+    """The parent's exception for rank ``rank``'s failure (module
+    docstring)."""
+    from theanompi_tpu_torch.utils.faults import InjectedCrash, Preempted, TopologyChanged
+
+    msg = f"rank {rank} of {n} failed:\n{tb}"
+    kind = payload.get("type")
+    if kind == "Preempted":
+        e = Preempted(payload["step"])
+    elif kind == "TopologyChanged":
+        e = TopologyChanged(payload["kind"], payload["step"], payload["new_world"])
+    elif kind == "InjectedCrash":
+        e = InjectedCrash(msg)
+    elif kind == "OSError":
+        e = OSError(payload.get("errno"), msg)
+    else:
+        e = RuntimeError(msg)
+    e.rank_traceback = tb
+    if payload.get("t_fail") is not None:
+        e.t_fail = payload["t_fail"]
+    return e
+
+
 def _rank_main(rank, n, init_method, backend, device, fn, args, results):
     from theanompi_tpu_torch.parallel.distributed import initialize_distributed
 
@@ -80,8 +141,8 @@ def _rank_main(rank, n, init_method, backend, device, fn, args, results):
             torch.cuda.set_device(device)
         initialize_distributed(init_method, n, rank, device=device, backend=backend)
         results.put((rank, True, fn(rank, n, device, *args)))
-    except BaseException:
-        results.put((rank, False, traceback.format_exc()))
+    except BaseException as e:
+        results.put((rank, False, (_exc_payload(e), traceback.format_exc())))
         raise
     finally:
         if dist.is_initialized():
@@ -101,15 +162,17 @@ def _stop(procs, grace: float = 10.0) -> None:
 
 
 def spawn_ranks(fn: Callable, n: int, args: tuple = (), *, device=None,
-                backend: Optional[str] = None, timeout: Optional[float] = None) -> list:
+                backend: Optional[str] = None, timeout: Optional[float] = None,
+                saves_on_fail: bool = False) -> list:
     """Run ``fn(rank, n, device, *args)`` in ``n`` fresh processes (spawn),
     each one rank of a process group, and return their results in rank
     order. ``fn`` must be importable (a module-level function) and return
     something picklable; CPU tensors would be shared through memory that
     dies with the rank, so return numpy arrays or plain values. A rank
-    that raises or dies stops the others, and the error is raised here
-    with that rank's traceback; so is a run longer than ``timeout``
-    seconds."""
+    that raises or dies stops the others (after ``FAIL_GRACE`` seconds
+    to finish when ``saves_on_fail`` or the rank was preempted, else
+    ``REPORT_GRACE``), and its error is raised here (module docstring);
+    so is a run longer than ``timeout`` seconds."""
     from theanompi_tpu_torch.parallel.distributed import default_backend
 
     devices = rank_devices(n, device)
@@ -127,6 +190,15 @@ def spawn_ranks(fn: Callable, n: int, args: tuple = (), *, device=None,
                          args=(r, n, init_method, backend, devices[r], fn, args, results))
              for r in range(n)]
     out: dict = {}
+    forwarding = threading.current_thread() is threading.main_thread()
+    prev_sigterm = None
+    if forwarding:
+        def forward(signum, frame):
+            for p in procs:
+                if p.is_alive():
+                    os.kill(p.pid, signal.SIGTERM)
+
+        prev_sigterm = signal.signal(signal.SIGTERM, forward)
     try:
         for p in procs:
             p.start()
@@ -144,12 +216,29 @@ def spawn_ranks(fn: Callable, n: int, args: tuple = (), *, device=None,
                     raise TimeoutError(f"{n} ranks did not finish within {timeout} s")
                 continue
             if not ok:
-                raise RuntimeError(f"rank {rank} of {n} failed:\n{value}")
+                # the others fail alike (an injected fault fires on every
+                # rank) and may be writing their saves: let them end
+                failed = {rank: value}
+                writing = saves_on_fail or value[0].get("type") == "Preempted"
+                end = time.monotonic() + (FAIL_GRACE if writing else REPORT_GRACE)
+                while time.monotonic() < end and any(p.is_alive() for p in procs):
+                    try:  # a rank exits only once its result left the pipe
+                        r, ok, v = results.get(timeout=0.2)
+                    except queue.Empty:
+                        continue
+                    if not ok:
+                        failed[r] = v
+                e = rank_failure(rank, n, *value)
+                # every failed rank's kernel launches, for the supervisor's record
+                e.rank_launches = {r: p.get("launches") for r, (p, _) in sorted(failed.items())}
+                raise e
             out[rank] = value
         for p in procs:
             p.join(timeout=60)
     finally:
         _stop(procs)
+        if forwarding:
+            signal.signal(signal.SIGTERM, prev_sigterm)
         results.close()
         shutil.rmtree(rdv_dir, ignore_errors=True)
     return [out[r] for r in range(n)]
@@ -176,7 +265,8 @@ def launch_training(rule: str, devices: int, modelfile: str, modelclass: str, *,
                             devices=devices, **kwargs)
     device = kwargs.pop("device", None)
     return spawn_ranks(_train_rank, devices, (rule, modelfile, modelclass, kwargs),
-                       device=device, backend=backend)[0]
+                       device=device, backend=backend,
+                       saves_on_fail=bool(kwargs.get("ckpt_sharded")))[0]
 
 
 class SyncRule:

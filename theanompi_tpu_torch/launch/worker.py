@@ -15,19 +15,42 @@ error-feedback residuals and dropout generator state to rank 0, which
 writes ``ckpt_<step>.npz`` in the reference's format
 (``utils/checkpoint.py``; the engine's ``state_entries``), on the writer
 thread of an ``AsyncCheckpointer`` unless ``async_checkpoint=False``.
+With ``ckpt_sharded`` every rank writes its own member of a sharded set
+instead (the engine's ``checkpoint_parts``: rank 0 the replicated
+leaves, each rank its rows of the stacks), with no collective. Every
+save carries the topology manifest (the engine's ``mesh_topology`` and
+``elastic_spec``, and ``base_world``, the world the base LR was set for,
+carried on from the checkpoint a run resumed from).
 ``resume=True`` loads the newest verified checkpoint on every rank (all
 ranks must resolve the same step), restores each rank's residual row and
 generator, and starts at epoch ``step // steps_per_epoch``, skipping the
 batches of a mid-epoch checkpoint that the restored steps consumed, so
-the data and dropout streams continue bit for bit. ``max_steps`` counts
-from step 0 of the run's timeline. An exception in a one-rank run saves
-the last whole step first (the crash save). The JAX package reads these
-files and the port reads the JAX package's; a JAX file carries no torch
-generator state, so the dropout stream then starts from the seed.
+the data and dropout streams continue bit for bit. With ``elastic`` a
+checkpoint of another world is resharded onto this one
+(``load_resharded``; generator rows of another world restart each rank's
+dropout stream from ``(seed, rank)``). ``max_steps`` counts from step 0
+of the run's timeline. An exception saves the last whole step first (the
+crash save): on one rank, or on every rank with ``ckpt_sharded``; a
+gathered save is collective, so without it several ranks skip it. The
+JAX package reads these files and the port reads the JAX package's; a
+JAX file carries no torch generator state, so the dropout stream then
+starts from the seed.
+Fault tolerance, at the reference's points: an injector
+(``utils/faults.py``) fires its faults before the step they name
+(``check_step``), poisons that step's batch, mangles the newest durable
+checkpoint after a save and, through the checkpoint writer's hook,
+fails or stalls a write. With ``sigterm_grace`` a SIGTERM handler sets a
+flag: one rank reads it before each step, several ranks agree on it with
+one ``all_reduce`` where the loop drains anyway (so that all stop after
+the same step); the loop then saves the step, writes ``resumable.json``
+and raises ``Preempted``. ``scrub_interval`` runs the scrubber on rank 0.
+The supervisor (``launch/supervisor.py``) retries such runs.
 The recorder (``utils/recorder.py``; files on rank 0 under
 ``save_dir``) gets one ``train`` row a step from the loop's drains,
 ``val`` and ``epoch`` rows, and prints the reference's console lines.
-The supervisor and elastic resume come in later slices.
+The dispatcher (``utils/dispatch.py``) decides when the loop drains:
+every ``print_freq`` steps and at epoch ends, or with ``dispatch_depth``
+K as soon as K steps are in flight.
 
 Rules ``easgd`` and ``gosgd`` (``parallel/easgd.py``, ``parallel/gosgd.py``,
 the reference's ``rule_kwargs``: ``avg_freq``, ``alpha``, ``p_push``,
@@ -43,8 +66,8 @@ reads its worker's rows). The loop calls ``engine.exchange`` after every
 as the recorder's ``comm`` with a sync on the card; a group of steps
 runs its exchanges itself. A checkpoint holds the reference's stacked
 ``EASGDState`` / ``GOSGDState`` (the engines' ``state_entries``); on
-resume each rank takes its worker's row, and a file of another worker
-count is refused by name.
+resume each rank takes its worker's row; a file of another worker
+count is refused by name unless the resume is elastic.
 
 Ranks. With ``devices=n > 1`` this function runs in each of n rank
 processes of one process group (``launch/session.py`` spawns them). As
@@ -83,15 +106,17 @@ pinned memory into the graph's input buffer; on the CPU the steps run
 eagerly. Each step keeps its recorder row, its CUDA-event interval and
 its wait, and saves fall where the per-step loop's do (epoch ends, the
 ``max_steps`` cut), since no group crosses them. A group enqueues
-without waiting for the card, so the drains every ``print_freq`` steps
-are what bound how far the host runs ahead.
+without waiting for the card, so the drains every ``print_freq`` steps,
+or ``dispatch_depth``, bound how far the host runs ahead.
 """
 
 from __future__ import annotations
 
 import itertools
 import math
+import signal
 import sys
+import threading
 import time
 from collections import deque
 from typing import Optional
@@ -100,7 +125,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from theanompi_tpu_torch import native
+from theanompi_tpu_torch import bridge, native
 from theanompi_tpu_torch.data import get_dataset
 from theanompi_tpu_torch.data.loader import PrefetchLoader, host_tensors, pinned_array
 from theanompi_tpu_torch.device import resolve_device
@@ -113,6 +138,7 @@ from theanompi_tpu_torch.parallel.mesh import (
     DATA_AXIS,
     host_local_batch_slice,
     rank_generator,
+    slice_topology,
     worker_groups,
 )
 from theanompi_tpu_torch.parallel.workers import Clock
@@ -121,14 +147,24 @@ from theanompi_tpu_torch.tree import digest, tree_leaves
 from theanompi_tpu_torch.utils.checkpoint import (
     TORCH_RNG_KEY,
     AsyncCheckpointer,
+    CheckpointScrubber,
     checkpoint_step,
+    clear_resumable_marker,
     integrity_manifest,
     latest_checkpoint,
     load_checkpoint,
+    load_resharded,
     manifest_digest,
+    read_topology_manifest,
     save_checkpoint,
+    save_checkpoint_sharded,
+    set_write_fault_hook,
+    shard_pieces,
     to_numpy,
+    write_resumable_marker,
 )
+from theanompi_tpu_torch.utils.dispatch import MetricsDispatcher
+from theanompi_tpu_torch.utils.faults import FaultInjector, Preempted
 from theanompi_tpu_torch.utils.recorder import Recorder
 
 # summary["losses"] keeps the most recent per-step losses
@@ -186,6 +222,14 @@ def run_training(
     accum_steps: int = 1,
     n_slices: Optional[int] = None,
     allreduce_buckets: float = 0.0,
+    dispatch_depth: Optional[int] = None,
+    ckpt_sharded: bool = False,
+    scrub_interval: float = 0.0,
+    elastic: bool = False,
+    elastic_lr_scale: str = "none",
+    sigterm_grace: float = 0.0,
+    inject_faults=None,
+    fault_ledger: Optional[str] = None,
     **rule_kwargs,
 ) -> dict:
     """Train ``model_cls`` under a sync rule (``bsp``, ``easgd``,
@@ -209,9 +253,22 @@ def run_training(
     ``hier`` strategy's two hops run over them). ``allreduce_buckets``:
     the exchange in buckets of about that many MB, posted from the
     backward (``--allreduce-buckets``; ``psum`` and ``hier``).
+    ``dispatch_depth``: at most that many steps in flight before the
+    host waits for the oldest (``utils/dispatch.py``; None: drains every
+    ``print_freq`` steps and at epoch ends). ``ckpt_sharded``: each rank
+    writes its member of a sharded set, with no collective.
+    ``scrub_interval``: seconds between the background scrubber's passes
+    over ``ckpt_dir`` (0: off). ``elastic``: a resume onto another world
+    reshards the checkpoint (``load_resharded``); ``elastic_lr_scale``
+    ``"linear"`` scales the recipe's base LR by this world over the
+    manifest's ``base_world``. ``sigterm_grace``: > 0 installs a SIGTERM
+    handler; the loop then checkpoints, marks the run resumable and
+    raises ``Preempted``. ``inject_faults``: fault specs
+    (``utils/faults.py``), with ``fault_ledger`` the fired-fault file.
     ``rule_kwargs``: EASGD's ``avg_freq``, ``alpha``, ``group_size``;
     GoSGD's ``p_push``, ``avg_freq``, ``gossip_every``, ``group_size``
     (module docstring)."""
+    run_start_t = time.time()
     device = resolve_device(device)
     k = int(steps_per_dispatch)
     if k < 1:
@@ -246,9 +303,35 @@ def run_training(
     # the ranks' worker layout (raises when the groups or slices do not fit)
     n_workers = worker_groups(devices, group_size, n_slices)[0] if rule != "bsp" else devices
 
+    if elastic_lr_scale not in ("none", "linear"):
+        raise ValueError(f"elastic_lr_scale must be 'none' or 'linear', got {elastic_lr_scale!r}")
+    if dispatch_depth is not None and int(dispatch_depth) < 1:
+        raise ValueError(f"dispatch_depth must be >= 1, got {dispatch_depth}")
+
     recipe = model_cls.default_recipe()
     if recipe_overrides:
         recipe = recipe.replace(**recipe_overrides)
+    # the LR-scale anchor, the world the base LR was set for: carried
+    # through every manifest as elastic.base_world, so the scale stays
+    # this world / base over any number of reshards (read on every resume:
+    # a plain resume in an elastic sequence keeps the anchor)
+    base_world = resume_path = None
+    if resume and ckpt_dir:
+        t0 = time.perf_counter()
+        # verify=True walks back past a corrupt or truncated newest file
+        resume_path = latest_checkpoint(ckpt_dir, verify=True)
+        verify_ms = (time.perf_counter() - t0) * 1e3
+        manifest = read_topology_manifest(resume_path) if resume_path else None
+        if manifest and manifest.get("mesh"):
+            saved_world = int(np.prod(manifest["mesh"]["shape"]))
+            base_world = int((manifest.get("elastic") or {}).get("base_world") or saved_world)
+            if (elastic and elastic_lr_scale == "linear" and devices != base_world
+                    and "lr" in (recipe.sched_kwargs or {})):
+                sk = dict(recipe.sched_kwargs)
+                sk["lr"] = float(sk["lr"]) * devices / base_world
+                recipe = recipe.replace(sched_kwargs=sk)
+                print(f"[elastic] linear LR rescale: world {base_world} -> {devices}, base lr "
+                      f"now {sk['lr']:g}", flush=True)
     if (group_size > 1 and recipe.bn_axis_name is None
             and "bn_axis_name" not in (recipe_overrides or {})):
         # a worker group is statistically one worker: BN statistics over
@@ -346,6 +429,19 @@ def run_training(
         if device.type == "cuda":
             torch.cuda.synchronize(device)
 
+    # the topology stamp of every save: the engine's mesh, its reshard
+    # policies, and the LR-scale anchor (a fresh run anchors to its world)
+    mesh = engine.mesh_topology()
+    topology = {"mesh": mesh, "stack_axes": engine.stack_axes(),
+                "elastic": {**engine.elastic_spec(),
+                            "base_world": int(base_world or np.prod(mesh["shape"]))}}
+
+    def parts(state) -> list:
+        """This rank's parts of a checkpoint, its dropout generator's row
+        included (no collective)."""
+        return engine.checkpoint_parts(state, layouts) + [
+            (TORCH_RNG_KEY, step_gen.get_state(), rank, devices)]
+
     summary: dict = {"epochs": [], "rule": rule, "model": model.name,
                      "device": str(device), "fused_update": bool(fused_update),
                      "pool_kernel": bool(pool_kernel),
@@ -355,19 +451,22 @@ def run_training(
                      "steps_per_dispatch": k, "accum_steps": engine.accum_steps,
                      "allreduce_buckets": float(allreduce_buckets or 0.0),
                      "bn_axis_name": recipe.bn_axis_name, "resumed_from_step": None,
+                     "ckpt_sharded": bool(ckpt_sharded), "elastic": bool(elastic),
+                     "resharded_from_world": None, "mesh": mesh, "run_start_t": run_start_t,
                      **engine.summary_fields(batch)}
 
     start_epoch = 0
     if resume and ckpt_dir:
-        t0 = time.perf_counter()
-        # verify=True walks back past a corrupt or truncated newest file
-        path = latest_checkpoint(ckpt_dir, verify=True)
-        verify_ms = (time.perf_counter() - t0) * 1e3
+        path = resume_path
         if devices > 1:
             agree_on_step(checkpoint_step(path), devices)
         if path:
             t0 = time.perf_counter()
-            flat = load_checkpoint(path)
+            reshard = None
+            if elastic:
+                flat, reshard = load_resharded(path, bridge.entry_shapes(parts(state)), mesh)
+            else:
+                flat = load_checkpoint(path)
             state = engine.restore(flat, state, layouts)
             saved = flat.get(TORCH_RNG_KEY)
             own = step_gen.get_state()
@@ -378,12 +477,25 @@ def run_training(
                 print(f"[rank 0] {path} holds no dropout generator state of this run "
                       f"({'none' if saved is None else f'shape {saved.shape}'}; this run's "
                       f"{devices} x {own.numel()} bytes): the dropout stream starts from the "
-                      "seed, as a fresh run's does", flush=True)
+                      "seed, each rank's from (seed, rank), as a fresh run's does", flush=True)
             sync()
             load_ms = (time.perf_counter() - t0) * 1e3
             step0 = engine.get_step(state)
             start_epoch = step0 // steps_per_epoch
             summary["resumed_from_step"] = step0
+            if reshard is not None and reshard["resharded"]:
+                summary["resharded_from_world"] = reshard["from_world"]
+                # the replicated params as loaded, digested as the file holds them
+                params = {key: to_numpy(v) for key, v, row, _ in parts(state)
+                          if row is None and key.startswith((".params/", ".center_params/"))}
+                summary["reshard"] = {**reshard, "step": step0, "load_ms": load_ms,
+                                      "per_rank_batch": batch // devices,
+                                      "params_digest": manifest_digest(integrity_manifest(params))}
+                if rank == 0:
+                    print(f"[elastic] resharded {path} onto this world: {reshard['from_world']} "
+                          f"-> {reshard['to_world']} ranks, {reshard['leaves']} leaves, "
+                          f"{len(reshard['reset'])} reset, per-rank batch {batch // devices}",
+                          flush=True)
             # what the resumed run holds, digested as a save would write
             # it: equal to the digest the writer recorded at that step
             entries = _checkpoint_entries(engine, state, layouts, step_gen, devices, rank)
@@ -394,7 +506,9 @@ def run_training(
                     {k: to_numpy(v) for k, v in entries.items()}))
                 summary["resume"] = {"path": path, "step": step0, "verify_ms": verify_ms,
                                      "load_ms": load_ms, "digest": file_digest,
-                                     "torch_rng_restored": rng_restored}
+                                     "torch_rng_restored": rng_restored,
+                                     "torch_rng": ("restored" if rng_restored else
+                                                   "restarted from (seed, rank)")}
                 print(f"resumed from {path} at step {step0}", flush=True)
 
     def place(batch):
@@ -405,24 +519,81 @@ def run_training(
 
     rec = Recorder(rank=rank, print_freq=print_freq if rank == 0 else 0,
                    save_dir=save_dir if rank == 0 else None, run_name=f"{model.name}_{rule}")
-    writer = AsyncCheckpointer() if (ckpt_dir and async_checkpoint and rank == 0) else None
-    saves: list = []  # rank 0's sync saves; the writer keeps its own records
+    writer = (AsyncCheckpointer()
+              if ckpt_dir and async_checkpoint and (rank == 0 or ckpt_sharded) else None)
+    saves: list = []  # sync saves of this rank; the writer keeps its own records
+    all_keys = list(bridge.entry_shapes(parts(state))) if ckpt_sharded else None
 
     def save(state, step: int, sync_write: bool = False) -> None:
-        """Collective: every rank gathers, rank 0 writes (on the writer
-        thread unless there is none or ``sync_write``)."""
+        """Without ``ckpt_sharded`` collective: every rank gathers, rank 0
+        writes. With it, every rank writes its member, with no
+        collective. On the writer thread unless there is none or
+        ``sync_write``."""
         t0 = time.perf_counter()
+        if ckpt_sharded:
+            entries, layout = bridge.shard_layout(parts(state), rank)
+            shard_spec = {"rank": rank, "world": devices, "layout": layout, "keys": all_keys}
+            if writer is not None and not sync_write:
+                writer.save(ckpt_dir, entries, step, topology=topology, shard=shard_spec)
+                return
+            flat = {name: to_numpy(v) for name, v in entries.items()}
+            info = {"step": step, "gather_ms": (time.perf_counter() - t0) * 1e3}
+            info["path"] = save_checkpoint_sharded(ckpt_dir, shard_pieces(flat, layout), step,
+                                                   rank, devices, info=info, topology=topology,
+                                                   keys=all_keys)
+            info["loop_ms"] = (time.perf_counter() - t0) * 1e3
+            saves.append(info)
+            return
         entries = _checkpoint_entries(engine, state, layouts, step_gen, devices, rank)
         if rank != 0:
             return
         if writer is not None and not sync_write:
-            writer.save(ckpt_dir, entries, step)
+            writer.save(ckpt_dir, entries, step, topology=topology)
             return
-        flat = {k: to_numpy(v) for k, v in entries.items()}
+        flat = {name: to_numpy(v) for name, v in entries.items()}
         info = {"step": step, "gather_ms": (time.perf_counter() - t0) * 1e3}
-        info["path"] = save_checkpoint(ckpt_dir, flat, step, info=info)
+        info["path"] = save_checkpoint(ckpt_dir, flat, step, info=info, topology=topology)
         info["loop_ms"] = (time.perf_counter() - t0) * 1e3
         saves.append(info)
+
+    # injected faults fire at fixed steps (utils/faults.py); the storage
+    # faults inside the checkpoint write, through the process-wide hook
+    faults = FaultInjector(inject_faults, ledger=fault_ledger, rank=rank) if inject_faults else None
+    if faults is not None:
+        set_write_fault_hook(faults.write_fault)
+        faults.set_topology(*slice_topology(devices, n_slices))
+    scrubber = None
+    if ckpt_dir and scrub_interval and scrub_interval > 0 and rank == 0:
+        scrubber = CheckpointScrubber(ckpt_dir, interval=float(scrub_interval))
+        scrubber.start()
+    # SIGTERM sets a flag the loop reads: one rank before each step;
+    # several ranks agree on it where the loop drains anyway, so that all
+    # of them stop after the same step
+    preempt = {"flag": False}
+    prev_sigterm, sigterm_installed = None, False
+    if sigterm_grace and sigterm_grace > 0:
+        if threading.current_thread() is threading.main_thread():
+            def on_sigterm(signum, frame):
+                preempt["flag"] = True
+                print(f"[rank {rank}] SIGTERM: will checkpoint and exit within the "
+                      f"{sigterm_grace}s grace window", flush=True)
+
+            prev_sigterm = signal.signal(signal.SIGTERM, on_sigterm)
+            sigterm_installed = True
+        else:
+            print(f"[rank {rank}] WARNING: sigterm_grace needs the main thread (a signal "
+                  "handler cannot be installed from a session's background thread); "
+                  "preemption grace is off for this run", flush=True)
+
+    def preempted() -> bool:
+        """Did any rank get SIGTERM? Collective with several ranks: call
+        it only where every rank is at the same step."""
+        if not sigterm_installed or devices == 1:
+            return preempt["flag"]
+        on = device if dist.get_backend() == "nccl" else torch.device("cpu")
+        flag = torch.tensor([1.0 if preempt["flag"] else 0.0], device=on)
+        dist.all_reduce(flag, op=dist.ReduceOp.MAX)
+        return bool(flag.item())
 
     losses: deque = deque(maxlen=LOSS_HISTORY)
     nonfinite = 0
@@ -436,26 +607,47 @@ def run_training(
     # a mid-epoch checkpoint: the batches its steps consumed are skipped
     skip_batches = step_count % steps_per_epoch
     torn = False  # True while a step may be half applied (in-place update)
+    epoch_ivals: list = []
+    read_stream = None  # reads rows of finished steps past newer ones in flight
 
-    def drain(pending: list, marks: list, epoch_ivals: list):
-        """Read the pending steps' metrics back in one copy, and record a
-        row per step with its time from the step events."""
-        nonlocal nonfinite
-        if not pending:
-            return
-        keys = sorted(pending[0][1])
-        vals = torch.stack([torch.stack([torch.as_tensor(m[k]).float().reshape(()) for k in keys])
-                            for _, m, _ in pending]).cpu().tolist()
-        ivals = clock.intervals_ms(marks[-(len(pending) + 1):])
-        for (step, _, wait_ms), row, ms in zip(pending, vals, ivals):
+    def drain(entries: list, partial: bool) -> None:
+        """Read the rows of ``entries`` (``(step, metrics, wait_ms,
+        start mark, end mark, ready mark)``, the ready mark recorded once
+        the metrics were made) back in one copy, and record a row per
+        step with its time from its events. ``partial``: newer steps are
+        in flight, so the copy runs on a side stream, which waits for
+        none of them (the dispatcher waited for these steps' events)."""
+        nonlocal nonfinite, read_stream
+        keys = sorted(entries[0][1])
+
+        def read():
+            return torch.stack([torch.stack([torch.as_tensor(m[key]).float().reshape(())
+                                             for key in keys])
+                                for _, m, *_ in entries]).cpu().tolist()
+
+        if partial and device.type == "cuda":
+            entries[-1][5].synchronize()
+            if read_stream is None:
+                read_stream = torch.cuda.Stream(device)
+            with torch.cuda.stream(read_stream):
+                vals = read()
+        else:
+            vals = read()
+        if clock.cuda:
+            entries[-1][4].synchronize()
+            ivals = [e[3].elapsed_time(e[4]) for e in entries]
+        else:
+            ivals = [(e[4] - e[3]) * 1e3 for e in entries]
+        for (step, _, wait_ms, *_), row, ms in zip(entries, vals, ivals):
             metrics = dict(zip(keys, row))
             nonfinite += not math.isfinite(metrics["loss"])
             losses.append(metrics["loss"])
             rec.note_time("wait", wait_ms / 1e3)
             rec.note_time("step", ms / 1e3)
             rec.train_metrics(step, metrics, n_images=batch)
-        epoch_ivals += ivals
-        pending.clear()
+        epoch_ivals.extend(ivals)
+
+    disp = MetricsDispatcher(drain, dispatch_depth, print_freq)
 
     try:
         for epoch in range(start_epoch, n_epochs):
@@ -464,8 +656,7 @@ def run_training(
             rec.start_epoch()
             t_loop0 = time.perf_counter()
             marks = [clock.mark()]
-            pending: list = []
-            epoch_ivals: list = []
+            epoch_ivals = []
             epoch_waits: list = []
             epoch_steps = 0
             # on the card, the native loader writes each batch into pinned memory
@@ -476,6 +667,8 @@ def run_training(
                 skip_batches = 0
             with PrefetchLoader(source, place, depth=PREFETCH_DEPTH) as batches:
                 while True:
+                    if devices == 1 and preempt["flag"]:
+                        raise Preempted(step_count)
                     # a group of up to k batches, never past max_steps
                     # and never across an epoch
                     want = min(k, max_steps - step_count) if max_steps else k
@@ -489,40 +682,68 @@ def run_training(
                         group.append((x, y, (time.perf_counter() - t_wait) * 1e3))
                     if not group:
                         break
+                    first = step_count
+                    if faults is not None:
+                        faults.check_step(first + 1, first + len(group))
                     torn = True
                     if k == 1:
                         x, y, _ = group[0]
-                        state, metrics = engine.train_step(state, to_device(x), to_device(y),
-                                                           step_gen)
+                        x = to_device(x)
+                        if faults is not None:
+                            x = faults.poison_batch(x, first + 1)
+                        state, metrics = engine.train_step(state, x, to_device(y), step_gen)
                         marks.append(clock.mark())
+                        disp.enqueued(first + 1, marks[-1])
                         rows = [metrics]
+                        ready = marks[-1]
                     else:
+                        xs = [g[0] for g in group]
+                        if faults is not None:
+                            xs = [faults.poison_batch(x, first + 1 + i) for i, x in enumerate(xs)]
+                        done = itertools.count(first + 1)
+
+                        def after_step():
+                            marks.append(clock.mark())
+                            disp.enqueued(next(done), marks[-1])
+
                         state, metrics = engine.fused_train_step(
-                            state, [g[0] for g in group], [g[1] for g in group], step_gen,
-                            after_step=lambda: marks.append(clock.mark()))
+                            state, xs, [g[1] for g in group], step_gen, after_step=after_step)
+                        ready = clock.mark()  # after the group's metrics
                         rows = [{key: v[i] for key, v in metrics.items()}
                                 for i in range(len(group))]
-                    first = step_count
-                    for (_, _, wait_ms), row in zip(group, rows):
+                    g = len(group)
+                    if summary["resumed_from_step"] is not None and "first_step_t" not in summary:
+                        # a resumed run's first step has run (one wait, once)
+                        sync()
+                        summary["first_step_t"] = time.time()
+                    entries = []
+                    for i, ((_, _, wait_ms), row) in enumerate(zip(group, rows)):
                         step_count += 1
                         epoch_steps += 1
                         epoch_waits.append(wait_ms)
-                        pending.append((step_count, row, wait_ms))
+                        entries.append((step_count, row, wait_ms, marks[-g - 1 + i], marks[-g + i],
+                                        ready))
                     every = engine.exchange_every
                     if k == 1 and every and step_count % every == 0:
                         # the periodic exchange (EASGD's avg_freq; the reference's
                         # worker loop calls exchanger.exchange() as 'comm')
                         sync()
+                        disp.synced()
                         rec.start("comm")
                         state = engine.exchange(state)
                         sync()
                         rec.end("comm")
                     torn = False
-                    if print_freq and step_count // print_freq > first // print_freq:
-                        drain(pending, marks, epoch_ivals)
+                    flushes = disp.n_syncs
+                    disp.push(entries, first, step_count)
+                    if devices > 1 and sigterm_installed and disp.n_syncs > flushes \
+                            and preempted():
+                        raise Preempted(step_count)
                     if len(group) < want or (max_steps and step_count >= max_steps):
                         break
-            drain(pending, marks, epoch_ivals)
+            disp.flush()
+            if preempted():
+                raise Preempted(step_count)
             rec.end_epoch(epoch, n_images=epoch_steps * batch)
             skip = max(0, WARMUP_STEPS - seen_intervals)
             seen_intervals += len(epoch_ivals)
@@ -547,16 +768,61 @@ def run_training(
                 save(state, step_count)
                 rec.end("checkpoint")
                 last_ckpt_step = step_count
+                if faults is not None:
+                    # storage mutations of the newest durable checkpoint
+                    # (torn write, bit-rot, a lost member): every rank's
+                    # write lands first, then rank 0 mangles it
+                    due = faults.storage_mutations_due(step_count)
+                    if due:
+                        if writer is not None:
+                            writer.wait()
+                        if devices > 1:
+                            dist.barrier()
+                        if rank == 0:
+                            for spec in due:
+                                hit = faults.apply_storage_mutation(spec, ckpt_dir)
+                                print(f"[faults] {spec.kind}@{spec.step}: {hit}", flush=True)
             rec.save()
             summary["epochs"].append(epoch)
-    except Exception:
-        # the crash save: the newest whole step must not be lost. A save
-        # is collective, so it runs only where no other rank can be left
-        # waiting in it.
+    except Preempted:
+        # the SIGTERM grace path: read the rows in flight, make the save in
+        # flight durable, save this step, and mark the run resumable; the
+        # raise reaches the supervisor or the CLI as a clean exit
+        try:
+            disp.flush()
+        except Exception as e:  # noqa: BLE001 — must not replace the clean exit
+            print(f"dispatch flush failed during preemption (suppressed): {e!r}", flush=True)
+        if ckpt_dir:
+            if writer is not None:
+                try:
+                    writer.wait()
+                except Exception as e:  # noqa: BLE001
+                    print(f"checkpoint writer failed during preemption (suppressed): {e!r}",
+                          flush=True)
+            if step_count != last_ckpt_step:
+                try:
+                    save(state, step_count, sync_write=True)
+                    last_ckpt_step = step_count
+                except Exception as e:  # noqa: BLE001 — the last save still resumes
+                    print(f"final preemption checkpoint failed (suppressed; marker points "
+                          f"at step {last_ckpt_step}): {e!r}", flush=True)
+            if rank == 0:
+                write_resumable_marker(ckpt_dir, last_ckpt_step, "sigterm")
+        raise
+    except Exception as exc:
+        # when it failed (the supervisor's time to recovery starts here)
+        try:
+            exc.t_fail = getattr(exc, "t_fail", time.time())
+        except AttributeError:  # an exception type that takes no attributes
+            pass
+        # the crash save: the newest whole step must not be lost. A
+        # gathered save is collective, so with several ranks it runs only
+        # in sharded mode, where each rank writes its own member
         if ckpt_dir and step_count > last_ckpt_step:
-            if devices > 1:
+            if devices > 1 and not ckpt_sharded:
                 print(f"[rank {rank}] no crash checkpoint: a save is collective and the "
-                      "other ranks may never reach it", flush=True)
+                      "other ranks may never reach it (--ckpt-sharded saves without one)",
+                      flush=True)
             elif torn:
                 print(f"[rank {rank}] no crash checkpoint: the exception came inside a step, "
                       "whose in-place update may be half applied", flush=True)
@@ -584,8 +850,16 @@ def run_training(
                 else:
                     writer.close()
         finally:
+            if faults is not None:
+                set_write_fault_hook(None)
+            if scrubber is not None:
+                scrubber.stop()
+            if sigterm_installed:
+                signal.signal(signal.SIGTERM, prev_sigterm)
             rec.close()
 
+    if ckpt_dir and rank == 0:
+        clear_resumable_marker(ckpt_dir)  # a finished run is not resumable
     summary["steps"] = step_count
     summary["device_steps"] = engine.get_step(state)
     summary["train_loop_s"] = round(train_loop_s, 6)
@@ -594,11 +868,16 @@ def run_training(
     summary["step_ms"] = step_ms
     summary["steady_steps"] = len(intervals)
     summary["epoch_step_ms"] = epoch_step_ms
+    summary.update(disp.summary())
     graph = engine.graph
     summary["captured"] = graph is not None and graph.replays > 0
     summary["graph"] = ({"captures": graph.captures, "replays": graph.replays}
                         if graph is not None else None)
-    if ckpt_dir and rank == 0:
+    if faults is not None:
+        summary["faults_fired"] = [f"{s.kind}@{s.step}" for s in faults.specs if s.fired]
+    if scrubber is not None:
+        summary["scrub"] = {"runs": scrubber.runs, "quarantined": scrubber.quarantined_total}
+    if ckpt_dir and (rank == 0 or ckpt_sharded):
         summary["checkpoints"] = sorted(
             [dict(r, mode="sync") for r in saves]
             + [dict(r, mode="async") for r in (writer.records if writer else [])],

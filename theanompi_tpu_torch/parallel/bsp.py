@@ -222,6 +222,33 @@ class BSPEngine:
         """This rank's state from checkpoint entries (its residual row)."""
         return bridge.state_from_flat(flat, template, layouts, rank=self.rank, world=self.n)
 
+    def checkpoint_parts(self, state, layouts) -> list:
+        """``bridge.state_parts`` of this rank: the entries of a sharded
+        set or of a reshard target, with no collective."""
+        return bridge.state_parts(state, layouts, self.rank, self.n)
+
+    def mesh_topology(self) -> dict:
+        """The reference's ``mesh_topology`` of this run's mesh:
+        ``("data",)`` over the ranks, ``("dcn", "data")`` under
+        ``--slices``."""
+        r, s = self.axis_sizes
+        if r > 1:
+            return {"shape": [r, s], "axes": ["dcn", "data"]}
+        return {"shape": [self.n], "axes": ["data"]}
+
+    def stack_axes(self) -> list:
+        """The mesh axes the ``.ef`` stacks run over (every rank)."""
+        return list(self.mesh_topology()["axes"])
+
+    def elastic_spec(self) -> dict:
+        """Per-leaf reshard policies stamped into every checkpoint's
+        topology manifest (the reference's ``BSPEngine.elastic_spec``):
+        the state is replicated (``global``), except the codec's
+        error-feedback residuals, which belong to each rank's own
+        quantization history and mean nothing on another world:
+        ``reset``."""
+        return {"policies": {".ef": {"policy": "reset"}}}
+
     def summary_fields(self, batch: int) -> dict:
         """The run summary's fields of the rule."""
         return {"slices": self.axis_sizes[0]}

@@ -154,6 +154,30 @@ class EASGDEngine(WorkerRuleEngine):
             entries.update(bridge.stacked_entries(ef_rows, ".ef", layouts))
         return entries
 
+    def checkpoint_parts(self, state: EASGDState, layouts) -> list:
+        """The entries of :meth:`state_entries` this rank holds, as
+        ``(entry, tensor, row, rows)`` (``bridge.state_parts``), with no
+        collective: the center replicated, its worker's rows."""
+        row, n = self._own_row(), self.n_workers
+        parts = bridge.worker_parts(state.worker, layouts, row, n)
+        parts += [(k, v, None, 1) for k, v in bridge.tree_entries(
+            state.center_params, ".center_params", layouts).items()]
+        parts += [(k, v, None, 1) for k, v in bridge.tree_entries(
+            state.center_model_state, ".center_model_state").items()]
+        if tree_leaves(state.ef):
+            parts += [(k, v, row, n)
+                      for k, v in bridge.tree_entries(state.ef, ".ef", layouts).items()]
+        return parts
+
+    def elastic_spec(self) -> dict:
+        """Reshard policies (the reference's ``EASGDEngine.elastic_spec``):
+        the center is replicated (``global``); the worker stacks resize by
+        ``worker_consensus`` (every new worker from the mean of the saved
+        ones, an integer leaf from the first worker: a consensus, not an
+        exact resume); the residuals ``reset``."""
+        return {"policies": {".workers": {"policy": "worker_consensus"},
+                             ".ef": {"policy": "reset"}}}
+
     def restore(self, flat: dict, template: EASGDState, layouts) -> EASGDState:
         """This rank's state from checkpoint entries: its worker's row of
         each stack, the center; raises naming the entry on a missing key

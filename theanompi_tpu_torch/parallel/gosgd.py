@@ -221,6 +221,27 @@ class GOSGDEngine(WorkerRuleEngine):
         entries[GOSSIP_RNG_KEY] = np.stack(draws)
         return entries
 
+    def checkpoint_parts(self, state: GOSGDState, layouts) -> list:
+        """The entries of :meth:`state_entries` this rank holds, as
+        ``(entry, tensor, row, rows)`` (``bridge.state_parts``), with no
+        collective: its worker's rows and its draw generators' row."""
+        row, n = self._own_row(), self.n_workers
+        parts = bridge.worker_parts(state.worker, layouts, row, n)
+        parts.append((".alpha", state.alpha.detach(), row, n))
+        if self.use_ef:
+            parts.append((".ef", state.ef.detach(), row, n))
+        parts.append((GOSSIP_RNG_KEY, self.draws.get_state(self.worker), self.rank, self.n))
+        return parts
+
+    def elastic_spec(self) -> dict:
+        """Reshard policies (the reference's ``GOSGDEngine.elastic_spec``):
+        the worker stacks by ``worker_consensus``, the share weights
+        restart at ``1 / W`` (``worker_uniform``, so they sum to 1 on the
+        new world), the residuals ``reset``."""
+        return {"policies": {".workers": {"policy": "worker_consensus"},
+                             ".alpha": {"policy": "worker_uniform"},
+                             ".ef": {"policy": "reset"}}}
+
     def restore(self, flat: dict, template: GOSGDState, layouts) -> GOSGDState:
         """This rank's state from checkpoint entries (its worker's row of
         each stack) and its draw generators when the file holds them of

@@ -293,6 +293,24 @@ class WorkerRuleEngine:
 
     # -- the checkpoint ------------------------------------------------------
 
+    def mesh_topology(self) -> dict:
+        """The reference's ``mesh_topology`` of this run's mesh:
+        ``("data",)`` over the ranks, ``("worker", "data")`` with worker
+        groups (``make_worker_group_mesh``)."""
+        if self.group_size > 1:
+            return {"shape": [self.n_workers, self.group_size], "axes": ["worker", "data"]}
+        return {"shape": [self.n], "axes": ["data"]}
+
+    def stack_axes(self) -> list:
+        """The mesh axis the worker stacks run over."""
+        return ["worker" if self.group_size > 1 else "data"]
+
+    def _own_row(self) -> int:
+        """The row of the worker stacks this rank writes in a sharded
+        set: its worker's, from the first rank of the group; -1 on the
+        group's other ranks."""
+        return self.worker if self.rank % self.group_size == 0 else -1
+
     def _worker_rows(self, tree):
         """Every worker's ``tree`` in worker order on rank 0, in host
         memory (from the first rank of each group, one worker at a
