@@ -74,7 +74,7 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                 flash_dkv_sm90, flash_dkv_mma, flash_dkv_mma_bf16 and
                 flash_dkv) against its plain version on
                 the card: the 136M LM's shape (BH 96, T 1024, D 64) in bf16
-                and fp32, ragged T and D, Tq != Tk, causal and not, nonzero
+                and fp32, the 350M LM's (BH 128) in bf16, ragged T and D, Tq != Tk, causal and not, nonzero
                 offsets with rows that see no key (o = 0, lse ~ -1e30), Tq
                 200 and 1000 at D 64 (not multiples of the 128-row Q tile),
                 q_off 160 over Tq 200 / Tk 360, bf16 heads of 60, 36 and 33
@@ -138,9 +138,16 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                 ``imagenet`` over 256x256x3 shards that ``write_shards``
                 writes to a temporary directory (2,816 + 128 images, also
                 phase feed-main's), each as gather, crop, pin and H2D ms;
-                the uint8 feeds both written into pinned memory as the
-                training loop does (``data/loader.py::pinned_array``) and
-                into fresh arrays then pinned (the reference's order).
+                every feed (float32 too, since the native gather takes
+                any fixed-width dtype) both written into pinned memory as
+                the training loop does (``data/loader.py::pinned_array``)
+                and into fresh arrays then pinned (the reference's order).
+                Last, host ms medians: the native gather of float32 rows
+                (128 of 227x227x3) and of int32 windows (8 of 1024) fresh,
+                into pinned memory and by numpy's fancy index (bit for bit
+                equal), and the crop of 128 rows with every image
+                mirrored, none and half, numpy's, and the normalizing crop
+                mirrored and not.
 3. main       — the training path a user runs, through
                 ``theanompi_tpu_torch.cli.main``: full-width AlexNet (batch
                 128, 227x227x3, 1000 classes, bf16 compute, fp32 params,
@@ -235,6 +242,13 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                 flash_dq_mma, flash_dq_mma_bf16, flash_dkv, flash_dkv_mma
                 or flash_dkv_mma_bf16, no other kernel;
                 losses finite; step ms and tokens/s.
+   lm350-main — full-width TransformerLM_350M (24 layers, d 1024, 16 heads
+                of 64, d_ff 4096, T 1024, vocab 32768, batch 8, bf16, Adam,
+                per-block remat) through the CLI for 4 steps and one
+                validation batch: exactly 24 x (2 x 4 + 1) flash_fwd_sm90
+                (remat runs each block's forward again in the backward),
+                24 x 4 flash_dq_sm90 and flash_dkv_sm90, no other kernel;
+                losses finite; step ms, tokens/s, peak allocated memory.
    googlenet-main — full-width GoogLeNet (224x224x3, 1000 classes, both
                 aux heads, bf16 compute, fp32 params, momentum 0.9, wd
                 1e-4, poly, batch 512, random weights from a seed) through
@@ -262,6 +276,22 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                 against the same model's step with a uint8 batch resident
                 on the card (twice), and the host time the loop waited on
                 the loader a step.
+   e2e        — ``tools/bench.py --mode e2e``: full-width AlexNet (227
+                crop of 256x256 uint8 shards written from a seed, batch
+                128, ``--fused-update``) trained 48 steps through
+                ``run_training`` at dispatch depths 1 and 2, then a clean
+                checkpointed run against one crashed at step 24 and resumed
+                by the supervisor: every dispatched step executed, one
+                fused_momentum a step and no other kernel in each run, a
+                native gather and crop a step, exactly one retry; the JSON
+                row (img/s, step and wait ms, wait and host-blocked shares,
+                mfu, recovery overhead).
+   scaling    — ``tools/bench.py --mode scaling``: the fixed-work probe
+                (Cifar10_model at a total batch of 512, best of 3 trials
+                of 96 steps) at 1 and 2 ranks (one card: 2 gloo ranks on
+                it); ``--only scaling`` on 4 cards: NCCL at 1, 2 and 4
+                ranks and flat psum against hier over 2 slices at 4.
+                Replica digests equal on every rank; img/s and t(1)/t(n).
    resume     — checkpoint, resume and the supervisor through the CLI at
                 AlexNet's full width (``--synthetic --fused-update``, 2
                 steps an epoch: saves at steps 2, 4 and 6). One card: 6
@@ -324,6 +354,17 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                 rtol 2e-2 (bf16 products round in other places on the
                 two devices), every leaf changed, and the card's
                 parameter change within 0.1 of the CPU's in relative norm.
+   remat-parity — a 2-layer bf16 LM (d 128, 2 heads of 64, T 256) trained
+                2 steps on the card with remat and without, and on the CPU
+                with remat: losses within rtol 2e-2 and the card's remat
+                parameter change within 0.1 (relative norm) of the CPU's
+                and of no remat's (lm-parity's bf16 limits), 8 / 4
+                flash_fwd_sm90 and 4 flash_dq_sm90 / flash_dkv_sm90
+                launches; whether remat equals no remat bit for bit is
+                printed. Then the 350M class at that width through the CLI,
+                6 steps eager against ``--steps-per-dispatch 2`` (the remat
+                step captured in a CUDA graph): losses, validation and
+                replica digests bit for bit.
    googlenet-parity — full-width GoogLeNet (224x224x3, 1000 classes, fp32,
                 dropout 0, pool kernel on, lr 0.001) trained 2 momentum
                 steps on the card and on the CPU from the same weights and
@@ -438,10 +479,7 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                 (``dst.copy_(src)`` over 2 GB, read + write bytes; a
                 yardstick, not a kernel of the port); F.max_pool2d in
                 channels_last as the yardstick (its backward takes the
-                first maximum); and, when the parent's tree is unpacked
-                at ``_tree_check/parent`` (``git archive``), its
-                grid-stride pool kernels and these in turns (old, new,
-                new, old), outputs first checked equal.
+                first maximum).
 
    capture-failure — last: a step with a host sync (``float()`` of a
                 card tensor) must make the graph runner raise
@@ -484,6 +522,8 @@ LM_VAL = 8  # one validation batch of 8 windows
 LM_LAYERS = 12
 # the 136M LM's attention shape: batch 8, T 1024, 12 heads of 64
 LM_SHAPE = dict(B=8, T=1024, H=12, D=64)
+# the 350M LM's: batch 8, T 1024, 16 heads of 64
+LM350_SHAPE = dict(B=8, T=1024, H=16, D=64)
 # full-width GoogLeNet: the repo's single-card batch, steps of its main run
 GNET_BATCH = 512
 GNET_STEPS = 6
@@ -2304,7 +2344,7 @@ def phase_quant_times(dev, mem_rate, fp32_peak):
 
 def flash_cases():
     """(label, BH, Tq, Tk, D, causal, q_off, k_off, dtype): the 136M LM's
-    shape in bf16 and fp32, ragged T and D, Tq != Tk, causal and not,
+    shape in bf16 and fp32, the 350M LM's in bf16, ragged T and D, Tq != Tk, causal and not,
     nonzero offsets with rows that see no key, Tq 200 and 1000 (ragged
     128-row Q tiles of flash_fwd_sm90), bf16 heads of 60, 36 and 33
     (flash_fwd_mma_bf16, flash_dq_mma_bf16 and flash_dkv_mma_bf16: 4-byte
@@ -2326,6 +2366,9 @@ def flash_cases():
         out.append((f"offsets q 0 k 100, rows 0-99 blind {str(dt)[6:]}", 4, 192, 192, 64, True,
                     0, 100, dt))
         out.append((f"offsets q 160 k 0 {str(dt)[6:]}", 4, 96, 200, 64, True, 160, 0, dt))
+    # the 350M LM's attention shape (phase lm350-main): batch 8, 16 heads of 64
+    out.append(("350M shape bfloat16", LM350_SHAPE["B"] * LM350_SHAPE["H"], LM350_SHAPE["T"],
+                LM350_SHAPE["T"], LM350_SHAPE["D"], True, 0, 0, torch.bfloat16))
     out.append(("ragged T 200 D 30 float32", 6, 200, 200, 30, True, 0, 0, torch.float32))
     out.append(("Tq 130 Tk 250 D 33 float32", 4, 130, 250, 33, True, 0, 0, torch.float32))
     bf = torch.bfloat16
@@ -2777,6 +2820,181 @@ def phase_lm_parity(dev):
           f"{ {n: kg[n] for n in LM_PARITY_FLASH if kg[n]} }", flush=True)
     launches["bf16_d60"] = {n: kg[n] for n in LM_PARITY_FLASH}
     return launches
+
+
+LM350_LAYERS = 24
+LM350_STEPS = 4
+
+
+def phase_lm350_main():
+    """Full-width TransformerLM_350M (24 layers, d 1024, 16 heads of 64,
+    remat) through the CLI: 4 steps and one validation batch. Under remat
+    the backward runs each block's forward again, so flash_fwd_sm90
+    launches 24 x 2 a step and 24 a validation batch; dq and dk/dv 24 a
+    step; no other kernel."""
+    import torch
+    from theanompi_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+
+    argv = ["BSP", "1", "transformer_lm", "TransformerLM_350M", "--synthetic",
+            "--max-steps", str(LM350_STEPS), "--print-freq", "1", "--seed", "0",
+            "--dataset-arg", "n_train=64", "--dataset-arg", f"n_val={LM_VAL}"]
+    print(f"[lm350-main] python -m theanompi_tpu_torch.cli {' '.join(argv)}", flush=True)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    summary = run_cli(argv)
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    losses = summary["losses"]
+    check(summary["model"] == "transformer_lm_350m" and summary["steps"] == LM350_STEPS
+          and len(losses) == LM350_STEPS and all(math.isfinite(x) for x in losses)
+          and summary["nonfinite_steps"] == 0,
+          f"lm350 run: steps {summary['steps']}, losses {losses}")
+    check("val" in summary and all(math.isfinite(v) for v in summary["val"].values()),
+          f"lm350 run: bad val metrics {summary.get('val')}")
+    want = {n: 0 for n in LM_PARITY_FLASH}
+    want.update(flash_fwd_sm90=LM350_LAYERS * (2 * LM350_STEPS + 1),
+                flash_dq_sm90=LM350_LAYERS * LM350_STEPS,
+                flash_dkv_sm90=LM350_LAYERS * LM350_STEPS)
+    got = {k: counts[k] for k in want}
+    check(got == want, f"lm350 run launched {got}, expected {want} (remat: the forward twice "
+                       "a layer in a train step)")
+    stray = {k: v for k, v in counts.items() if k not in want and v}
+    check(not stray, f"the lm350 run launched other kernels: {stray}")
+    tokens_per_sec = summary["images_per_sec"] * LM_SHAPE["T"]
+    print(f"[lm350-main] per-step loss {losses}; val {summary['val']}", flush=True)
+    print(f"[lm350-main] steady-state step {summary['step_ms']:.3f} ms over "
+          f"{summary['steady_steps']} steps (CUDA events, 2 warm-up steps excluded), "
+          f"{summary['images_per_sec']:.3f} seq/s = {tokens_per_sec:.0f} tokens/s; peak "
+          f"allocated {peak / 2**30:.3f} GiB; launches {got}", flush=True)
+    return {"launches": got, "summary": summary, "tokens_per_sec": tokens_per_sec,
+            "peak_bytes": peak}
+
+
+def phase_remat_parity(dev):
+    """A 2-layer bf16 LM with heads of 64 (the sm90 flash kernels) trained
+    2 steps on the card with remat and without, and on the CPU with remat,
+    from the same weights and batches: remat against no remat and against
+    the CPU at phase lm-parity's bf16 limits (losses rtol 2e-2, the
+    parameter change within 0.1 in relative norm), every leaf changed;
+    remat launches flash_fwd_sm90 twice a layer a step. Then the 350M
+    class at 2 layers through the CLI, eager against
+    ``--steps-per-dispatch 2`` (its remat step captured in a CUDA graph):
+    losses, validation and replica digest bit for bit."""
+    import torch
+    from theanompi_tpu_torch.models.lm import TransformerLMModel
+
+    base = TransformerLMModel.default_recipe().replace(
+        input_shape=(256,), num_classes=512, d_model=128, n_heads=2, n_layers=2, d_ff=512,
+        batch_size=4, attn="flash", compute_dtype=torch.bfloat16)
+    runs = {remat: _lm_two_steps(base.replace(remat=remat), dev) for remat in (True, False)}
+    (lc, bc, pc, kc), (lr, br, pr, kr) = runs[True]["cpu"], runs[True][str(dev)]
+    _, _, pn, kn = runs[False][str(dev)]
+    check(not any(kc.values()), f"the CPU run launched kernels: {kc}")
+    sm90 = ("flash_fwd_sm90", "flash_dq_sm90", "flash_dkv_sm90")
+    for label, k, fwd in (("remat", kr, 8), ("no remat", kn, 4)):
+        want = {n: 0 for n in LM_PARITY_FLASH}
+        want.update(flash_fwd_sm90=fwd, flash_dq_sm90=4, flash_dkv_sm90=4)
+        check({n: k[n] for n in LM_PARITY_FLASH} == want,
+              f"remat-parity ({label}): the card run launched {k}, expected {want}")
+    ln = runs[False][str(dev)][0]
+    check(all(math.isfinite(x) for x in lr) and
+          all(math.isclose(a, b, rel_tol=2e-2) for a, b in zip(lc, lr)) and
+          all(math.isclose(a, b, rel_tol=2e-2) for a, b in zip(ln, lr)),
+          f"remat-parity: card remat losses {lr}, no remat {ln}, CPU remat {lc} (rtol 2e-2)")
+    d_rem = torch.cat([(b - b0).flatten() for b, b0 in zip(pr, br)])
+    rels = {}
+    for label, ref in (("cpu", pc), ("no_remat", pn)):
+        d_ref = torch.cat([(a - b0).flatten() for a, b0 in zip(ref, br)])
+        rels[label] = ((d_rem - d_ref).norm() / d_ref.norm()).item()
+        check(rels[label] <= 0.1, f"remat-parity: the card's remat parameter change is "
+                                  f"{rels[label]:.3g} of the {label} run's away from it (> 0.1)")
+    for i, (b0, b) in enumerate(zip(br, pr)):
+        check(bool(torch.isfinite(b).all()) and bool((b != b0).any()),
+              f"remat-parity: leaf {i} did not change on the card, or is not finite")
+    identical = lr == ln and all(torch.equal(a, b) for a, b in zip(pr, pn))
+    print(f"[remat-parity] bf16 D 64: losses card remat {lr}, no remat {ln}, CPU remat {lc}; "
+          f"parameter change from the CPU's {rels['cpu']:.4g}, from no remat's "
+          f"{rels['no_remat']:.4g} (relative norm); remat = no remat bit for bit: {identical}; "
+          f"launches remat { {n: kr[n] for n in sm90} }, no remat { {n: kn[n] for n in sm90} }",
+          flush=True)
+    tiny = ["--recipe-arg", "d_model=128", "--recipe-arg", "n_heads=2", "--recipe-arg",
+            "n_layers=2", "--recipe-arg", "d_ff=512", "--recipe-arg", "input_shape=[256]",
+            "--recipe-arg", "num_classes=512"]
+    argv = ["BSP", "1", "transformer_lm", "TransformerLM_350M", "--synthetic", "--max-steps",
+            "6", "--print-freq", "1", "--seed", "0", "--dataset-arg", "n_train=48",
+            "--dataset-arg", "n_val=8", *tiny]
+    eager = run_cli(argv)
+    captured = run_cli([*argv, "--steps-per-dispatch", "2"])
+    check(captured["captured"] and captured["graph"]["captures"] == 1,
+          f"remat-parity: the grouped remat run did not replay a graph: {captured['graph']}")
+    for key in ("losses", "val", "replica_digest_per_rank"):
+        check(eager[key] == captured[key], f"remat-parity: eager and captured remat runs differ "
+                                           f"in {key}: {eager[key]} vs {captured[key]}")
+    print(f"[remat-parity] 350M class at 2 layers through the CLI: eager = captured bit for "
+          f"bit (graph {captured['graph']}, losses {captured['losses']})", flush=True)
+    return {"launches": {"remat": {n: kr[n] for n in sm90}, "no_remat": {n: kn[n] for n in sm90}},
+            "rel_change_vs_cpu": rels["cpu"], "rel_change_vs_no_remat": rels["no_remat"],
+            "bit_identical_to_no_remat": identical, "graph": captured["graph"]}
+
+
+E2E_DEPTHS = (1, 2)
+
+
+def phase_e2e():
+    """``tools/bench.py --mode e2e`` at full width: AlexNet (227 crop,
+    batch 128, ``--fused-update``) from its own 256x256 uint8 shards
+    through ``run_training``, 48 steps at dispatch depths 1 and 2, then
+    the recovery pair (a clean checkpointed run, a crashed one resumed by
+    the supervisor). Each run: its steps all executed, one fused_momentum
+    launch a step and no other kernel, a native gather a step; exactly one
+    retry."""
+    from theanompi_tpu_torch.tools.bench import bench_e2e
+
+    t0 = time.perf_counter()
+    r = bench_e2e(dispatch_depths=E2E_DEPTHS, recovery=True)
+    for row in r["dispatch_sweep"]:
+        launches = {k: v for k, v in row["kernel_launches"].items() if v}
+        check(row["steps"] == row["device_steps"] == r["max_steps"],
+              f"e2e depth {row['dispatch_depth']}: {row['device_steps']} of {row['steps']}")
+        check(launches == {"fused_momentum": r["max_steps"]},
+              f"e2e depth {row['dispatch_depth']}: launches {launches}, expected one "
+              "fused_momentum a step and nothing else")
+        check(row["native_calls"].get("tmpi_gather_rows", 0) >= r["max_steps"]
+              and row["native_calls"].get("tmpi_crop_mirror_u8", 0) >= r["max_steps"],
+              f"e2e depth {row['dispatch_depth']}: native calls {row['native_calls']}")
+    check(r["recovery_retries"] == 1, f"e2e recovery: {r['recovery_retries']} retries")
+    print(f"[e2e] {time.perf_counter() - t0:.1f} s; " + json.dumps(r), flush=True)
+    return r
+
+
+# steps a trial of the scaling probe: at 6-11 ms a step a trial lasts
+# 0.6-1.1 s, long enough that the trials' spread is not the reading
+SCALING_STEPS = 96
+
+
+def phase_scaling(n_cards: int):
+    """``tools/bench.py --mode scaling``: the fixed-work probe (Cifar10 at
+    a total batch of 512) over 1 and 2 ranks (one card: the 2 ranks share
+    it over gloo), and on 4 cards over NCCL at 1, 2 and 4 ranks with
+    flat psum against hier over 2 slices at 4; every probe's replicas
+    identical (checked in the tool)."""
+    from theanompi_tpu_torch.tools.bench import bench_scaling
+
+    ns = (1, 2, 4) if n_cards >= 4 else (1, 2)
+    t0 = time.perf_counter()
+    r = bench_scaling(ns, steps=SCALING_STEPS, batch=512)
+    check([x["n_devices"] for x in r["table"]] == list(ns), f"scaling rows {r['table']}")
+    check(len(r["hier"]) == (2 if n_cards >= 4 else 0), f"scaling hier rows {r['hier']}")
+    for x in r["table"] + r["hier"]:
+        check(len(set(x["replica_digest_per_rank"])) == 1 and all(
+            math.isfinite(v) for v in x["losses"]), f"scaling row {x}")
+        print(f"[scaling] n {x['n_devices']} ({x['backend']}, {x['strategy']}, "
+              f"{x['slices']} slice(s)): {x['images_per_sec']:.1f} img/s, "
+              f"{x['step_ms']:.3f} ms a step"
+              + (f", efficiency {x['efficiency']:.4f}" if "efficiency" in x else ""), flush=True)
+    print(f"[scaling] {time.perf_counter() - t0:.1f} s; " + json.dumps(r), flush=True)
+    return r
 
 
 def phase_flash_times(dev, mem_rate, fp32_peak, bf16_peak):
@@ -3547,67 +3765,11 @@ def copy_rate(dev) -> dict:
     return {"ms": ms, "bytes": moved, "rate": rate}
 
 
-# the parent's committed tree, unpacked (git archive) into the gitignored
-# _tree_check/: phase times reads #12-13 in turns with the kernels of its
-# csrc/pool.cu (the grid-stride design) when it is there
-PARENT_TREE = os.path.join(REPO, "_tree_check", "parent")
-
-
-def pool_turns(xs, ys, gs) -> dict:
-    """#12 and #13 over the nine inception pools in turns with the
-    parent's kernels (old, new, new, old), each launch prepared (plans and
-    outputs made once): {name: {"old": [ms, ms], "new": [ms, ms]}}, or
-    {} when no parent tree is unpacked at ``PARENT_TREE``."""
-    import tempfile
-    from pathlib import Path
-
-    import torch
-    from theanompi_tpu_torch.ops import pool as tp
-    from theanompi_tpu_torch.tools.pool_variants import build_parent
-
-    source = Path(PARENT_TREE) / "theanompi_tpu_torch" / "csrc" / "pool.cu"
-    if not source.is_file():
-        print(f"[times] pool old/new turns: not measured (no parent tree at {source})",
-              flush=True)
-        return {}
-    with tempfile.TemporaryDirectory() as tmp:
-        old_fwd, old_bwd = build_parent(source, Path(tmp))
-    lib = tp._LIB.get()
-    plans = [tp.tile_plan(*x.shape, x.element_size()) for x in xs]
-    outs = [torch.empty_like(x) for x in xs]
-    runs = {
-        "maxpool3x3_fwd": {
-            "new": lambda: [tp.launch_fwd(lib.tmpi_maxpool3x3_fwd, x, o, p)
-                            for x, o, p in zip(xs, outs, plans)],
-            "old": lambda: [old_fwd(x, o) for x, o in zip(xs, outs)]},
-        "maxpool3x3_bwd": {
-            "new": lambda: [tp.launch_bwd(lib.tmpi_maxpool3x3_bwd, x, y, g, o, p)
-                            for x, y, g, o, p in zip(xs, ys, gs, outs, plans)],
-            "old": lambda: [old_bwd(x, y, g, o) for x, y, g, o in zip(xs, ys, gs, outs)]},
-    }
-    turns = {}
-    for name, fns in runs.items():
-        got = {}
-        for label in ("old", "new"):
-            fns[label]()
-            got[label] = [o.clone() for o in outs]
-        check(all(bits_equal(a, b) for a, b in zip(got["old"], got["new"])),
-              f"{name}: the parent's kernel and this one disagree")
-        del got
-        turns[name] = {"old": [], "new": []}
-        for label in ("old", "new", "new", "old"):
-            turns[name][label].append(cuda_ms(fns[label], reps=20))
-        print(f"[times] {name} in turns (old, new, new, old), ms a step of {len(xs)}: "
-              f"old {turns[name]['old']}, new {turns[name]['new']}", flush=True)
-    del outs
-    return turns
-
-
 def phase_pool_times(dev, mem_rate, fp32_peak):
     """#12 and #13 over the nine inception pools at batch 512 in bf16 (one
     training step's launches): time, bound (at the data sheet's rate and
     at the measured copy rate), plain version, F.max_pool2d in
-    channels_last as the yardstick, and the parent's kernels in turns."""
+    channels_last as the yardstick."""
     import torch
     import torch.nn.functional as F
     from theanompi_tpu_torch.ops import pool as tp
@@ -3667,11 +3829,7 @@ def phase_pool_times(dev, mem_rate, fp32_peak):
           f"{lib_fwd_bwd:.4f} ms; kernels #12 + #13: "
           f"{results['maxpool3x3_fwd']['step_ms'] + results['maxpool3x3_bwd']['step_ms']:.4f} ms",
           flush=True)
-    del xr, yr, gr
-    turns = pool_turns(xs, ys, gs)
-    for name, t in turns.items():
-        results[name]["turns_ms"] = t
-    del xs, gs, ys
+    del xr, yr, gr, xs, gs, ys
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     return results
@@ -3909,10 +4067,10 @@ def phase_feed(dev, shard_dir):
     feeds = {}
     for name in ("synthetic", "imagenet_synthetic", "imagenet"):
         data = feed_dataset(name, recipe, n_host, root=shard_dir)
-        # the loop's way last; float32 batches are numpy's, then pinned
-        for into_pinned in ((False, True) if name != "synthetic" else (True,)):
+        # the loop's way last: every dtype is written into pinned memory
+        for into_pinned in (False, True):
             f = feed_times(data, batch, dev, FEED_BATCHES, into_pinned=into_pinned)
-            check(f["written_into_pinned"] == (into_pinned and name != "synthetic"),
+            check(f["written_into_pinned"] == into_pinned,
                   f"{name}: written into pinned memory {f['written_into_pinned']}")
             feeds[f"{name}{'' if into_pinned else '/fresh+pin'}"] = f
             how = ("written into pinned memory" if f["written_into_pinned"] else
@@ -3921,8 +4079,103 @@ def phase_feed(dev, shard_dir):
                   f"{batch}), {how}, median of {FEED_BATCHES} ms: gather {f['gather_ms']:.3f}, "
                   f"crop {f['crop_ms']:.3f}, pin {f['pin_ms']:.3f}, host batch "
                   f"{f['host_batch_ms']:.3f}, H2D {f['h2d_ms']:.3f}", flush=True)
+        if name == "synthetic":
+            # the float32 rows: the native gather against numpy's fancy index
+            feeds["gather_float32"] = gather_times(data.x_train, batch)
         del data
+    # the LM's int32 token windows (the 350M's batch of 8 x 1024)
+    windows = np.random.RandomState(3).randint(0, 32768, (64, 1024)).astype(np.int32)
+    feeds["gather_int32"] = gather_times(windows, 8)
+    # CIFAR's float32 batch (128 x 32 x 32 x 3, 1.5 MB), near the thread cap's 1 MB a thread
+    cifar = np.random.RandomState(5).rand(1024, 32, 32, 3).astype(np.float32)
+    feeds["gather_cifar_float32"] = gather_times(cifar, 128)
+    del cifar
+    feeds["crop"] = crop_times(images[:128], oy[:128], ox[:128])
+    for k in ("gather_float32", "gather_int32", "gather_cifar_float32"):
+        g = feeds[k]
+        print(f"[feed] {k} ({g['rows']} rows of {g['row_bytes']} B), median of {g['reps']} ms: "
+              f"native {g['native_ms']:.4f} (into pinned memory {g['native_pinned_ms']:.4f}), "
+              f"numpy {g['numpy_ms']:.4f}; into pinned memory by threads {g['by_threads']} "
+              f"(the cap picks {g['auto_threads']})", flush=True)
+    c = feeds["crop"]
+    print(f"[feed] crop_mirror_u8 of 128 rows to {FEED_CROP}x{FEED_CROP}x3, median of "
+          f"{c['reps']} ms: every image mirrored {c['mirrored_ms']:.4f}, none "
+          f"{c['unmirrored_ms']:.4f}, half {c['half_ms']:.4f}; numpy {c['numpy_ms']:.4f}; "
+          f"crop_mirror_normalize (per-channel mean) mirrored {c['normalize_mirrored_ms']:.4f}, "
+          f"none {c['normalize_unmirrored_ms']:.4f}", flush=True)
     return {"cases": n_cases, "build_seconds": secs, "feeds": feeds}
+
+
+def _median_ms(fn, reps: int) -> float:
+    import statistics
+
+    fn()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def gather_times(source, rows: int, reps: int = 21) -> dict:
+    """A batch of ``rows`` random rows of ``source`` (float32 images or
+    int32 windows): the native gather (fresh and into pinned memory) and
+    numpy's fancy index, host ms medians; the results bit for bit equal.
+    Also the native gather into pinned memory at 1, 2 and 4 threads and
+    the default count (``by_threads``), against the count that
+    ``native.MIN_BYTES_A_THREAD`` picks for this batch (``auto_threads``)."""
+    import numpy as np
+    from theanompi_tpu_torch import native
+    from theanompi_tpu_torch.data.loader import pinned_array
+
+    idx = np.random.RandomState(4).permutation(len(source))[:rows]
+    pinned = pinned_array((rows, *source.shape[1:]), source.dtype)
+    got = native.gather_rows(source, idx, out=pinned)
+    check(got.tobytes() == source[idx].tobytes(),
+          f"the native gather of {source.dtype} rows differs from numpy's fancy index")
+    counts = sorted({1, 2, 4, native.default_threads()})
+    return {"rows": rows, "row_bytes": int(source[0].nbytes), "reps": reps,
+            "dtype": str(source.dtype),
+            "auto_threads": native._threads(None, pinned.nbytes),
+            "by_threads": {t: _median_ms(lambda t=t: native.gather_rows(
+                source, idx, n_threads=t, out=pinned), reps) for t in counts},
+            "native_ms": _median_ms(lambda: native.gather_rows(source, idx), reps),
+            "native_pinned_ms": _median_ms(lambda: native.gather_rows(source, idx, out=pinned),
+                                           reps),
+            "numpy_ms": _median_ms(lambda: native.gather_rows_plain(source, idx), reps)}
+
+
+def crop_times(images, oy, ox, reps: int = 21) -> dict:
+    """The native crop + mirror of a batch with every image mirrored, none
+    and half, numpy's crop + mirror, and the normalizing crop mirrored
+    and not: host ms medians (threads: the default count)."""
+    import numpy as np
+    from theanompi_tpu_torch import native
+
+    n = len(images)
+    every, none = np.ones(n, bool), np.zeros(n, bool)
+    half = np.arange(n) % 2 == 0
+    mean = np.float32([123.7, 116.3, 103.5])
+    check(np.array_equal(native.crop_mirror_u8(images, oy, ox, every, FEED_CROP),
+                         native.crop_mirror_plain(images, oy, ox, every, FEED_CROP)),
+          "the mirrored crop differs from numpy's")
+
+    def u8(flips):
+        return lambda: native.crop_mirror_u8(images, oy, ox, flips, FEED_CROP)
+
+    def norm(flips):
+        return lambda: native.crop_mirror_normalize(images, oy, ox, flips, FEED_CROP, mean,
+                                                    1.0 / 58.0)
+
+    return {"reps": reps, "threads": native.default_threads(),
+            "mirrored_ms": _median_ms(u8(every), reps),
+            "unmirrored_ms": _median_ms(u8(none), reps),
+            "half_ms": _median_ms(u8(half), reps),
+            "numpy_ms": _median_ms(
+                lambda: native.crop_mirror_plain(images, oy, ox, half, FEED_CROP), 5),
+            "normalize_mirrored_ms": _median_ms(norm(every), reps),
+            "normalize_unmirrored_ms": _median_ms(norm(none), reps)}
 
 
 def resident_step_ms(model_name: str, pool_kernel: bool = False, steps: int = 10,
@@ -4472,6 +4725,26 @@ def only_resume(smi: str, kind: str, t_start: float) -> int:
     return 0
 
 
+def only_scaling(smi: str, kind: str, t_start: float) -> int:
+    """``--only scaling``: phase scaling alone on every card there is (4:
+    NCCL at 1, 2 and 4 ranks, flat psum against hier over 2 slices); its
+    JSON, the card line and the result line last. The probe launches no
+    kernel of the port, so nothing is built."""
+    import torch
+
+    try:
+        scaling = phase_scaling(torch.cuda.device_count())
+    except Failed as e:
+        print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
+        return 1
+    print(f"chip_smoke: wall {time.perf_counter() - t_start:.1f} s", flush=True)
+    print(json.dumps({"scaling": scaling}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
 def build_all():
     """Build every kernel library at once (one nvcc per source, started
     together); returns {source: nvcc seconds}."""
@@ -4494,8 +4767,8 @@ def main(argv=None) -> int:
     only = None
     if args:
         if len(args) != 2 or args[0] != "--only" or args[1] not in ("bsp-exchange", "rules",
-                                                                       "resume"):
-            print("usage: python3 chip_smoke.py [--only bsp-exchange|rules|resume]",
+                                                                       "resume", "scaling"):
+            print("usage: python3 chip_smoke.py [--only bsp-exchange|rules|resume|scaling]",
                   file=sys.stderr)
             return 2
         only = args[1]
@@ -4535,6 +4808,8 @@ def main(argv=None) -> int:
             return only_rules(smi, kind, t_start)
         if only == "resume":
             return only_resume(smi, kind, t_start)
+        if only == "scaling":
+            return only_scaling(smi, kind, t_start)
         t0 = time.perf_counter()
         builds = build_all()
         for src, secs in builds.items():
@@ -4589,6 +4864,10 @@ def main(argv=None) -> int:
         print(f"[lm-main] done ({time.perf_counter() - t0:.1f} s)", flush=True)
 
         t0 = time.perf_counter()
+        lm350_run = phase_lm350_main()
+        print(f"[lm350-main] done ({time.perf_counter() - t0:.1f} s)", flush=True)
+
+        t0 = time.perf_counter()
         gnet_runs = phase_googlenet_main()
         print(f"[googlenet-main] done ({time.perf_counter() - t0:.1f} s)", flush=True)
 
@@ -4598,7 +4877,9 @@ def main(argv=None) -> int:
         print("[feed] " + json.dumps({
             "host_batch_ms": {k: {m: f[m] for m in ("gather_ms", "crop_ms", "pin_ms",
                                                     "host_batch_ms", "h2d_ms")}
-                              for k, f in feed["feeds"].items()},
+                              for k, f in feed["feeds"].items() if "host_batch_ms" in f},
+            "gather_and_crop_ms": {k: feed["feeds"][k]
+                                   for k in ("gather_float32", "gather_int32", "crop")},
             "cli": {k: {"step_ms": r["summary"]["step_ms"],
                         "resident_step_ms": r["resident_step_ms"],
                         "cli_over_resident": r["cli_over_resident"],
@@ -4607,8 +4888,16 @@ def main(argv=None) -> int:
                     for k, r in feed_runs.items()}}), flush=True)
 
         t0 = time.perf_counter()
+        e2e = phase_e2e()
+        print(f"[e2e] done ({time.perf_counter() - t0:.1f} s)", flush=True)
+
+        t0 = time.perf_counter()
         rank_runs = phase_bsp_ranks(torch.cuda.device_count())
         print(f"[bsp-ranks] done ({time.perf_counter() - t0:.1f} s)", flush=True)
+
+        t0 = time.perf_counter()
+        scaling = phase_scaling(torch.cuda.device_count())
+        print(f"[scaling] done ({time.perf_counter() - t0:.1f} s)", flush=True)
 
         t0 = time.perf_counter()
         exchange = phase_bsp_exchange(torch.cuda.device_count())
@@ -4629,6 +4918,10 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         lm_parity_launches = phase_lm_parity(dev)
         print(f"[lm-parity] done ({time.perf_counter() - t0:.1f} s)", flush=True)
+
+        t0 = time.perf_counter()
+        remat = phase_remat_parity(dev)
+        print(f"[remat-parity] done ({time.perf_counter() - t0:.1f} s)", flush=True)
 
         t0 = time.perf_counter()
         gnet_parity = phase_googlenet_parity(dev)
@@ -4707,6 +5000,10 @@ def main(argv=None) -> int:
         if rule == "momentum":
             # the same run at --dispatch-depth 1 and the default, in turns
             kernels[-1]["dispatch_depth_runs"] = runs["dispatch"]
+            # phase e2e: AlexNet from shards through run_training, each depth's run
+            kernels[-1]["e2e_launches"] = {
+                f"depth {row['dispatch_depth']}": row["kernel_launches"][name]
+                for row in e2e["dispatch_sweep"]}
         if rule == "momentum":
             kernels[-1]["googlenet_main_launches"] = gnet_runs["pool-kernel"]["launches"][name]
             kernels[-1]["feed_main"] = {k: {"launches": r["launches"][name],
@@ -4846,6 +5143,13 @@ def main(argv=None) -> int:
                              if name == "flash_dkv" else "")),
             "main_path_step_ms": lm["step_ms"],
             "main_path_tokens_per_sec": lm_run["tokens_per_sec"],
+            # the remat LMs: TransformerLM_350M's 4 steps + 1 val batch
+            # (the forward twice a layer a step) and phase remat-parity's
+            "lm350_launches": lm350_run["launches"][name],
+            "lm350_step_ms": lm350_run["summary"]["step_ms"],
+            "lm350_tokens_per_sec": lm350_run["tokens_per_sec"],
+            "remat_parity_launches": {k_: v_.get(name, 0)
+                                      for k_, v_ in remat["launches"].items()},
         })
         if t.get("turns_ms"):
             kernels[-1]["turns_ms"] = t["turns_ms"]
@@ -5083,8 +5387,6 @@ def main(argv=None) -> int:
             "copy_rate_bytes_per_s": t["copy_rate"]["rate"],
             "ptxas": {k_: v_ for k_, v_ in ptxas_pool.items() if k_.startswith(name[-3:])},
         })
-        if "turns_ms" in t:
-            kernels[-1]["parent_turns_ms"] = t["turns_ms"]
         gf = feed_runs["googlenet-imagenet_synthetic"]
         kernels[-1]["feed_main"] = {"launches": gf["launches"][name],
                                     "step_ms": gf["summary"]["step_ms"],
@@ -5109,6 +5411,16 @@ def main(argv=None) -> int:
         k["graph_launches"] = {label: {mode: graph_runs_[label][mode]["launches"][k["name"]]
                                        for mode in ("eager", "captured")}
                                for label in graph_runs()}
+    print("[new-paths] " + json.dumps({
+        "e2e": {k: e2e[k] for k in ("value", "step_ms", "wait_ms", "wait_frac",
+                                    "host_blocked_frac", "mfu", "recovery_overhead_frac")},
+        "scaling": [{k: x[k] for k in ("n_devices", "backend", "images_per_sec", "efficiency")}
+                    for x in scaling["table"]],
+        "lm350": {"step_ms": lm350_run["summary"]["step_ms"],
+                  "tokens_per_sec": lm350_run["tokens_per_sec"],
+                  "peak_bytes": lm350_run["peak_bytes"]},
+        "remat_parity": {k: remat[k] for k in ("rel_change_vs_cpu", "rel_change_vs_no_remat",
+                                               "bit_identical_to_no_remat")}}), flush=True)
     print(f"chip_smoke: wall {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(smi)

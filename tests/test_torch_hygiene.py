@@ -71,6 +71,7 @@ def test_importing_the_port_loads_no_jax():
         "import theanompi_tpu_torch.tools.bench\n"
         "import theanompi_tpu_torch.utils.faults, theanompi_tpu_torch.utils.dispatch\n"
         "import theanompi_tpu_torch.launch.supervisor\n"
+        "import theanompi_tpu_torch.tools.make_shards, theanompi_tpu_torch.models.cifar10\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'theanompi_tpu'))\n"
         "print(bad)\n"
     )
@@ -203,3 +204,44 @@ def test_googlenet_entry_points_raise_without_a_card_unless_cpu_is_asked_for(mon
     with pytest.raises(ValueError, match="NHWC"):
         tpool.maxpool3x3_fwd(torch.empty(8, 8, 16, device="meta"))
     assert tpool.MAXPOOL_FWD.launches == 0 and tpool.MAXPOOL_BWD.launches == 0
+
+
+def test_new_feed_and_bench_modules_import_no_jax_no_reference_and_no_pil():
+    """``tools/make_shards.py`` and the bench's e2e and scaling modes (and
+    what they import when they run) import neither JAX nor the JAX
+    package, and importing ``make_shards`` does not import PIL (only its
+    decode worker does)."""
+    new = [PORT / "tools" / "make_shards.py", PORT / "tools" / "bench.py"]
+    bad = [f"{f.relative_to(REPO)}:{line} imports {mod}"
+           for f in new for line, mod in _imports(f) if forbidden_import(mod)]
+    assert not bad, "\n".join(bad)
+    code = (
+        "import sys\n"
+        "import theanompi_tpu_torch.tools.make_shards, theanompi_tpu_torch.tools.bench\n"
+        "import theanompi_tpu_torch.models.cifar10, theanompi_tpu_torch.launch.supervisor\n"
+        "import theanompi_tpu_torch.data.imagenet, theanompi_tpu_torch.models.alex_net\n"
+        "from theanompi_tpu_torch.tools.bench import bench_e2e, bench_scaling\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'theanompi_tpu', 'PIL'))\n"
+        "print(bad)\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                         text=True, timeout=120, env=env)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.strip().splitlines()[-1] == "[]"
+
+
+def test_bench_modes_raise_without_a_card_unless_cpu_is_asked_for(monkeypatch):
+    """The e2e and scaling modes take the entry points' road: without CUDA
+    and without ``device='cpu'`` they raise before writing a shard or
+    spawning a rank."""
+    from theanompi_tpu_torch.tools import bench
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        bench.bench_e2e(steps=1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        bench.bench_scaling((1,), steps=1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        bench.main(["--mode", "e2e", "--steps", "1"])

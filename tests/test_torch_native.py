@@ -77,6 +77,96 @@ def test_gather_rows_matches_fancy_index(tmp_path):
     assert native.gather_rows(mm, idx[:0]).shape == (0, 8, 8, 3)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "int32", "int16", "float64"])
+def test_gather_rows_any_fixed_width_dtype(dtype, tmp_path):
+    """float32 images and int32 token windows (and any fixed-width dtype)
+    gather as bytes: numpy's fancy indexing bit for bit (NaN payloads,
+    signed zeros and infinities included), in ``out`` when given, from
+    an mmap too."""
+    r = np.random.RandomState(5)
+    if dtype.startswith("float"):
+        src = r.randn(41, 6, 5, 3).astype(dtype)
+        src.reshape(-1)[:4] = [np.nan, -0.0, np.inf, -np.inf]
+        src.reshape(-1).view(np.uint8)[-8:] = 0xFF  # a NaN with a non-default payload
+    else:
+        src = r.randint(-2**15, 2**15 - 1, (41, 77)).astype(dtype)
+    idx = r.randint(0, 41, 23)  # repeats
+    want = src[idx]
+    got = native.gather_rows(src, idx)
+    assert got.dtype == src.dtype and got.shape == want.shape
+    assert got.tobytes() == want.tobytes()
+    out = np.full(want.shape, 3, dtype)
+    assert native.gather_rows(src, idx, out=out) is out
+    assert out.tobytes() == want.tobytes()
+    np.save(tmp_path / "rows.npy", src)
+    mm = np.load(tmp_path / "rows.npy", mmap_mode="r")
+    assert native.gather_rows(mm, idx).tobytes() == want.tobytes()
+    for t in (1, 5):
+        assert native.gather_rows(src, idx, n_threads=t).tobytes() == want.tobytes()
+
+
+@pytest.mark.parametrize("dtype", ["uint8", "float32", "int32"])
+def test_dataset_gather_routes_every_fixed_width_dtype_natively(dtype):
+    """``data/datasets.py::gather`` takes the native gather for uint8,
+    float32 and int32 rows and writes into the ``out`` allocator's
+    buffer (the loader's pinned array), numpy's fancy indexing bit for
+    bit; a strided source takes numpy's."""
+    from theanompi_tpu_torch.data.datasets import gather
+
+    r = np.random.RandomState(8)
+    src = (r.randn(30, 4, 4, 3) * 100).astype(dtype)
+    idx = r.permutation(30)[:11]
+    given = []
+
+    def alloc(shape, dt):
+        given.append(np.empty(shape, dt))
+        return given[-1]
+
+    before = native.LOADER.calls["tmpi_gather_rows"]
+    got = gather(src, idx, alloc)
+    assert native.LOADER.calls["tmpi_gather_rows"] == before + 1
+    assert got is given[0] and got.dtype == src.dtype
+    assert got.tobytes() == src[idx].tobytes()
+    strided = src[:, :, ::2]
+    got = gather(strided, idx)
+    assert native.LOADER.calls["tmpi_gather_rows"] == before + 1
+    np.testing.assert_array_equal(got, strided[idx])
+
+
+@pytest.mark.parametrize("c", [1, 2, 3, 4, 5])
+def test_mirrored_crop_whole_pixels_every_channel_count(c):
+    """The mirrored rows copy whole pixels (c known at compile time for
+    RGB; a copy of c bytes otherwise): bit for bit the reference's
+    oracle and the plain version at every channel count, every image
+    flipped, both outputs, with a per-channel and a plane mean."""
+    r = np.random.RandomState(10 + c)
+    n, h, w, crop = 6, 19, 23, 13
+    x = r.randint(0, 256, (n, h, w, c)).astype(np.uint8)
+    oy = r.randint(0, h - crop + 1, n)
+    ox = r.randint(0, w - crop + 1, n)
+    flips = np.ones(n, bool)
+    flips[0] = False
+    want = JImageNet_data._numpy_crop_mirror(x, oy, ox, flips, crop)
+    np.testing.assert_array_equal(native.crop_mirror_u8(x, oy, ox, flips, crop), want)
+    for mean in (r.rand(c).astype(np.float32) * 255,
+                 r.rand(crop, crop, c).astype(np.float32) * 255, np.float32(117.25)):
+        got = native.crop_mirror_normalize(x, oy, ox, flips, crop, mean, 0.0173)
+        ref = _reference_normalize(x, oy, ox, flips, crop, mean, 0.0173)
+        assert got.tobytes() == ref.tobytes()
+
+
+def test_default_threads_are_capped_by_the_output_size(monkeypatch):
+    """Without a thread count a call takes one thread a MB of output (a
+    small batch's copy is shorter than starting threads), at most the
+    default count; an explicit count is honoured."""
+    monkeypatch.setenv("TMPI_LOADER_THREADS", "7")
+    mb = native.MIN_BYTES_A_THREAD
+    assert native._threads(None, 8 * 4096) == 1
+    assert native._threads(None, 3 * mb + 5) == 3
+    assert native._threads(None, 79 * mb) == 7
+    assert native._threads(5, 10) == 5
+
+
 @pytest.mark.parametrize("fn", ["gather_rows", "crop_mirror_u8", "crop_mirror_normalize"])
 def test_threads_equal_single_thread(fn):
     _, x, oy, ox, flips, crop = _batch(1, n=33, h=32, w=32, crop=27)
@@ -119,7 +209,7 @@ def test_calls_are_counted():
 @pytest.mark.parametrize("case", [
     "float_images", "chw_rank", "crop_too_big", "offset_past_edge", "negative_offset",
     "length_mismatch", "mean_size", "out_shape", "out_dtype", "out_strided",
-    "gather_dtype", "gather_index", "gather_negative",
+    "gather_dtype", "gather_strided", "gather_index", "gather_negative",
 ])
 def test_bad_arguments_raise(case):
     _, x, oy, ox, flips, crop = _batch(7)
@@ -138,7 +228,8 @@ def test_bad_arguments_raise(case):
             x, oy, ox, flips, crop, out=np.empty((len(x), crop, crop, 3), np.int8)),
         "out_strided": lambda: native.crop_mirror_u8(
             x, oy, ox, flips, crop, out=np.empty((len(x), crop, 2 * crop, 3), np.uint8)[:, :, ::2]),
-        "gather_dtype": lambda: native.gather_rows(x.astype(np.int16), [0]),
+        "gather_dtype": lambda: native.gather_rows(x.reshape(len(x), -1).astype(object), [0]),
+        "gather_strided": lambda: native.gather_rows(x[:, ::2], [0]),
         "gather_index": lambda: native.gather_rows(x, [0, len(x)]),
         "gather_negative": lambda: native.gather_rows(x, [-1]),
     }

@@ -248,7 +248,8 @@ def test_zoo_entry_and_the_registry_resolve_every_name():
     """``zoo_entry`` gives the reference's classes (by name) and batches;
     ``MODEL_REGISTRY`` holds the reference's names but the MoE LM, whose
     port waits for its engine (ROADMAP queue 1 item 4)."""
-    for name in ("mlp", "alexnet", "googlenet", "resnet50", "vgg16", "wrn", "transformer_lm"):
+    for name in ("mlp", "alexnet", "googlenet", "resnet50", "vgg16", "wrn", "transformer_lm",
+                 "transformer_lm_350m"):
         cls, batch = zoo_entry(name)
         jcls, jbatch = j_zoo_entry(name)
         assert cls.__name__ == jcls.__name__ and batch == jbatch, name

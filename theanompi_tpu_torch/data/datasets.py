@@ -3,9 +3,9 @@
 Every dataset draws with the reference's numpy seeding and in its order,
 so the two packages yield identical batches for a seed: the shuffled
 permutation, then the train-time ``augment`` hook's draws
-(``crop_mirror_augment`` for the CIFAR recipe). uint8 images are
-gathered by the native row gather (``native/``), other dtypes by numpy
-fancy indexing. The token datasets (``data/lm.py``) and the ImageNet
+(``crop_mirror_augment`` for the CIFAR recipe). Rows of every
+fixed-width dtype are gathered by the native row gather (``native/``).
+The token datasets (``data/lm.py``) and the ImageNet
 datasets (``data/imagenet.py``) register themselves here.
 """
 
@@ -21,14 +21,15 @@ from theanompi_tpu_torch import native
 
 
 def gather(source: np.ndarray, idx, out: Optional[Callable] = None) -> np.ndarray:
-    """``source[idx]``: the native multithreaded gather for uint8 rows,
-    written where ``out`` (an allocator ``(shape, dtype) -> array``, e.g.
-    ``data/loader.py::pinned_array``) says; numpy's fancy indexing for
-    any other dtype, into an array of its own (the training loop then
-    copies it into pinned memory)."""
-    if source.dtype != np.uint8:
+    """``source[idx]`` by the native multithreaded row gather for any
+    C-contiguous array of a fixed-width dtype (uint8 or float32 images,
+    int32 token windows), written where ``out`` (an allocator ``(shape,
+    dtype) -> array``, e.g. ``data/loader.py::pinned_array``) says, so
+    the training loop copies nothing more into pinned memory; numpy's
+    fancy indexing for an object dtype or a strided array."""
+    if source.dtype.hasobject or not source.flags.c_contiguous:
         return native.gather_rows_plain(source, idx)
-    buf = out((len(idx), *source.shape[1:]), np.uint8) if out is not None else None
+    buf = out((len(idx), *source.shape[1:]), source.dtype) if out is not None else None
     return native.gather_rows(source, idx, out=buf)
 
 

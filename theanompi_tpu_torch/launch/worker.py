@@ -182,6 +182,15 @@ RULE_KWARGS = {"easgd": ("avg_freq", "alpha", "group_size"),
                "gosgd": ("p_push", "avg_freq", "gossip_every", "group_size")}
 
 
+def host_blocked_frac(host_blocked_s: float, train_loop_s: float) -> Optional[float]:
+    """The share of the training loop the host spent blocked on the card
+    (the dispatcher's waits), as the reference reports it: at most 1,
+    rounded to 6 places, ``None`` when the loop took no time."""
+    if train_loop_s <= 0:
+        return None
+    return round(min(1.0, host_blocked_s / train_loop_s), 6)
+
+
 def _checkpoint_entries(engine, state, layouts, step_gen, devices: int, rank: int):
     """The entries of a checkpoint of ``state`` on rank 0 (None on the
     others): the state in the reference's layout (the engine's
@@ -230,6 +239,7 @@ def run_training(
     sigterm_grace: float = 0.0,
     inject_faults=None,
     fault_ledger: Optional[str] = None,
+    return_recorder: bool = False,
     **rule_kwargs,
 ) -> dict:
     """Train ``model_cls`` under a sync rule (``bsp``, ``easgd``,
@@ -265,6 +275,8 @@ def run_training(
     handler; the loop then checkpoints, marks the run resumable and
     raises ``Preempted``. ``inject_faults``: fault specs
     (``utils/faults.py``), with ``fault_ledger`` the fired-fault file.
+    ``return_recorder``: the summary carries the run's ``Recorder`` as
+    ``recorder`` (its per-step ``wait`` and ``step`` times).
     ``rule_kwargs``: EASGD's ``avg_freq``, ``alpha``, ``group_size``;
     GoSGD's ``p_push``, ``avg_freq``, ``gossip_every``, ``group_size``
     (module docstring)."""
@@ -869,6 +881,7 @@ def run_training(
     summary["steady_steps"] = len(intervals)
     summary["epoch_step_ms"] = epoch_step_ms
     summary.update(disp.summary())
+    summary["host_blocked_frac"] = host_blocked_frac(disp.host_blocked_s, train_loop_s)
     graph = engine.graph
     summary["captured"] = graph is not None and graph.replays > 0
     summary["graph"] = ({"captures": graph.captures, "replays": graph.replays}
@@ -906,4 +919,6 @@ def run_training(
     summary["images_per_sec"] = batch / (slowest / 1e3) if slowest else 0.0
     summary["losses"] = list(losses)
     summary["nonfinite_steps"] = nonfinite
+    if return_recorder:
+        summary["recorder"] = rec
     return summary

@@ -8,8 +8,8 @@ training loop and engine that train the CNN zoo train an LM —
 Token batches come from ``lm_synthetic`` / ``lm_text`` (``data/lm.py``):
 "images" are token windows ``[B, T] int32`` and labels are the same
 windows (next-token targets are shifted in-model; the last position is
-masked). ``MoELMModel`` and ``TransformerLM_350M`` (per-block remat)
-come in later slices.
+masked). ``TransformerLM_350M`` checkpoints every block (``remat``);
+``MoELMModel`` comes in a later slice.
 """
 
 from __future__ import annotations
@@ -93,6 +93,11 @@ class TransformerLMModel(Model):
     def apply(self, params, state, tokens, *, train: bool = False, gen=None):
         # token ids stay integers: no cast to the compute dtype
         del train, gen  # no dropout in this LM
+        if self.recipe.loss_chunk:
+            raise ValueError(
+                "loss_chunk runs on the arch's loss (TransformerLM.loss, chunked_nll); the "
+                "classifier-contract path materializes the full logits this knob exists to "
+                "avoid — unset loss_chunk here")
         return self.arch.forward(params, tokens), state
 
     def loss(self, logits, labels):
@@ -134,4 +139,35 @@ class TransformerLM_136M(TransformerLMModel):
             n_layers=12,
             d_ff=3072,
             attn="flash",
+        )
+
+
+class TransformerLM_350M(TransformerLMModel):
+    """GPT-2-medium-scale config (~360M params): 24 layers x d=1024 (16
+    heads of 64), d_ff 4096, T=1024, 32k vocab, flash attention, bf16
+    compute with fp32 params, Adam at lr 3e-4, batch 8 sequences, and
+    per-block remat: each block's activations are recomputed in the
+    backward, the flash forward kernel with them."""
+
+    name = "transformer_lm_350m"
+
+    @classmethod
+    def default_recipe(cls) -> LMRecipe:
+        return LMRecipe(
+            batch_size=8,
+            n_epochs=1,
+            optimizer="adam",
+            schedule="constant",
+            sched_kwargs={"lr": 3e-4},
+            lr_unit="step",
+            input_shape=(1024,),
+            num_classes=32768,
+            dataset="lm_synthetic",
+            compute_dtype=torch.bfloat16,
+            d_model=1024,
+            n_heads=16,
+            n_layers=24,
+            d_ff=4096,
+            attn="flash",
+            remat=True,
         )

@@ -17,9 +17,20 @@ norm statistics, softmax statistics and the loss in fp32.
 Attention without a sequence-parallel axis: ``attn="flash"`` (and
 ``ulysses_flash`` / ``ring_flash``, which degrade to their local step)
 runs the flash kernels (``ops/flash_attention.py``); ``ring`` and
-``ulysses`` the plain oracle (``ops/ring_attention.py``). Sequence and
-tensor parallelism, the chunked loss, remat, MoE blocks and the paged
-decode functions come in later slices; asking for them raises.
+``ulysses`` the plain oracle (``ops/ring_attention.py``).
+
+``remat=True`` checkpoints each block (the reference's
+``jax.checkpoint(block)``): ``torch.utils.checkpoint`` without reentry
+keeps none of a block's activations, and the backward runs the block's
+forward again, the flash forward kernel included, with the same ops in
+the same order (the same bf16 roundings). ``loss_chunk`` computes the
+loss per chunk of positions (``chunked_nll``), each chunk's logits
+recomputed in the backward. Both checkpoints run with
+``preserve_rng_state=False``: the blocks and the loss draw no random
+numbers, and stashing the CUDA generator's state is not allowed while a
+step is captured into a CUDA graph. Sequence and tensor parallelism, MoE
+blocks and the paged decode functions come in later slices; asking for
+them raises.
 """
 
 from __future__ import annotations
@@ -28,6 +39,7 @@ import dataclasses
 from typing import Any, Callable, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from theanompi_tpu_torch.models.contract import as_dtype
 from theanompi_tpu_torch.nn.layers import gelu
@@ -101,6 +113,34 @@ def next_token_loss(tokens: torch.Tensor, sp_axis: Optional[str],
     return torch.sum(nll * valid) / torch.sum(valid)
 
 
+def chunked_nll(x: torch.Tensor, head: torch.Tensor, chunk: int,
+                dtype: torch.dtype) -> Callable[[torch.Tensor], torch.Tensor]:
+    """Per-position NLL computed a chunk of ``chunk`` positions at a time
+    from the hidden states ``x [B, T, d]``: each chunk's ``[B, chunk, V]``
+    logits (the head matmul in ``dtype``) are reduced to ``logsumexp -
+    logit[target]`` in fp32 and dropped, and the backward recomputes them
+    chunk by chunk (the body is checkpointed). The loss's memory falls
+    from O(T x V) to O(chunk x V); the values are ``softmax_nll``'s on the
+    full logits. Raises when ``chunk`` does not divide the sequence."""
+
+    def body(xb, hd, tb):
+        lf = (xb @ hd).float()
+        lse = torch.logsumexp(lf, dim=-1)
+        tl = torch.gather(lf, -1, tb.long()[..., None])[..., 0]
+        return lse - tl
+
+    def nll_fn(targets):
+        T = targets.shape[1]
+        if T % chunk:
+            raise ValueError(f"loss_chunk={chunk} must divide the local sequence length {T}")
+        hd = head.to(dtype)
+        return torch.cat([checkpoint(body, x[:, i:i + chunk], hd, targets[:, i:i + chunk],
+                                     use_reentrant=False, preserve_rng_state=False)
+                          for i in range(0, T, chunk)], dim=1)
+
+    return nll_fn
+
+
 def softmax_nll(logits: torch.Tensor) -> Callable[[torch.Tensor], torch.Tensor]:
     """Per-position NLL ``logsumexp(logits) - logits[target]`` in fp32
     whatever the compute dtype."""
@@ -133,11 +173,6 @@ class TransformerLM:
     loss_chunk: Optional[int] = None
 
     def __post_init__(self):
-        if self.remat:
-            raise ValueError("remat=True (per-block activation checkpointing) is not "
-                             "ported yet (ROADMAP.md)")
-        if self.loss_chunk:
-            raise ValueError("loss_chunk (the chunked loss) is not ported yet (ROADMAP.md)")
         object.__setattr__(self, "dtype", as_dtype(self.dtype))
 
     def init(self, gen: torch.Generator) -> Tree:
@@ -180,16 +215,30 @@ class TransformerLM:
         tokens = tokens.long()
         # cast AFTER the gathers (cheaper than casting the [V, d] table)
         x = (params["tok_emb"][tokens] + params["pos_emb"][pos][None]).to(self.dtype)
-        for blk in params["blocks"]:
+
+        def block(x, blk):
             blk = cast_block_params(blk, self.dtype)
             x = x + attention_block(blk, x, self.attn, sp_axis)
             hin = _rms(x, blk["ln2"])
-            x = x + gelu(hin @ blk["mlp_in"]) @ blk["mlp_out"]
+            return x + gelu(hin @ blk["mlp_in"]) @ blk["mlp_out"]
+
+        remat = self.remat and torch.is_grad_enabled()
+        for blk in params["blocks"]:
+            if remat:
+                # the block's activations are recomputed in the backward
+                x = checkpoint(block, x, blk, use_reentrant=False, preserve_rng_state=False)
+            else:
+                x = block(x, blk)
         return x
 
     def loss(self, params: Tree, tokens: torch.Tensor,
              axis_name: Optional[str] = None) -> torch.Tensor:
         """Next-token cross-entropy of ``tokens`` (``axis_name``: the
-        sequence axis, which only the unported SP path sets)."""
+        sequence axis, which only the unported SP path sets); per chunk of
+        positions (``chunked_nll``) when ``loss_chunk`` is set."""
+        if self.loss_chunk:
+            x = self.forward_hidden(params, tokens, sp_axis=axis_name)
+            return next_token_loss(tokens, axis_name,
+                                   chunked_nll(x, params["head"], self.loss_chunk, self.dtype))
         logits = self.forward(params, tokens, sp_axis=axis_name)
         return next_token_loss(tokens, axis_name, softmax_nll(logits))

@@ -15,11 +15,12 @@ the source (``loader.cpp``), its own build and its own binding:
   thread that launches the card's kernels;
 - no fallback. A failed build, load or call raises. The plain numpy
   versions (``*_plain`` below) are the functions' definitions, used by
-  the tests and for arrays the native code does not take (a dtype other
-  than uint8); callers choose them by dtype, explicitly.
+  the tests and for arrays the native code does not take (an object
+  dtype, a strided array); callers choose them explicitly.
 
 ``TMPI_LOADER_THREADS`` sets the threads of one call (default: this
-process's CPU affinity count less one, at most 8).
+process's CPU affinity count less one, at most 8, and at most one a MB
+of the call's output).
 """
 
 from __future__ import annotations
@@ -140,8 +141,17 @@ def default_threads() -> int:
     return max(1, min(8, n - 1))
 
 
-def _threads(n_threads: Optional[int]) -> int:
-    return int(n_threads) if n_threads is not None else default_threads()
+# bytes of output a thread when the caller names no thread count: starting
+# a thread costs more than copying a small batch (a few token windows)
+MIN_BYTES_A_THREAD = 1 << 20
+
+
+def _threads(n_threads: Optional[int], out_bytes: int) -> int:
+    """``n_threads`` when given, else ``default_threads()`` capped at one
+    thread a ``MIN_BYTES_A_THREAD`` of output (at least one)."""
+    if n_threads is not None:
+        return int(n_threads)
+    return max(1, min(default_threads(), out_bytes // MIN_BYTES_A_THREAD))
 
 
 def _out(out: Optional[np.ndarray], shape: tuple, dtype) -> np.ndarray:
@@ -190,7 +200,7 @@ def crop_mirror_u8(images: np.ndarray, oy, ox, flip, crop: int,
     out = _out(out, (n, crop, crop, c), np.uint8)
     LOADER.call("tmpi_crop_mirror_u8", images.ctypes.data, n, h, w, c,
                 oy32.ctypes.data, ox32.ctypes.data, flip8.ctypes.data, crop, crop,
-                out.ctypes.data, _threads(n_threads))
+                out.ctypes.data, _threads(n_threads, out.nbytes))
     return out
 
 
@@ -209,26 +219,29 @@ def crop_mirror_normalize(images: np.ndarray, oy, ox, flip, crop: int, mean, sca
     LOADER.call("tmpi_crop_mirror_normalize", images.ctypes.data, n, h, w, c,
                 oy32.ctypes.data, ox32.ctypes.data, flip8.ctypes.data, crop, crop,
                 mean32.ctypes.data, mean32.size, ctypes.c_float(scale), out.ctypes.data,
-                _threads(n_threads))
+                _threads(n_threads, out.nbytes))
     return out
 
 
 def gather_rows(source: np.ndarray, idx, n_threads: Optional[int] = None,
                 out: Optional[np.ndarray] = None) -> np.ndarray:
-    """``source[idx]`` for a uint8 C-contiguous ``source`` (a memory-mapped
-    shard, say) by a multithreaded row memcpy."""
-    if not isinstance(source, np.ndarray) or source.dtype != np.uint8 or source.ndim < 1:
-        raise TypeError(f"source must be a uint8 array, got "
+    """``source[idx]`` for a C-contiguous ``source`` of any fixed-width
+    dtype (a memory-mapped uint8 shard, float32 images, int32 token
+    windows) by a multithreaded row memcpy: each row is its bytes, so
+    the result is numpy's fancy indexing bit for bit."""
+    if (not isinstance(source, np.ndarray) or source.dtype.hasobject
+            or source.dtype.itemsize == 0 or source.ndim < 1):
+        raise TypeError(f"source must be an array of a fixed-width dtype, got "
                         f"{getattr(source, 'dtype', type(source))}")
     if not source.flags.c_contiguous:
         raise ValueError("source must be C-contiguous")
     idx64 = np.ascontiguousarray(idx, dtype=np.int64).reshape(-1)
     if len(idx64) and (idx64.min() < 0 or idx64.max() >= len(source)):
         raise IndexError(f"row index out of range for {len(source)} rows")
-    row_bytes = int(np.prod(source.shape[1:], dtype=np.int64))
-    out = _out(out, (len(idx64), *source.shape[1:]), np.uint8)
+    row_bytes = int(np.prod(source.shape[1:], dtype=np.int64)) * source.dtype.itemsize
+    out = _out(out, (len(idx64), *source.shape[1:]), source.dtype)
     LOADER.call("tmpi_gather_rows", source.ctypes.data, row_bytes, idx64.ctypes.data,
-                len(idx64), out.ctypes.data, _threads(n_threads))
+                len(idx64), out.ctypes.data, _threads(n_threads, out.nbytes))
     return out
 
 

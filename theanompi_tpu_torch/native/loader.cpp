@@ -22,6 +22,22 @@
 #include <thread>
 #include <vector>
 
+namespace {
+
+// The w pixels of srow in reverse order into drow, a whole pixel (c
+// bytes) a copy; RGB's 3 bytes known at compile time.
+inline void mirror_row(const uint8_t* srow, uint8_t* drow, int64_t w, int64_t c) {
+  if (c == 3) {
+    const uint8_t* s = srow + (w - 1) * 3;
+    for (int64_t x = 0; x < w; ++x, s -= 3, drow += 3) __builtin_memcpy(drow, s, 3);
+    return;
+  }
+  for (int64_t x = 0; x < w; ++x)
+    __builtin_memcpy(drow + x * c, srow + (w - 1 - x) * c, static_cast<size_t>(c));
+}
+
+}  // namespace
+
 extern "C" {
 
 // Crop + mirror + normalize a batch. Returns 0 on success.
@@ -46,6 +62,7 @@ int tmpi_crop_mirror_normalize(
   const int64_t out_row = crop_w * c;
   const int64_t out_img = crop_h * out_row;
 
+  const bool plane = mean_len == crop_h * crop_w * c;
   auto work = [&](int64_t i0, int64_t i1) {
     for (int64_t i = i0; i < i1; ++i) {
       const uint8_t* src = in + i * in_img + oy[i] * in_row + ox[i] * c;
@@ -54,15 +71,26 @@ int tmpi_crop_mirror_normalize(
       for (int64_t y = 0; y < crop_h; ++y) {
         const uint8_t* srow = src + y * in_row;
         float* drow = dst + y * out_row;
-        const float* mrow =
-            (mean_len == crop_h * crop_w * c) ? mean + y * out_row : mean;
+        if (c == 3 && !plane) {
+          // a whole RGB pixel a step, the mean's three values hoisted
+          const float m0 = mean[0];
+          const float m1 = mean_len == 1 ? mean[0] : mean[1];
+          const float m2 = mean_len == 1 ? mean[0] : mean[2];
+          for (int64_t x = 0; x < crop_w; ++x) {
+            // mirrored reads keep writes sequential (write locality wins)
+            const uint8_t* spix = srow + (f ? crop_w - 1 - x : x) * 3;
+            float* dpix = drow + x * 3;
+            dpix[0] = (static_cast<float>(spix[0]) - m0) * scale;
+            dpix[1] = (static_cast<float>(spix[1]) - m1) * scale;
+            dpix[2] = (static_cast<float>(spix[2]) - m2) * scale;
+          }
+          continue;
+        }
+        const float* mrow = plane ? mean + y * out_row : mean;
         for (int64_t x = 0; x < crop_w; ++x) {
-          // mirrored reads keep writes sequential (write locality wins)
-          const uint8_t* spix = f ? srow + (crop_w - 1 - x) * c : srow + x * c;
+          const uint8_t* spix = srow + (f ? crop_w - 1 - x : x) * c;
           float* dpix = drow + x * c;
-          const float* mpix = (mean_len == crop_h * crop_w * c)
-                                  ? mrow + x * c
-                                  : mean;
+          const float* mpix = plane ? mrow + x * c : mean;
           for (int64_t ch = 0; ch < c; ++ch) {
             const float m = (mean_len == 1) ? mean[0] : mpix[ch];
             dpix[ch] = (static_cast<float>(spix[ch]) - m) * scale;
@@ -116,11 +144,7 @@ int tmpi_crop_mirror_u8(
         if (!f) {
           __builtin_memcpy(drow, srow, static_cast<size_t>(out_row));
         } else {
-          for (int64_t x = 0; x < crop_w; ++x) {
-            const uint8_t* spix = srow + (crop_w - 1 - x) * c;
-            uint8_t* dpix = drow + x * c;
-            for (int64_t ch = 0; ch < c; ++ch) dpix[ch] = spix[ch];
-          }
+          mirror_row(srow, drow, crop_w, c);
         }
       }
     }
@@ -143,8 +167,10 @@ int tmpi_crop_mirror_u8(
   return 0;
 }
 
-// Gather rows of a uint8 [n_total, row_bytes] array into a contiguous
-// batch (mmap shard -> batch assembly without numpy fancy-indexing).
+// Gather rows of a [n_total, row_bytes] array into a contiguous batch
+// (mmap shard -> batch assembly without numpy fancy-indexing). Rows are
+// bytes: any fixed-width dtype (uint8 images, float32 images, int32
+// token windows) gathers through it.
 int tmpi_gather_rows(
     const uint8_t* in, int64_t row_bytes,
     const int64_t* idx, int64_t n,

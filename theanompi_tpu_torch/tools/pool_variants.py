@@ -40,22 +40,17 @@ steps of nine launches):
 The text-edited variants are built by nvcc into their own libraries (all
 builds started together, ``tools/fwd_variants.build_variants``). Every
 variant's outputs are first checked bit for bit against the plain
-version. ``build_parent`` builds the kernels of an earlier tree's
-``csrc/pool.cu`` (the grid-stride design), for ``chip_smoke.py``'s
-old/new turns. The last stdout line is a JSON summary. Needs a card and
+version. The last stdout line is a JSON summary. Needs a card and
 nvcc.
 """
 
 from __future__ import annotations
 
-import ctypes
-import subprocess
 import tempfile
 from pathlib import Path
 
 import torch
 
-from theanompi_tpu_torch.ops import kernels as K
 from theanompi_tpu_torch.ops import pool as tp
 from theanompi_tpu_torch.tools.fwd_variants import _ms, build_variants, run
 
@@ -193,51 +188,6 @@ def measure(reps: int = 10) -> dict:
     out["readings_ms"] = {f"{op}/{n}": t for op, d in out["ops"].items()
                           for n, t in d["readings_ms"].items()}
     return out
-
-
-# the grid-stride kernels' C interface (before the halo tile): device,
-# dtype, x, y[, g, dx], N, H, W, C, max_blocks, stream
-_I, _I64, _P = ctypes.c_int, ctypes.c_int64, ctypes.c_void_p
-_PARENT_SIGNATURES = {
-    "tmpi_maxpool3x3_fwd": (_I, _I, _P, _P, _I64, _I, _I, _I, _I, _P),
-    "tmpi_maxpool3x3_bwd": (_I, _I, _P, _P, _P, _P, _I64, _I, _I, _I, _I, _P),
-}
-
-
-def build_parent(source: Path, workdir: Path):
-    """The grid-stride kernels of an earlier tree's ``csrc/pool.cu``, built
-    with the package's flags -> ``(fwd(x, y), bwd(x, y, g, dx))``
-    launchers on the current stream (tensors checked by the caller).
-    Raises if that source has not the grid-stride interface."""
-    text = source.read_text()
-    if "int64_t N, int H, int W, int C, int max_blocks" not in text:
-        raise RuntimeError(f"{source} does not hold the grid-stride pool kernels")
-    so = workdir / "pool_parent.so"
-    proc = subprocess.run([K.nvcc_path(), *K.NVCC_FLAGS, "-o", str(so), str(source)],
-                          capture_output=True, text=True)
-    if proc.returncode:
-        raise RuntimeError(f"nvcc failed on {source}:\n{proc.stdout}{proc.stderr}"[-3000:])
-    lib = ctypes.CDLL(str(so))
-    for name, argtypes in _PARENT_SIGNATURES.items():
-        getattr(lib, name).argtypes = list(argtypes)
-        getattr(lib, name).restype = ctypes.c_int
-
-    def fwd(x, y):
-        dev = x.device
-        N, H, W, C = x.shape
-        tp._LIB.check(lib.tmpi_maxpool3x3_fwd(dev.index, K.DTYPE_CODES[x.dtype], x.data_ptr(),
-                                              y.data_ptr(), N, H, W, C, K.max_blocks(dev),
-                                              K.stream_handle(dev)), "the parent's forward")
-
-    def bwd(x, y, g, dx):
-        dev = x.device
-        N, H, W, C = x.shape
-        tp._LIB.check(lib.tmpi_maxpool3x3_bwd(dev.index, K.DTYPE_CODES[x.dtype], x.data_ptr(),
-                                              y.data_ptr(), g.data_ptr(), dx.data_ptr(), N, H,
-                                              W, C, K.max_blocks(dev), K.stream_handle(dev)),
-                      "the parent's backward")
-
-    return fwd, bwd
 
 
 def main(argv=None) -> int:

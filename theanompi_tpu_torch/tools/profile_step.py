@@ -175,9 +175,10 @@ def feed_times(data, batch: int, device, n_batches: int, into_pinned: bool = Tru
     thread makes it, with ``device``'s copy of it: per batch and as
     medians, gather / crop / pin / host batch / H2D ms (see the module
     docstring). ``into_pinned``: the dataset's native calls write each
-    batch into pinned memory, as the loop does on the card (float32
-    batches are gathered by numpy and copied either way); False: into
-    fresh arrays, then copied into pinned memory (the reference's order).
+    batch into pinned memory, as the loop does on the card (every
+    fixed-width dtype: uint8 and float32 images, int32 windows); False:
+    into fresh arrays, then copied into pinned memory (the reference's
+    order).
     ``written_into_pinned`` says which happened. On a CPU ``device``
     nothing is pinned and H2D is None (not measured)."""
     pin = device.type == "cuda"
