@@ -105,7 +105,13 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                 parts) at the fp32 limit
                 rtol 1e-4 + 1e-5 of the largest value, which a dv from
                 bf16(p) must fail; lse atol 1e-5. The routes' forward, dq
-                and dk/dv counters move by one per case.
+                and dk/dv counters move by one per case. The ring hops of
+                the 136M LM at --sp 4 (BH 96, Tq = Tk = 256, D 64, bf16,
+                causal) at (q_off, k_off) (512, 256), (512, 512) and (256,
+                512), and the same three in fp32 and at D 60 (BH 4): the
+                last is a hop wholly in the future, where no CTA of any
+                route has a tile; o, dq, dk and dv must be exactly 0 there
+                (the kernels' and the plain versions') and lse <= -1e29.
    pool       — the 3x3/s1 max pool kernels (#12 maxpool3x3_fwd, #13
                 maxpool3x3_bwd) against their plain versions, bit for bit
                 (a NaN matches any NaN), in fp32 and bf16, at the distinct
@@ -249,6 +255,32 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                 (remat runs each block's forward again in the backward),
                 24 x 4 flash_dq_sm90 and flash_dkv_sm90, no other kernel;
                 losses finite; step ms, tokens/s, peak allocated memory.
+   sp         — sequence parallelism (``parallel/nd.py``, ``--sp``): the
+                136M LM's width (d 768, 12 heads of 64, T 1024, vocab
+                32768, batch 8, bf16, Adam) at 2 layers, 2 gloo ranks on
+                cuda:0 at --sp 2 through ``run_training`` (the successor
+                table of the synthetic chain drawn once here and handed
+                to the ranks), 3 steps and one validation batch, under
+                ring_flash and under ulysses_flash with --wire-codec
+                int8:ef: each rank launches exactly 2 (ring) or 1
+                (Ulysses) x 2 layers x (3 + 1) flash_fwd_sm90 and x 3
+                flash_dq_sm90 and flash_dkv_sm90, under the codec 3
+                quant_block and 3 dequant_block, no other kernel; losses
+                finite and equal across the ranks, the replicas equal;
+                the first step's loss within rtol 1e-3 of one rank's
+                (attn flash) from the same weights and batch.
+                ``--only sp`` on 4 cards (NCCL, one rank a card): the
+                12-layer 136M at --sp 4 under ring_flash and
+                ulysses_flash and at data 2 x seq 2 (ring_flash), each 32
+                steps eager and in captured groups of 4, eager = captured
+                bit for bit (replicas and losses); step ms over the 30
+                steady steps, tokens/s; the eager run cut at step 16 and
+                resumed, ending on its state; the 350M with remat at
+                --sp 4 for 4 steps; T 8192 at batch 2 at --sp 4 beside
+                --sp 1 on one card, peak memory a card; and a profile
+                (``torch.profiler``) of 5 steps at --sp 4 of each scheme:
+                NCCL's, the flash kernels' and the other kernels' device
+                time a step.
    googlenet-main — full-width GoogLeNet (224x224x3, 1000 classes, both
                 aux heads, bf16 compute, fp32 params, momentum 0.9, wd
                 1e-4, poly, batch 512, random weights from a seed) through
@@ -313,7 +345,10 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                 generators; #1, #3 and #4 4 + 2 a rank over the
                 attempts, both ranks' counts of attempt 1 on record);
                 ``--ckpt-sharded --max-retries
-                1 --inject-fault crash@4``: each rank's crash save makes
+                1 --inject-fault crash@4`` (under ``--only resume``; the
+                default run leaves it to the shrink below, whose first
+                attempt writes the same kind of set, to pay for phase
+                sp): each rank's crash save makes
                 one member of step 3's set, the retry resumes from it
                 (digest, generators; #1, #3 and #4 3 + 3 a rank over the
                 attempts); ``--ckpt-sharded --elastic --max-retries 1
@@ -1820,11 +1855,14 @@ def _reshard_checks(label: str, s: dict, set_path: str, from_world: int, to_worl
           f"{label}: generator rows of {from_world} ranks restored onto {to_world}")
 
 
-def phase_resume(n_cards: int = 1, nccl_only: bool = False):
+def phase_resume(n_cards: int = 1, nccl_only: bool = False, sharded_crash: bool = True):
     """Checkpoint, resume and the supervisor through the CLI (module
     docstring, phase resume): one card, 2 ranks sharing it over gloo,
     and with 4 cards an NCCL shrink from 4 ranks to 2 (alone with
-    ``nccl_only``)."""
+    ``nccl_only``). ``sharded_crash``: the 2 ranks' crash into a sharded
+    set resumed on the same world (``--only resume``; the default run
+    leaves it to the elastic shrink, whose attempt 1 writes the same
+    kind of set)."""
     import torch
 
     from theanompi_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
@@ -1967,6 +2005,7 @@ def phase_resume(n_cards: int = 1, nccl_only: bool = False):
                                           "load_ms": s["resume"]["load_ms"],
                                           "verify_ms": s["resume"]["verify_ms"],
                                           "wall_s": s["wall_s"]}
+            if n == 2 and sharded_crash:
                 # each rank's crash save completes one sharded set at step 3
                 s, counts, d = run("sharded-crash", "--ckpt-sharded", "--max-retries", "1",
                                    "--retry-backoff", "0", "--inject-fault", "crash@4")
@@ -2342,6 +2381,16 @@ def phase_quant_times(dev, mem_rate, fp32_peak):
     return results
 
 
+# (q_off, k_off) of the ring hops in flash_cases: below, on and above the
+# causal diagonal (the last: a hop wholly in the future)
+RING_HOPS = ((512, 256), (512, 512), (256, 512))
+
+
+def whole_future(Tq, causal, q_off, k_off) -> bool:
+    """Every key of the hop lies in the future of every query."""
+    return causal and k_off >= q_off + Tq
+
+
 def flash_cases():
     """(label, BH, Tq, Tk, D, causal, q_off, k_off, dtype): the 136M LM's
     shape in bf16 and fp32, the 350M LM's in bf16, ragged T and D, Tq != Tk, causal and not,
@@ -2350,9 +2399,10 @@ def flash_cases():
     (flash_fwd_mma_bf16, flash_dq_mma_bf16 and flash_dkv_mma_bf16: 4-byte
     copies, and register-staged loads for the odd head) with ragged T, Tq
     != Tk and offsets, fp32 heads of 30 and 33
-    (flash_fwd_mma's and flash_dkv_mma's 4-byte copies), and T = 8192
+    (flash_fwd_mma's and flash_dkv_mma's 4-byte copies), T = 8192
     (where the reference's backward switches to its 2-D kernels #10 and
-    #11)."""
+    #11), and the ring hops of the 136M LM at --sp 4 (BH 96, Tq = Tk =
+    256, bf16) at ``RING_HOPS``, with the fp32 and D 60 routes at BH 4."""
     import torch
 
     bh = LM_SHAPE["B"] * LM_SHAPE["H"]
@@ -2387,6 +2437,17 @@ def flash_cases():
                 bf))
     out.append(("offsets q 160 k 0 D 36 bfloat16", 4, 96, 200, 36, True, 160, 0, bf))
     out.append(("T 8192 bfloat16", 2, 8192, 8192, 64, True, 0, 0, bf))
+    # the ring's hops of the 136M LM at --sp 4 (phase sp): Tq = Tk = 256 a
+    # rank, rank 2 folding the block of rank 1, its own (the diagonal), and
+    # the block of rank 2 seen from rank 1: every key in the future of every
+    # query (no tile for any CTA of the forward or dq; exact zeros)
+    for q_off, k_off in RING_HOPS:
+        out.append((f"ring hop q {q_off} k {k_off} bfloat16", 96, 256, 256, 64, True, q_off,
+                    k_off, bf))
+    for dt, D in ((torch.float32, 64), (bf, 60)):
+        for q_off, k_off in RING_HOPS:
+            out.append((f"ring hop q {q_off} k {k_off} D {D} {str(dt)[6:]}", 4, 256, 256, D,
+                        True, q_off, k_off, dt))
     return out
 
 
@@ -2595,7 +2656,18 @@ def phase_flash(dev):
             if o[:, :blind].float().any() or not bool((lse[:, :blind] <= -1e29).all()):
                 bad.append("rows that see no key are not o = 0, lse ~ -1e30")
         grads = ((dq, pdq), (dk, pdk), (dv, pdv))
-        if dt == torch.float32:
+        grad_x = 0.0
+        if whole_future(Tq, causal, q_off, k_off):
+            # no CTA has a tile: every output comes from the epilogues alone
+            for name, t in (("o", o), ("dq", dq), ("dk", dk), ("dv", dv)):
+                if t.float().any():
+                    bad.append(f"whole-future hop: {name} not exactly 0")
+            for name, t in (("plain o", po), ("plain dq", pdq), ("plain dk", pdk),
+                            ("plain dv", pdv)):
+                if t.float().any():
+                    bad.append(f"whole-future hop: {name} not exactly 0")
+            tol = "whole-future hop: o, dq, dk, dv exactly 0 and lse <= -1e29"
+        elif dt == torch.float32:
             o_x = _rel_excess(o, po, 1e-5, 1e-6 * po.abs().max().item())
             grad_x = max(_rel_excess(a, b, 1e-4, 1e-5 * b.abs().max().item()) for a, b in grads)
             if o_x > 1:
@@ -2869,6 +2941,301 @@ def phase_lm350_main():
           f"allocated {peak / 2**30:.3f} GiB; launches {got}", flush=True)
     return {"launches": got, "summary": summary, "tokens_per_sec": tokens_per_sec,
             "peak_bytes": peak}
+
+
+
+# phase sp: the 136M width at 2 layers on one card (2 gloo ranks, --sp 2);
+# --only sp on 4 cards over NCCL at full depth
+SP_LAYERS = 2
+SP_STEPS = 3
+SP4_STEPS = 32  # 30 steady steps: a window of >= 0.5 s at every mesh
+SP4_K = 4  # steps a captured group
+SP350_STEPS = 4
+SP_LONG_T = 8192
+SP_LONG_BATCH = 2
+SP_LONG_STEPS = 4
+SP_PROFILE_STEPS = 5
+# the loss of the first step, --sp 2 against one rank: bf16 o rounded at
+# each ring hop (or around the all-to-all) against once, on ~ln V
+SP_LOSS_RTOL = 1e-3
+SP_FLASH = ("flash_fwd_sm90", "flash_dq_sm90", "flash_dkv_sm90")
+
+
+def successor_table():
+    """The 136M LM's synthetic chain's successor table (``data/lm.py``),
+    drawn in this process (~30 s once; the lm phases reuse it) and handed
+    to the ranks of phase sp, which would each draw it again."""
+    from theanompi_tpu_torch.data import lm as data_lm
+
+    key = (32768, 4, 1234)  # vocab, branching, seed: the dataset's defaults
+    return key, data_lm._successors(*key)
+
+
+def sp_run_kwargs(attn, steps, layers=None, epoch_steps=None, **extra):
+    """``run_training`` kwargs of an SP run of the 136M LM's width: one
+    epoch of ``epoch_steps`` (default ``steps``) batches and one
+    validation batch."""
+    over = {"attn": attn}
+    if layers is not None:
+        over["n_layers"] = layers
+    over.update(extra.pop("recipe", {}))
+    batch = over.get("batch_size", 8)
+    return dict(dataset="synthetic", max_steps=steps, print_freq=1, seed=0,
+                recipe_overrides=over,
+                dataset_kwargs={"n_train": batch * (epoch_steps or steps), "n_val": batch},
+                **extra)
+
+
+def sp_profile(rank, n, device, sp, attn, steps):
+    """Device time of ``steps`` steps of the 12-layer 136M at ``--sp sp``
+    after 3 warm-up steps, by ``torch.profiler``'s kernel names: NCCL's
+    (the ring's point-to-point exchanges, the all-to-alls, the gradient
+    all-reduce), the flash kernels', and every other kernel's; None where
+    the profiler saw no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from theanompi_tpu_torch.models.lm import TransformerLM_136M
+    from theanompi_tpu_torch.parallel.nd import NDEngine
+
+    model = TransformerLM_136M(TransformerLM_136M.default_recipe().replace(attn=attn))
+    eng = NDEngine(model, n, device, sp=sp)
+    state = eng.init_state(torch.Generator().manual_seed(0))
+    g = torch.Generator().manual_seed(1)
+    B = 8 // eng.dp
+    batches = [torch.randint(0, 32768, (B, 1024), generator=g).to(device) for _ in range(3 + steps)]
+    for x in batches[:3]:
+        state, _ = eng.train_step(state, x, x, None)
+    torch.cuda.synchronize(device)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        start.record()
+        for x in batches[3:]:
+            state, _ = eng.train_step(state, x, x, None)
+        end.record()
+        torch.cuda.synchronize(device)
+    cats = {"nccl_ms": 0.0, "flash_ms": 0.0, "other_kernels_ms": 0.0}
+    for ev in prof.key_averages():
+        t = getattr(ev, "device_time_total", None)
+        if t is None:
+            t = getattr(ev, "cuda_time_total", 0.0)
+        if not t or ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        name = ev.key.lower()
+        cat = "nccl_ms" if "nccl" in name else "flash_ms" if "flash" in name else \
+            "other_kernels_ms"
+        cats[cat] += t / 1e3 / steps
+    wall = start.elapsed_time(end) / steps
+    if not any(cats.values()):
+        return {"step_ms": wall, "profiler": "no device time seen"}
+    return {"step_ms": wall, **cats, "steps": steps}
+
+
+def sp_rank(rank, n, device, table_key, table, runs, profiles=()):
+    """One rank of phase sp: the parent's successor table in place of its
+    own draw, then each run of ``runs`` (``(label, modelclass, kwargs)``)
+    through ``run_training`` over the run's mesh, and each ``profiles``
+    entry ``(label, sp, attn)`` through ``sp_profile``. ``kwargs`` with
+    ``devices`` 1 run on rank 0 alone while the others wait."""
+    import torch
+    import torch.distributed as dist
+
+    from theanompi_tpu_torch.data import lm as data_lm
+    from theanompi_tpu_torch.launch.session import resolve_model
+    from theanompi_tpu_torch.launch.worker import run_training
+    from theanompi_tpu_torch.ops.kernels import reset_launch_counts
+
+    draw = data_lm._successors
+
+    def successors(vocab, branching, seed):
+        return table if (vocab, branching, seed) == tuple(table_key) else draw(vocab, branching,
+                                                                               seed)
+
+    data_lm._successors = successors
+    out = {}
+    for label, modelclass, kwargs in runs:
+        kwargs = dict(kwargs)
+        devices = kwargs.pop("devices", n)
+        cuda = device.type == "cuda"  # (the harness's own check runs ranks on the CPU)
+        if cuda:
+            torch.cuda.synchronize(device)
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(device)
+        reset_launch_counts()  # each run's summary counts its own launches
+        if devices == n or rank == 0:
+            if rank == 0:
+                print(f"[sp rank 0] {time.strftime('%H:%M:%S')} run {label}", flush=True)
+            t0 = time.perf_counter()
+            s = run_training("bsp", resolve_model("transformer_lm", modelclass), devices,
+                             device=device, **kwargs)
+            out[label] = {"summary": s, "wall_s": time.perf_counter() - t0,
+                          "peak_bytes": torch.cuda.max_memory_allocated(device) if cuda else None}
+        if devices != n:
+            dist.barrier()
+    for label, sp, attn in profiles:
+        out[label] = sp_profile(rank, n, device, sp, attn, SP_PROFILE_STEPS)
+    return out
+
+
+def _sp_launches_want(attn: str, sp: int, layers: int, steps: int, val_batches: int,
+                      codec: bool, remat: bool = False) -> dict:
+    """One rank's flash and codec launches of an SP run: the ring folds sp
+    hops a layer (forward, dq and dk/dv each), Ulysses one local step;
+    under remat the train step runs the forward twice; the codec one
+    quantize and one dequantize launch a step."""
+    hops = sp if attn == "ring_flash" else 1
+    want = {name: 0 for name in LM_PARITY_FLASH}
+    want.update(flash_fwd_sm90=hops * layers * ((2 if remat else 1) * steps + val_batches),
+                flash_dq_sm90=hops * layers * steps, flash_dkv_sm90=hops * layers * steps,
+                quant_block=steps if codec else 0, dequant_block=steps if codec else 0)
+    return want
+
+
+def _check_sp_run(label: str, s: dict, want: dict, steps: int) -> None:
+    """The run reached step ``steps``, every loss it ran finite, the ranks'
+    losses and replicas equal, and each rank launched ``want``."""
+    losses = s["losses"]
+    ran = steps - (s["resumed_from_step"] or 0)
+    check(s["steps"] == steps and len(losses) == ran and s["nonfinite_steps"] == 0
+          and all(math.isfinite(x) for x in losses),
+          f"{label}: steps {s['steps']}, losses {losses}")
+    check("val" in s and all(math.isfinite(v) for v in s["val"].values()),
+          f"{label}: bad val metrics {s.get('val')}")
+    finals = s["final_loss_per_rank"]
+    check(len(set(finals)) == 1, f"{label}: the ranks' losses differ: {finals}")
+    check(len(set(s["replica_digest_per_rank"])) == 1,
+          f"{label}: the ranks' replicas differ: {s['replica_digest_per_rank']}")
+    for r, counts in enumerate(s["kernel_launches_per_rank"]):
+        got = {k: counts.get(k, 0) for k in want}
+        check(got == want, f"{label}: rank {r} launched {got}, expected {want}")
+        stray = {k: v for k, v in counts.items() if k not in want and v}
+        check(not stray, f"{label}: rank {r} launched other kernels: {stray}")
+
+
+def phase_sp(table_key, table):
+    """The sequence-parallel LM on one card (module docstring, phase sp):
+    the 136M width at 2 layers, 2 gloo ranks on cuda:0 at --sp 2, under
+    ring_flash and under ulysses_flash with the int8:ef codec; then one
+    rank (attn flash) for the first step's loss."""
+    import torch
+
+    from theanompi_tpu_torch.launch.session import spawn_ranks
+    from theanompi_tpu_torch.launch.worker import run_training
+    from theanompi_tpu_torch.models.lm import TransformerLM_136M
+
+    runs = [("ring_flash", "TransformerLM_136M",
+             sp_run_kwargs("ring_flash", SP_STEPS, SP_LAYERS, sp=2)),
+            ("ulysses_flash+int8:ef", "TransformerLM_136M",
+             sp_run_kwargs("ulysses_flash", SP_STEPS, SP_LAYERS, sp=2, wire_codec="int8:ef"))]
+    print(f"[sp] 2 gloo ranks on cuda:0, --sp 2, TransformerLM_136M at {SP_LAYERS} layers: "
+          f"{[r[0] for r in runs]}", flush=True)
+    torch.cuda.empty_cache()
+    ranks = spawn_ranks(sp_rank, 2, (table_key, table, runs), device="cuda:0", backend="gloo",
+                        timeout=900)
+    out = {}
+    for label, _, kw in runs:
+        s = ranks[0][label]["summary"]
+        attn = kw["recipe_overrides"]["attn"]
+        want = _sp_launches_want(attn, 2, SP_LAYERS, SP_STEPS, 1, "wire_codec" in kw)
+        _check_sp_run(f"sp {label}", s, want, SP_STEPS)
+        out[label] = {"summary": s, "launches": want,
+                      "peak_bytes_per_rank": [r[label]["peak_bytes"] for r in ranks]}
+        print(f"[sp] {label}: losses {s['losses']}; val {s['val']}; step_ms per rank "
+              f"{s['step_ms_per_rank']}; launches per rank {want} (as expected); replicas "
+              f"equal", flush=True)
+    torch.cuda.empty_cache()
+    one = run_training("bsp", TransformerLM_136M, 1, device="cuda:0",
+                       **sp_run_kwargs("flash", 1, SP_LAYERS))
+    for label in out:
+        a, b = out[label]["summary"]["losses"][0], one["losses"][0]
+        check(abs(a - b) <= SP_LOSS_RTOL * abs(b),
+              f"sp {label}: first loss {a} against one rank's {b} (rtol {SP_LOSS_RTOL})")
+        out[label]["one_rank_first_loss"] = b
+    print(f"[sp] first-step losses {[out[k]['summary']['losses'][0] for k in out]} against one "
+          f"rank's {one['losses'][0]} (attn flash; rtol {SP_LOSS_RTOL})", flush=True)
+    return out
+
+
+def phase_sp4(table_key, table, n_cards: int) -> dict:
+    """``--only sp``: the full-depth 136M over NCCL on 4 cards (module
+    docstring, phase sp)."""
+    import torch
+
+    from theanompi_tpu_torch.launch.session import spawn_ranks
+
+    check(n_cards >= 4, f"--only sp needs 4 cards, {n_cards} visible")
+    ckpt = tempfile.mkdtemp(prefix="tmpi-sp-")
+    long_kw = dict(recipe={"input_shape": (SP_LONG_T,), "batch_size": SP_LONG_BATCH})
+    runs = []
+    for attn, sp in (("ring_flash", 4), ("ulysses_flash", 4), ("ring_flash", 2)):
+        mesh = f"sp{sp}" if sp == 4 else "dp2xsp2"
+        runs.append((f"{attn} {mesh} eager", "TransformerLM_136M",
+                     sp_run_kwargs(attn, SP4_STEPS, sp=sp)))
+        runs.append((f"{attn} {mesh} captured", "TransformerLM_136M",
+                     sp_run_kwargs(attn, SP4_STEPS, sp=sp, steps_per_dispatch=SP4_K)))
+    runs += [
+        # the eager run's epoch, cut halfway and resumed
+        ("ring_flash sp4 cut", "TransformerLM_136M",
+         sp_run_kwargs("ring_flash", SP4_STEPS // 2, sp=4, epoch_steps=SP4_STEPS, ckpt_dir=ckpt,
+                       async_checkpoint=False)),
+        ("ring_flash sp4 resumed", "TransformerLM_136M",
+         sp_run_kwargs("ring_flash", SP4_STEPS, sp=4, ckpt_dir=ckpt, async_checkpoint=False,
+                       resume=True)),
+        ("350M ring_flash sp4", "TransformerLM_350M",
+         sp_run_kwargs("ring_flash", SP350_STEPS, sp=4)),
+        (f"T {SP_LONG_T} ring_flash sp4", "TransformerLM_136M",
+         sp_run_kwargs("ring_flash", SP_LONG_STEPS, sp=4, **long_kw)),
+        (f"T {SP_LONG_T} flash one card", "TransformerLM_136M",
+         sp_run_kwargs("flash", SP_LONG_STEPS, devices=1, **long_kw)),
+    ]
+    profiles = [("profile ring_flash sp4", 4, "ring_flash"),
+                ("profile ulysses_flash sp4", 4, "ulysses_flash")]
+    print(f"[sp4] 4 NCCL ranks: {[r[0] for r in runs]}; profiles {[p[0] for p in profiles]}",
+          flush=True)
+    try:
+        ranks = spawn_ranks(sp_rank, 4, (table_key, table, runs, profiles), timeout=900)
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    r0 = ranks[0]
+    out = {"runs": {}, "profiles": {p[0]: r0.get(p[0]) for p in profiles}}
+    for label, modelclass, kw in runs:
+        s = r0[label]["summary"]
+        attn, sp = kw["recipe_overrides"]["attn"], kw.get("sp", 1)
+        steps = kw["max_steps"] - (s["resumed_from_step"] or 0)
+        layers = 24 if modelclass == "TransformerLM_350M" else LM_LAYERS
+        T = kw["recipe_overrides"].get("input_shape", (1024,))[0]
+        batch = kw["recipe_overrides"].get("batch_size", 8)
+        if kw.get("devices") != 1:
+            want = _sp_launches_want(attn, sp, layers, steps, 1, False,
+                                     remat=modelclass == "TransformerLM_350M")
+            _check_sp_run(f"sp4 {label}", s, want, kw["max_steps"])
+        peaks = [r[label]["peak_bytes"] for r in ranks if label in r]
+        row = {"step_ms": s["step_ms"], "steady_steps": s["steady_steps"],
+               "window_s": s["step_ms"] * s["steady_steps"] / 1e3 if s["step_ms"] else None,
+               "tokens_per_sec": batch * T / (s["step_ms"] / 1e3) if s["step_ms"] else None,
+               "step_ms_per_rank": s["step_ms_per_rank"], "losses": s["losses"],
+               "peak_bytes_per_card": peaks, "digest": s["replica_digest_per_rank"][0],
+               "captured": s["captured"], "wall_s": r0[label]["wall_s"]}
+        out["runs"][label] = row
+        print(f"[sp4] {label}: step {row['step_ms']} ms over {row['steady_steps']} steady steps "
+              f"({row['window_s']} s), {row['tokens_per_sec']} tokens/s, peak "
+              f"{[round(p / 2**30, 3) for p in peaks if p]} GiB a card, losses {s['losses']}",
+              flush=True)
+    for mesh in ("ring_flash sp4", "ulysses_flash sp4", "ring_flash dp2xsp2"):
+        e, c = out["runs"][f"{mesh} eager"], out["runs"][f"{mesh} captured"]
+        check(c["captured"], f"sp4 {mesh}: the captured run replayed no graph")
+        check(e["digest"] == c["digest"] and e["losses"] == c["losses"],
+              f"sp4 {mesh}: eager and captured runs differ ({e['digest']} / {c['digest']})")
+    e, res = out["runs"]["ring_flash sp4 eager"], r0["ring_flash sp4 resumed"]["summary"]
+    check(res["resumed_from_step"] == SP4_STEPS // 2 and
+          res["replica_digest_per_rank"][0] == e["digest"],
+          f"sp4 resume: from step {res['resumed_from_step']}, digest "
+          f"{res['replica_digest_per_rank'][0]} against {e['digest']}")
+    print("[sp4] eager = captured bit for bit at every mesh; the resume ends on the "
+          "uninterrupted run's state", flush=True)
+    for label, p in out["profiles"].items():
+        print(f"[sp4] {label}: {p}", flush=True)
+    return out
 
 
 def phase_remat_parity(dev):
@@ -4745,6 +5112,30 @@ def only_scaling(smi: str, kind: str, t_start: float) -> int:
     return 0
 
 
+def only_sp(smi: str, kind: str, t_start: float) -> int:
+    """``--only sp``: build the flash kernels and run phase sp's 4-card
+    part (``phase_sp4``) on 4 cards over NCCL; its JSON, the card line
+    and the result line last."""
+    import torch
+
+    from theanompi_tpu_torch.ops import flash_attention as fa
+
+    try:
+        print(f"[build] csrc/flash_attention.cu: nvcc {fa.build():.2f} s", flush=True)
+        t0 = time.perf_counter()
+        sp4 = phase_sp4(*successor_table(), torch.cuda.device_count())
+        print(f"[sp4] done ({time.perf_counter() - t0:.1f} s)", flush=True)
+    except Failed as e:
+        print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
+        return 1
+    print(f"chip_smoke: wall {time.perf_counter() - t_start:.1f} s", flush=True)
+    print(json.dumps({"sp": sp4}, default=str))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
 def build_all():
     """Build every kernel library at once (one nvcc per source, started
     together); returns {source: nvcc seconds}."""
@@ -4767,8 +5158,8 @@ def main(argv=None) -> int:
     only = None
     if args:
         if len(args) != 2 or args[0] != "--only" or args[1] not in ("bsp-exchange", "rules",
-                                                                       "resume", "scaling"):
-            print("usage: python3 chip_smoke.py [--only bsp-exchange|rules|resume|scaling]",
+                                                                       "resume", "scaling", "sp"):
+            print("usage: python3 chip_smoke.py [--only bsp-exchange|rules|resume|scaling|sp]",
                   file=sys.stderr)
             return 2
         only = args[1]
@@ -4810,6 +5201,8 @@ def main(argv=None) -> int:
             return only_resume(smi, kind, t_start)
         if only == "scaling":
             return only_scaling(smi, kind, t_start)
+        if only == "sp":
+            return only_sp(smi, kind, t_start)
         t0 = time.perf_counter()
         builds = build_all()
         for src, secs in builds.items():
@@ -4868,6 +5261,10 @@ def main(argv=None) -> int:
         print(f"[lm350-main] done ({time.perf_counter() - t0:.1f} s)", flush=True)
 
         t0 = time.perf_counter()
+        sp_runs = phase_sp(*successor_table())
+        print(f"[sp] done ({time.perf_counter() - t0:.1f} s)", flush=True)
+
+        t0 = time.perf_counter()
         gnet_runs = phase_googlenet_main()
         print(f"[googlenet-main] done ({time.perf_counter() - t0:.1f} s)", flush=True)
 
@@ -4908,7 +5305,8 @@ def main(argv=None) -> int:
         print(f"[rules] done ({time.perf_counter() - t0:.1f} s)", flush=True)
 
         t0 = time.perf_counter()
-        resume_runs = phase_resume(torch.cuda.device_count())
+        # the 2 ranks' same-world sharded crash runs under --only resume
+        resume_runs = phase_resume(torch.cuda.device_count(), sharded_crash=False)
         print(f"[resume] done ({time.perf_counter() - t0:.1f} s)", flush=True)
 
         t0 = time.perf_counter()
@@ -5057,6 +5455,9 @@ def main(argv=None) -> int:
         })
         if launches:
             kernels[-1]["rules_launches_per_rank"] = rules_launches(rules, name)
+            # phase sp's codec run: each rank's launches (one a step)
+            kernels[-1]["sp_launches_per_rank"] = {
+                k_: v_["launches"].get(name, 0) for k_, v_ in sp_runs.items()}
         if "per_leaf_ms" in t:
             kernels[-1].update(table_built_ms=t["table_built_ms"],
                                one_leaf_calls_ms=t["per_leaf_ms"],
@@ -5150,6 +5551,9 @@ def main(argv=None) -> int:
             "lm350_tokens_per_sec": lm350_run["tokens_per_sec"],
             "remat_parity_launches": {k_: v_.get(name, 0)
                                       for k_, v_ in remat["launches"].items()},
+            # phase sp: each rank's launches, 2 gloo ranks at --sp 2 (2 layers)
+            "sp_launches_per_rank": {k_: v_["launches"].get(name, 0)
+                                     for k_, v_ in sp_runs.items()},
         })
         if t.get("turns_ms"):
             kernels[-1]["turns_ms"] = t["turns_ms"]

@@ -244,8 +244,9 @@ def state_from_flat(flat: dict, template, layouts: Tree, rank: int = 0, world: i
         it = iter(rows)
         ef = tree_map(lambda _: next(it), template.ef)
     it = iter(vals[k] for k, _, _ in pairs)
+    # a state without model state (the ND engine's) has no such field
     rebuilt = {f: tree_map(lambda _: next(it), getattr(template, f))
-               for f in ("params", "model_state", "opt_state")}
+               for f in ("params", "model_state", "opt_state") if f in template._fields}
     return template._replace(**rebuilt, step=next(it), ef=ef)
 
 

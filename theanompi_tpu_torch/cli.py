@@ -89,6 +89,16 @@ invocation resumes by itself)::
         --ckpt-dir CKPT --max-retries 1 --sigterm-grace 30 --inject-fault sigterm@3 \
         --fault-ledger LEDGER ...
 
+Sequence parallelism (``parallel/nd.py``): the LM over a ``(data, seq)``
+mesh of ``n / sp`` by ``--sp`` cards, one process a card over NCCL, the
+attention of the recipe's ``attn`` (``ring_flash``, ``ulysses_flash``,
+``ring`` or ``ulysses``; ``flash`` is refused under ``--sp``)::
+
+    python -m theanompi_tpu_torch.cli BSP 4 transformer_lm TransformerLM_136M \
+        --synthetic --sp 4 --recipe-arg attn=ring_flash --max-steps 8
+    python -m theanompi_tpu_torch.cli BSP 4 transformer_lm TransformerLM_136M \
+        --synthetic --sp 2 --recipe-arg attn=ulysses_flash --max-steps 8
+
 Runs on the CUDA card(s); ``--device cpu`` runs on the CPU instead
 (ranks over gloo), ``--device cuda:0 --backend gloo`` puts every rank on
 one card. Without a card and without ``--device cpu`` it fails. The
@@ -143,6 +153,14 @@ def build_parser() -> argparse.ArgumentParser:
                         "fp32 megabytes in reverse layer order, each posted from the "
                         "backward as soon as its gradients are made (with an ':ef' codec, "
                         "after the backward); 0: one exchange")
+    p.add_argument("--sp", type=int, default=1,
+                   help="LM models: sequence-parallel axis size (ring or "
+                        "Ulysses attention per the recipe's attn=)")
+    for flag, what in (("--tp", "tensor-parallel axis size"), ("--pp", "GPipe pipeline stages"),
+                       ("--expert", "expert-parallel axis size"),
+                       ("--zero", "ZeRO-1 optimizer-state sharding")):
+        p.add_argument(flag, type=int, default=None,
+                       help=f"the reference's {what}: not ported yet (refused; ROADMAP.md)")
     p.add_argument("--avg-freq", type=int, default=None,
                    help="EASGD/GoSGD: steps between exchanges (reference avg_freq)")
     p.add_argument("--group-size", type=int, default=None,
@@ -288,6 +306,10 @@ def main(argv=None) -> int:
     if args.scrub_interval and not args.ckpt_dir:
         print("WARNING: --scrub-interval needs --ckpt-dir; the checkpoint scrubber is off",
               flush=True)
+    for flag in ("tp", "pp", "expert", "zero"):
+        if getattr(args, flag) is not None:
+            parser.error(f"--{flag} is not ported yet: ROADMAP.md queue 1 items 2-3 (the port "
+                         "trains --sp over the (data, seq) mesh)")
     if args.dispatch_depth is not None and args.dispatch_depth < 1:
         parser.error(f"--dispatch-depth must be >= 1, got {args.dispatch_depth}")
 
@@ -347,6 +369,7 @@ def main(argv=None) -> int:
             sigterm_grace=args.sigterm_grace,
             inject_faults=args.inject_fault or None,
             fault_ledger=args.fault_ledger,
+            sp=args.sp,
             **rule_kwargs,
         )
     except Preempted as e:

@@ -69,16 +69,25 @@ runs its exchanges itself. A checkpoint holds the reference's stacked
 resume each rank takes its worker's row; a file of another worker
 count is refused by name unless the resume is elastic.
 
+Sequence parallelism (``sp > 1``, the CLI's ``--sp``): an LM trains on
+the ``NDEngine`` (``parallel/nd.py``) over the ``(n / sp, sp)`` mesh of
+the reference's dense ND branch; rank ``r`` reads the rows of its data
+index ``r // sp`` (``[d·B/dp, (d+1)·B/dp)``) and its step takes its
+sequence index's columns. The reference's ND refusals hold (another
+rule, another strategy, ``--slices``, ``--accum-steps``, rule options,
+``--allreduce-buckets``, a classifier, a sequence or batch the mesh does
+not divide).
+
 Ranks. With ``devices=n > 1`` this function runs in each of n rank
 processes of one process group (``launch/session.py`` spawns them). As
 in the reference, ``recipe.batch_size`` is the GLOBAL batch: every rank
 walks the same shuffled global batches and gathers only its rows
 ``[r·B/n, (r+1)·B/n)``; its dropout stream is seeded from ``(seed,
 rank)``. Rank 0 prints; every rank returns the summary, which carries
-each rank's step time and kernel launch counts, a digest of each rank's
-params and optimizer state and one of its model state (BN statistics),
-equal on every rank when the replicas agree, and with several ranks one
-of its error-feedback residuals.
+each rank's step time, last loss and kernel launch counts, a digest of
+each rank's params and optimizer state and one of its model state (BN
+statistics), equal on every rank when the replicas agree, and with
+several ranks one of its error-feedback residuals.
 
 Hot loop. A ``PrefetchLoader`` thread (``tmpi-prefetch``, pinned to
 ``TMPI_LOADER_CPUS`` when set) gathers each host batch (uint8 datasets
@@ -137,6 +146,7 @@ from theanompi_tpu_torch.parallel.distributed import agree_on_step, all_gather_o
 from theanompi_tpu_torch.parallel.mesh import (
     DATA_AXIS,
     host_local_batch_slice,
+    nd_shape,
     rank_generator,
     slice_topology,
     worker_groups,
@@ -240,6 +250,7 @@ def run_training(
     inject_faults=None,
     fault_ledger: Optional[str] = None,
     return_recorder: bool = False,
+    sp: int = 1,
     **rule_kwargs,
 ) -> dict:
     """Train ``model_cls`` under a sync rule (``bsp``, ``easgd``,
@@ -276,7 +287,9 @@ def run_training(
     raises ``Preempted``. ``inject_faults``: fault specs
     (``utils/faults.py``), with ``fault_ledger`` the fired-fault file.
     ``return_recorder``: the summary carries the run's ``Recorder`` as
-    ``recorder`` (its per-step ``wait`` and ``step`` times).
+    ``recorder`` (its per-step ``wait`` and ``step`` times). ``sp > 1``:
+    an LM over the ``(devices / sp, sp)`` mesh of a sequence axis
+    (``parallel/nd.py``, module docstring).
     ``rule_kwargs``: EASGD's ``avg_freq``, ``alpha``, ``group_size``;
     GoSGD's ``p_push``, ``avg_freq``, ``gossip_every``, ``group_size``
     (module docstring)."""
@@ -292,6 +305,35 @@ def run_training(
     if model_cls is None:
         raise ValueError("model_cls is required")
     rule = rule.lower()
+    sp = int(sp or 1)
+    nd_active = sp > 1
+    if nd_active:
+        # what the reference refuses under its ND axes, in its words
+        what = "--sp"
+        if rule != "bsp":
+            raise ValueError(f"{what} compose with the BSP rule only")
+        if strategy != "psum":
+            raise ValueError(f"{what} use the in-step psum sync (strategy 'psum')")
+        if n_slices and n_slices > 1:
+            raise ValueError(f"{what} do not compose with --slices yet")
+        if int(accum_steps) != 1:
+            raise ValueError(f"{what} do not compose with --accum-steps yet")
+        if rule_kwargs:
+            raise ValueError(f"{what} got unexpected options {sorted(rule_kwargs)}")
+        if allreduce_buckets:
+            raise ValueError(
+                "--allreduce-buckets buckets the BSP in-step gradient allreduce only (ZeRO's "
+                "scatter/gather and the ND sharded-axis psums own their own schedules; "
+                "EASGD/GoSGD exchange periodically — there is no every-step allreduce to "
+                "bucket)")
+        if not getattr(model_cls, "is_lm", False):
+            raise ValueError(
+                f"{what} needs an LM model (theanompi_tpu_torch.models.lm TransformerLMModel); "
+                f"{model_cls.__name__} is classifier-shaped")
+        if getattr(model_cls, "is_moe", False):
+            raise ValueError("MoELMModel is not ported yet (ROADMAP.md queue 1 item 2); "
+                             "--sp trains the dense TransformerLMModel")
+        nd_shape(devices, sp)  # the mesh: sp must divide the devices
     if allreduce_buckets and rule != "bsp":
         raise ValueError(
             "--allreduce-buckets buckets the BSP in-step gradient allreduce only "
@@ -397,9 +439,20 @@ def run_training(
         )
     n_epochs = n_epochs if n_epochs is not None else recipe.n_epochs
     vbatch = recipe.val_batch_size or batch
-    for what, b in (("global batch", batch), ("val batch", vbatch)):
-        if b % devices:
-            raise ValueError(f"{what} {b} not divisible by {devices} devices")
+    if nd_active:
+        # tokens shard P(data, seq): the sequence divides sp, the batch dp
+        T = recipe.input_shape[0]
+        if T % sp:
+            raise ValueError(f"sequence length {T} not divisible by --sp {sp}")
+        dp = nd_shape(devices, sp)[0]
+        for name, b in (("batch", batch), ("val batch", vbatch)):
+            if b % dp:
+                raise ValueError(f"global {name} {b} not divisible by {dp} "
+                                 "(batch-axis devices x microbatches)")
+    else:
+        for what, b in (("global batch", batch), ("val batch", vbatch)):
+            if b % devices:
+                raise ValueError(f"{what} {b} not divisible by {devices} devices")
     if data.n_val and vbatch > data.n_val:
         raise ValueError(
             f"val batch {vbatch} exceeds the dataset's {data.n_val} val "
@@ -414,7 +467,12 @@ def run_training(
     common = dict(steps_per_epoch=steps_per_epoch, fused_update=fused_update,
                   wire_codec=wire_codec, input_transform=input_transform,
                   eval_views=eval_views, accum_steps=accum_steps, n_slices=n_slices)
-    if rule == "bsp":
+    if nd_active:
+        from theanompi_tpu_torch.parallel.nd import NDEngine
+
+        engine = NDEngine(model, devices, device, sp=sp, steps_per_epoch=steps_per_epoch,
+                          wire_codec=wire_codec, fused_update=fused_update)
+    elif rule == "bsp":
         engine = BSPEngine(model, devices, device, strategy=strategy,
                            allreduce_buckets=allreduce_buckets, **common)
     elif rule == "easgd":
@@ -426,8 +484,11 @@ def run_training(
 
         engine = GOSGDEngine(model, devices, device, seed=seed, **common, **rule_kwargs)
     rank = dist.get_rank() if devices > 1 else 0
-    shard = host_local_batch_slice(batch, rank, devices)
-    vshard = host_local_batch_slice(vbatch, rank, devices)
+    # a rank reads its row of the mesh's batch axis: under --sp the data
+    # axis's (the sequence axis' ranks share its rows)
+    row, row_ranks = (engine.dp_index, engine.dp) if nd_active else (rank, devices)
+    shard = host_local_batch_slice(batch, row, row_ranks)
+    vshard = host_local_batch_slice(vbatch, row, row_ranks)
     state = engine.init_state(torch.Generator().manual_seed(seed))
     layouts = model.param_layouts(engine.replica(state).params)
     # dropout masks: an explicit generator per rank on its card (the
@@ -465,6 +526,7 @@ def run_training(
                      "bn_axis_name": recipe.bn_axis_name, "resumed_from_step": None,
                      "ckpt_sharded": bool(ckpt_sharded), "elastic": bool(elastic),
                      "resharded_from_world": None, "mesh": mesh, "run_start_t": run_start_t,
+                     "sp": sp,
                      **engine.summary_fields(batch)}
 
     start_epoch = 0
@@ -501,12 +563,12 @@ def run_training(
                 params = {key: to_numpy(v) for key, v, row, _ in parts(state)
                           if row is None and key.startswith((".params/", ".center_params/"))}
                 summary["reshard"] = {**reshard, "step": step0, "load_ms": load_ms,
-                                      "per_rank_batch": batch // devices,
+                                      "per_rank_batch": batch // row_ranks,
                                       "params_digest": manifest_digest(integrity_manifest(params))}
                 if rank == 0:
                     print(f"[elastic] resharded {path} onto this world: {reshard['from_world']} "
                           f"-> {reshard['to_world']} ranks, {reshard['leaves']} leaves, "
-                          f"{len(reshard['reset'])} reset, per-rank batch {batch // devices}",
+                          f"{len(reshard['reset'])} reset, per-rank batch {batch // row_ranks}",
                           flush=True)
             # what the resumed run holds, digested as a save would write
             # it: equal to the digest the writer recorded at that step
@@ -899,6 +961,7 @@ def run_training(
             summary["ckpt_storage_failures"] = writer.storage_failures
     recent_waits = waits[-50:]
     own = {"step_ms": step_ms, "kernel_launches": launch_counts(),
+           "final_loss": losses[-1] if losses else None,
            "feed_wait_ms": sum(recent_waits) / len(recent_waits) if recent_waits else None,
            "native_calls": dict(native.LOADER.calls)}
     # what each rank holds at the end: the replicas must agree bit for

@@ -1,6 +1,7 @@
-"""Dense decoder-only transformer LM: the single-device training surface.
+"""Dense decoder-only transformer LM: one device, or a sequence sharded
+over a mesh axis.
 
-Port of ``theanompi_tpu/models/transformer.py`` for one device: pre-norm
+Port of ``theanompi_tpu/models/transformer.py`` (its dense, tp-less parts): pre-norm
 blocks (RMS norm, causal attention, GELU MLP), learned positions, an
 untied vocabulary head, and the next-token loss. Params keep the
 reference's tree, names and shapes, so the bridge carries them across
@@ -17,7 +18,15 @@ norm statistics, softmax statistics and the loss in fp32.
 Attention without a sequence-parallel axis: ``attn="flash"`` (and
 ``ulysses_flash`` / ``ring_flash``, which degrade to their local step)
 runs the flash kernels (``ops/flash_attention.py``); ``ring`` and
-``ulysses`` the plain oracle (``ops/ring_attention.py``).
+``ulysses`` the plain oracle (``ops/ring_attention.py``). Under a
+sequence axis (``sp_axis``, a mesh axis of ``parallel/mesh.py``; the
+tokens ``[B, T/n]`` of this rank's shard): ``ring`` / ``ulysses`` are
+the unfused ring and all-to-all schemes, ``ring_flash`` the ring whose
+hops are the flash kernels, ``ulysses_flash`` the all-to-all around the
+flash kernels; ``flash`` alone is refused. Positions are global
+(``rank · T + t``), the target of a shard's last position is the next
+shard's first token, and the loss's sum and count are summed over the
+axis (``next_token_loss``).
 
 ``remat=True`` checkpoints each block (the reference's
 ``jax.checkpoint(block)``): ``torch.utils.checkpoint`` without reentry
@@ -28,14 +37,23 @@ loss per chunk of positions (``chunked_nll``), each chunk's logits
 recomputed in the backward. Both checkpoints run with
 ``preserve_rng_state=False``: the blocks and the loss draw no random
 numbers, and stashing the CUDA generator's state is not allowed while a
-step is captured into a CUDA graph. Sequence and tensor parallelism, MoE
-blocks and the paged decode functions come in later slices; asking for
-them raises.
+step is captured into a CUDA graph. Tensor parallelism, MoE blocks and the
+paged decode functions come in later slices.
+
+``nd_spec_setup`` is the dense, tp-less part of the reference's. Every
+leaf is replicated, so the reference's ``sync_grads_by_spec`` sums each
+gradient over every rank of the mesh and divides by their count: BSP's
+``psum`` exchange over the world (``parallel/nd.py``). Each rank's
+backward already carries the other ranks' dependence on its parameters
+(the psum's transpose is a psum, the ppermute's the opposite shift, the
+all-to-all's its inverse), so that mean over ranks is the gradient of
+the global mean loss, as in the reference.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Callable, Optional
 
 import torch
@@ -43,20 +61,24 @@ from torch.utils.checkpoint import checkpoint
 
 from theanompi_tpu_torch.models.contract import as_dtype
 from theanompi_tpu_torch.nn.layers import gelu
-from theanompi_tpu_torch.ops.flash_attention import flash_attention
-from theanompi_tpu_torch.ops.ring_attention import full_attention_reference
+from theanompi_tpu_torch.ops.flash_attention import flash_attention, ring_flash_attention
+from theanompi_tpu_torch.ops.ring_attention import (
+    full_attention_reference,
+    ring_attention,
+    ulysses_attention,
+    validate_ulysses_heads,
+)
+from theanompi_tpu_torch.parallel.mesh import axis_group, axis_index, post_hop, psum
 
 Tree = Any
 
 FLASH_ATTN = ("flash", "ulysses_flash", "ring_flash")
-
-
-def _no_sp(sp_axis: Optional[str]) -> None:
-    if sp_axis is not None:
-        raise ValueError(
-            f"sequence parallelism (sp_axis={sp_axis!r}) is not ported yet "
-            "(ROADMAP.md); the port trains the LM on one device per replica"
-        )
+SP_ATTN = {
+    "ring": ring_attention,
+    "ring_flash": ring_flash_attention,
+    "ulysses": ulysses_attention,
+    "ulysses_flash": functools.partial(ulysses_attention, local_fn=flash_attention),
+}
 
 
 def _rms(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
@@ -79,12 +101,24 @@ def cast_block_params(blk: dict, dtype: torch.dtype) -> dict:
 
 def attention_block(blk: dict, x: torch.Tensor, attn: str, sp_axis: Optional[str]) -> torch.Tensor:
     """Pre-norm attention sub-block: qkv projection (``[d, 3, H, hd]``),
-    causal attention, output projection; returns the residual delta."""
-    _no_sp(sp_axis)
+    causal attention (under ``sp_axis`` one of the four sequence-parallel
+    schemes of ``SP_ATTN``), output projection; returns the residual
+    delta."""
+    if sp_axis is not None and attn == "flash":
+        raise ValueError(
+            "attn='flash' is the fused LOCAL kernel; under sequence parallelism pick "
+            "attn='ring_flash' (K/V rotation, each hop folded by the fused kernel) or "
+            "attn='ulysses_flash' (all-to-all with the fused local step) — "
+            "'ring'/'ulysses' are their unfused variants")
     hin = _rms(x, blk["ln1"])
     qkv = torch.einsum("btd,dchk->btchk", hin, blk["qkv"])
     q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]  # [B, T, H, hd]
-    if attn in FLASH_ATTN:
+    if sp_axis is not None:
+        if attn not in SP_ATTN:
+            raise ValueError(f"unknown attention {attn!r}; under sequence parallelism: "
+                             f"{sorted(SP_ATTN)}")
+        att = SP_ATTN[attn](q, k, v, sp_axis, causal=True)
+    elif attn in FLASH_ATTN:
         # no SP axis: both SP schemes degenerate to their local step
         att = flash_attention(q, k, v, causal=True)
     else:
@@ -93,24 +127,45 @@ def attention_block(blk: dict, x: torch.Tensor, attn: str, sp_axis: Optional[str
 
 
 def global_positions(sp_axis: Optional[str], T: int, device=None) -> torch.Tensor:
-    """Position ids of a window of ``T`` positions (one device: 0..T-1)."""
-    _no_sp(sp_axis)
-    return torch.arange(T, device=device)
+    """Global position ids of a window of ``T`` local positions: ``rank ·
+    T + arange(T)`` on the sequence axis ``sp_axis`` (one device:
+    0..T-1). The one shard-offset rule of the forward."""
+    base = axis_index(sp_axis) * T if sp_axis is not None else 0
+    return base + torch.arange(T, device=device)
 
 
 def next_token_loss(tokens: torch.Tensor, sp_axis: Optional[str],
                     nll_fn: Callable[[torch.Tensor], torch.Tensor]) -> torch.Tensor:
-    """Mean next-token NLL over the batch: the target of position t is the
-    token at t+1, and the last position (no target) is masked.
+    """Mean next-token NLL over this rank's batch rows x the GLOBAL
+    sequence: the target of position t is the token at t+1 (under
+    ``sp_axis`` the target of a shard's last position is the next shard's
+    first token, fetched by one backward ppermute), and the final global
+    position (no target) is masked. Under ``sp_axis`` the sum and the
+    count are summed over the axis (the sum by ``mesh.psum``, whose
+    transpose is a psum), so every rank of the axis holds the same loss.
     ``nll_fn(targets) -> [B, T]`` gives the per-position NLL."""
-    _no_sp(sp_axis)
     B, T = tokens.shape
-    # the wrapped target of the last position is masked out below
-    targets = torch.cat([tokens[:, 1:], tokens[:, :1]], dim=1)
     valid = torch.ones((B, T), dtype=torch.float32, device=tokens.device)
-    valid[:, T - 1] = 0.0
+    if sp_axis is not None:
+        group, n = axis_group(sp_axis)
+        last_shard = axis_index(sp_axis) == n - 1
+        # each rank's first tokens go to the rank behind it (no gradient)
+        nxt = post_hop([tokens[:, 0].contiguous()], n, -1, group).wait()[0] if n > 1 \
+            else tokens[:, 0]
+        targets = torch.cat([tokens[:, 1:], nxt[:, None]], dim=1)
+    else:
+        last_shard = True
+        # the wrapped target of the last position is masked out below
+        targets = torch.cat([tokens[:, 1:], tokens[:, :1]], dim=1)
+    if last_shard:
+        valid[:, T - 1] = 0.0
     nll = nll_fn(targets)
-    return torch.sum(nll * valid) / torch.sum(valid)
+    total = torch.sum(nll * valid)
+    count = torch.sum(valid)
+    if sp_axis is not None:
+        total = psum(total, sp_axis)
+        count = psum(count, sp_axis)
+    return total / count
 
 
 def chunked_nll(x: torch.Tensor, head: torch.Tensor, chunk: int,
@@ -233,12 +288,38 @@ class TransformerLM:
 
     def loss(self, params: Tree, tokens: torch.Tensor,
              axis_name: Optional[str] = None) -> torch.Tensor:
-        """Next-token cross-entropy of ``tokens`` (``axis_name``: the
-        sequence axis, which only the unported SP path sets); per chunk of
-        positions (``chunked_nll``) when ``loss_chunk`` is set."""
+        """Next-token cross-entropy of ``tokens`` over the global sequence
+        (``axis_name``: the sequence axis, over which ``tokens`` is this
+        rank's shard); per chunk of positions (``chunked_nll``, the chunk
+        dividing the local length) when ``loss_chunk`` is set."""
         if self.loss_chunk:
             x = self.forward_hidden(params, tokens, sp_axis=axis_name)
             return next_token_loss(tokens, axis_name,
                                    chunked_nll(x, params["head"], self.loss_chunk, self.dtype))
         logits = self.forward(params, tokens, sp_axis=axis_name)
         return next_token_loss(tokens, axis_name, softmax_nll(logits))
+
+
+# --------------------------------------------------------------------------
+# the dense ND mesh: the reference's spec setup, tp-less
+# --------------------------------------------------------------------------
+
+
+def nd_spec_setup(model: TransformerLM, axis_sizes: dict, dp_axis: Optional[str],
+                  sp_axis: Optional[str]) -> tuple:
+    """Mesh and shape checks of the dense ND step (the reference's
+    ``nd_spec_setup`` without ``--tp``) -> ``(axes, n_total)``: the axes
+    that take part and the number of ranks they span. Every leaf is
+    replicated (the reference's ``P()`` specs)."""
+    axes = [a for a in (dp_axis, sp_axis) if a is not None]
+    if not axes:
+        raise ValueError("need at least one of dp_axis/sp_axis")
+    for a in axes:
+        if a not in axis_sizes:
+            raise ValueError(f"axis {a!r} not in mesh axes {sorted(axis_sizes)}")
+    if sp_axis and model.attn in ("ulysses", "ulysses_flash"):
+        validate_ulysses_heads(model.n_heads, axis_sizes[sp_axis], sp_axis)
+    n_total = 1
+    for a in axes:
+        n_total *= axis_sizes[a]
+    return axes, n_total

@@ -1,10 +1,11 @@
 """Flash attention, forward and backward: online softmax over K/V tiles,
 the probabilities recomputed from (q, k, lse) in the backward.
 
-Port of ``theanompi_tpu/ops/pallas_attention.py`` (the local kernel and
-its custom VJP; ``ring_flash_attention`` comes with the
-sequence-parallel slice). The kernels are hand-written CUDA for Hopper
-(``csrc/flash_attention.cu``): the forward (TPU kernel #7) as
+Port of ``theanompi_tpu/ops/pallas_attention.py``: the local kernels,
+their custom VJP, and ``ring_flash_attention``, the sequence-parallel
+ring whose every hop runs them at the hop's global offsets. The kernels
+are hand-written CUDA for Hopper (``csrc/flash_attention.cu``): the
+forward (TPU kernel #7) as
 ``flash_fwd_sm90`` (TMA + wgmma) for bf16 with D % 8 == 0, as
 ``flash_fwd_mma`` (mma.sync, 3xTF32: ``split_tf32x2``) for fp32, and as
 ``flash_fwd_mma_bf16`` (mma.sync bf16, cp.async or register-staged
@@ -29,7 +30,8 @@ tile at a time, so one kernel serves every T.
 Layout contract, as the reference's: ``flash_attention(q, k, v)`` maps
 ``[B, Tq, H, D], [B, Tk, H, D] x2 -> [B, Tq, H, D]`` in q's dtype, with
 the causal mask ``q_off + row >= k_off + col`` in global positions
-(offsets 0 here; the sequence-parallel ring will pass ``rank * T``).
+(offsets 0 for one device; the sequence-parallel ring passes ``rank *
+Tq`` and ``src * Tk``).
 Inside, the kernels take heads-major ``[B*H, T, D]`` contiguous tensors.
 ``precision="highest"`` upcasts q, k and v to fp32 first.
 
@@ -65,6 +67,7 @@ from theanompi_tpu_torch.ops.kernels import (
     stream_handle,
 )
 from theanompi_tpu_torch.ops.ring_attention import NEG
+from theanompi_tpu_torch.parallel.mesh import axis_group, axis_index, post_hop
 
 # the CUDA kernels' tile: rows of Q and of K/V per step (csrc kTile), and
 # the widest head they hold in shared memory (csrc kD)
@@ -648,4 +651,116 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: b
     sc = scale if scale is not None else 1.0 / math.sqrt(D)
     o3 = _Flash.apply(_heads_major(q), _heads_major(k), _heads_major(v), bool(causal),
                       float(sc), int(block_k))
+    return o3.view(B, H, Tq, D).permute(0, 2, 1, 3).to(out_dtype)
+
+
+# --------------------------------------------------------------------------
+# ring + flash: sequence-parallel attention whose hops are the kernels
+# --------------------------------------------------------------------------
+
+
+class _RingFlash(torch.autograd.Function):
+    """The reference's ``_ring_flash`` custom VJP over the whole ring of
+    ``n`` ranks of ``group`` (this rank at ``rank``).
+
+    Forward: hop ``t`` (``src = (rank - t) mod n``, the local block at
+    ``t = 0``) runs ``flash_fwd`` on the K/V block from rank ``src`` with
+    ``q_off = rank·Tq``, ``k_off = src·Tk`` and merges its ``(o_j,
+    lse_j)`` (``o_j`` in q's dtype) into fp32 ``(acc, m, l)`` by the
+    logsumexp law: a hop whose keys all lie in this rank's future gives
+    ``o_j = 0`` and ``lse_j ~ -1e30``, weighted to zero. Then ``o = acc /
+    max(l, 1e-37)`` and ``lse = m + log(max(l, 1e-37))``.
+
+    Backward: ``dsum = sum(dO · o)`` once; hop ``t`` runs ``flash_dq``
+    and ``flash_dkv`` on the block from ``src`` with the GLOBAL lse and
+    dsum. dq accumulates here in fp32; the fp32 ``(dk, dv)`` partials
+    travel with their block (one more exchange a hop) and are home after
+    the n-th.
+
+    Each hop's exchange is posted before the current block is folded
+    (``overlap``), so that it runs beside the kernels; ``overlap=False``
+    waits for it first. The exchange moves bits only, so both orders give
+    the same result."""
+
+    @staticmethod
+    def forward(ctx, q3, k3, v3, group, n, rank, causal, scale, block_k, overlap):
+        BH, Tq, D = q3.shape
+        Tk = k3.shape[1]
+        acc = torch.zeros((BH, Tq, D), dtype=torch.float32, device=q3.device)
+        m = torch.full((BH, Tq), NEG, dtype=torch.float32, device=q3.device)
+        l = torch.zeros((BH, Tq), dtype=torch.float32, device=q3.device)
+        kv = [k3, v3]
+        for t in range(n):
+            nxt = post_hop(kv, n, 1, group) if t < n - 1 else None
+            if nxt is not None and not overlap:
+                kv_next = nxt.wait()
+            src = (rank - t) % n
+            o_j, lse_j = flash_fwd(q3, kv[0], kv[1], causal=causal, scale=scale,
+                                   q_off=rank * Tq, k_off=src * Tk, block_k=block_k)
+            m_new = torch.maximum(m, lse_j)
+            w_old = torch.exp(m - m_new)
+            w_new = torch.exp(lse_j - m_new)
+            acc = acc * w_old[..., None] + o_j.float() * w_new[..., None]
+            l = l * w_old + w_new
+            m = m_new
+            if nxt is not None:
+                kv = kv_next if not overlap else nxt.wait()
+        l_safe = torch.clamp_min(l, _TINY)
+        o = (acc / l_safe[..., None]).to(q3.dtype)
+        lse = m + torch.log(l_safe)
+        ctx.save_for_backward(q3, k3, v3, o, lse)
+        ctx.args = (group, n, rank, causal, scale, overlap)
+        return o
+
+    @staticmethod
+    def backward(ctx, g):
+        q3, k3, v3, o, lse = ctx.saved_tensors
+        group, n, rank, causal, scale, overlap = ctx.args
+        g = g.contiguous()
+        Tq, Tk = q3.shape[1], k3.shape[1]
+        dsum = torch.sum(g.float() * o.float(), dim=-1)
+        dq = torch.zeros(q3.shape, dtype=torch.float32, device=q3.device)
+        kv = [k3, v3]
+        dkv = None
+        for t in range(n):
+            nxt = post_hop(kv, n, 1, group) if t < n - 1 else None
+            if nxt is not None and not overlap:
+                kv_next = nxt.wait()
+            src = (rank - t) % n
+            kw = dict(causal=causal, scale=scale, q_off=rank * Tq, k_off=src * Tk)
+            dq += flash_dq(q3, kv[0], kv[1], g, lse, dsum, **kw)
+            dk_j, dv_j = flash_dkv(q3, kv[0], kv[1], g, lse, dsum, **kw)
+            dkv = [dk_j, dv_j] if dkv is None else [dkv[0] + dk_j, dkv[1] + dv_j]
+            if n > 1:  # the partials follow their block, posted after its [k, v] pair
+                dkv = post_hop(dkv, n, 1, group).wait()
+            if nxt is not None:
+                kv = kv_next if not overlap else nxt.wait()
+        return (dq.to(q3.dtype), dkv[0].to(k3.dtype), dkv[1].to(v3.dtype),
+                None, None, None, None, None, None, None)
+
+
+def ring_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, axis_name,
+                         causal: bool = False, scale: Optional[float] = None, precision=None, *,
+                         block_q: int = BLOCK, block_k: int = BLOCK,
+                         overlap: bool = True) -> torch.Tensor:
+    """Sequence-parallel ring attention whose every hop is the flash
+    kernels (:class:`_RingFlash`): ``[B, T_local, H, D]`` local blocks of
+    a sequence sharded over ``axis_name`` -> the local output block in
+    q's dtype, causal in GLOBAL positions through the kernels' offsets
+    (a block wholly in a rank's future costs the kernels no tile).
+    ``precision`` and the block sizes as :func:`flash_attention`;
+    ``overlap``: post each hop's exchange before folding the block."""
+    group, n = axis_group(axis_name)
+    rank = axis_index(axis_name)
+    out_dtype = q.dtype
+    if precision in ("highest", "float32"):
+        q, k, v = q.float(), k.float(), v.float()
+    if block_q < 1 or block_k < 1:
+        raise ValueError(f"block sizes must be positive, got {block_q}, {block_k}")
+    if q.is_cuda and block_q != BLOCK:
+        raise ValueError(f"the CUDA kernels tile Q by {BLOCK} rows, not {block_q}")
+    B, Tq, H, D = q.shape
+    sc = scale if scale is not None else 1.0 / math.sqrt(D)
+    o3 = _RingFlash.apply(_heads_major(q), _heads_major(k), _heads_major(v), group, n, rank,
+                          bool(causal), float(sc), int(block_k), bool(overlap))
     return o3.view(B, H, Tq, D).permute(0, 2, 1, 3).to(out_dtype)

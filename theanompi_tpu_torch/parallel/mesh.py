@@ -18,7 +18,12 @@ maps each axis name to the group of this rank along it.
   worker ``w`` and its ``"data"`` axis, ``"worker"`` the ranks at the
   same position in every group (one a worker), ``("worker", "data")``
   the world. ``--slices`` only validates that no group straddles a
-  slice (:func:`worker_groups`); the rules' mesh has no ``"dcn"`` axis.
+  slice (:func:`worker_groups`); the rules' mesh has no ``"dcn"`` axis;
+- sequence parallelism over ``n = dp·sp`` ranks (``--sp``, the
+  reference's dense ND mesh ``("data", "seq")`` of shape ``(dp, sp)``,
+  seq innermost): rank ``r`` sits at ``(r // sp, r % sp)``; ``"seq"`` is
+  the ``sp`` ranks of its row, ``"data"`` the ``dp`` ranks of its column,
+  ``("data", "seq")`` the world.
 
 The groups of a run are bound to the process (:func:`bind_axes`, which
 ``BSPEngine`` calls), as ``torch.distributed``'s default group is:
@@ -40,6 +45,7 @@ import torch.distributed as dist
 DATA_AXIS = "data"
 DCN_AXIS = "dcn"
 WORKER_AXIS = "worker"
+SEQ_AXIS = "seq"
 
 
 def inv_f32(n: int) -> float:
@@ -106,19 +112,45 @@ def _axis_key(name):
     return name
 
 
+def nd_shape(world: int, sp: int) -> tuple:
+    """``(dp, sp)`` of the dense ND mesh of ``world`` ranks with a
+    sequence axis of ``sp``; raises unless ``sp`` divides the ranks."""
+    sp = int(sp)
+    if sp < 1 or world % sp:
+        raise ValueError(f"{world} devices do not divide --tp 1 x --sp {sp}")
+    return world // sp, sp
+
+
 class AxisGroups:
     """This rank's process group and size along each mesh axis of a run
-    of ``world`` ranks in ``n_slices`` slices, or in worker groups of
-    ``group_size`` ranks (EASGD / GoSGD). Every rank must build it, in
-    the same order (``dist.new_group`` is collective over the world)."""
+    of ``world`` ranks in ``n_slices`` slices, in worker groups of
+    ``group_size`` ranks (EASGD / GoSGD), or, given ``sp``, on the
+    ``(dp, sp)`` mesh of a sequence axis of ``sp`` ranks. Every rank must
+    build it, in the same order (``dist.new_group`` is collective over
+    the world)."""
 
-    def __init__(self, world: int, n_slices: Optional[int] = None, group_size: int = 1):
+    def __init__(self, world: int, n_slices: Optional[int] = None, group_size: int = 1,
+                 sp: Optional[int] = None):
         if not dist.is_initialized() or dist.get_world_size() != world:
             have = dist.get_world_size() if dist.is_initialized() else "no process group"
             raise RuntimeError(f"mesh axes over {world} ranks need a process group of "
                                f"{world} ranks ({have} here)")
         self.world_group = dist.group.WORLD
         rank = dist.get_rank()
+        if sp is not None:
+            dp, sp = nd_shape(world, sp)
+            seq = data = self.world_group
+            if dp > 1:  # every rank creates every group, in one order
+                for d in range(dp):
+                    grp = dist.new_group(list(range(d * sp, d * sp + sp)))
+                    seq = grp if rank // sp == d else seq
+            if sp > 1:
+                for j in range(sp):
+                    grp = dist.new_group(list(range(j, world, sp)))
+                    data = grp if rank % sp == j else data
+            self.groups = {DATA_AXIS: (data, dp), SEQ_AXIS: (seq, sp),
+                           (DATA_AXIS, SEQ_AXIS): (self.world_group, world)}
+            return
         g = int(group_size or 1)
         if g > 1:
             n_workers, g = worker_groups(world, g)
@@ -156,21 +188,27 @@ class AxisGroups:
                 f"{sorted(map(str, self.groups))}") from None
 
 
-_GROUPS: dict = {}  # (n_slices, per_slice, group_size) -> this process's AxisGroups
+_GROUPS: dict = {}  # (n_slices, per_slice, group_size) or ("nd", dp, sp) -> AxisGroups
 _BOUND: Optional[AxisGroups] = None  # the run's, which axis_group reads
 
 
-def bind_axes(world: int, n_slices: Optional[int] = None, group_size: int = 1) -> AxisGroups:
+def bind_axes(world: int, n_slices: Optional[int] = None, group_size: int = 1,
+              sp: Optional[int] = None) -> AxisGroups:
     """Bind the mesh axes of a run of ``world`` ranks in ``n_slices``
-    slices (or in worker groups of ``group_size``) to this process,
+    slices (or in worker groups of ``group_size``, or, given ``sp``, on
+    the ``(dp, sp)`` mesh of a sequence axis of ``sp``) to this process,
     building its groups the first time (every rank calls it, in the same
     order); returns them."""
     global _BOUND
     g = int(group_size or 1)
-    key = (*((1, world) if g > 1 else slice_topology(world, n_slices)), g)
+    if sp is not None:
+        key = ("nd", *nd_shape(world, sp))
+    else:
+        key = (*((1, world) if g > 1 else slice_topology(world, n_slices)), g)
     axes = _GROUPS.get(key)
     if axes is None or axes.world_group is not dist.group.WORLD:
-        axes = _GROUPS[key] = AxisGroups(world, None if g > 1 else n_slices, g)
+        axes = _GROUPS[key] = AxisGroups(world, None if g > 1 or sp is not None else n_slices,
+                                         g, sp)
     _BOUND = axes
     return axes
 
@@ -213,3 +251,153 @@ def pmean(x: torch.Tensor, axis_name) -> torch.Tensor:
     (one ``all_reduce``), differentiable (:class:`_AllReduceMean`)."""
     group, n = axis_group(axis_name)
     return _AllReduceMean.apply(x, group, n)
+
+
+def axis_index(name) -> int:
+    """This rank's position along the mesh axis ``name`` of the bound run
+    (the reference's ``lax.axis_index``)."""
+    group, _ = axis_group(name)
+    return dist.get_rank(group)
+
+
+# --------------------------------------------------------------------------
+# the reference's collectives over one axis, differentiable
+# --------------------------------------------------------------------------
+
+
+def _staged(t: torch.Tensor) -> bool:
+    """gloo moves host memory only in its point-to-point ops (a CUDA
+    tensor aborts the process in its socket write); its all-to-all is
+    staged the same way."""
+    return t.is_cuda and dist.get_backend() == "gloo"
+
+
+class PendingHop:
+    """A posted exchange of :func:`post_hop`: ``wait()`` returns the
+    received tensors, on the device they were sent from."""
+
+    def __init__(self, works, recvs, devices):
+        self._works, self._recvs, self._devices = works, recvs, devices
+
+    def wait(self) -> list:
+        for work in self._works:
+            work.wait()
+        return [r.to(d) if r.device != d else r for r, d in zip(self._recvs, self._devices)]
+
+
+def post_hop(sends, n: int, shift: int = 1, group=None) -> PendingHop:
+    """Post one batched point-to-point exchange: each tensor of ``sends``
+    to the rank ``shift`` ahead among the ``n`` ranks of ``group``
+    (``None``: the world; positions are ranks within the group), a tensor
+    of the same shape received from the rank ``shift`` behind for each.
+    Returns at once; the sends must not change until ``wait()``. Under
+    gloo a card's tensors go through the host (``_staged``). Every rank
+    posts its exchanges in the same order, which keeps the pairs of
+    NCCL's sends and receives matched (at ``n = 2`` both peers are one
+    rank)."""
+    me = dist.get_rank(group) if group is not None else dist.get_rank()
+
+    def peer(pos):  # a group position -> the global rank P2POp takes
+        return dist.get_global_rank(group, pos) if group is not None else pos
+
+    to, frm = peer((me + shift) % n), peer((me - shift) % n)
+    ops, recvs, devices = [], [], []
+    for t in sends:
+        out = t.contiguous().cpu() if _staged(t) else t.contiguous()
+        recv = torch.empty_like(out)
+        ops += [dist.P2POp(dist.isend, out, to, group=group),
+                dist.P2POp(dist.irecv, recv, frm, group=group)]
+        recvs.append(recv)
+        devices.append(t.device)
+    return PendingHop(dist.batch_isend_irecv(ops), recvs, devices)
+
+
+class _PPermute(torch.autograd.Function):
+    """``lax.ppermute`` by ``shift`` over ``n`` ranks of ``group``: one
+    batched exchange; its transpose is the opposite shift."""
+
+    @staticmethod
+    def forward(ctx, x, group, n, shift):
+        ctx.group, ctx.n, ctx.shift = group, n, shift
+        return post_hop([x.detach()], n, shift, group).wait()[0]
+
+    @staticmethod
+    def backward(ctx, g):
+        return post_hop([g], ctx.n, -ctx.shift, ctx.group).wait()[0], None, None, None
+
+
+def ppermute(x: torch.Tensor, axis_name, shift: int = 1) -> torch.Tensor:
+    """``x`` of the rank ``shift`` behind along ``axis_name`` (each rank
+    sends its own ``shift`` ahead), differentiable."""
+    group, n = axis_group(axis_name)
+    if n == 1:
+        return x
+    return _PPermute.apply(x, group, n, int(shift))
+
+
+def _all_to_all(x: torch.Tensor, group, n: int, split_dim: int, concat_dim: int) -> torch.Tensor:
+    """Tiled ``lax.all_to_all``: ``x`` cut into ``n`` blocks along
+    ``split_dim``, block ``j`` sent to rank ``j``; the blocks received are
+    joined along ``concat_dim`` in rank order. One ``all_to_all_single``
+    over a contiguous ``[n, ...]`` stack of the blocks."""
+    if x.shape[split_dim] % n:
+        raise ValueError(f"all_to_all: dim {split_dim} of {tuple(x.shape)} does not split "
+                         f"into {n} blocks")
+    stack = torch.stack(x.chunk(n, dim=split_dim))
+    staged = _staged(stack)
+    send = stack.cpu() if staged else stack.contiguous()
+    recv = torch.empty_like(send)
+    dist.all_to_all_single(recv, send, group=group)
+    if staged:
+        recv = recv.to(x.device)
+    return torch.cat(recv.unbind(0), dim=concat_dim)
+
+
+class _AllToAll(torch.autograd.Function):
+    """Tiled ``lax.all_to_all``; its transpose is the inverse all-to-all
+    (split and concat dims swapped)."""
+
+    @staticmethod
+    def forward(ctx, x, group, n, split_dim, concat_dim):
+        ctx.args = (group, n, concat_dim, split_dim)
+        return _all_to_all(x.detach(), group, n, split_dim, concat_dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_to_all(g, *ctx.args), None, None, None, None
+
+
+def all_to_all(x: torch.Tensor, axis_name, split_dim: int, concat_dim: int) -> torch.Tensor:
+    """Tiled all-to-all over ``axis_name`` (``_all_to_all``), differentiable."""
+    group, n = axis_group(axis_name)
+    if n == 1:
+        return x
+    return _AllToAll.apply(x, group, n, split_dim, concat_dim)
+
+
+class _AllReduceSum(torch.autograd.Function):
+    """``psum`` over a group, whose transpose is a ``psum`` of the
+    cotangent (the reference's, under ``check_vma=False``): each rank's
+    backward then carries every rank's dependence on its input."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        y = x.detach().clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(y, group=group)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
+def psum(x: torch.Tensor, axis_name) -> torch.Tensor:
+    """The sum of ``x`` over the ranks of ``axis_name``, differentiable
+    (:class:`_AllReduceSum`)."""
+    group, n = axis_group(axis_name)
+    if n == 1:
+        return x
+    return _AllReduceSum.apply(x, group)

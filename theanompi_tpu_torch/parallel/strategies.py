@@ -51,7 +51,13 @@ import torch.distributed as dist
 
 from theanompi_tpu_torch.nn.layers import PLAIN, from_reference_layout, to_reference_layout
 from theanompi_tpu_torch.ops.quant import LANES, wire_decode, wire_decode_add, wire_encode
-from theanompi_tpu_torch.parallel.mesh import DATA_AXIS, DCN_AXIS, axis_group, inv_f32
+from theanompi_tpu_torch.parallel.mesh import (
+    DATA_AXIS,
+    DCN_AXIS,
+    axis_group,
+    inv_f32,
+    post_hop,
+)
 from theanompi_tpu_torch.tree import tree_leaves, tree_map
 
 Tree = Any
@@ -152,23 +158,10 @@ def _hop(send: torch.Tensor, n: int, shift: int = 1, group=None) -> torch.Tensor
     """Send ``send`` to the rank ``shift`` ahead and receive the
     same-shaped tensor from the rank ``shift`` behind, among the ``n``
     ranks of ``group`` (``None``: the world; positions are ranks within
-    the group), in one batched point-to-point exchange. gloo's
-    point-to-point ops move host memory only (a CUDA tensor aborts the
-    process in its socket write), so under gloo a card's hop goes through
-    the host."""
-    me = dist.get_rank(group) if group is not None else dist.get_rank()
-
-    def peer(pos):  # a group position -> the global rank P2POp takes
-        return dist.get_global_rank(group, pos) if group is not None else pos
-
-    staged = send.is_cuda and dist.get_backend() == "gloo"
-    out = send.contiguous().cpu() if staged else send.contiguous()
-    recv = torch.empty_like(out)
-    ops = [dist.P2POp(dist.isend, out, peer((me + shift) % n), group=group),
-           dist.P2POp(dist.irecv, recv, peer((me - shift) % n), group=group)]
-    for work in dist.batch_isend_irecv(ops):
-        work.wait()
-    return recv.to(send.device) if staged else recv
+    the group), in one batched point-to-point exchange
+    (``mesh.post_hop``: under gloo a card's hop goes through the host,
+    since gloo's point-to-point ops move host memory only)."""
+    return post_hop([send], n, shift, group).wait()[0]
 
 
 def _ring_allreduce_flat(flat: torch.Tensor, n: int, wire: Optional[str] = None) -> torch.Tensor:
