@@ -281,6 +281,33 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                 (``torch.profiler``) of 5 steps at --sp 4 of each scheme:
                 NCCL's, the flash kernels' and the other kernels' device
                 time a step.
+   tp         — tensor parallelism (``parallel/nd.py``, ``--tp``): the
+                136M LM's width at 2 layers, 2 gloo ranks on cuda:0 at
+                --tp 2 (each rank 6 of the 12 heads, 1536 of the 3072
+                hidden units, 16384 of the 32768 vocabulary columns; the
+                ranks spawned once with phase sp's), 3 steps and one
+                validation batch, plain and with --wire-codec int8:ef:
+                each rank launches exactly 2 layers x (3 + 1)
+                flash_fwd_sm90 and 2 x 3 flash_dq_sm90 and flash_dkv_sm90
+                (at B x H / tp), under the codec 3 quant_block and 3
+                dequant_block (one round a step over the replicated
+                leaves, which cross the model axis; the tp-sharded leaves
+                have no wire there and their residuals stay 0), no other
+                kernel; losses finite and equal across the ranks, each
+                model index's shards equal, the replicated leaves equal on
+                both; the first step's loss within rtol 1e-3 of phase
+                sp's one rank (attn flash, the same weights and batch).
+                ``--only tp`` on 4 cards (NCCL, one rank a card): the
+                12-layer 136M at --tp 4, data 2 x tp 2 (attn flash) and
+                tp 2 x seq 2 under ring_flash and ulysses_flash, each 32
+                steps eager and in captured groups of 4, eager = captured
+                bit for bit; step ms over the 30 steady steps, tokens/s,
+                peak memory a card; the --tp 4 run cut at step 16 and
+                resumed, ending on its state; a --tp 2 file (int8:ef)
+                restored onto --tp 4 through ``load_resharded``, params
+                and Adam's state bit for bit the file's and the residuals
+                zero, then resumed with ``--elastic`` at --tp 4; the 350M
+                (remat, no loss_chunk) at --tp 4 for 4 steps.
    googlenet-main — full-width GoogLeNet (224x224x3, 1000 classes, both
                 aux heads, bf16 compute, fp32 params, momentum 0.9, wd
                 1e-4, poly, batch 512, random weights from a seed) through
@@ -3078,22 +3105,28 @@ def sp_rank(rank, n, device, table_key, table, runs, profiles=()):
 
 
 def _sp_launches_want(attn: str, sp: int, layers: int, steps: int, val_batches: int,
-                      codec: bool, remat: bool = False) -> dict:
-    """One rank's flash and codec launches of an SP run: the ring folds sp
+                      codec: bool, remat: bool = False, tp: int = 1, dp: int = 1) -> dict:
+    """One rank's flash and codec launches of an ND run: the ring folds sp
     hops a layer (forward, dq and dk/dv each), Ulysses one local step;
     under remat the train step runs the forward twice; the codec one
-    quantize and one dequantize launch a step."""
+    quantize and one dequantize launch a step for each exchange with a
+    wire: the replicated leaves' over every rank, and under --tp the
+    sharded leaves' over the data and seq ranks of their model index
+    where those are more than one."""
     hops = sp if attn == "ring_flash" else 1
+    rounds = 1 + (tp > 1 and dp * sp > 1) if codec else 0
     want = {name: 0 for name in LM_PARITY_FLASH}
     want.update(flash_fwd_sm90=hops * layers * ((2 if remat else 1) * steps + val_batches),
                 flash_dq_sm90=hops * layers * steps, flash_dkv_sm90=hops * layers * steps,
-                quant_block=steps if codec else 0, dequant_block=steps if codec else 0)
+                quant_block=rounds * steps, dequant_block=rounds * steps)
     return want
 
 
 def _check_sp_run(label: str, s: dict, want: dict, steps: int) -> None:
     """The run reached step ``steps``, every loss it ran finite, the ranks'
-    losses and replicas equal, and each rank launched ``want``."""
+    losses equal, the ranks of one model index holding equal replicas and
+    every rank the same replicated leaves, and each rank launched
+    ``want``."""
     losses = s["losses"]
     ran = steps - (s["resumed_from_step"] or 0)
     check(s["steps"] == steps and len(losses) == ran and s["nonfinite_steps"] == 0
@@ -3103,8 +3136,13 @@ def _check_sp_run(label: str, s: dict, want: dict, steps: int) -> None:
           f"{label}: bad val metrics {s.get('val')}")
     finals = s["final_loss_per_rank"]
     check(len(set(finals)) == 1, f"{label}: the ranks' losses differ: {finals}")
-    check(len(set(s["replica_digest_per_rank"])) == 1,
-          f"{label}: the ranks' replicas differ: {s['replica_digest_per_rank']}")
+    by_t: dict = {}
+    for t, d in zip(s["tp_index_per_rank"], s["replica_digest_per_rank"]):
+        by_t.setdefault(t, set()).add(d)
+    check(all(len(d) == 1 for d in by_t.values()),
+          f"{label}: the replicas of one model index differ: {s['replica_digest_per_rank']}")
+    check(len(set(s["replicated_digest_per_rank"])) == 1,
+          f"{label}: the replicated leaves differ: {s['replicated_digest_per_rank']}")
     for r, counts in enumerate(s["kernel_launches_per_rank"]):
         got = {k: counts.get(k, 0) for k in want}
         check(got == want, f"{label}: rank {r} launched {got}, expected {want}")
@@ -3112,28 +3150,40 @@ def _check_sp_run(label: str, s: dict, want: dict, steps: int) -> None:
         check(not stray, f"{label}: rank {r} launched other kernels: {stray}")
 
 
-def phase_sp(table_key, table):
-    """The sequence-parallel LM on one card (module docstring, phase sp):
-    the 136M width at 2 layers, 2 gloo ranks on cuda:0 at --sp 2, under
-    ring_flash and under ulysses_flash with the int8:ef codec; then one
-    rank (attn flash) for the first step's loss."""
+SP_RUNS = [("ring_flash", "TransformerLM_136M",
+            sp_run_kwargs("ring_flash", SP_STEPS, SP_LAYERS, sp=2)),
+           ("ulysses_flash+int8:ef", "TransformerLM_136M",
+            sp_run_kwargs("ulysses_flash", SP_STEPS, SP_LAYERS, sp=2, wire_codec="int8:ef"))]
+
+
+def spawn_nd_ranks(table_key, table) -> list:
+    """Phase sp's and phase tp's runs in one spawn of 2 gloo ranks on
+    cuda:0 (one start of the ranks for both); each rank's results."""
     import torch
 
     from theanompi_tpu_torch.launch.session import spawn_ranks
+
+    runs = SP_RUNS + TP_RUNS
+    print(f"[sp/tp] 2 gloo ranks on cuda:0, TransformerLM_136M at {SP_LAYERS} layers: "
+          f"{[r[0] for r in runs]}", flush=True)
+    torch.cuda.empty_cache()
+    return spawn_ranks(sp_rank, 2, (table_key, table, runs), device="cuda:0", backend="gloo",
+                       timeout=900)
+
+
+def phase_sp(ranks):
+    """The sequence-parallel LM on one card (module docstring, phase sp):
+    the 136M width at 2 layers, 2 gloo ranks on cuda:0 at --sp 2, under
+    ring_flash and under ulysses_flash with the int8:ef codec
+    (``spawn_nd_ranks``); then one rank (attn flash) for the first step's
+    loss."""
+    import torch
+
     from theanompi_tpu_torch.launch.worker import run_training
     from theanompi_tpu_torch.models.lm import TransformerLM_136M
 
-    runs = [("ring_flash", "TransformerLM_136M",
-             sp_run_kwargs("ring_flash", SP_STEPS, SP_LAYERS, sp=2)),
-            ("ulysses_flash+int8:ef", "TransformerLM_136M",
-             sp_run_kwargs("ulysses_flash", SP_STEPS, SP_LAYERS, sp=2, wire_codec="int8:ef"))]
-    print(f"[sp] 2 gloo ranks on cuda:0, --sp 2, TransformerLM_136M at {SP_LAYERS} layers: "
-          f"{[r[0] for r in runs]}", flush=True)
-    torch.cuda.empty_cache()
-    ranks = spawn_ranks(sp_rank, 2, (table_key, table, runs), device="cuda:0", backend="gloo",
-                        timeout=900)
     out = {}
-    for label, _, kw in runs:
+    for label, _, kw in SP_RUNS:
         s = ranks[0][label]["summary"]
         attn = kw["recipe_overrides"]["attn"]
         want = _sp_launches_want(attn, 2, SP_LAYERS, SP_STEPS, 1, "wire_codec" in kw)
@@ -3235,6 +3285,195 @@ def phase_sp4(table_key, table, n_cards: int) -> dict:
           "uninterrupted run's state", flush=True)
     for label, p in out["profiles"].items():
         print(f"[sp4] {label}: {p}", flush=True)
+    return out
+
+
+# phase tp: the 136M width at 2 layers on one card (2 gloo ranks, --tp 2);
+# --only tp on 4 cards over NCCL at full depth
+TP_LAYERS = SP_LAYERS  # phase sp's one-rank run is phase tp's yardstick too
+TP_STEPS = 3
+TP4_STEPS = 32  # 30 steady steps, as --only sp
+TP4_K = 4
+TP350_STEPS = 4
+# the first loss, --tp 2 against one rank: each block's two bf16 deltas
+# summed over the model axis (a rounding more a sum) and the cross-entropy
+# over the vocabulary's shards, on ~ln V
+TP_LOSS_RTOL = 1e-3
+TP_RUNS = [("tp2", "TransformerLM_136M", sp_run_kwargs("flash", TP_STEPS, TP_LAYERS, tp=2)),
+           ("tp2+int8:ef", "TransformerLM_136M",
+            sp_run_kwargs("flash", TP_STEPS, TP_LAYERS, tp=2, wire_codec="int8:ef"))]
+TP4_MESHES = (("tp4", 4, 1, "flash"), ("dp2xtp2", 2, 1, "flash"),
+              ("tp2xsp2 ring_flash", 2, 2, "ring_flash"),
+              ("tp2xsp2 ulysses_flash", 2, 2, "ulysses_flash"))
+
+
+def phase_tp(ranks, one_rank_first_loss: float) -> dict:
+    """The tensor-parallel LM on one card (module docstring, phase tp):
+    the runs of ``TP_RUNS`` from ``spawn_nd_ranks``, checked."""
+    out = {}
+    for label, _, kw in TP_RUNS:
+        s = ranks[0][label]["summary"]
+        codec = "wire_codec" in kw
+        want = _sp_launches_want("flash", 1, TP_LAYERS, TP_STEPS, 1, codec, tp=2)
+        _check_sp_run(f"tp {label}", s, want, TP_STEPS)
+        check(s["tp"] == 2 and s["tp_index_per_rank"] == [0, 1]
+              and s["mesh"] == {"shape": [1, 2], "axes": ["data", "model"]},
+              f"tp {label}: mesh {s['mesh']}, tp indices {s['tp_index_per_rank']}")
+        if codec:
+            # the replicated leaves crossed the model axis through the
+            # quantizer; the tp-sharded ones have no wire at --tp 2
+            check(all(x > 0 for x in s["ef_norm_per_rank"])
+                  and all(x == 0 for x in s["ef_unwired_norm_per_rank"]),
+                  f"tp {label}: residual norms {s['ef_norm_per_rank']}, of the leaves with "
+                  f"no wire {s['ef_unwired_norm_per_rank']}")
+        a = s["losses"][0]
+        check(abs(a - one_rank_first_loss) <= TP_LOSS_RTOL * abs(one_rank_first_loss),
+              f"tp {label}: first loss {a} against one rank's {one_rank_first_loss} "
+              f"(rtol {TP_LOSS_RTOL})")
+        out[label] = {"summary": s, "launches": want, "one_rank_first_loss": one_rank_first_loss,
+                      "peak_bytes_per_rank": [r[label]["peak_bytes"] for r in ranks]}
+        print(f"[tp] {label}: losses {s['losses']} (first against one rank's "
+              f"{one_rank_first_loss}, rtol {TP_LOSS_RTOL}); val {s['val']}; step_ms per rank "
+              f"{s['step_ms_per_rank']}; launches per rank {want} (as expected); residual norms "
+              f"{s['ef_norm_per_rank']}, of the unwired leaves {s['ef_unwired_norm_per_rank']}",
+              flush=True)
+    return out
+
+
+def tp_reshard_check(rank, n, device, path: str, tp: int, modelclass: str,
+                     overrides: dict) -> dict:
+    """The --tp 2 file at ``path`` restored onto the ``--tp tp`` mesh of
+    ``modelclass`` (its recipe with ``overrides``) under int8:ef through
+    ``load_resharded`` and the engine's restore, gathered back: on rank 0
+    the entries of params and optimizer state that are not the file's bit
+    for bit, and the residual stacks that are not zero (both empty when
+    the reshard is exact)."""
+    import numpy as np
+    import torch
+
+    from theanompi_tpu_torch import bridge
+    from theanompi_tpu_torch.launch.session import resolve_model
+    from theanompi_tpu_torch.parallel.nd import NDEngine
+    from theanompi_tpu_torch.utils.checkpoint import load_checkpoint, load_resharded, to_numpy
+
+    cls = resolve_model("transformer_lm", modelclass)
+    model = cls(cls.default_recipe().replace(**overrides))
+    eng = NDEngine(model, n, device, tp=tp, wire_codec="int8:ef")
+    init = eng.init_state(torch.Generator().manual_seed(0))
+    layouts = model.param_layouts(init.params)
+    t0 = time.perf_counter()
+    flat, info = load_resharded(path, bridge.entry_shapes(eng.checkpoint_parts(init, layouts)),
+                                eng.mesh_topology())
+    state = eng.restore(flat, init, layouts)
+    del flat
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    load_s = time.perf_counter() - t0
+    entries = eng.state_entries(state, layouts)
+    if entries is None:
+        return {}
+    saved = load_checkpoint(path)
+    unequal = [k for k, v in entries.items() if not k.startswith((".ef/", "__"))
+               and not np.array_equal(to_numpy(v), saved[k])]
+    ef_nonzero = [k for k, v in entries.items() if k.startswith(".ef/") and np.any(to_numpy(v))]
+    return {"resharded": info["resharded"], "from_mesh": info["from_mesh"],
+            "reset": len(info["reset"]), "entries": len(entries), "unequal": unequal,
+            "ef_nonzero": ef_nonzero, "load_s": load_s}
+
+
+def tp_rank(rank, n, device, table_key, table, runs, reshards=()):
+    """One rank of ``--only tp``: ``sp_rank``'s runs, then each reshard
+    check ``(label, path, tp, modelclass, recipe overrides)``
+    (``tp_reshard_check``)."""
+    out = sp_rank(rank, n, device, table_key, table, runs)
+    for label, *check_args in reshards:
+        out[label] = tp_reshard_check(rank, n, device, *check_args)
+    return out
+
+
+def phase_tp4(table_key, table, n_cards: int) -> dict:
+    """``--only tp``: the full-depth 136M and the 350M over NCCL on 4
+    cards (module docstring, phase tp)."""
+    from theanompi_tpu_torch.launch.session import spawn_ranks
+
+    check(n_cards >= 4, f"--only tp needs 4 cards, {n_cards} visible")
+    ckpt, ckpt_tp2 = tempfile.mkdtemp(prefix="tmpi-tp-"), tempfile.mkdtemp(prefix="tmpi-tp2-")
+    runs = []
+    for mesh, tp, sp, attn in TP4_MESHES:
+        runs.append((f"{mesh} eager", "TransformerLM_136M",
+                     sp_run_kwargs(attn, TP4_STEPS, tp=tp, sp=sp)))
+        runs.append((f"{mesh} captured", "TransformerLM_136M",
+                     sp_run_kwargs(attn, TP4_STEPS, tp=tp, sp=sp, steps_per_dispatch=TP4_K)))
+    codec = dict(wire_codec="int8:ef", ckpt_dir=ckpt_tp2, async_checkpoint=False)
+    runs += [
+        # the eager run's epoch, cut halfway and resumed
+        ("tp4 cut", "TransformerLM_136M",
+         sp_run_kwargs("flash", TP4_STEPS // 2, tp=4, epoch_steps=TP4_STEPS, ckpt_dir=ckpt,
+                       async_checkpoint=False)),
+        ("tp4 resumed", "TransformerLM_136M",
+         sp_run_kwargs("flash", TP4_STEPS, tp=4, ckpt_dir=ckpt, async_checkpoint=False,
+                       resume=True)),
+        # a --tp 2 file (data 2 x tp 2) at step 4 of a 6-step epoch, then
+        # resumed elastic at --tp 4 to the epoch's end
+        ("tp2 int8:ef", "TransformerLM_136M",
+         sp_run_kwargs("flash", 4, tp=2, epoch_steps=6, **codec)),
+        ("tp4 int8:ef elastic", "TransformerLM_136M",
+         sp_run_kwargs("flash", 6, tp=4, resume=True, elastic=True, **codec)),
+        ("350M tp4", "TransformerLM_350M",
+         sp_run_kwargs("flash", TP350_STEPS, tp=4, recipe={"loss_chunk": None})),
+    ]
+    reshards = [("tp2 file onto tp4", os.path.join(ckpt_tp2, "ckpt_4.npz"), 4,
+                 "TransformerLM_136M", runs[-2][2]["recipe_overrides"])]
+    print(f"[tp4] 4 NCCL ranks: {[r[0] for r in runs]}; reshards {[r[0] for r in reshards]}",
+          flush=True)
+    try:
+        ranks = spawn_ranks(tp_rank, 4, (table_key, table, runs, reshards), timeout=1500)
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+        shutil.rmtree(ckpt_tp2, ignore_errors=True)
+    r0 = ranks[0]
+    out = {"runs": {}, "reshards": {r[0]: r0[r[0]] for r in reshards}}
+    for label, modelclass, kw in runs:
+        s = r0[label]["summary"]
+        attn, sp, tp = kw["recipe_overrides"]["attn"], kw.get("sp", 1), kw.get("tp", 1)
+        steps = kw["max_steps"] - (s["resumed_from_step"] or 0)
+        big = modelclass == "TransformerLM_350M"
+        want = _sp_launches_want(attn, sp, 24 if big else LM_LAYERS, steps, 1,
+                                 "wire_codec" in kw, remat=big, tp=tp, dp=4 // (tp * sp))
+        _check_sp_run(f"tp4 {label}", s, want, kw["max_steps"])
+        check(s["tp"] == tp and s["sp"] == sp, f"tp4 {label}: tp {s['tp']}, sp {s['sp']}")
+        peaks = [r[label]["peak_bytes"] for r in ranks]
+        row = {"step_ms": s["step_ms"], "steady_steps": s["steady_steps"],
+               "tokens_per_sec": 8 * 1024 / (s["step_ms"] / 1e3) if s["step_ms"] else None,
+               "step_ms_per_rank": s["step_ms_per_rank"], "losses": s["losses"],
+               "peak_gib_per_card": [round(p / 2**30, 3) for p in peaks if p],
+               "digests": s["replica_digest_per_rank"], "captured": s["captured"],
+               "launches": want, "wall_s": r0[label]["wall_s"]}
+        out["runs"][label] = row
+        print(f"[tp4] {label}: step {row['step_ms']} ms over {row['steady_steps']} steady steps, "
+              f"{row['tokens_per_sec']} tokens/s, peak {row['peak_gib_per_card']} GiB a card, "
+              f"losses {s['losses'][0]} ... {s['losses'][-1]}, launches a rank "
+              f"{ {k: v for k, v in want.items() if v} }", flush=True)
+    for mesh, *_ in TP4_MESHES:
+        e, c = out["runs"][f"{mesh} eager"], out["runs"][f"{mesh} captured"]
+        check(c["captured"], f"tp4 {mesh}: the captured run replayed no graph")
+        check(e["digests"] == c["digests"] and e["losses"] == c["losses"],
+              f"tp4 {mesh}: eager and captured runs differ ({e['digests']} / {c['digests']})")
+    e, res = out["runs"]["tp4 eager"], r0["tp4 resumed"]["summary"]
+    check(res["resumed_from_step"] == TP4_STEPS // 2 and res["replica_digest_per_rank"] ==
+          e["digests"], f"tp4 resume: from step {res['resumed_from_step']}, digests "
+          f"{res['replica_digest_per_rank']} against {e['digests']}")
+    el = r0["tp4 int8:ef elastic"]["summary"]
+    check(el["resumed_from_step"] == 4 and el["reshard"]["resharded"]
+          and el["reshard"]["from_mesh"] == {"shape": [2, 2], "axes": ["data", "model"]}
+          and el["mesh"] == {"shape": [1, 4], "axes": ["data", "model"]},
+          f"tp4 elastic: from step {el['resumed_from_step']}, reshard {el.get('reshard')}")
+    for label, r in out["reshards"].items():
+        check(r["resharded"] and not r["unequal"] and not r["ef_nonzero"] and r["reset"],
+              f"tp4 {label}: {r}")
+    print("[tp4] eager = captured bit for bit at every mesh; the resume ends on the "
+          "uninterrupted run's state; the --tp 2 file restores onto --tp 4 with params and Adam's "
+          f"state bit for bit and zero residuals: {out['reshards']}", flush=True)
     return out
 
 
@@ -5136,6 +5375,39 @@ def only_sp(smi: str, kind: str, t_start: float) -> int:
     return 0
 
 
+def only_tp(smi: str, kind: str, t_start: float) -> int:
+    """``--only tp``: build the flash kernels and the quantizer and run
+    phase tp's 4-card part (``phase_tp4``) on 4 cards over NCCL; its JSON,
+    the card line and the result line last."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+
+    from theanompi_tpu_torch.ops import flash_attention as fa
+    from theanompi_tpu_torch.ops import quant as tq
+
+    try:
+        with ThreadPoolExecutor(max_workers=2) as pool:
+            futs = {"flash_attention.cu": pool.submit(fa.build), "quant.cu": pool.submit(tq.build)}
+            for src, f in futs.items():
+                print(f"[build] csrc/{src}: nvcc {f.result():.2f} s", flush=True)
+        t0 = time.perf_counter()
+        tp4 = phase_tp4(*successor_table(), torch.cuda.device_count())
+        print(f"[tp4] done ({time.perf_counter() - t0:.1f} s)", flush=True)
+        os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
+        with open(os.path.join(REPO, "chiprun_out", "tp4.json"), "w") as f:
+            json.dump({"tp": tp4, "card": smi}, f, default=str)
+    except Failed as e:
+        print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
+        return 1
+    print(f"chip_smoke: wall {time.perf_counter() - t_start:.1f} s", flush=True)
+    print(json.dumps({"tp": tp4}, default=str))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
 def build_all():
     """Build every kernel library at once (one nvcc per source, started
     together); returns {source: nvcc seconds}."""
@@ -5157,9 +5429,9 @@ def main(argv=None) -> int:
     args = sys.argv[1:] if argv is None else list(argv)
     only = None
     if args:
-        if len(args) != 2 or args[0] != "--only" or args[1] not in ("bsp-exchange", "rules",
-                                                                       "resume", "scaling", "sp"):
-            print("usage: python3 chip_smoke.py [--only bsp-exchange|rules|resume|scaling|sp]",
+        if len(args) != 2 or args[0] != "--only" or args[1] not in (
+                "bsp-exchange", "rules", "resume", "scaling", "sp", "tp"):
+            print("usage: python3 chip_smoke.py [--only bsp-exchange|rules|resume|scaling|sp|tp]",
                   file=sys.stderr)
             return 2
         only = args[1]
@@ -5203,6 +5475,8 @@ def main(argv=None) -> int:
             return only_scaling(smi, kind, t_start)
         if only == "sp":
             return only_sp(smi, kind, t_start)
+        if only == "tp":
+            return only_tp(smi, kind, t_start)
         t0 = time.perf_counter()
         builds = build_all()
         for src, secs in builds.items():
@@ -5261,8 +5535,14 @@ def main(argv=None) -> int:
         print(f"[lm350-main] done ({time.perf_counter() - t0:.1f} s)", flush=True)
 
         t0 = time.perf_counter()
-        sp_runs = phase_sp(*successor_table())
+        nd_ranks = spawn_nd_ranks(*successor_table())
+        print(f"[sp/tp] ranks done ({time.perf_counter() - t0:.1f} s)", flush=True)
+        t0 = time.perf_counter()
+        sp_runs = phase_sp(nd_ranks)
         print(f"[sp] done ({time.perf_counter() - t0:.1f} s)", flush=True)
+        t0 = time.perf_counter()
+        tp_runs = phase_tp(nd_ranks, next(iter(sp_runs.values()))["one_rank_first_loss"])
+        print(f"[tp] done ({time.perf_counter() - t0:.1f} s)", flush=True)
 
         t0 = time.perf_counter()
         gnet_runs = phase_googlenet_main()
@@ -5458,6 +5738,9 @@ def main(argv=None) -> int:
             # phase sp's codec run: each rank's launches (one a step)
             kernels[-1]["sp_launches_per_rank"] = {
                 k_: v_["launches"].get(name, 0) for k_, v_ in sp_runs.items()}
+            # phase tp's: one a step over the replicated leaves
+            kernels[-1]["tp_launches_per_rank"] = {
+                k_: v_["launches"].get(name, 0) for k_, v_ in tp_runs.items()}
         if "per_leaf_ms" in t:
             kernels[-1].update(table_built_ms=t["table_built_ms"],
                                one_leaf_calls_ms=t["per_leaf_ms"],
@@ -5554,6 +5837,9 @@ def main(argv=None) -> int:
             # phase sp: each rank's launches, 2 gloo ranks at --sp 2 (2 layers)
             "sp_launches_per_rank": {k_: v_["launches"].get(name, 0)
                                      for k_, v_ in sp_runs.items()},
+            # phase tp: each rank's launches, 2 gloo ranks at --tp 2 (2 layers)
+            "tp_launches_per_rank": {k_: v_["launches"].get(name, 0)
+                                     for k_, v_ in tp_runs.items()},
         })
         if t.get("turns_ms"):
             kernels[-1]["turns_ms"] = t["turns_ms"]

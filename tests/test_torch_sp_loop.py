@@ -7,7 +7,8 @@ the same ranks), with the ``(data, seq)`` mesh stamped in the
 checkpoint's topology manifest; a resume onto another mesh of the same
 ranks reshards under ``--elastic`` and resets the codec's residuals;
 and every refusal of the reference's ND branch by its message (the
-unported ``--tp``, ``--pp``, ``--expert`` and ``--zero`` by name). The numbers against the JAX package:
+unported ``--pp``, ``--expert`` and ``--zero`` by name, and ``--tp``
+with ``loss_chunk``). The numbers against the JAX package:
 ``tests/test_torch_sp.py``.
 """
 
@@ -147,7 +148,7 @@ def test_a_classifier_and_attn_flash_are_refused(monkeypatch):
         NDEngine(model, 4, "cpu", sp=2)
 
 
-@pytest.mark.parametrize("flag", ["--tp", "--pp", "--expert", "--zero"])
+@pytest.mark.parametrize("flag", ["--pp", "--expert", "--zero"])
 def test_the_cli_refuses_the_unported_nd_axes_by_name(flag, capsys):
     from theanompi_tpu_torch import cli
 
@@ -155,3 +156,13 @@ def test_the_cli_refuses_the_unported_nd_axes_by_name(flag, capsys):
         cli.main(["BSP", "4", "transformer_lm", "TransformerLMModel", "--synthetic", "--device",
                   "cpu", flag, "2"])
     assert f"{flag} is not ported yet: ROADMAP.md" in capsys.readouterr().err
+
+
+def test_the_cli_refuses_tp_with_loss_chunk():
+    """``--tp`` is ported; with ``loss_chunk`` it is refused, naming both
+    (the reference ignores the chunk under its model axis)."""
+    from theanompi_tpu_torch import cli
+
+    with pytest.raises(ValueError, match="loss_chunk=8 does not compose with --tp"):
+        cli.main(["BSP", "1", "transformer_lm", "TransformerLMModel", "--synthetic", "--device",
+                  "cpu", "--tp", "2", "--recipe-arg", "loss_chunk=8"])

@@ -226,8 +226,8 @@ def state_from_flat(flat: dict, template, layouts: Tree, rank: int = 0, world: i
     ``.ef`` stack of another world size (ValueError); nothing is
     resharded. Entries the template lacks are ignored, as the reference
     ignores them."""
-    pairs = _state_pairs(template, layouts)
-    vals = {k: _restored(_entry(flat, k), t, lay, k) for k, t, lay in pairs}
+    leaves = [_restored(_entry(flat, k), t, lay, k)
+              for k, t, lay in _state_pairs(template, layouts)]
     stacks = sorted(k for k in flat if k == ".ef" or k.startswith(".ef/"))
     for k in stacks:
         n = np.shape(flat[k])[0] if np.ndim(flat[k]) else None
@@ -235,18 +235,21 @@ def state_from_flat(flat: dict, template, layouts: Tree, rank: int = 0, world: i
             raise ValueError(f"checkpoint leaf {k!r} stacks the residuals of {n} ranks; this "
                              f"run has {world} (a resume onto another world is elastic: "
                              "--elastic reshards the checkpoint)")
-    ef = template.ef
-    if tree_leaves(template.ef):
-        lays = _ef_layouts(template.ef, layouts)
-        ef_pairs = _paths(template.ef, ".ef")
-        rows = [_restored(_entry(flat, k)[rank], t, lays[i], k)
-                for i, (k, t) in enumerate(ef_pairs)]
-        it = iter(rows)
-        ef = tree_map(lambda _: next(it), template.ef)
-    it = iter(vals[k] for k, _, _ in pairs)
+    lays = _ef_layouts(template.ef, layouts)
+    rows = [_restored(_entry(flat, k)[rank], t, lays[i], k)
+            for i, (k, t) in enumerate(_paths(template.ef, ".ef"))]
+    return _rebuilt(template, leaves, rows)
+
+
+def _rebuilt(template, leaves: list, ef_rows: list):
+    """``template`` with its leaves but ``ef``'s (in ``_state_pairs``
+    order) and its residuals (in ``ef``'s leaf order) replaced."""
+    it = iter(leaves)
     # a state without model state (the ND engine's) has no such field
     rebuilt = {f: tree_map(lambda _: next(it), getattr(template, f))
                for f in ("params", "model_state", "opt_state") if f in template._fields}
+    ef_it = iter(ef_rows)
+    ef = tree_map(lambda _: next(ef_it), template.ef) if ef_rows else template.ef
     return template._replace(**rebuilt, step=next(it), ef=ef)
 
 
@@ -357,22 +360,33 @@ def _np_dtype(v) -> np.dtype:
     return np.asarray(v).dtype
 
 
+def _global_shape(v, row, rows) -> tuple:
+    if isinstance(row, dict):
+        return tuple(row["shape"])
+    return (rows, *tuple(v.shape)) if row is not None else tuple(v.shape)
+
+
 def entry_shapes(parts: list) -> dict:
     """``{entry: (global shape, numpy dtype)}`` of a checkpoint from any
     rank's parts (``utils/checkpoint.load_resharded``'s target)."""
-    return {k: ((rows, *tuple(v.shape)) if row is not None else tuple(v.shape), _np_dtype(v))
-            for k, v, row, rows in parts}
+    return {k: (_global_shape(v, row, rows), _np_dtype(v)) for k, v, row, rows in parts}
 
 
 def shard_layout(parts: list, rank: int) -> tuple:
     """This rank's pieces of a sharded set: ``(entries, layout)``,
     ``entries`` ``{name: tensor or array}`` to snapshot and ``layout``
     ``{name: (entry, global shape, bounds)}``. Rank 0 writes the
-    replicated entries whole; every rank writes the rows it owns."""
+    replicated entries whole; every rank writes the rows it owns, and the
+    pieces at global bounds it is the writer of (``nd_state_parts``)."""
     entries, layout = {}, {}
     for k, v, row, rows in parts:
         shape = tuple(v.shape)
-        if row is None:
+        if isinstance(row, dict):
+            if row["write"]:
+                name = f"{k}@{rank}"
+                entries[name] = v
+                layout[name] = (k, tuple(row["shape"]), [list(b) for b in row["bounds"]])
+        elif row is None:
             if rank != 0:
                 continue
             entries[k] = v
@@ -382,3 +396,96 @@ def shard_layout(parts: list, rank: int) -> tuple:
             entries[name] = v.unsqueeze(0) if isinstance(v, torch.Tensor) else np.asarray(v)[None]
             layout[name] = (k, (rows, *shape), [[row, row + 1], *([0, d] for d in shape)])
     return entries, layout
+
+
+# --------------------------------------------------------------------------
+# the dense ND mesh: entries of sharded leaves in the reference's global
+# layout
+# --------------------------------------------------------------------------
+
+
+def nd_local_entries(state, layouts: Tree) -> dict:
+    """This rank's pieces of every entry of an ND state, in the
+    reference's layout: its shard of each leaf, and its residual as one
+    row ``[1, ...]`` of its ``.ef`` stack."""
+    out = {k: to_reference_layout(t.detach(), lay) for k, t, lay in _state_pairs(state, layouts)}
+    if tree_leaves(state.ef):
+        lays = _ef_layouts(state.ef, layouts)
+        for i, (k, t) in enumerate(_paths(state.ef, ".ef")):
+            out[k] = to_reference_layout(t.detach(), lays[i]).unsqueeze(0)
+    return out
+
+
+def nd_state_entries(pieces: list, coords_list: list, spec_of) -> dict:
+    """The global entries from the ranks' ``nd_local_entries`` (``pieces``,
+    one dict a rank, host tensors, with each rank's ``coords``): a
+    replicated entry is the first rank's, a sharded one its pieces joined
+    at their bounds. ``spec_of(entry)`` gives each entry's spec."""
+    from theanompi_tpu_torch.models.transformer import join_shards, spec_axes
+
+    out = {}
+    for k, first in pieces[0].items():
+        spec = spec_of(k)
+        if not spec_axes(spec):
+            out[k] = first
+            continue
+        out[k] = torch.from_numpy(join_shards([to_numpy(p[k]) for p in pieces], spec,
+                                              coords_list))
+    return out
+
+
+def nd_state_parts(state, layouts: Tree, spec_of, coords: dict) -> list:
+    """``(entry, tensor, row, rows)`` of every entry this rank holds
+    (``state_parts``' form): a replicated entry ``row`` None (rank 0
+    writes it), a sharded one ``row`` ``{"shape": global shape,
+    "bounds": its [start, stop) a dimension, "write": bool}``, written by
+    the rank at index 0 of every axis its spec does not name (a
+    tp-sharded leaf by the rank at data 0, seq 0 of its model index; an
+    ``.ef`` row by its own rank)."""
+    from theanompi_tpu_torch.models.transformer import global_shape, spec_axes, spec_bounds
+
+    parts = []
+    for k, v in nd_local_entries(state, layouts).items():
+        spec = spec_of(k)
+        named = spec_axes(spec)
+        if not named:
+            parts.append((k, v, None, 1))
+            continue
+        shape = global_shape(v.shape, spec, coords)
+        write = all(i == 0 for a, (i, _) in coords.items() if a not in named)
+        parts.append((k, v, {"shape": shape, "bounds": spec_bounds(shape, spec, coords),
+                             "write": write}, None))
+    return parts
+
+
+def nd_state_from_flat(flat: dict, template, layouts: Tree, spec_of, coords: dict):
+    """An ND state shaped like ``template`` (this rank's shards) from the
+    global checkpoint entries: each entry cut to this rank's piece by its
+    spec, an ``.ef`` stack to this rank's row. Raises naming the entry on
+    a missing key (KeyError) or a wrong shape, an ``.ef`` stack of another
+    mesh included (ValueError)."""
+    from theanompi_tpu_torch.models.transformer import shard_leaf, spec_axes, spec_bounds
+
+    def cut(k):
+        arr = _entry(flat, k)
+        spec = spec_of(k)
+        if not spec_axes(spec):
+            return arr
+        try:
+            spec_bounds(arr.shape, spec, coords)
+        except ValueError as e:
+            raise ValueError(f"checkpoint leaf {k!r} of shape {tuple(arr.shape)} does not "
+                             f"split over this mesh ({e})") from None
+        return shard_leaf(arr, spec, coords)
+
+    leaves = [_restored(cut(k), t, lay, k) for k, t, lay in _state_pairs(template, layouts)]
+    lays = _ef_layouts(template.ef, layouts)
+    rows = []
+    for i, (k, t) in enumerate(_paths(template.ef, ".ef")):
+        piece = cut(k)
+        if piece.shape[0] != 1:
+            raise ValueError(f"checkpoint leaf {k!r} stacks the residuals of "
+                             f"{np.shape(flat[k])[0]} ranks, not this mesh's (a resume "
+                             "onto another mesh is elastic: --elastic reshards it)")
+        rows.append(_restored(piece[0], t, lays[i], k))
+    return _rebuilt(template, leaves, rows)

@@ -89,13 +89,17 @@ invocation resumes by itself)::
         --ckpt-dir CKPT --max-retries 1 --sigterm-grace 30 --inject-fault sigterm@3 \
         --fault-ledger LEDGER ...
 
-Sequence parallelism (``parallel/nd.py``): the LM over a ``(data, seq)``
-mesh of ``n / sp`` by ``--sp`` cards, one process a card over NCCL, the
-attention of the recipe's ``attn`` (``ring_flash``, ``ulysses_flash``,
+Tensor and sequence parallelism (``parallel/nd.py``): the LM over a
+``(data, model, seq)`` mesh of ``n / (tp·sp)`` by ``--tp`` by ``--sp``
+cards, one process a card over NCCL; ``--tp`` shards the heads, the FFN's
+hidden units and the vocabulary (Megatron), ``--sp`` the sequence under
+the attention of the recipe's ``attn`` (``ring_flash``, ``ulysses_flash``,
 ``ring`` or ``ulysses``; ``flash`` is refused under ``--sp``)::
 
     python -m theanompi_tpu_torch.cli BSP 4 transformer_lm TransformerLM_136M \
-        --synthetic --sp 4 --recipe-arg attn=ring_flash --max-steps 8
+        --synthetic --tp 4 --max-steps 8
+    python -m theanompi_tpu_torch.cli BSP 4 transformer_lm TransformerLM_136M \
+        --synthetic --tp 2 --sp 2 --recipe-arg attn=ring_flash --max-steps 8
     python -m theanompi_tpu_torch.cli BSP 4 transformer_lm TransformerLM_136M \
         --synthetic --sp 2 --recipe-arg attn=ulysses_flash --max-steps 8
 
@@ -153,10 +157,13 @@ def build_parser() -> argparse.ArgumentParser:
                         "fp32 megabytes in reverse layer order, each posted from the "
                         "backward as soon as its gradients are made (with an ':ef' codec, "
                         "after the backward); 0: one exchange")
+    p.add_argument("--tp", type=int, default=1,
+                   help="LM models: tensor-parallel (Megatron) axis size: heads, FFN "
+                        "hidden units and vocabulary sharded over it")
     p.add_argument("--sp", type=int, default=1,
                    help="LM models: sequence-parallel axis size (ring or "
                         "Ulysses attention per the recipe's attn=)")
-    for flag, what in (("--tp", "tensor-parallel axis size"), ("--pp", "GPipe pipeline stages"),
+    for flag, what in (("--pp", "GPipe pipeline stages"),
                        ("--expert", "expert-parallel axis size"),
                        ("--zero", "ZeRO-1 optimizer-state sharding")):
         p.add_argument(flag, type=int, default=None,
@@ -306,10 +313,10 @@ def main(argv=None) -> int:
     if args.scrub_interval and not args.ckpt_dir:
         print("WARNING: --scrub-interval needs --ckpt-dir; the checkpoint scrubber is off",
               flush=True)
-    for flag in ("tp", "pp", "expert", "zero"):
+    for flag in ("pp", "expert", "zero"):
         if getattr(args, flag) is not None:
-            parser.error(f"--{flag} is not ported yet: ROADMAP.md queue 1 items 2-3 (the port "
-                         "trains --sp over the (data, seq) mesh)")
+            parser.error(f"--{flag} is not ported yet: ROADMAP.md queue 1 items 1 and 3 (the "
+                         "port trains --tp and --sp over the (data, model, seq) mesh)")
     if args.dispatch_depth is not None and args.dispatch_depth < 1:
         parser.error(f"--dispatch-depth must be >= 1, got {args.dispatch_depth}")
 
@@ -369,6 +376,7 @@ def main(argv=None) -> int:
             sigterm_grace=args.sigterm_grace,
             inject_faults=args.inject_fault or None,
             fault_ledger=args.fault_ledger,
+            tp=args.tp,
             sp=args.sp,
             **rule_kwargs,
         )

@@ -69,14 +69,18 @@ runs its exchanges itself. A checkpoint holds the reference's stacked
 resume each rank takes its worker's row; a file of another worker
 count is refused by name unless the resume is elastic.
 
-Sequence parallelism (``sp > 1``, the CLI's ``--sp``): an LM trains on
-the ``NDEngine`` (``parallel/nd.py``) over the ``(n / sp, sp)`` mesh of
-the reference's dense ND branch; rank ``r`` reads the rows of its data
-index ``r // sp`` (``[d·B/dp, (d+1)·B/dp)``) and its step takes its
-sequence index's columns. The reference's ND refusals hold (another
-rule, another strategy, ``--slices``, ``--accum-steps``, rule options,
-``--allreduce-buckets``, a classifier, a sequence or batch the mesh does
-not divide).
+Tensor and sequence parallelism (``tp > 1`` or ``sp > 1``, the CLI's
+``--tp`` and ``--sp``): an LM trains on the ``NDEngine``
+(``parallel/nd.py``) over the ``(n / (tp·sp), tp, sp)`` mesh of the
+reference's dense ND branch; rank ``r = (d·tp + t)·sp + s`` reads the
+rows of its data index ``d`` (``[d·B/dp, (d+1)·B/dp)``; every rank of
+one ``d`` reads the same rows), holds its model index's shards and its
+step takes its sequence index's columns. The reference's ND refusals
+hold (another rule, another strategy, ``--slices``, ``--accum-steps``,
+rule options, ``--allreduce-buckets``, a classifier, ``tp · sp`` not
+dividing the ranks, a sequence or batch the mesh does not divide, heads,
+hidden units or vocabulary the model axis does not divide), and
+``loss_chunk`` under ``--tp`` is refused, naming both.
 
 Ranks. With ``devices=n > 1`` this function runs in each of n rank
 processes of one process group (``launch/session.py`` spawns them). As
@@ -139,12 +143,14 @@ from theanompi_tpu_torch.data import get_dataset
 from theanompi_tpu_torch.data.loader import PrefetchLoader, host_tensors, pinned_array
 from theanompi_tpu_torch.device import resolve_device
 from theanompi_tpu_torch.models.contract import Model
+from theanompi_tpu_torch.models.transformer import check_tp_loss_chunk
 from theanompi_tpu_torch.ops.kernels import launch_counts
 from theanompi_tpu_torch.parallel.bsp import BSPEngine, check_fused_ranks
 from theanompi_tpu_torch.parallel.codec import get_codec
 from theanompi_tpu_torch.parallel.distributed import agree_on_step, all_gather_objects
 from theanompi_tpu_torch.parallel.mesh import (
     DATA_AXIS,
+    MODEL_AXIS,
     host_local_batch_slice,
     nd_shape,
     rank_generator,
@@ -250,6 +256,7 @@ def run_training(
     inject_faults=None,
     fault_ledger: Optional[str] = None,
     return_recorder: bool = False,
+    tp: int = 1,
     sp: int = 1,
     **rule_kwargs,
 ) -> dict:
@@ -287,9 +294,10 @@ def run_training(
     raises ``Preempted``. ``inject_faults``: fault specs
     (``utils/faults.py``), with ``fault_ledger`` the fired-fault file.
     ``return_recorder``: the summary carries the run's ``Recorder`` as
-    ``recorder`` (its per-step ``wait`` and ``step`` times). ``sp > 1``:
-    an LM over the ``(devices / sp, sp)`` mesh of a sequence axis
-    (``parallel/nd.py``, module docstring).
+    ``recorder`` (its per-step ``wait`` and ``step`` times). ``tp > 1``
+    or ``sp > 1``: an LM over the ``(devices / (tp·sp), tp, sp)`` mesh
+    of a model axis and a sequence axis (``parallel/nd.py``, module
+    docstring).
     ``rule_kwargs``: EASGD's ``avg_freq``, ``alpha``, ``group_size``;
     GoSGD's ``p_push``, ``avg_freq``, ``gossip_every``, ``group_size``
     (module docstring)."""
@@ -305,11 +313,11 @@ def run_training(
     if model_cls is None:
         raise ValueError("model_cls is required")
     rule = rule.lower()
-    sp = int(sp or 1)
-    nd_active = sp > 1
+    tp, sp = int(tp or 1), int(sp or 1)
+    nd_active = tp > 1 or sp > 1
     if nd_active:
         # what the reference refuses under its ND axes, in its words
-        what = "--sp"
+        what = "/".join(f for f, n in (("--tp", tp), ("--sp", sp)) if n > 1)
         if rule != "bsp":
             raise ValueError(f"{what} compose with the BSP rule only")
         if strategy != "psum":
@@ -331,9 +339,12 @@ def run_training(
                 f"{what} needs an LM model (theanompi_tpu_torch.models.lm TransformerLMModel); "
                 f"{model_cls.__name__} is classifier-shaped")
         if getattr(model_cls, "is_moe", False):
-            raise ValueError("MoELMModel is not ported yet (ROADMAP.md queue 1 item 2); "
-                             "--sp trains the dense TransformerLMModel")
-        nd_shape(devices, sp)  # the mesh: sp must divide the devices
+            raise ValueError("MoELMModel is not ported yet (ROADMAP.md queue 1 item 1); "
+                             f"{what} trains the dense TransformerLMModel")
+        if tp > 1:
+            over = model_cls.default_recipe().replace(**(recipe_overrides or {}))
+            check_tp_loss_chunk(over, MODEL_AXIS)
+        nd_shape(devices, tp, sp)  # the mesh: tp x sp must divide the devices
     if allreduce_buckets and rule != "bsp":
         raise ValueError(
             "--allreduce-buckets buckets the BSP in-step gradient allreduce only "
@@ -444,7 +455,7 @@ def run_training(
         T = recipe.input_shape[0]
         if T % sp:
             raise ValueError(f"sequence length {T} not divisible by --sp {sp}")
-        dp = nd_shape(devices, sp)[0]
+        dp = nd_shape(devices, tp, sp)[0]
         for name, b in (("batch", batch), ("val batch", vbatch)):
             if b % dp:
                 raise ValueError(f"global {name} {b} not divisible by {dp} "
@@ -470,8 +481,9 @@ def run_training(
     if nd_active:
         from theanompi_tpu_torch.parallel.nd import NDEngine
 
-        engine = NDEngine(model, devices, device, sp=sp, steps_per_epoch=steps_per_epoch,
-                          wire_codec=wire_codec, fused_update=fused_update)
+        engine = NDEngine(model, devices, device, tp=tp, sp=sp,
+                          steps_per_epoch=steps_per_epoch, wire_codec=wire_codec,
+                          fused_update=fused_update)
     elif rule == "bsp":
         engine = BSPEngine(model, devices, device, strategy=strategy,
                            allreduce_buckets=allreduce_buckets, **common)
@@ -484,8 +496,8 @@ def run_training(
 
         engine = GOSGDEngine(model, devices, device, seed=seed, **common, **rule_kwargs)
     rank = dist.get_rank() if devices > 1 else 0
-    # a rank reads its row of the mesh's batch axis: under --sp the data
-    # axis's (the sequence axis' ranks share its rows)
+    # a rank reads its row of the mesh's batch axis: under --tp / --sp
+    # the data axis's (the model and sequence axes' ranks share its rows)
     row, row_ranks = (engine.dp_index, engine.dp) if nd_active else (rank, devices)
     shard = host_local_batch_slice(batch, row, row_ranks)
     vshard = host_local_batch_slice(vbatch, row, row_ranks)
@@ -508,6 +520,8 @@ def run_training(
     topology = {"mesh": mesh, "stack_axes": engine.stack_axes(),
                 "elastic": {**engine.elastic_spec(),
                             "base_world": int(base_world or np.prod(mesh["shape"]))}}
+    if hasattr(engine, "leaf_specs"):  # the ND engine's sharded entries
+        topology["leaf_specs"] = engine.leaf_specs(state, layouts)
 
     def parts(state) -> list:
         """This rank's parts of a checkpoint, its dropout generator's row
@@ -526,7 +540,7 @@ def run_training(
                      "bn_axis_name": recipe.bn_axis_name, "resumed_from_step": None,
                      "ckpt_sharded": bool(ckpt_sharded), "elastic": bool(elastic),
                      "resharded_from_world": None, "mesh": mesh, "run_start_t": run_start_t,
-                     "sp": sp,
+                     "tp": tp, "sp": sp,
                      **engine.summary_fields(batch)}
 
     start_epoch = 0

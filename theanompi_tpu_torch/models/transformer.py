@@ -1,7 +1,7 @@
-"""Dense decoder-only transformer LM: one device, or a sequence sharded
-over a mesh axis.
+"""Dense decoder-only transformer LM: one device, or sharded over the
+``(data, model, seq)`` mesh's axes.
 
-Port of ``theanompi_tpu/models/transformer.py`` (its dense, tp-less parts): pre-norm
+Port of ``theanompi_tpu/models/transformer.py`` (its dense parts): pre-norm
 blocks (RMS norm, causal attention, GELU MLP), learned positions, an
 untied vocabulary head, and the next-token loss. Params keep the
 reference's tree, names and shapes, so the bridge carries them across
@@ -28,34 +28,50 @@ flash kernels; ``flash`` alone is refused. Positions are global
 shard's first token, and the loss's sum and count are summed over the
 axis (``next_token_loss``).
 
+Tensor parallelism (``tp_axis``, Megatron's): the leaves arrive as this
+rank's shards of :meth:`TransformerLM.tp_param_specs` (heads of ``qkv``
+and ``proj``, the hidden units of ``mlp_in`` and ``mlp_out``, the
+vocabulary columns of ``head``; the embeddings and gains replicated), so
+attention runs on the ``H / tp`` local heads (under a sequence axis too)
+and each block's two row-parallel products end in one ``psum`` of their
+residual delta over the axis, in the delta's own dtype (a bf16 delta
+sums in bf16, as the reference's ``lax.psum`` does). The logits stay
+vocab-sharded: ``_vocab_sharded_nll`` is the distributed cross-entropy
+(the global max by ``pmax``, the normalizer and the target logit by
+``psum``, statistics in fp32). ``loss_chunk`` under ``tp_axis`` is
+refused, naming both: the reference ignores the chunk there without a
+word (``theanompi_tpu/models/transformer.py:362-369``).
+
 ``remat=True`` checkpoints each block (the reference's
 ``jax.checkpoint(block)``): ``torch.utils.checkpoint`` without reentry
 keeps none of a block's activations, and the backward runs the block's
-forward again, the flash forward kernel included, with the same ops in
-the same order (the same bf16 roundings). ``loss_chunk`` computes the
-loss per chunk of positions (``chunked_nll``), each chunk's logits
-recomputed in the backward. Both checkpoints run with
-``preserve_rng_state=False``: the blocks and the loss draw no random
-numbers, and stashing the CUDA generator's state is not allowed while a
-step is captured into a CUDA graph. Tensor parallelism, MoE blocks and the
-paged decode functions come in later slices.
+forward again, the flash forward kernel and the block's psums included,
+with the same ops in the same order (the same bf16 roundings).
+``loss_chunk`` computes the loss per chunk of positions
+(``chunked_nll``), each chunk's logits recomputed in the backward. Both
+checkpoints run with ``preserve_rng_state=False``: the blocks and the
+loss draw no random numbers, and stashing the CUDA generator's state is
+not allowed while a step is captured into a CUDA graph. MoE blocks and
+the paged decode functions come in later slices.
 
-``nd_spec_setup`` is the dense, tp-less part of the reference's. Every
-leaf is replicated, so the reference's ``sync_grads_by_spec`` sums each
-gradient over every rank of the mesh and divides by their count: BSP's
-``psum`` exchange over the world (``parallel/nd.py``). Each rank's
-backward already carries the other ranks' dependence on its parameters
-(the psum's transpose is a psum, the ppermute's the opposite shift, the
-all-to-all's its inverse), so that mean over ranks is the gradient of
-the global mean loss, as in the reference.
+``nd_spec_setup`` is the reference's: the axes that take part, the ranks
+they span (``n_total``) and the per-leaf specs. Each rank's backward
+already carries the other ranks' dependence on its parameters (the
+psum's transpose is a psum, the ppermute's the opposite shift, the
+all-to-all's its inverse), so each rank's gradient is that of the sum of
+every rank's loss: ``sync_grads_by_spec`` sums each leaf over every
+participating axis it is not sharded on and divides by ``n_total``,
+which is the gradient of the global mean loss, as in the reference.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
+import math
 from typing import Any, Callable, Optional
 
+import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
@@ -68,7 +84,16 @@ from theanompi_tpu_torch.ops.ring_attention import (
     ulysses_attention,
     validate_ulysses_heads,
 )
-from theanompi_tpu_torch.parallel.mesh import axis_group, axis_index, post_hop, psum
+from theanompi_tpu_torch.parallel.mesh import (
+    MODEL_AXIS,
+    axis_group,
+    axis_index,
+    pmax,
+    post_hop,
+    psum,
+)
+from theanompi_tpu_torch.parallel.strategies import codec_psum_mean, psum_mean
+from theanompi_tpu_torch.tree import tree_leaves, tree_map
 
 Tree = Any
 
@@ -256,15 +281,22 @@ class TransformerLM:
             })
         return params
 
-    def forward(self, params: Tree, tokens: torch.Tensor, *,
-                sp_axis: Optional[str] = None) -> torch.Tensor:
-        """``tokens [B, T] -> logits [B, T, V]`` in the compute dtype."""
-        return self.forward_hidden(params, tokens, sp_axis=sp_axis) @ params["head"].to(self.dtype)
+    def forward(self, params: Tree, tokens: torch.Tensor, *, sp_axis: Optional[str] = None,
+                tp_axis: Optional[str] = None) -> torch.Tensor:
+        """``tokens [B, T] -> logits [B, T, V]`` in the compute dtype
+        (under ``tp_axis`` this rank's vocabulary columns ``[B, T, V /
+        tp]``)."""
+        x = self.forward_hidden(params, tokens, sp_axis=sp_axis, tp_axis=tp_axis)
+        return x @ params["head"].to(self.dtype)
 
     def forward_hidden(self, params: Tree, tokens: torch.Tensor, *,
-                       sp_axis: Optional[str] = None) -> torch.Tensor:
+                       sp_axis: Optional[str] = None,
+                       tp_axis: Optional[str] = None) -> torch.Tensor:
         """``tokens [B, T] -> hidden [B, T, d]`` (the forward without the
-        vocabulary head)."""
+        vocabulary head). Under ``tp_axis`` the block leaves are this
+        rank's shards and each block's attention and FFN deltas are
+        summed over the axis (the row-parallel ``proj`` and
+        ``mlp_out``)."""
         T = tokens.shape[1]
         pos = global_positions(sp_axis, T, tokens.device)
         tokens = tokens.long()
@@ -273,9 +305,15 @@ class TransformerLM:
 
         def block(x, blk):
             blk = cast_block_params(blk, self.dtype)
-            x = x + attention_block(blk, x, self.attn, sp_axis)
+            delta = attention_block(blk, x, self.attn, sp_axis)
+            if tp_axis is not None:
+                delta = psum(delta, tp_axis)  # row-parallel proj
+            x = x + delta
             hin = _rms(x, blk["ln2"])
-            return x + gelu(hin @ blk["mlp_in"]) @ blk["mlp_out"]
+            delta = gelu(hin @ blk["mlp_in"]) @ blk["mlp_out"]
+            if tp_axis is not None:
+                delta = psum(delta, tp_axis)  # row-parallel mlp_out
+            return x + delta
 
         remat = self.remat and torch.is_grad_enabled()
         for blk in params["blocks"]:
@@ -286,40 +324,247 @@ class TransformerLM:
                 x = block(x, blk)
         return x
 
-    def loss(self, params: Tree, tokens: torch.Tensor,
-             axis_name: Optional[str] = None) -> torch.Tensor:
+    def loss(self, params: Tree, tokens: torch.Tensor, axis_name: Optional[str] = None, *,
+             tp_axis: Optional[str] = None) -> torch.Tensor:
         """Next-token cross-entropy of ``tokens`` over the global sequence
         (``axis_name``: the sequence axis, over which ``tokens`` is this
         rank's shard); per chunk of positions (``chunked_nll``, the chunk
-        dividing the local length) when ``loss_chunk`` is set."""
+        dividing the local length) when ``loss_chunk`` is set. Under
+        ``tp_axis`` the logits stay vocab-sharded and the cross-entropy
+        is ``_vocab_sharded_nll``; ``loss_chunk`` there is refused."""
+        check_tp_loss_chunk(self, tp_axis)
         if self.loss_chunk:
             x = self.forward_hidden(params, tokens, sp_axis=axis_name)
             return next_token_loss(tokens, axis_name,
                                    chunked_nll(x, params["head"], self.loss_chunk, self.dtype))
-        logits = self.forward(params, tokens, sp_axis=axis_name)
-        return next_token_loss(tokens, axis_name, softmax_nll(logits))
+        logits = self.forward(params, tokens, sp_axis=axis_name, tp_axis=tp_axis)
+        return next_token_loss(tokens, axis_name, pick_nll(logits, tp_axis))
+
+    def tp_param_specs(self, tp_axis: str = MODEL_AXIS) -> Tree:
+        """Megatron's sharding, in the reference's form: per leaf, a tuple
+        of one entry a dimension, the mesh axis that dimension is sharded
+        on or None (``()``: replicated). Heads column-sharded in ``qkv``
+        and row-sharded in ``proj``, the FFN's hidden units in ``mlp_in``
+        and ``mlp_out``, the vocabulary columns of ``head``; the
+        embeddings and the norm gains replicated."""
+        blk = {"qkv": (None, None, tp_axis, None), "proj": (tp_axis, None, None),
+               "mlp_in": (None, tp_axis), "mlp_out": (tp_axis, None), "ln1": (), "ln2": ()}
+        return {"tok_emb": (), "pos_emb": (), "head": (None, tp_axis),
+                "blocks": [dict(blk) for _ in range(self.n_layers)]}
 
 
 # --------------------------------------------------------------------------
-# the dense ND mesh: the reference's spec setup, tp-less
+# the vocabulary-sharded cross-entropy
 # --------------------------------------------------------------------------
+
+
+def _vocab_sharded_nll(logits: torch.Tensor, targets: torch.Tensor,
+                       tp_axis: str) -> torch.Tensor:
+    """``-log softmax(logits)[target]`` with the vocabulary dimension
+    sharded over ``tp_axis`` (this rank holds columns ``t·V_local …``):
+    Megatron's parallel cross-entropy. The global max by ``pmax`` (a
+    stabilizer only, with no gradient: it cancels in ``log z + m``), the
+    normalizer and the target logit by ``psum``, the target logit picked
+    on the shard that owns it (zero elsewhere). Statistics in fp32
+    whatever the logits' dtype."""
+    logits = logits.float()
+    V_local = logits.shape[-1]
+    start = axis_index(tp_axis) * V_local
+    m = pmax(torch.amax(logits, dim=-1), tp_axis)  # [B, T]
+    z = psum(torch.sum(torch.exp(logits - m[..., None]), dim=-1), tp_axis)
+    local_ids = targets.long() - start
+    in_range = (local_ids >= 0) & (local_ids < V_local)
+    idx = local_ids.clamp(0, V_local - 1)
+    tl = torch.gather(logits, -1, idx[..., None])[..., 0]
+    tl = psum(torch.where(in_range, tl, torch.zeros_like(tl)), tp_axis)
+    return torch.log(z) + m - tl
+
+
+def pick_nll(logits: torch.Tensor, tp_axis: Optional[str]) -> Callable:
+    """The per-position NLL function of (possibly vocab-sharded) logits:
+    the distributed cross-entropy under ``tp_axis``, ``softmax_nll``
+    otherwise."""
+    if tp_axis is not None:
+        return lambda targets: _vocab_sharded_nll(logits, targets, tp_axis)
+    return softmax_nll(logits)
+
+
+def validate_tp_divisibility(model: TransformerLM, tp_axis: str, ntp: int) -> None:
+    """Megatron's divisibility contract (the reference's message): the
+    axis size divides the heads, the FFN's hidden units and the
+    vocabulary."""
+    if model.n_heads % ntp or model.d_ff % ntp or model.vocab % ntp:
+        raise ValueError(
+            f"the {tp_axis!r} axis size {ntp} must divide each of n_heads/d_ff/vocab "
+            f"({model.n_heads}/{model.d_ff}/{model.vocab})")
+
+
+def check_tp_loss_chunk(model, tp_axis: Optional[str]) -> None:
+    """Refuse ``loss_chunk`` under tensor parallelism, naming both: the
+    chunked loss applies the whole head per chunk, and the reference
+    drops the chunk there without a word."""
+    if tp_axis is not None and getattr(model, "loss_chunk", None):
+        raise ValueError(
+            f"loss_chunk={model.loss_chunk} does not compose with --tp (the {tp_axis!r} axis): "
+            "the vocab-sharded cross-entropy already keeps no full logits; drop loss_chunk "
+            "(--recipe-arg loss_chunk=None)")
+
+
+# --------------------------------------------------------------------------
+# the dense ND mesh: the reference's spec setup and spec-driven sync
+# --------------------------------------------------------------------------
+
+
+def spec_axes(spec) -> tuple:
+    """Every mesh axis a spec names, in order of appearance."""
+    out = []
+    for entry in spec or ():
+        for ax in (entry if isinstance(entry, (tuple, list)) else (entry,)):
+            if ax is not None:
+                out.append(str(ax))
+    return tuple(out)
+
+
+def psum_axes(spec, axes) -> tuple:
+    """The participating ``axes`` a leaf's gradient is summed over: those
+    its spec does not shard it on (the reference's
+    ``parallel/recipe.py::psum_axes``)."""
+    sharded_on = set(spec_axes(spec))
+    return tuple(a for a in axes if a not in sharded_on)
 
 
 def nd_spec_setup(model: TransformerLM, axis_sizes: dict, dp_axis: Optional[str],
-                  sp_axis: Optional[str]) -> tuple:
+                  tp_axis: Optional[str], sp_axis: Optional[str]) -> tuple:
     """Mesh and shape checks of the dense ND step (the reference's
-    ``nd_spec_setup`` without ``--tp``) -> ``(axes, n_total)``: the axes
-    that take part and the number of ranks they span. Every leaf is
-    replicated (the reference's ``P()`` specs)."""
-    axes = [a for a in (dp_axis, sp_axis) if a is not None]
+    ``nd_spec_setup``) -> ``(axes, n_total, specs)``: the axes that take
+    part, the number of ranks they span, and the per-leaf specs
+    (``tp_param_specs`` under ``tp_axis``, else every leaf replicated,
+    ``()``). The Ulysses check takes the local heads ``H / tp``."""
+    axes = [a for a in (dp_axis, tp_axis, sp_axis) if a is not None]
     if not axes:
-        raise ValueError("need at least one of dp_axis/sp_axis")
+        raise ValueError("need at least one of dp_axis/tp_axis/sp_axis")
     for a in axes:
         if a not in axis_sizes:
             raise ValueError(f"axis {a!r} not in mesh axes {sorted(axis_sizes)}")
+    if tp_axis:
+        validate_tp_divisibility(model, tp_axis, axis_sizes[tp_axis])
+        check_tp_loss_chunk(model, tp_axis)
+    heads_local = model.n_heads // (axis_sizes[tp_axis] if tp_axis else 1)
     if sp_axis and model.attn in ("ulysses", "ulysses_flash"):
-        validate_ulysses_heads(model.n_heads, axis_sizes[sp_axis], sp_axis)
+        validate_ulysses_heads(heads_local, axis_sizes[sp_axis], sp_axis)
     n_total = 1
     for a in axes:
         n_total *= axis_sizes[a]
-    return axes, n_total
+    specs = model.tp_param_specs(tp_axis) if tp_axis else map_specs(
+        lambda _: (), model.tp_param_specs(MODEL_AXIS))
+    return axes, n_total, specs
+
+
+def spec_bounds(shape, spec, coords: dict) -> list:
+    """``[start, stop)`` of each dimension of a rank's shard of a global
+    ``shape`` under ``spec``: an entry names an axis, or a tuple of axes
+    taken as one mixed-radix index in their order; ``coords`` maps each
+    axis to ``(index, size)``."""
+    entries = list(spec or ()) + [None] * (len(shape) - len(spec or ()))
+    out = []
+    for dim, entry in zip(shape, entries):
+        idx, n = 0, 1
+        for ax in spec_axes((entry,)):
+            i, size = coords[ax]
+            idx, n = idx * size + i, n * size
+        if dim % n:
+            raise ValueError(f"dimension {dim} of a {tuple(shape)} leaf does not split over "
+                             f"{spec_axes((entry,))} ({n} shards)")
+        per = dim // n
+        out.append([idx * per, (idx + 1) * per])
+    return out
+
+
+def shard_leaf(x, spec, coords: dict):
+    """Rank's shard of the global leaf ``x`` (a tensor or an array) under
+    ``spec`` (``spec_bounds``): a view."""
+    return x[tuple(slice(a, b) for a, b in spec_bounds(x.shape, spec, coords))]
+
+
+def global_shape(local_shape, spec, coords: dict) -> tuple:
+    """The global shape of a leaf whose shard has ``local_shape``."""
+    entries = list(spec or ()) + [None] * (len(local_shape) - len(spec or ()))
+    return tuple(int(d) * math.prod(coords[a][1] for a in spec_axes((e,)))
+                 for d, e in zip(local_shape, entries))
+
+
+def join_shards(shards: list, spec, coords_list: list):
+    """The global leaf from the shards of every rank (numpy arrays, each
+    with its rank's ``coords``): each written at its bounds."""
+    first = np.asarray(shards[0])
+    full = np.empty(global_shape(first.shape, spec, coords_list[0]), first.dtype)
+    for piece, coords in zip(shards, coords_list):
+        full[tuple(slice(a, b) for a, b in spec_bounds(full.shape, spec, coords))] = piece
+    return full
+
+
+def sync_grads_by_spec(grads: Tree, specs: Tree, axes, n_total: int, layouts: Tree,
+                       codec=None, ef: Tree = (), sizes: Optional[dict] = None) -> tuple:
+    """The reference's gradient sync of the ND step -> ``(grads, ef')``:
+    each leaf summed over every participating axis it is not sharded on,
+    then divided by ``n_total``, the number of ranks the participating
+    axes span (not the size of the group it is summed over). The leaves
+    are cut into the groups of equal ``psum_axes``, each group one fp32
+    ``all_reduce`` of its packed leaves over the bound mesh's process
+    group of those axes, times ``fl(1/n_total)``. ``codec``: each group
+    with a wire (its axes span more than one rank) goes through the wire
+    codec first, each rank's own part quantized (one codec round a
+    group, error feedback in ``ef``, this rank's residual tree); a leaf
+    with no wire, such as one pure ``--tp`` shards (its psum axes all of
+    one rank), passes through untouched, its residual too. ``sizes``:
+    each axis's size, where known (an axis set of one rank needs no bound
+    group then)."""
+    leaves, spec_l, tags = tree_leaves(grads), tree_leaves_specs(specs), tree_leaves(layouts)
+    ef_l = tree_leaves(ef) if codec is not None and codec.error_feedback else None
+    out, new_ef = list(leaves), (list(ef_l) if ef_l is not None else None)
+    by_axes: dict = {}
+    for i, spec in enumerate(spec_l):
+        by_axes.setdefault(psum_axes(spec, axes), []).append(i)
+    for pax, idx in by_axes.items():
+        if sizes is not None and math.prod(sizes[a] for a in pax) == 1:
+            group, n = None, 1
+        else:
+            group, n = axis_group(pax) if pax else (None, 1)
+        sub, sub_tags = [leaves[i] for i in idx], [tags[i] for i in idx]
+        lay = lambda _, t=sub_tags: t  # noqa: E731
+        if codec is not None and codec.active and n > 1:
+            sub_ef = [ef_l[i] for i in idx] if ef_l is not None else ()
+            synced, sub_ef = codec_psum_mean(n, codec, lay, group, n_total)(sub, sub_ef)
+            if ef_l is not None:
+                for i, r in zip(idx, sub_ef):
+                    new_ef[i] = r
+        else:
+            synced = psum_mean(n, lay, group, n_total)(sub)
+        for i, g in zip(idx, synced):
+            out[i] = g
+    it = iter(out)
+    grads = tree_map(lambda _: next(it), grads)
+    if new_ef is None:
+        return grads, ef
+    it = iter(new_ef)
+    return grads, tree_map(lambda _: next(it), ef)
+
+
+def tree_leaves_specs(specs: Tree) -> list:
+    """The specs of a spec tree in ``tree_leaves`` order (a spec is a
+    tuple, which ``tree_leaves`` would walk into)."""
+    if isinstance(specs, dict):
+        return [s for k in sorted(specs) for s in tree_leaves_specs(specs[k])]
+    if isinstance(specs, list):
+        return [s for t in specs for s in tree_leaves_specs(t)]
+    return [specs]
+
+
+def map_specs(fn: Callable, specs: Tree) -> Tree:
+    """``fn`` over the specs of a spec tree (dicts and lists walked, a
+    spec tuple taken whole)."""
+    if isinstance(specs, dict):
+        return {k: map_specs(fn, v) for k, v in specs.items()}
+    if isinstance(specs, list):
+        return [map_specs(fn, t) for t in specs]
+    return fn(specs)

@@ -10,7 +10,8 @@ local block first, then exactly n - 1 hops), folding each block into an
 fp32 online softmax; ``ulysses_attention`` scatters heads and gathers the
 sequence with one all-to-all, attends locally over the whole sequence
 (the plain oracle, or ``local_fn``, e.g. the flash kernels), and
-transposes back. Both are exact: the same softmax as one device's, to
+transposes back. Both work on the heads the rank holds (``H / tp`` under
+tensor parallelism). Both are exact: the same softmax as one device's, to
 fp32 rounding. Both are differentiable through ``mesh.ppermute`` and
 ``mesh.all_to_all``, whose backward runs the transposed collective.
 ``ops/flash_attention.py::ring_flash_attention`` is the ring whose hops
@@ -85,7 +86,9 @@ def ring_attention(q, k, v, axis_name, causal: bool = False, scale: Optional[flo
 def validate_ulysses_heads(heads: int, n: int, axis_name) -> None:
     """The Ulysses all-to-all scatters the heads over the axis: the
     reference's message when they do not divide
-    (``models/transformer.py::validate_ulysses_heads``)."""
+    (``models/transformer.py::validate_ulysses_heads``). ``heads`` is the
+    rank's own count: ``H / tp`` under tensor parallelism, whose ranks
+    each hold ``H / tp`` heads before the all-to-all."""
     if heads % n:
         raise ValueError(f"ulysses attention needs local heads ({heads}) divisible by the "
                          f"{axis_name!r} axis size {n}")

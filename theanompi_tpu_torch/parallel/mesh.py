@@ -19,11 +19,16 @@ maps each axis name to the group of this rank along it.
   same position in every group (one a worker), ``("worker", "data")``
   the world. ``--slices`` only validates that no group straddles a
   slice (:func:`worker_groups`); the rules' mesh has no ``"dcn"`` axis;
-- sequence parallelism over ``n = dp·sp`` ranks (``--sp``, the
-  reference's dense ND mesh ``("data", "seq")`` of shape ``(dp, sp)``,
-  seq innermost): rank ``r`` sits at ``(r // sp, r % sp)``; ``"seq"`` is
-  the ``sp`` ranks of its row, ``"data"`` the ``dp`` ranks of its column,
-  ``("data", "seq")`` the world.
+- the dense ND mesh over ``n = dp·tp·sp`` ranks (``--tp``, ``--sp``:
+  the reference's ``("data", "model", "seq")`` mesh of shape ``(dp, tp,
+  sp)``, seq innermost, then model, then data): rank ``r = (d·tp +
+  t)·sp + s`` sits at ``(d, t, s)`` (:func:`nd_coords`). ``"seq"`` is
+  the ``sp`` ranks of fixed ``(d, t)``, ``"model"`` the ``tp`` ranks of
+  fixed ``(d, s)``, ``"data"`` the ``dp`` ranks of fixed ``(t, s)``,
+  ``("data", "seq")`` the ranks of fixed ``t`` (the sync of the leaves
+  sharded on the model axis) and ``("data", "model", "seq")`` the world;
+  every combination of the three is keyed, in mesh order. An axis of
+  one rank has no group, and a rank's index along it is 0.
 
 The groups of a run are bound to the process (:func:`bind_axes`, which
 ``BSPEngine`` calls), as ``torch.distributed``'s default group is:
@@ -36,6 +41,7 @@ without one).
 
 from __future__ import annotations
 
+import itertools
 from typing import Optional
 
 import numpy as np
@@ -46,6 +52,8 @@ DATA_AXIS = "data"
 DCN_AXIS = "dcn"
 WORKER_AXIS = "worker"
 SEQ_AXIS = "seq"
+MODEL_AXIS = "model"
+ND_AXES = (DATA_AXIS, MODEL_AXIS, SEQ_AXIS)  # the dense ND mesh's, in mesh order
 
 
 def inv_f32(n: int) -> float:
@@ -112,44 +120,70 @@ def _axis_key(name):
     return name
 
 
-def nd_shape(world: int, sp: int) -> tuple:
-    """``(dp, sp)`` of the dense ND mesh of ``world`` ranks with a
-    sequence axis of ``sp``; raises unless ``sp`` divides the ranks."""
-    sp = int(sp)
-    if sp < 1 or world % sp:
-        raise ValueError(f"{world} devices do not divide --tp 1 x --sp {sp}")
-    return world // sp, sp
+def nd_shape(world: int, tp: int = 1, sp: int = 1) -> tuple:
+    """``(dp, tp, sp)`` of the dense ND mesh of ``world`` ranks with a
+    model axis of ``tp`` and a sequence axis of ``sp``; raises unless
+    ``tp · sp`` divides the ranks (the reference's message)."""
+    tp, sp = int(tp), int(sp)
+    if tp < 1 or sp < 1 or world % (tp * sp):
+        raise ValueError(f"{world} devices do not divide --tp {tp} x --sp {sp}")
+    return world // (tp * sp), tp, sp
+
+
+def nd_coords(rank: int, tp: int, sp: int) -> tuple:
+    """``(d, t, s)`` of ``rank`` on the dense ND mesh: ``rank = (d·tp +
+    t)·sp + s``."""
+    ds, s = divmod(int(rank), sp)
+    d, t = divmod(ds, tp)
+    return d, t, s
+
+
+def _nd_partition(axes: tuple, dp: int, tp: int, sp: int) -> list:
+    """The groups of ranks along ``axes`` (a subset of ``ND_AXES``) of the
+    ``(dp, tp, sp)`` mesh: ranks that differ only on those axes, each
+    group in rank order, the groups in the order of their first rank."""
+    groups: dict = {}
+    for r in range(dp * tp * sp):
+        coords = dict(zip(ND_AXES, nd_coords(r, tp, sp)))
+        key = tuple(coords[a] for a in ND_AXES if a not in axes)
+        groups.setdefault(key, []).append(r)
+    return list(groups.values())
 
 
 class AxisGroups:
     """This rank's process group and size along each mesh axis of a run
     of ``world`` ranks in ``n_slices`` slices, in worker groups of
-    ``group_size`` ranks (EASGD / GoSGD), or, given ``sp``, on the
-    ``(dp, sp)`` mesh of a sequence axis of ``sp`` ranks. Every rank must
-    build it, in the same order (``dist.new_group`` is collective over
-    the world)."""
+    ``group_size`` ranks (EASGD / GoSGD), or, given ``tp`` or ``sp``, on
+    the ``(dp, tp, sp)`` dense ND mesh (module docstring; an axis of one
+    rank maps to ``(None, 1)``). Every rank must build it, in the same
+    order (``dist.new_group`` is collective over the world)."""
 
     def __init__(self, world: int, n_slices: Optional[int] = None, group_size: int = 1,
-                 sp: Optional[int] = None):
+                 sp: Optional[int] = None, tp: Optional[int] = None):
         if not dist.is_initialized() or dist.get_world_size() != world:
             have = dist.get_world_size() if dist.is_initialized() else "no process group"
             raise RuntimeError(f"mesh axes over {world} ranks need a process group of "
                                f"{world} ranks ({have} here)")
         self.world_group = dist.group.WORLD
         rank = dist.get_rank()
-        if sp is not None:
-            dp, sp = nd_shape(world, sp)
-            seq = data = self.world_group
-            if dp > 1:  # every rank creates every group, in one order
-                for d in range(dp):
-                    grp = dist.new_group(list(range(d * sp, d * sp + sp)))
-                    seq = grp if rank // sp == d else seq
-            if sp > 1:
-                for j in range(sp):
-                    grp = dist.new_group(list(range(j, world, sp)))
-                    data = grp if rank % sp == j else data
-            self.groups = {DATA_AXIS: (data, dp), SEQ_AXIS: (seq, sp),
-                           (DATA_AXIS, SEQ_AXIS): (self.world_group, world)}
+        if sp is not None or tp is not None:
+            shape = nd_shape(world, tp or 1, sp or 1)
+            self.groups = {}
+            made: dict = {}  # one process group for each distinct partition
+            for k in range(1, 4):
+                for axes in itertools.combinations(ND_AXES, k):
+                    part = _nd_partition(axes, *shape)
+                    n = len(part[0])
+                    key = tuple(map(tuple, part))
+                    if key not in made:
+                        if n == 1:
+                            made[key] = None
+                        elif n == world:
+                            made[key] = self.world_group
+                        else:  # every rank creates every group, in one order
+                            grps = [dist.new_group(g) for g in part]
+                            made[key] = grps[[rank in g for g in part].index(True)]
+                    self.groups[_axis_key(axes)] = (made[key], n)
             return
         g = int(group_size or 1)
         if g > 1:
@@ -188,27 +222,27 @@ class AxisGroups:
                 f"{sorted(map(str, self.groups))}") from None
 
 
-_GROUPS: dict = {}  # (n_slices, per_slice, group_size) or ("nd", dp, sp) -> AxisGroups
+_GROUPS: dict = {}  # (n_slices, per_slice, group_size) or ("nd", dp, tp, sp) -> AxisGroups
 _BOUND: Optional[AxisGroups] = None  # the run's, which axis_group reads
 
 
 def bind_axes(world: int, n_slices: Optional[int] = None, group_size: int = 1,
-              sp: Optional[int] = None) -> AxisGroups:
+              sp: Optional[int] = None, tp: Optional[int] = None) -> AxisGroups:
     """Bind the mesh axes of a run of ``world`` ranks in ``n_slices``
-    slices (or in worker groups of ``group_size``, or, given ``sp``, on
-    the ``(dp, sp)`` mesh of a sequence axis of ``sp``) to this process,
+    slices (or in worker groups of ``group_size``, or, given ``tp`` or
+    ``sp``, on the ``(dp, tp, sp)`` dense ND mesh) to this process,
     building its groups the first time (every rank calls it, in the same
     order); returns them."""
     global _BOUND
     g = int(group_size or 1)
-    if sp is not None:
-        key = ("nd", *nd_shape(world, sp))
+    nd = sp is not None or tp is not None
+    if nd:
+        key = ("nd", *nd_shape(world, tp or 1, sp or 1))
     else:
         key = (*((1, world) if g > 1 else slice_topology(world, n_slices)), g)
     axes = _GROUPS.get(key)
     if axes is None or axes.world_group is not dist.group.WORLD:
-        axes = _GROUPS[key] = AxisGroups(world, None if g > 1 or sp is not None else n_slices,
-                                         g, sp)
+        axes = _GROUPS[key] = AxisGroups(world, None if g > 1 or nd else n_slices, g, sp, tp)
     _BOUND = axes
     return axes
 
@@ -255,9 +289,9 @@ def pmean(x: torch.Tensor, axis_name) -> torch.Tensor:
 
 def axis_index(name) -> int:
     """This rank's position along the mesh axis ``name`` of the bound run
-    (the reference's ``lax.axis_index``)."""
-    group, _ = axis_group(name)
-    return dist.get_rank(group)
+    (the reference's ``lax.axis_index``; 0 on an axis of one rank)."""
+    group, n = axis_group(name)
+    return 0 if n == 1 else dist.get_rank(group)
 
 
 # --------------------------------------------------------------------------
@@ -401,3 +435,15 @@ def psum(x: torch.Tensor, axis_name) -> torch.Tensor:
     if n == 1:
         return x
     return _AllReduceSum.apply(x, group)
+
+
+def pmax(x: torch.Tensor, axis_name) -> torch.Tensor:
+    """The elementwise maximum of ``x`` over the ranks of ``axis_name``,
+    with no gradient: the reference's ``lax.pmax`` of a
+    ``stop_gradient`` (its vocab-sharded cross-entropy's stabilizer). One
+    ``all_reduce(MAX)`` on both backends."""
+    group, n = axis_group(axis_name)
+    y = x.detach().clone(memory_format=torch.contiguous_format)
+    if n > 1:
+        dist.all_reduce(y, op=dist.ReduceOp.MAX, group=group)
+    return y

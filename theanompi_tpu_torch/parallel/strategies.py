@@ -100,12 +100,14 @@ def _packed(fn: Callable[[torch.Tensor], torch.Tensor], layouts: Layouts) -> Str
     return strategy
 
 
-def _all_reduce_mean(flat: torch.Tensor, n: int, group=None) -> torch.Tensor:
-    """The mean of ``flat`` over the ``n`` ranks of ``group`` (``None``:
-    the world), in place, times ``fl(1/n)``."""
+def _all_reduce_mean(flat: torch.Tensor, n: int, group=None,
+                     divisor: Optional[int] = None) -> torch.Tensor:
+    """The sum of ``flat`` over the ``n`` ranks of ``group`` (``None``:
+    the world), in place, times ``fl(1/divisor)`` (default ``n``: the
+    mean)."""
     if n > 1:
         dist.all_reduce(flat, group=group)
-    return flat * inv_f32(n)
+    return flat * inv_f32(n if divisor is None else divisor)
 
 
 def mean_across_ranks(tensors: list, n: int, group=None) -> list:
@@ -128,11 +130,13 @@ def mean_across_ranks(tensors: list, n: int, group=None) -> list:
 # --------------------------------------------------------------------------
 
 
-def psum_mean(n: int, layouts: Layouts, group=None) -> Strategy:
+def psum_mean(n: int, layouts: Layouts, group=None, divisor: Optional[int] = None) -> Strategy:
     """One fp32 ``all_reduce`` of the packed gradients over the ``n`` ranks
     of ``group`` (``None``: the world; a worker group's ``"data"`` axis
-    under EASGD / GoSGD), times ``fl(1/n)``."""
-    return _packed(lambda flat: _all_reduce_mean(flat, n, group), layouts)
+    under EASGD / GoSGD; a mesh axis of the ND engine), times
+    ``fl(1/n)``, or ``fl(1/divisor)`` given one (the ND sync divides by
+    every participating rank, whatever the group)."""
+    return _packed(lambda flat: _all_reduce_mean(flat, n, group, divisor), layouts)
 
 
 def psum_bf16(n: int, layouts: Layouts) -> Strategy:
@@ -246,10 +250,13 @@ def ring_int8(n: int, layouts: Layouts) -> Strategy:
 # --------------------------------------------------------------------------
 
 
-def codec_psum_mean(n: int, codec, layouts: Layouts) -> Strategy:
-    """Compressed allreduce ``(grads, ef) -> (mean grads, ef')``; marked
+def codec_psum_mean(n: int, codec, layouts: Layouts, group=None,
+                    divisor: Optional[int] = None) -> Strategy:
+    """Compressed allreduce ``(grads, ef) -> (mean grads, ef')`` over the
+    ``n`` ranks of ``group`` (``psum_mean``'s ``group`` and ``divisor``):
+    every leaf of ``grads`` through the codec in one round; marked
     ``stateful`` so ``train.make_train_step`` threads ``state.ef``."""
-    mean = psum_mean(n, layouts)
+    mean = psum_mean(n, layouts, group, divisor)
 
     def strategy(grads, ef):
         wire, ef = codec.compress(grads, ef, layouts(grads))

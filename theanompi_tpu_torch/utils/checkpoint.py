@@ -23,7 +23,8 @@ What the port writes and reads differently:
   ``{"shape", "axes"}`` as the reference's ``mesh_topology`` gives it
   for the same rule and world, ``elastic`` policies, and a per-leaf
   ``spec``: ``None`` for a replicated leaf, ``[[axes]]`` for a stack
-  over ranks or workers), written with every save that passes a
+  over ranks or workers, the reference's ``spec_to_json`` of a leaf the
+  ND engine shards), written with every save that passes a
   ``topology`` (the training loop always does). On read it ignores
   ``__usermeta__``'s ``pipeline_layout``, as the reference's
   ``load_checkpoint`` does.
@@ -44,9 +45,11 @@ Fault tolerance, as the reference's:
   bounds of its pieces (and the full topology manifest), and
   ``__integrity__``. A set missing a member is absent (completeness by
   counting); ``load_checkpoint`` reassembles a set under any rank count;
-- ``load_resharded``: a checkpoint of another world onto this one, by the
-  manifest's per-leaf policies (``global``, ``reset``,
-  ``worker_consensus``, ``worker_uniform``);
+- ``load_resharded``: a checkpoint of another world or mesh onto this
+  one, by the manifest's per-leaf policies (``global``, ``reset``,
+  ``worker_consensus``, ``worker_uniform``); every leaf is read whole, in
+  its global layout, from the pieces its bounds name, and the engine cuts
+  its shards from it (a ``--tp 2`` file onto ``--tp 4`` or ``--sp 2``);
 - the write-fault hook (``set_write_fault_hook``: ENOSPC mid-write, a
   slow write), which fires on ``AsyncCheckpointer``'s writer thread too;
 - the scrubber (``scrub_checkpoint_dir``, ``CheckpointScrubber``), which
@@ -138,18 +141,27 @@ def topology_manifest(keys, topology: Optional[dict]) -> Optional[dict]:
     """The versioned ``__topology__`` manifest of a save holding the
     state entries ``keys`` (the reference's schema): ``topology`` is
     ``{"mesh": {"shape", "axes"}, "elastic": {"policies", "base_world"},
-    "stack_axes": [axis, ...]}``; a leaf under a prefix with an elastic
-    policy is a stack over ``stack_axes`` (spec ``[stack_axes]``), every
-    other leaf replicated (spec ``None``). None without a topology. The
-    port's generator rows (``__torch_*``) are not state leaves."""
+    "stack_axes": [axis, ...]}``, and where the engine shards leaves
+    (the ND engine under ``--tp``) ``"leaf_specs"``, ``{entry: spec}`` in
+    the reference's ``spec_to_json`` form (``theanompi_tpu/parallel/
+    mesh.py``: one item a dimension, None or the list of the axes it is
+    sharded on), which each such entry is stamped with. Otherwise a leaf
+    under a prefix with an elastic policy is a stack over ``stack_axes``
+    (spec ``[stack_axes]``), every other leaf replicated (spec
+    ``None``). None without a topology. The port's generator rows
+    (``__torch_*``) are not state leaves."""
     if topology is None:
         return None
     elastic = dict(topology.get("elastic") or {})
     policies = elastic.get("policies") or {}
     stack = [str(a) for a in topology.get("stack_axes") or []]
+    specs = topology.get("leaf_specs") or {}
     leaves = {}
     for k in sorted(keys):
         if k in META_KEYS or k.startswith("__"):
+            continue
+        if k in specs:
+            leaves[k] = {"spec": specs[k]}
             continue
         stacked = _policy_for(k, policies).get("policy", "global") != "global"
         leaves[k] = {"spec": [stack] if stacked and stack else None}
